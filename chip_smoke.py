@@ -3,12 +3,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``phdslam_tpu_torch/csrc``, holds each
-against its plain PyTorch twin at the Ackerman main path's shapes, checks
-one filter step on the card against the same step on the CPU, runs the
-full ``data/ackerman`` sequence at P=512 and the first 60 steps at
-P=10240, and times every kernel against its twin. Each phase prints its
-result; any failure raises and exits non-zero. The last line is one JSON
-object naming the device. Needs a CUDA device; imports no jax.
+against its plain PyTorch twin at the shapes of the two ported paths, and
+drives both paths:
+
+- Ackerman GM-PHD (static 2D map): one filter step on the card against the
+  same step on the CPU, the full ``data/ackerman`` sequence at P=512 and
+  the first 60 steps at P=10240;
+- mixed jump-Markov (CV vehicle, static 2D + dynamic 4D maps, the JAX
+  package's ``tools/bench_mixed.py`` configuration): one step on the card
+  against the CPU, 100 steps at P=512 and 30 at P=10240, and the accuracy
+  of ``evaluate_mixed`` over five seeds at P=256;
+
+then times every kernel against its twin and profiles a step of each path.
+Each phase prints its result; any failure raises and exits non-zero. The
+last line is one JSON object naming the device. Needs a CUDA device;
+imports no jax.
 """
 
 from __future__ import annotations
@@ -24,15 +33,17 @@ import numpy as np
 import torch
 
 from phdslam_tpu_torch import load_config
-from phdslam_tpu_torch.eval.parity import evaluate_dataset
-from phdslam_tpu_torch.filters.phd import phd_step
+from phdslam_tpu_torch import SlamConfig
+from phdslam_tpu_torch.eval.parity import evaluate_dataset, evaluate_mixed
+from phdslam_tpu_torch.filters.phd import maybe_resample, predict, update
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
-from phdslam_tpu_torch.kernels.merge import merge2d, merge2d_reference
-from phdslam_tpu_torch.ops.gm_merge import merge_out_2d
-from phdslam_tpu_torch.slam import SynthSLAMRunner
+from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
+                                             merge4d, merge4d_reference)
+from phdslam_tpu_torch.ops.gm_merge import merge_out
+from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
 from phdslam_tpu_torch.types import FilterState, GMState
 
 CFG = "cfg/ackerman.cfg"
@@ -42,6 +53,15 @@ P_SCALE, SCALE_STEPS = 10240, 60
 ATE_LIMIT = 1.0                 # m: loose sanity bound (own noise stream)
 ATE_BAND = (0.40, 0.51)         # m: the JAX reference's band at P=512
 
+# the mixed path: tools/bench_mixed.py's configuration and scans
+MIXED_STEPS, MIXED_DT = 100, 0.5
+P_MIXED_SCALE, MIXED_SCALE_STEPS = 10240, 30
+MIXED_SEEDS, P_MIXED_ACC = range(5), 256
+# the JAX package's 50-run mixed accuracy, mean and std (BENCH.md,
+# "Round-3: mixed jump-Markov Monte-Carlo acceptance")
+MIXED_BANDS = {"mean_pose_err": (0.14, 0.08), "static_ospa": (1.90, 0.35),
+               "dynamic_ospa": (3.30, 1.40)}
+
 KERNELS = {
     "detect": ("phdslam_tpu_torch/csrc/detect.cu",
                "phdslam_tpu/ops/pallas_detect.py:49"),
@@ -49,7 +69,40 @@ KERNELS = {
                     "phdslam_tpu/ops/pallas_select.py:46"),
     "merge2d": ("phdslam_tpu_torch/csrc/merge2d.cu",
                 "phdslam_tpu/ops/pallas_merge.py:55"),
+    "merge4d": ("phdslam_tpu_torch/csrc/merge4d.cu",
+                "phdslam_tpu/ops/pallas_merge.py:785"),
 }
+ACKERMAN_KERNELS = ("detect", "gather_cols", "merge2d")
+
+
+def mixed_cfg(P=P_MAIN, K=128, M=32):
+    """tools/bench_mixed.py's mixed configuration (fast route, 4D stage-2
+    cap 128, detection_topk 16 and merge_candidate_cap 512 by default)."""
+    return SlamConfig(
+        n_particles=P, max_features=K, max_measurements=M,
+        motion_type=0, feature_model=2, filter_type=0,
+        vx0=1.5, vyaw0=0.2, ax=0.3, ayaw=0.03,
+        max_range=12.0, std_range=0.5, std_bearing=0.02,
+        clutter_rate=5.0, pd=0.95, birth_weight=0.05, min_separation=2.0,
+        resample_threshold=0.5, particle_weighting=0, tau=0.2,
+        cov_vx_birth=0.25, cov_vy_birth=0.25, std_ax_map=0.05,
+        std_ay_map=0.05, merge_candidate_cap_dynamic=128, seed=0)
+
+
+def mixed_scans(T=MIXED_STEPS, M=32):
+    """tools/bench_mixed.py's synthetic scans: range U(1, 11), bearing
+    U(-1.5, 1.5), the first M - 8 slots valid, numpy seed 0."""
+    rng = np.random.default_rng(0)
+    zr = rng.uniform(1.0, 11.0, (T, M)).astype(np.float32)
+    zb = rng.uniform(-1.5, 1.5, (T, M)).astype(np.float32)
+    mask = np.broadcast_to(np.arange(M)[None, :] < max(4, M - 8),
+                           (T, M)).copy()
+    return np.stack([zr, zb], axis=-1), mask
+
+
+def mixed_runner(dev, P=P_MAIN, T=MIXED_STEPS):
+    z, mask = mixed_scans(T)
+    return ScanRunner(mixed_cfg(P), z, mask, MIXED_DT, device=dev)
 
 
 def phase(name, msg):
@@ -107,6 +160,31 @@ def merge_inputs(dev, P=P_MAIN, N=512, seed=0, spread=0.3):
                        take(cov[..., 0, 0]), take(cov[..., 0, 1]),
                        take(cov[..., 1, 1])], axis=1)
     return torch.tensor(planes, dtype=torch.float32, device=dev)
+
+
+def merge4d_inputs(dev, P=P_MAIN, N=128, seed=0):
+    """Clustered 4D candidates (positions spread 0.3 m, velocities 0.3 m/s
+    about ~0.5 m/s centres, as the bench's dynamic map holds them), active
+    lanes a weight-descending prefix: planes [P, 16, N]."""
+    rng = np.random.default_rng(seed)
+    centers = np.concatenate([rng.normal(0, 8, (P, 30, 2)),
+                              rng.normal(0, 0.5, (P, 30, 2))], axis=-1)
+    mean = centers[np.arange(P)[:, None], rng.integers(0, 30, (P, N))] \
+        + rng.normal(0, 0.3, (P, N, 4))
+    A = rng.normal(0, 0.4, (P, N, 4, 4))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.2 * np.eye(4)
+    w = rng.uniform(0, 1, (P, N))
+    act = rng.random((P, N)) < 0.6
+    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
+
+    def take(x):
+        return np.take_along_axis(x, order, axis=1)
+    act_s = take(act)
+    planes = [np.where(act_s, take(w), 0.0), act_s]
+    planes += [take(mean[..., i]) for i in range(4)]
+    planes += [take(cov[..., a, b]) for a in range(4) for b in range(a, 4)]
+    return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
+                        device=dev)
 
 
 # ----------------------------------------------------------------------------
@@ -169,8 +247,8 @@ def check_kernels(dev):
               "bitwise equal")
 
     planes = merge_inputs(dev)
-    got = merge_out_2d(merge2d(planes, cfg.min_separation, 128))
-    want = merge_out_2d(merge2d_reference(planes, cfg.min_separation, 128))
+    got = merge_out(merge2d(planes, cfg.min_separation, 128), 2)
+    want = merge_out(merge2d_reference(planes, cfg.min_separation, 128), 2)
     require(torch.equal(got[3], want[3]), "merge2d: n_merged differs")
     require(torch.equal(got[4], want[4]), "merge2d: n_unmerged differs")
     for g, w in zip(got[:3], want[:3]):
@@ -183,60 +261,190 @@ def check_kernels(dev):
     nan_planes = merge_inputs(dev, P=64, seed=1)
     nan_planes[0, 0] = float("nan")
     nan_planes[1, 0, :8] = 0.0
-    got = merge_out_2d(merge2d(nan_planes, cfg.min_separation, 128))
+    got = merge_out(merge2d(nan_planes, cfg.min_separation, 128), 2)
     torch.cuda.synchronize()
-    want = merge_out_2d(merge2d_reference(nan_planes, cfg.min_separation,
-                                          128))
+    want = merge_out(merge2d_reference(nan_planes, cfg.min_separation,
+                                          128), 2)
     require(int(got[3][0]) == 0 and int(got[4][0]) == 0,
             "merge2d: NaN particle emitted clusters")
     require(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]),
             "merge2d: NaN case counts differ")
     phase("kernels", "merge2d NaN/zero weights: terminated, counts match")
+
+    # the mixed path's detect mode: min_fw = 0, cb = 0, M = 32
+    planes, z4 = detect_inputs(dev, M=32, n_valid=24)
+    got = detect(planes, z4, 16, 0.0, 0.0)
+    want = detect_reference(planes, z4, 16, 0.0, 0.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    require(torch.equal(got[1], want[1]), "detect (min_fw=0): idx differs")
+    require(torch.equal(got[3], want[3]),
+            "detect (min_fw=0): live count differs")
+    err0 = max_err([(got[0], want[0]), (got[2], want[2])])
+    errs["detect"] = max(errs["detect"], err0)
+    phase("kernels", f"detect P={P_MAIN} K=128 M=32 T=16 min_fw=0 cb=0: "
+          f"{int(got[3].sum())} live lanes, idx and counts equal, max |err| "
+          f"{err0:.3g} (rtol 1e-5)")
+
+    errs["merge4d"] = 0.0
+    for N in (128, 512):
+        planes = merge4d_inputs(dev, N=N, seed=N)
+        got = merge_out(merge4d(planes, 2.0, 128), 4)
+        want = merge_out(merge4d_reference(planes, 2.0, 128), 4)
+        require(torch.equal(got[3], want[3]), f"merge4d N={N}: n_merged "
+                "differs")
+        require(torch.equal(got[4], want[4]), f"merge4d N={N}: n_unmerged "
+                "differs")
+        for g, w in zip(got[:3], want[:3]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        err = max_err(list(zip(got[:3], want[:3])))
+        errs["merge4d"] = max(errs["merge4d"], err)
+        phase("kernels", f"merge4d P={P_MAIN} N={N} K=128: clusters/particle "
+              f"{float(got[3].float().mean()):.1f}, left "
+              f"{float(got[4].float().mean()):.1f}, max |err| {err:.3g} "
+              "(rtol 1e-4, atol 1e-5)")
+    nan_planes = merge4d_inputs(dev, P=64, N=128, seed=1)
+    nan_planes[0, 0] = float("nan")
+    nan_planes[1, 0, :8] = 0.0
+    got = merge_out(merge4d(nan_planes, 2.0, 128), 4)
+    torch.cuda.synchronize()
+    want = merge_out(merge4d_reference(nan_planes, 2.0, 128), 4)
+    require(int(got[3][0]) == 0 and int(got[4][0]) == 0,
+            "merge4d: NaN particle emitted clusters")
+    require(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]),
+            "merge4d: NaN case counts differ")
+    phase("kernels", "merge4d NaN/zero weights: terminated, counts match")
     return errs
 
 
 def copy_state(state, dev):
-    gm = state.map_static
+    def gm_to(gm):
+        return (None if gm is None else
+                GMState(mean=gm.mean.to(dev), cov=gm.cov.to(dev),
+                        weight=gm.weight.to(dev)))
     return FilterState(
         pose=state.pose.to(dev), log_weight=state.log_weight.to(dev),
-        map_static=GMState(mean=gm.mean.to(dev), cov=gm.cov.to(dev),
-                           weight=gm.weight.to(dev)),
-        resample_idx=state.resample_idx.to(dev), step=state.step)
+        map_static=gm_to(state.map_static),
+        resample_idx=state.resample_idx.to(dev), step=state.step,
+        map_dynamic=gm_to(state.map_dynamic))
+
+
+def step_against_cpu(r, n):
+    """Step n of runner r on the card and, from a CPU copy of the same
+    state with the same noise, with the twins on the CPU.
+
+    The predicted and updated states (pose, log_weight, each map's weights
+    and means) and the overflow are compared before resampling, where the
+    kernels act. Resampling is compared as nEff, the decision and the
+    ancestors: a stratum may take another ancestor only where its point
+    (j + u_j) / P lies within 1e-4 of a cumulative weight of the CPU state
+    (f32 cumsums of 512 weights differ by ~1e-5 between the two devices).
+    Returns the largest |difference| over the compared values (means in
+    the slots that hold the same component), the CPU's updated state, the
+    count of such boundary strata and the count of weight-tied slots
+    swapped (see :func:`match_slots`).
+    """
+    z, zm, ctl, dt, dp, hz = r.step_args(n)
+    noise = r.noise()
+    runs = {"gpu": (r.state, z, zm, noise),
+            "cpu": (copy_state(r.state, "cpu"), z.cpu(), zm.cpu(),
+                    type(noise)(*(x.cpu() for x in noise)))}
+    upd, ovf, res = {}, {}, {}
+    for dev_name, (st, zz, mm, nz) in runs.items():
+        if dp:
+            st = predict(st, ctl, dt, r.cfg, nz.eps_pred)
+        ovf[dev_name] = 0
+        if hz:
+            st, ovf[dev_name] = update(st, zz, mm, r.cfg)
+        upd[dev_name] = st
+        res[dev_name] = maybe_resample(st, hz, r.cfg, nz.u_resample)
+    g, c = upd["gpu"], upd["cpu"]
+    pairs = {"pose": (g.pose, c.pose), "log_weight": (g.log_weight,
+                                                      c.log_weight)}
+    n_swapped, err = 0, 0.0
+    for tag, attr in (("map", "map_static"), ("dyn", "map_dynamic")):
+        if getattr(g, attr) is not None:
+            gm, cm = getattr(g, attr), getattr(c, attr)
+            pairs[f"{tag}_weight"] = (gm.weight, cm.weight)
+            pairs[f"{tag}_mean"] = (gm.mean, cm.mean)
+            n, e = match_slots(tag, gm.weight.cpu(), gm.mean.cpu(),
+                               cm.weight, cm.mean)
+            n_swapped, err = n_swapped + n, max(err, e)
+    for name in ("pose", "log_weight", "map_weight", "dyn_weight"):
+        if name in pairs:
+            gv, cv = pairs[name]
+            torch.testing.assert_close(gv.cpu(), cv, rtol=1e-4, atol=1e-5,
+                                       msg=lambda m, n=name: f"{n}: {m}")
+            err = max(err, max_err([(gv.cpu(), cv)]))
+    require(int(ovf["gpu"]) == int(ovf["cpu"]), "step: overflow differs")
+
+    (g_st, g_neff, g_res), (c_st, c_neff, c_res) = res["gpu"], res["cpu"]
+    torch.testing.assert_close(g_neff.cpu(), c_neff, rtol=1e-4, atol=0)
+    require(bool(g_res) == bool(c_res), "step: resampling decision differs")
+    differ = (g_st.resample_idx.cpu() != c_st.resample_idx).nonzero()[:, 0]
+    P = c.pose.shape[0]
+    cum = torch.cumsum(torch.exp(c.log_weight.double()), dim=0)
+    for j in differ.tolist():
+        point = (j + float(runs["cpu"][3].u_resample[j])) / P
+        require(float((cum - point).abs().min()) < 1e-4,
+                f"step: stratum {j} took another ancestor away from a "
+                "cumulative-weight boundary")
+    r.state = g_st
+    return err, c, len(differ), n_swapped
+
+
+def match_slots(tag, g_w, g_mean, c_w, c_mean):
+    """Means slot by slot within rtol 1e-4 / atol 1e-5, except that a slot
+    may hold another component of the same particle where the two weights
+    tie within that tolerance (the post-merge compaction sorts by weight,
+    and two tied weights can round into either order). Returns the number
+    of such swapped slots and the largest |difference| of the others."""
+    ok = torch.isclose(g_mean, c_mean, rtol=1e-4, atol=1e-5).all(dim=-1)
+    for p, k in (~ok).nonzero().tolist():
+        tied = torch.isclose(c_w[p], g_w[p, k], rtol=1e-4, atol=1e-5)
+        same = torch.isclose(c_mean[p], g_mean[p, k], rtol=1e-4,
+                             atol=1e-5).all(dim=-1)
+        require(bool((tied & same).any()),
+                f"step: {tag}_mean of particle {p} slot {k} matches no "
+                f"weight-tied component on the CPU (w {float(g_w[p, k])})")
+    diff = (g_mean.double() - c_mean.double()).abs()[ok]
+    return int((~ok).sum()), float(diff.max()) if diff.numel() else 0.0
 
 
 def check_step(dev, n_before=40):
-    """One phd_step on the card against the same step with the twins on
-    the CPU, from the same mid-run state and the same noise."""
+    """One Ackerman step on the card against the same step with the twins
+    on the CPU, from step 40 and the same noise (:func:`step_against_cpu`)."""
     cfg = load_config(CFG, {"n_particles": P_MAIN})
     r = SynthSLAMRunner(cfg, DATA, device=dev)
     for n in range(n_before):
-        z, zm, ctl, dt, dp, hz = r.step_args(n)
-        r.state, _ = phd_step(r.state, z, zm, ctl, dt, dp, cfg, r.noise(),
-                              has_z=hz)
-    z, zm, ctl, dt, dp, hz = r.step_args(n_before)
-    noise = r.noise()
-    cpu_state = copy_state(r.state, "cpu")
-    gpu_state, gpu_out = phd_step(r.state, z, zm, ctl, dt, dp, cfg, noise,
-                                  has_z=hz)
-    cpu_state, cpu_out = phd_step(
-        cpu_state, z.cpu(), zm.cpu(), ctl, dt, dp, cfg,
-        type(noise)(*(x.cpu() for x in noise)), has_z=hz)
-    pairs = {"pose": (gpu_state.pose, cpu_state.pose),
-             "log_weight": (gpu_state.log_weight, cpu_state.log_weight),
-             "map_weight": (gpu_state.map_static.weight,
-                            cpu_state.map_static.weight),
-             "map_mean": (gpu_state.map_static.mean,
-                          cpu_state.map_static.mean)}
-    for name, (g, c) in pairs.items():
-        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5,
-                                   msg=lambda m, n=name: f"{n}: {m}")
-    require(int(gpu_out.overflow) == int(cpu_out.overflow),
-            "step: overflow differs")
+        r.step(n)
+    err, cpu_state, n_edge, n_swap = step_against_cpu(r, n_before)
     live = int((cpu_state.map_static.weight > 0).sum(dim=1).float().mean())
     phase("step", f"step {n_before} at P={P_MAIN} (mean {live} live "
-          f"components): card vs CPU twins max |err| "
-          f"{max_err([(g.cpu(), c) for g, c in pairs.values()]):.3g} "
-          "(rtol 1e-4, atol 1e-5)")
+          f"components): card vs CPU twins max |err| {err:.3g} (rtol 1e-4, "
+          f"atol 1e-5), overflow equal; {n_swap} weight-tied slots swapped, "
+          f"{n_edge} resampling strata at a cumulative-weight boundary")
+
+
+def check_mixed_step(dev, n_before=40):
+    """One mixed step on the card against the same step with the twins on
+    the CPU, from step 40 of the full-width configuration and the same
+    noise (:func:`step_against_cpu`)."""
+    r = mixed_runner(dev)
+    for n in range(n_before):
+        r.step(n)
+    err, cpu_state, n_edge, n_swap = step_against_cpu(r, n_before)
+    live_s = float((cpu_state.map_static.weight > 0).sum(dim=1).float()
+                   .mean())
+    live_d = float((cpu_state.map_dynamic.weight > 0).sum(dim=1).float()
+                   .mean())
+    phase("step", f"mixed step {n_before} at P={P_MAIN} (mean {live_s:.1f} "
+          f"static, {live_d:.1f} dynamic live components): card vs CPU "
+          f"twins max |err| {err:.3g} (rtol 1e-4, atol 1e-5), overflow "
+          f"equal; {n_swap} weight-tied "
+          f"slots swapped, {n_edge} resampling strata at a "
+          "cumulative-weight boundary")
 
 
 def run_main(dev):
@@ -255,7 +463,7 @@ def run_main(dev):
     lo, hi = ATE_BAND
     phase("run", f"ATE {'inside' if lo <= ate <= hi else 'outside'} the "
           f"reference band {lo}-{hi} m")
-    require(all(counts.get(k, 0) > 0 for k in KERNELS),
+    require(all(counts.get(k, 0) > 0 for k in ACKERMAN_KERNELS),
             f"a kernel of the path never launched: {counts}")
     require(np.isfinite(run["est_poses"]).all(), "NaN in the poses")
     require(ate <= ATE_LIMIT, f"mean ATE {ate:.4f} m > {ATE_LIMIT} m")
@@ -270,6 +478,73 @@ def run_scale(dev):
     phase("scale", f"P={P_SCALE}, first {SCALE_STEPS} steps: "
           f"{res['steps_per_s']:.2f} steps/s ({res['wall_s']:.3f} s), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+
+
+def run_mixed(dev):
+    """The mixed path at full width: P=512 over 100 steps (steps/s on the
+    host clock, peak memory, launch counts), then P=10240 over 30 steps."""
+    r = mixed_runner(dev)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = r.run()
+    counts = dict(build.launch_counts)
+    require(np.isfinite(res["est_poses"]).all(), "mixed: NaN in the poses")
+    phase("mixed", f"P={P_MAIN} K=128+128 M=32, {MIXED_STEPS} steps: "
+          f"{res['steps_per_s']:.2f} steps/s ({res['wall_s']:.3f} s), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
+          f"overflow {res['overflow']}, final nEff {res['n_eff'][-1]:.3f}, "
+          f"resampled {int(res['resampled'].sum())} steps")
+    phase("mixed", "launches: " + ", ".join(f"{k}={counts.get(k, 0)}"
+                                            for k in KERNELS))
+    require(all(counts.get(k, 0) > 0 for k in KERNELS),
+            f"a kernel of the mixed path never launched: {counts}")
+
+    r = mixed_runner(dev, P=P_MIXED_SCALE, T=MIXED_SCALE_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    scale = r.run()
+    require(np.isfinite(scale["est_poses"]).all(),
+            f"mixed: NaN at P={P_MIXED_SCALE}")
+    phase("mixed", f"P={P_MIXED_SCALE}, {MIXED_SCALE_STEPS} steps: "
+          f"{scale['steps_per_s']:.2f} steps/s ({scale['wall_s']:.3f} s), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return counts
+
+
+def mixed_accuracy(dev):
+    """evaluate_mixed over five seeds at P=256, against the JAX package's
+    50-run mean +- 2 std. As in the JAX aggregate
+    (``eval/parity.py::evaluate_mixed_mc``), a run whose movers are all out
+    of sensor range at the last step has no dynamic OSPA (NaN by design)
+    and is left out of that metric; a NaN anywhere else fails."""
+    keys = tuple(MIXED_BANDS)
+    rows = []
+    for seed in MIXED_SEEDS:
+        r = evaluate_mixed(seed=seed, n_particles=P_MIXED_ACC, device=dev)
+        rows.append([r[k] for k in keys])
+        require(np.isfinite(r["run"]["est_poses"]).all()
+                and np.isfinite([r["mean_pose_err"], r["static_ospa"]]).all()
+                and np.isfinite(r["dynamic_ospa"]) == (r["n_dyn_visible"] > 0),
+                f"mixed accuracy: NaN in seed {seed}")
+        phase("accuracy", f"seed {seed}: pose {r['mean_pose_err']:.4f} m, "
+              f"static OSPA {r['static_ospa']:.4f}, dynamic OSPA "
+              f"{r['dynamic_ospa']:.4f} ({r['n_dyn_visible']} movers "
+              f"visible), {r['run']['steps_per_s']:.2f} steps/s")
+    rows = np.asarray(rows)
+    for i, k in enumerate(keys):
+        v = rows[:, i][np.isfinite(rows[:, i])]
+        if not len(v):
+            phase("accuracy", f"{k}: no run has a value")
+            continue
+        mean, std = float(v.mean()), float(v.std())
+        ref, ref_std = MIXED_BANDS[k]
+        lo, hi = ref - 2 * ref_std, ref + 2 * ref_std
+        phase("accuracy", f"{k} over {len(v)} of seeds {list(MIXED_SEEDS)} "
+              f"at P={P_MIXED_ACC}: {mean:.4f} +- {std:.4f}, "
+              f"{'inside' if lo <= mean <= hi else 'outside'} the JAX "
+              f"50-run band {ref} +- 2 x {ref_std}")
+    pose = float(rows[:, 0].mean())
+    require(pose <= ATE_LIMIT, f"mixed mean pose error {pose:.4f} m > "
+            f"{ATE_LIMIT} m")
 
 
 def time_call(fn, iters, warmup):
@@ -294,6 +569,7 @@ def time_kernels(dev):
     planes, z4 = detect_inputs(dev)
     idx, tab = gather_inputs(dev, P_MAIN, 16, 128, 512, seed=16)
     packed = merge_inputs(dev)
+    packed4 = merge4d_inputs(dev, N=128, seed=128)
     calls = {
         "detect": (lambda: detect(planes, z4, 16, min_fw, cb),
                    lambda: detect_reference(planes, z4, 16, min_fw, cb)),
@@ -302,6 +578,8 @@ def time_kernels(dev):
         "merge2d": (lambda: merge2d(packed, cfg.min_separation, 128),
                     lambda: merge2d_reference(packed, cfg.min_separation,
                                               128)),
+        "merge4d": (lambda: merge4d(packed4, 2.0, 128),
+                    lambda: merge4d_reference(packed4, 2.0, 128)),
     }
     times = {}
     for name, (kern, plain) in calls.items():
@@ -315,31 +593,24 @@ def time_kernels(dev):
     return times
 
 
-def profile_step(dev, steps=20):
-    """Where the time goes at P=512: steps 40-59 on the host clock without
-    the profiler, then steps 60-79 under torch.profiler for the device time
-    of each layer range (filters/phd.py) and each kernel."""
-    cfg = load_config(CFG, {"n_particles": P_MAIN})
-    r = SynthSLAMRunner(cfg, DATA, device=dev)
-
-    def step(n):
-        z, zm, ctl, dt, dp, hz = r.step_args(n)
-        r.state, _ = phd_step(r.state, z, zm, ctl, dt, dp, cfg, r.noise(),
-                              has_z=hz)
-
+def profile_step(r, label, steps=20):
+    """Where the time goes at P=512 for runner r: steps 40-59 on the host
+    clock without the profiler, then steps 60-79 under torch.profiler for
+    the device time of each layer range (filters/phd.py, filters/mixed.py)
+    and each kernel."""
     for n in range(40):
-        step(n)
+        r.step(n)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for n in range(40, 40 + steps):
-        step(n)
+        r.step(n)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1000.0 / steps
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for n in range(40 + steps, 40 + 2 * steps):
-            step(n)
+            r.step(n)
         torch.cuda.synchronize()
     # device timeline: the phd.* ranges as GPU spans, and every kernel or
     # copy. A kernel launched through ctypes has no PyTorch op to correlate
@@ -364,17 +635,18 @@ def profile_step(dev, steps=20):
     busy_ms = sum(per_layer.values()) / 1000.0 / steps
     idle = 100.0 * (1.0 - busy_ms / step_ms)
     n_launch = sum(c for _, c in per_kernel.values()) // steps
-    phase("profile", f"P={P_MAIN} steps 40-59: {step_ms:.3f} ms/step (host "
+    phase("profile", f"{label} P={P_MAIN} steps 40-59: {step_ms:.3f} "
+          f"ms/step (host "
           f"clock, no profiler); steps 60-79 profiled: device busy "
           f"{busy_ms:.3f} ms/step (idle {idle:.1f}% of the unprofiled "
           f"step), {n_launch} device ops/step"
           + ("" if per_kernel else " - no device time recorded: not measured"))
     for name, us in sorted(per_layer.items(), key=lambda kv: -kv[1]):
-        phase("profile", f"{us / steps:9.1f} us/step busy  {name}")
+        phase("profile", f"{label} {us / steps:9.1f} us/step busy  {name}")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (us, cnt) in top:
-        phase("profile", f"{us / steps:9.1f} us/step {cnt / steps:5.1f}/step  "
-              f"{name[:60]}")
+        phase("profile", f"{label} {us / steps:9.1f} us/step "
+              f"{cnt / steps:5.1f}/step  {name[:60]}")
 
 
 def main():
@@ -383,13 +655,22 @@ def main():
     build_kernels()
     errs = check_kernels(dev)
     check_step(dev)
+    check_mixed_step(dev)
     counts, _ = run_main(dev)
     run_scale(dev)
+    mixed_counts = run_mixed(dev)
+    mixed_accuracy(dev)
     times = time_kernels(dev)
-    profile_step(dev)
+    profile_step(SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN}),
+                                 DATA, device=dev), "ackerman")
+    profile_step(mixed_runner(dev), "mixed")
+    # launches: each kernel's count in the run of its path (merge4d runs
+    # only on the mixed path; the other three on both)
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": int(counts[name]), "max_abs_err": errs[name],
+         "launches": int((counts if name in ACKERMAN_KERNELS
+                          else mixed_counts)[name]),
+         "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
         for name, (src, rep) in KERNELS.items()]}
     print(json.dumps(report))

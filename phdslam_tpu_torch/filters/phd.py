@@ -5,14 +5,17 @@ One step runs vehicle prediction, the GM-PHD measurement update, MAP
 extraction and systematic resampling on fixed-capacity [P, K, D] state.
 The JAX version writes the update for one particle and vmaps it; here
 every function carries the particle axis explicitly. The update's device
-work goes through three kernels (``kernels/``): the fused detection +
+work goes through the kernels of ``kernels/``: the fused detection +
 top-T, the column gather (candidate tables and post-merge compaction) and
-the greedy merge.
+the greedy merges (2D for the static map, 4D for the dynamic one).
 
-Scope: the Ackerman main path — PHD (filter_type 0), static 2D map
-(feature_model 0), cluster-process weighting (particle_weighting 0), MAP
-extraction, one prediction particle per particle, and the compacted det
-route (0 < detection_topk < K, 0 < merge_candidate_cap < K + M K + M).
+Scope (:func:`check_supported`): PHD (filter_type 0) with MAP extraction,
+one prediction particle per particle and the compacted det route
+(0 < detection_topk < K, 0 < merge_candidate_cap < K + M K + M), on
+  - the static 2D map (feature_model 0) with cluster-process weighting
+    (particle_weighting 0), Ackerman or constant-velocity vehicle;
+  - the mixed jump-Markov static 2D + dynamic 4D maps (feature_model 2,
+    ``filters/mixed.py``'s fast route) with weighting 0 or 1.
 The JAX version's live-width ``lax.switch`` families are exact prefix
 slices, so this port runs everything at full width instead.
 
@@ -36,10 +39,10 @@ from torch.profiler import record_function
 from ..config import SlamConfig
 from ..kernels.detect import detect
 from ..kernels.gather_cols import gather_cols
-from ..kernels.merge import merge2d
-from ..models import measurement, vehicle
+from ..kernels.merge import merge2d, merge4d
+from ..models import feature_motion, measurement, vehicle
 from ..ops import ekf
-from ..ops.gm_merge import merge_out_2d, topcap_sort
+from ..ops.gm_merge import merge_out, topcap_sort
 from ..ops.math import logsumexp
 from ..ops.resample import effective_sample_ratio, systematic_ancestors
 from ..types import FilterState, GMState
@@ -47,7 +50,8 @@ from ..types import FilterState, GMState
 
 class StepNoise(NamedTuple):
     """The random draws of one step."""
-    eps_pred: torch.Tensor    # [subdivide_predict, P, 2] standard normal
+    eps_pred: torch.Tensor    # [subdivide_predict, P, 3] standard normal
+                              # for the CV vehicle, [.., P, 2] for Ackerman
     u_resample: torch.Tensor  # [P] uniform in [0, 1)
 
 
@@ -66,19 +70,26 @@ class StepOutputs(NamedTuple):
 
 def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
     """Raise for a configuration outside the ported path."""
-    unsupported = {
-        "filter_type": (cfg.filter_type, 0),
-        "feature_model": (cfg.feature_model, 0),
-        "motion_type": (cfg.motion_type, 1),
-        "particle_weighting": (cfg.particle_weighting, 0),
-        "distance_metric": (cfg.distance_metric, 0),
-        "n_predict_particles": (max(1, cfg.n_predict_particles), 1),
-        "compute_variance": (bool(cfg.compute_variance), False),
-        "premerge_consolidate": (cfg.premerge_consolidate, 0),
-        "merge_spatial_tiles": (cfg.merge_spatial_tiles, 0),
+    mixed = cfg.feature_model == 2
+    ported = {
+        "filter_type": (cfg.filter_type, (0,)),
+        "feature_model": (cfg.feature_model, (0, 2)),
+        "motion_type": (cfg.motion_type, (0, 1)),
+        # weighting 2 (and compute_variance) would take the per-particle
+        # slow route of the mixed update, which is not ported
+        "particle_weighting": (cfg.particle_weighting,
+                               (0, 1) if mixed else (0,)),
+        "distance_metric": (cfg.distance_metric, (0,)),
+        "n_predict_particles": (max(1, cfg.n_predict_particles), (1,)),
+        "compute_variance": (bool(cfg.compute_variance), (False,)),
+        "premerge_consolidate": (cfg.premerge_consolidate, (0,)),
+        "merge_spatial_tiles": (cfg.merge_spatial_tiles, (0,)),
     }
-    bad = [f"{k}={v!r} (ported: {want!r})"
-           for k, (v, want) in unsupported.items() if v != want]
+    if mixed:
+        ported["birth_velocity_init"] = (cfg.birth_velocity_init, (0,))
+        ported["mixed_fast_path"] = (cfg.mixed_fast_path, (1,))
+    bad = [f"{k}={v!r} (ported: {', '.join(map(repr, want))})"
+           for k, (v, want) in ported.items() if v not in want]
     if not cfg.map_estimate & 1:
         bad.append(f"map_estimate={cfg.map_estimate} (ported: MAP, bit 0)")
     T, cap = cfg.detection_topk, cfg.merge_candidate_cap
@@ -98,18 +109,32 @@ def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
 
 def predict(state: FilterState, control, dt, cfg: SlamConfig,
             eps_pred) -> FilterState:
-    """Ackerman vehicle prediction, ``subdivide_predict`` sub-steps of
-    dt / sub, sub-step i drawing eps_pred[i]. The static map is not
-    predicted (feature_model 0)."""
+    """Vehicle prediction in ``subdivide_predict`` sub-steps of dt / sub,
+    sub-step i drawing eps_pred[i]: constant velocity (motion_type 0, the
+    noise at 3x the configured accelerations, as the reference's host code
+    draws it) or Ackerman (1). The mixed model then predicts its dynamic
+    map over the whole dt; the static map is never predicted."""
     pose = state.pose
     sub = max(1, cfg.subdivide_predict)
-    dt_sub = float(np.float32(dt) / np.float32(sub))
-    geom = (cfg.l, cfg.h, cfg.a, cfg.b)
-    noise_std = (cfg.std_encoder, cfg.std_alpha)
+    dt32 = np.float32(dt)
+    dt_sub = float(dt32 / np.float32(sub))
     for i in range(sub):
-        pose = vehicle.ackerman_predict(pose, control, geom, noise_std,
-                                        dt_sub, eps_pred[i])
-    return state.replace(pose=pose)
+        if cfg.motion_type == 0:
+            noise_std = (3.0 * cfg.ax, 3.0 * cfg.ay, 3.0 * cfg.ayaw)
+            pose = vehicle.cv_predict(pose, noise_std, dt_sub, eps_pred[i])
+        else:
+            geom = (cfg.l, cfg.h, cfg.a, cfg.b)
+            noise_std = (cfg.std_encoder, cfg.std_alpha)
+            pose = vehicle.ackerman_predict(pose, control, geom, noise_std,
+                                            dt_sub, eps_pred[i])
+    state = state.replace(pose=pose)
+    if cfg.feature_model == 2:
+        dyn = state.map_dynamic
+        (mean, cov, weight), _jump = feature_motion.mixed_model_predict(
+            dyn.mean, dyn.cov, dyn.weight, cfg, float(dt32))
+        state = state.replace(
+            map_dynamic=GMState(mean=mean, cov=cov, weight=weight))
+    return state
 
 
 # ----------------------------------------------------------------------------
@@ -189,32 +214,53 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
         (K + M * K + m_ids).expand(P, M)], dim=1)
     idx, cand_w, sel_act, n_drop = topcap_sort(
         red_w, red_act, red_flat, cfg.merge_candidate_cap)
-
-    k_eff, m_eff, is_p, is_d = ekf.candidate_gather_indices(idx, K, M, True)
-    t_k, t_m = ekf.candidate_tables_T(mean, cov, pre, z, b_mean, b_cov)
-    gather = dict(k_eff=k_eff.to(torch.int32), m_eff=m_eff.to(torch.int32),
-                  is_p=is_p, is_d=is_d, sel_act=sel_act, cand_w=cand_w,
-                  t_k=t_k, t_m=t_m)
+    gather = deferred_gather(idx, cand_w, sel_act, mean, cov, pre, z,
+                             b_mean, b_cov)
     return dict(gather=gather, dlog_w=dlog_w, out_m=out_m,
                 n_compact=n_drop + n_extra)
 
 
-def _finish_gather_planes(pre_out, D):
-    """Run the deferred candidate gather (two column gathers) and assemble
-    the candidates: (mean_planes, cov_planes, cand_w, sel_act)."""
-    g = pre_out["gather"]
+def deferred_gather(idx, cand_w, sel_act, mean, cov, pre: ekf.PreUpdate, z,
+                    b_mean, b_cov):
+    """The deferred-gather dict of a stage-2 selection: flat candidate ids
+    ``idx`` [P, cap] over [K persistent | M*K detections | M births] as
+    table columns and masks, plus the feature-minor source tables."""
+    K, M = mean.shape[-2], z.shape[0]
+    k_eff, m_eff, is_p, is_d = ekf.candidate_gather_indices(idx, K, M, True)
+    t_k, t_m = ekf.candidate_tables_T(mean, cov, pre, z, b_mean, b_cov)
+    return dict(k_eff=k_eff.to(torch.int32), m_eff=m_eff.to(torch.int32),
+                is_p=is_p, is_d=is_d, sel_act=sel_act, cand_w=cand_w,
+                t_k=t_k, t_m=t_m)
+
+
+def _finish_candidates_packed(g, D):
+    """Run the deferred candidate gather (two column gathers) and pack the
+    candidates as planes [P, 2 + D + D(D+1)/2, cap]: w, act, the means,
+    the upper-triangle covariances."""
     r_k = gather_cols(g["k_eff"], g["t_k"])
     r_m = gather_cols(g["m_eff"], g["t_m"])
     mean_pl, cov_pl = ekf.combine_selected_planes(
         r_k, r_m, g["is_p"], g["is_d"], g["sel_act"], D, True)
-    return mean_pl, cov_pl, g["cand_w"], g["sel_act"]
-
-
-def _finish_candidates_packed(pre_out, D):
-    """Candidate planes [P, 7, cap]: w, act, mean x/y, cov 00/01/11."""
-    mean_pl, cov_pl, cand_w, sel_act = _finish_gather_planes(pre_out, D)
-    planes = [cand_w, sel_act.to(cand_w.dtype)] + mean_pl + cov_pl
+    planes = [g["cand_w"], g["sel_act"].to(g["cand_w"].dtype)] \
+        + mean_pl + cov_pl
     return torch.stack(planes, dim=-2)
+
+
+_MERGE = {2: merge2d, 4: merge4d}
+
+
+def gather_merge(gather, D, cfg: SlamConfig, out_cap):
+    """Gather + combine + greedy merge of a deferred-gather dict (the JAX
+    version's ``gather_merge_width_switched`` at full width). Returns the
+    merge tuple (mean, cov, w, n_merged, n_dropped)."""
+    with record_function("phd.gather"):
+        packed = _finish_candidates_packed(gather, D)
+    with record_function("phd.merge"):
+        # the JAX version's merge dispatch (width switch, tiling, metric
+        # routes) reduces here to the Mahalanobis kernel of the feature
+        # dimension, which loops only over live lanes
+        return merge_out(_MERGE[D](packed, float(cfg.min_separation),
+                                   out_cap), D)
 
 
 def _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
@@ -223,14 +269,7 @@ def _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
     merge tuple and the post-half inputs (out_m, dlog_w, n_compact)."""
     with record_function("phd.pre"):
         pre = _update_pre(pose, mean, cov, weight, z, z_mask, cfg)
-    with record_function("phd.gather"):
-        packed = _finish_candidates_packed(pre, mean.shape[-1])
-    with record_function("phd.merge"):
-        # the JAX version's merge dispatch (width switch, tiling, metric
-        # and dimension routes) reduces here to the one 2D Mahalanobis
-        # kernel, which loops only over live lanes
-        mg = merge_out_2d(merge2d(packed, float(cfg.min_separation),
-                                  out_cap))
+    mg = gather_merge(pre["gather"], mean.shape[-1], cfg, out_cap)
     bits = dict(out_m=pre["out_m"], dlog_w=pre["dlog_w"],
                 n_compact=pre["n_compact"])
     return mg, bits
@@ -286,7 +325,11 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
 
 
 def update(state: FilterState, z, z_mask, cfg: SlamConfig):
-    """Measurement update over all particles; returns (state, overflow)."""
+    """Measurement update over all particles; returns (state, overflow).
+    The mixed model (feature_model 2) updates both maps jointly."""
+    if cfg.feature_model == 2:
+        from .mixed import mixed_update
+        return mixed_update(state, z, z_mask, cfg)
     gm = state.map_static
     new_mean, new_cov, new_w, dlog_w, overflow = _batched_update(
         state.pose, gm.mean, gm.cov, gm.weight, z, z_mask, cfg)
@@ -303,8 +346,9 @@ def update(state: FilterState, z, z_mask, cfg: SlamConfig):
 # ----------------------------------------------------------------------------
 
 def extract(state: FilterState, cfg: SlamConfig):
-    """Expected pose + the MAP map (the map of the heaviest particle;
-    argmax ties go to the lowest index, as in the JAX version)."""
+    """Expected pose + the MAP map (the static map of the heaviest
+    particle, for the mixed model too; argmax ties go to the lowest index,
+    as in the JAX version)."""
     w = torch.exp(state.log_weight)
     expected_pose = w @ state.pose
     gm = state.map_static
@@ -328,14 +372,18 @@ def maybe_resample(state: FilterState, has_measurements: bool,
     do_resample = n_eff <= cfg.resample_threshold
     ancestors = systematic_ancestors(state.log_weight, u, P)
     idx = torch.where(do_resample, ancestors, identity)
-    gm = state.map_static
     log_p = torch.log(torch.tensor(float(P), dtype=state.log_weight.dtype,
                                    device=dev))
+
+    def take(gm):
+        return (None if gm is None else
+                GMState(mean=gm.mean[idx], cov=gm.cov[idx],
+                        weight=gm.weight[idx]))
     state = state.replace(
         pose=state.pose[idx],
         log_weight=torch.where(do_resample, -log_p, state.log_weight),
-        map_static=GMState(mean=gm.mean[idx], cov=gm.cov[idx],
-                           weight=gm.weight[idx]),
+        map_static=take(state.map_static),
+        map_dynamic=take(state.map_dynamic),
         resample_idx=idx.to(torch.int32))
     return state, n_eff, do_resample
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes. The library lands in
+``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` (one ``nvcc`` process
+per source, all started together) and link into one shared library with
+a plain C interface, loaded with ctypes. The library lands in
 ``build/phdslam_tpu_torch/<hash of the sources and flags>/`` at the root of
 the checkout (listed in ``.gitignore``) on first use, so a fresh checkout
 builds once and later processes reuse the file. Nothing here runs at
@@ -31,8 +32,7 @@ LIB_NAME = "libphdslam_kernels.so"
 # plain twins' elementwise PyTorch ops round, so kernel and twin agree
 # to reduction order only
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 # launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel (never for a CPU tensor that runs the twin)
@@ -48,6 +48,8 @@ _SIGNATURES = {
     "phd_gather_cols": [_P, _P, _P, _I, _I, _I, _I, _P],
     # packed, out, P, N, K, min_separation, stream
     "phd_merge2d": [_P, _P, _I, _I, _I, _F, _P],
+    # packed, out, P, N, K, min_separation, stream
+    "phd_merge4d": [_P, _P, _I, _I, _I, _F, _P],
 }
 
 _lib = None
@@ -89,19 +91,32 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename: concurrent builders never see
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(s) for s in _sources()]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_log = (f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                      f"built in {time.perf_counter() - t0:.1f} s\n")
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed:\n{last_build_log}")
-    os.replace(tmp, out)
+    # compile and link in a private directory, then rename the library into
+    # place: concurrent builders never see a half-written file
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        lib = Path(tmp) / LIB_NAME
+        link = [nvcc, "-shared", "-o", str(lib), *map(str, objs)]
+        failed = any(proc.returncode != 0 for proc in procs)
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            cmds.append(link)
+            logs.append(proc.stdout + proc.stderr)
+            failed = proc.returncode != 0
+        last_build_log = "".join(
+            f"{' '.join(cmd)}\n{log}" for cmd, log in zip(cmds, logs)) \
+            + f"built in {time.perf_counter() - t0:.1f} s\n"
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{last_build_log}")
+        os.replace(lib, out)
     return out
 
 

@@ -1,60 +1,91 @@
-"""Exact sequential greedy merge of 2D candidate planes.
+"""Exact sequential greedy merge of 2D and 4D candidate planes.
 
-Replaces ``phdslam_tpu/ops/pallas_merge.py::_merge_kernel`` ->
-``_merge_core_2d`` (entry ``gm_merge_pallas_batch_packed``, sorted_w=True,
-Mahalanobis metric). Input planes [P, 7, N] (w, act, mean x, mean y,
-cov 00, 01, 11) whose active lanes are weight-descending; output planes
-[P, 8, K] (w, mean x, mean y, cov 00, 01, 11, lanes left unmerged, 0) with
-clusters in greedy emission order and empty slots as weight 0, mean 0,
-identity covariance. :func:`merge2d` launches the CUDA kernel
-(csrc/merge2d.cu) for CUDA tensors and runs the plain twin
-:func:`merge2d_reference` for CPU tensors.
+``merge2d`` replaces ``phdslam_tpu/ops/pallas_merge.py::_merge_kernel`` ->
+``_merge_core_2d`` (entry ``gm_merge_pallas_batch_packed``), ``merge4d``
+replaces ``_merge_kernel_4d`` (entry ``gm_merge_pallas_batch_packed_4d``),
+both as the fast path calls them: sorted_w=True, Mahalanobis metric (the
+4D one in the Schur form of ``ops/math.py::mahalanobis2_4d``).
+
+Input planes [P, C, N]: w, act, the D mean planes, the D(D+1)/2 upper-
+triangle covariance planes (C = 7 at D = 2, 16 at D = 4), active lanes
+weight-descending. Output planes (``ops/gm_merge.py::pack_merge_out``):
+w, mean, covariance, lanes left unmerged (broadcast), zero pads ([P, 8, K]
+at D = 2, [P, 16, K] at D = 4), clusters in greedy emission order, empty
+slots as weight 0, mean 0, identity covariance. A wrapper launches its
+CUDA kernel (csrc/merge2d.cu, csrc/merge4d.cu) for CUDA tensors and runs
+its plain twin (``*_reference``) for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.gm_merge import gm_merge_batch, unpack_planes
+from ..ops.gm_merge import gm_merge_batch, pack_merge_out, unpack_planes
 from . import build
 
 MAX_CANDIDATES = 2048    # 64 threads x 32 lanes each (one bit mask word)
+_PLANES = {2: (7, 8), 4: (16, 16)}      # D -> (input, output) planes
+
+
+def _reference(packed, min_separation, out_cap, D):
+    mean, cov, w, act = unpack_planes(packed, D)
+    om, oc, ow, _, n_dropped = gm_merge_batch(mean, cov, w, act,
+                                              min_separation, out_cap)
+    return pack_merge_out(om, oc, ow, n_dropped)
 
 
 def merge2d_reference(packed, min_separation: float, out_cap: int):
-    """Plain PyTorch twin: ``ops/gm_merge.py::gm_merge_batch`` on planes."""
-    mean, cov, w, act = unpack_planes(packed)
-    om, oc, ow, _, n_dropped = gm_merge_batch(mean, cov, w, act,
-                                              min_separation, out_cap)
-    left = n_dropped.to(packed.dtype)[:, None].expand(-1, out_cap)
-    return torch.stack([ow, om[..., 0], om[..., 1], oc[..., 0, 0],
-                        oc[..., 0, 1], oc[..., 1, 1], left,
-                        torch.zeros_like(ow)], dim=1)
+    """Plain PyTorch twin of merge2d: ``ops/gm_merge.py::gm_merge_batch``
+    on [P, 7, N] planes."""
+    return _reference(packed, min_separation, out_cap, 2)
+
+
+def merge4d_reference(packed, min_separation: float, out_cap: int):
+    """Plain PyTorch twin of merge4d: ``ops/gm_merge.py::gm_merge_batch``
+    on [P, 16, N] planes."""
+    return _reference(packed, min_separation, out_cap, 4)
+
+
+def _launch(packed, min_separation, out_cap, D):
+    name = f"merge{D}d"
+    c_in, c_out = _PLANES[D]
+    build.require(packed.device.type == "cuda",
+                  f"{name}: unsupported device {packed.device}")
+    build.require(packed.dim() == 3 and packed.shape[1] == c_in,
+                  f"{name}: planes {tuple(packed.shape)}, want "
+                  f"[P, {c_in}, N]")
+    build.require(packed.dtype == torch.float32 and packed.is_contiguous(),
+                  f"{name}: contiguous float32 planes required")
+    P, _, N = packed.shape
+    build.require(N <= MAX_CANDIDATES and out_cap > 0,
+                  f"{name}: N={N} (max {MAX_CANDIDATES}), out_cap={out_cap}")
+    out = torch.empty((P, c_out, out_cap), dtype=torch.float32,
+                      device=packed.device)
+    if P == 0:
+        return out
+    fn = getattr(build.library(), f"phd_{name}")
+    err = fn(packed.data_ptr(), out.data_ptr(), P, N, out_cap,
+             float(min_separation), build.stream_handle(packed.device))
+    build.check_launch(err, name)
+    build.launch_counts[name] += 1
+    return out
 
 
 def merge2d(packed, min_separation: float, out_cap: int):
-    """Greedy merge; same contract as :func:`merge2d_reference`.
+    """Greedy 2D merge; same contract as :func:`merge2d_reference`.
 
     A CPU tensor runs the twin; a CUDA tensor launches the kernel.
     """
     if packed.device.type == "cpu":
         return merge2d_reference(packed, min_separation, out_cap)
-    build.require(packed.device.type == "cuda",
-                  f"merge2d: unsupported device {packed.device}")
-    build.require(packed.dim() == 3 and packed.shape[1] == 7,
-                  f"merge2d: planes {tuple(packed.shape)}, want [P, 7, N]")
-    build.require(packed.dtype == torch.float32 and packed.is_contiguous(),
-                  "merge2d: contiguous float32 planes required")
-    P, _, N = packed.shape
-    build.require(N <= MAX_CANDIDATES and out_cap > 0,
-                  f"merge2d: N={N} (max {MAX_CANDIDATES}), out_cap={out_cap}")
-    out = torch.empty((P, 8, out_cap), dtype=torch.float32,
-                      device=packed.device)
-    if P == 0:
-        return out
-    err = build.library().phd_merge2d(
-        packed.data_ptr(), out.data_ptr(), P, N, out_cap,
-        float(min_separation), build.stream_handle(packed.device))
-    build.check_launch(err, "merge2d")
-    build.launch_counts["merge2d"] += 1
-    return out
+    return _launch(packed, min_separation, out_cap, 2)
+
+
+def merge4d(packed, min_separation: float, out_cap: int):
+    """Greedy 4D merge; same contract as :func:`merge4d_reference`.
+
+    A CPU tensor runs the twin; a CUDA tensor launches the kernel.
+    """
+    if packed.device.type == "cpu":
+        return merge4d_reference(packed, min_separation, out_cap)
+    return _launch(packed, min_separation, out_cap, 4)

@@ -91,3 +91,19 @@ def birth_mean_cov(pose, z, cfg):
     cov = torch.stack([torch.stack([c00, c01], dim=-1),
                        torch.stack([c01, c11], dim=-1)], dim=-2)
     return mean, cov
+
+
+def birth_mean_cov_4d(pose, z, cfg):
+    """Inverse measurement -> 4D (position, velocity) birth Gaussian.
+
+    The position block is :func:`birth_mean_cov`'s; the velocity mean is
+    zero with variances cov_vx_birth / cov_vy_birth and no cross terms.
+    """
+    mean2, cov2 = birth_mean_cov(pose, z, cfg)
+    mean = torch.cat([mean2, torch.zeros_like(mean2)], dim=-1)
+    cov = torch.zeros(mean2.shape[:-1] + (4, 4), dtype=mean2.dtype,
+                      device=mean2.device)
+    cov[..., :2, :2] = cov2
+    cov[..., 2, 2] = cfg.cov_vx_birth
+    cov[..., 3, 3] = cfg.cov_vy_birth
+    return mean, cov

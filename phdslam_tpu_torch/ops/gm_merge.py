@@ -6,7 +6,9 @@ clusters are out: pick the heaviest unmerged component, gather every
 unmerged component within ``min_separation`` (squared Mahalanobis distance
 with averaged covariance), emit their moment-matched merge and mark them
 merged. :func:`gm_merge_batch` is the plain PyTorch form, batched over
-particles; it is the twin of the CUDA merge kernel (kernels/merge.py).
+particles, for 2D static and 4D constant-velocity features; it is the
+twin of the CUDA merge kernels (kernels/merge.py). The 4D distance is the
+JAX 4D merge kernel's Schur form (``ops/math.py::mahalanobis2_4d``).
 
 Sorts are stable with the JAX version's key order (``lax.sort`` is stable),
 so ties resolve to the lowest lane index exactly as there.
@@ -16,20 +18,21 @@ from __future__ import annotations
 
 import torch
 
-from .math import mahalanobis2, sym
+from .math import mahalanobis2, mahalanobis2_4d, sym
 
 
 def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap):
     """Greedy merge of every particle's mixture.
 
-    mean [P, N, 2], cov [P, N, 2, 2], weight [P, N], active [P, N] bool ->
-    (out_mean [P, out_cap, 2], out_cov [P, out_cap, 2, 2],
+    mean [P, N, D], cov [P, N, D, D], weight [P, N], active [P, N] bool
+    with D 2 or 4 -> (out_mean [P, out_cap, D], out_cov [P, out_cap, D, D],
     out_weight [P, out_cap], n_merged [P], n_dropped [P]). Empty slots have
     weight 0, mean 0 and identity covariance; ``n_dropped`` counts the
     candidates left unmerged when ``out_cap`` clusters were out.
     """
     P, N, D = mean.shape
     dev, dtype = mean.device, mean.dtype
+    distance = {2: mahalanobis2, 4: mahalanobis2_4d}[D]
     unmerged = active & (weight > 0)     # NaN and w <= 0 lanes never join
     out_mean = torch.zeros((P, out_cap, D), dtype=dtype, device=dev)
     out_cov = torch.eye(D, dtype=dtype, device=dev).expand(
@@ -47,7 +50,7 @@ def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap):
         imax = torch.argmax(w_act, dim=1)                     # first max
         max_mean = mean[rows, imax]
         max_cov = cov[rows, imax]
-        dist = mahalanobis2(max_mean[:, None], max_cov[:, None], mean, cov)
+        dist = distance(max_mean[:, None], max_cov[:, None], mean, cov)
         sel = unmerged & (dist < min_separation)
         # the principal always merges with itself
         sel = (sel | (lanes[None, :] == imax[:, None])) & unmerged
@@ -71,33 +74,55 @@ def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap):
     return out_mean, out_cov, out_w, count, n_dropped
 
 
-def unpack_planes(packed):
-    """Planes [P, 7, N] (w, act, mx, my, c00, c01, c11) -> (mean [P, N, 2],
-    cov [P, N, 2, 2], weight [P, N], active [P, N])."""
+def _cov_from_planes(planes, D):
+    """Upper-triangle planes (row-major order) -> symmetric [..., D, D]."""
+    full = [[None] * D for _ in range(D)]
+    i = 0
+    for a in range(D):
+        for b in range(a, D):
+            full[a][b] = full[b][a] = planes[i]
+            i += 1
+    return torch.stack([torch.stack(row, dim=-1) for row in full], dim=-2)
+
+
+def unpack_planes(packed, D):
+    """Candidate planes [P, 2 + D + D(D+1)/2, N] (w, act, mean, upper-
+    triangle cov: 7 planes at D=2, 16 at D=4) -> (mean [P, N, D],
+    cov [P, N, D, D], weight [P, N], active [P, N])."""
     weight = packed[:, 0]
     active = packed[:, 1] > 0.5
-    mean = torch.stack([packed[:, 2], packed[:, 3]], dim=-1)
-    c00, c01, c11 = packed[:, 4], packed[:, 5], packed[:, 6]
-    cov = torch.stack([torch.stack([c00, c01], dim=-1),
-                       torch.stack([c01, c11], dim=-1)], dim=-2)
+    mean = torch.stack([packed[:, 2 + i] for i in range(D)], dim=-1)
+    cov = _cov_from_planes([packed[:, 2 + D + i]
+                            for i in range(D * (D + 1) // 2)], D)
     return mean, cov, weight, active
 
 
-def merge_out_2d(out):
-    """Merge output planes [P, 8, K] (w, mx, my, c00, c01, c11, n_unmerged,
-    pad) -> (mean [P, K, 2], cov [P, K, 2, 2], w [P, K], n_merged [P],
-    n_dropped [P]), empty slots as (0, I)."""
+def pack_merge_out(om, oc, ow, n_dropped):
+    """Merge results -> output planes [P, C, K]: w, mean, upper-triangle
+    cov, lanes left unmerged (broadcast), then zero pads up to C = 8 at
+    D = 2 (the 2D kernel's layout) or C = 16 at D = 4."""
+    D = om.shape[-1]
+    planes = [ow] + [om[..., i] for i in range(D)]
+    planes += [oc[..., a, b] for a in range(D) for b in range(a, D)]
+    planes.append(n_dropped.to(ow.dtype)[:, None].expand_as(ow))
+    planes += [torch.zeros_like(ow)] * ({2: 8, 4: 16}[D] - len(planes))
+    return torch.stack(planes, dim=1)
+
+
+def merge_out(out, D):
+    """Merge output planes (:func:`pack_merge_out`'s layout) -> (mean
+    [P, K, D], cov [P, K, D, D], w [P, K], n_merged [P], n_dropped [P]),
+    empty slots as (0, I)."""
+    n_cov = D * (D + 1) // 2
     out_w = out[:, 0]
-    out_mean = torch.stack([out[:, 1], out[:, 2]], dim=-1)
-    o00, o01, o11 = out[:, 3], out[:, 4], out[:, 5]
-    out_cov = torch.stack([torch.stack([o00, o01], dim=-1),
-                           torch.stack([o01, o11], dim=-1)], dim=-2)
+    out_mean = torch.stack([out[:, 1 + i] for i in range(D)], dim=-1)
+    out_cov = _cov_from_planes([out[:, 1 + D + i] for i in range(n_cov)], D)
     empty = out_w <= 0
-    eye = torch.eye(2, dtype=out.dtype, device=out.device)
+    eye = torch.eye(D, dtype=out.dtype, device=out.device)
     out_cov = torch.where(empty[..., None, None], eye, out_cov)
     out_mean = torch.where(empty[..., None], 0.0, out_mean)
     n_merged = (out_w > 0).sum(dim=-1)
-    n_dropped = out[:, 6, 0].to(torch.int64)
+    n_dropped = out[:, 1 + D + n_cov, 0].to(torch.int64)
     return out_mean, out_cov, out_w, n_merged, n_dropped
 
 

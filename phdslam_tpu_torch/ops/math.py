@@ -39,6 +39,11 @@ def wrap_angle(a: torch.Tensor) -> torch.Tensor:
     return r
 
 
+def logistic(x, lower, upper, beta, tau):
+    """Generalized logistic (upper - lower) / (1 + exp(-beta (x - tau)))."""
+    return (upper - lower) / (1.0 + torch.exp(-beta * (x - tau)))
+
+
 def det2(A: torch.Tensor) -> torch.Tensor:
     """Determinant of batched 2x2 matrices ``A[..., 2, 2]``."""
     return A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
@@ -66,6 +71,50 @@ def mahalanobis2(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
     d = mean_a - mean_b
     S_inv = inv2(sigma)
     return torch.einsum("...i,...ij,...j->...", d, S_inv, d)
+
+
+def mahalanobis2_4d(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
+    """Squared Mahalanobis distance with averaged covariance, 4D, in the
+    2x2-block Schur form of the JAX package's 4D merge kernel
+    (``ops/pallas_merge.py::_merge_kernel_4d``, ``mahal4``):
+
+      d' S^-1 d = p' A^-1 p + u' (C - B' A^-1 B)^-1 u,  u = B' A^-1 p - q
+
+    for S = [[A, B], [B', C]] and d = (p, q), with each 2x2 determinant
+    replaced by 1e-30 where its magnitude is not above 1e-30. Only 2x2
+    closed-form inverses appear, in the kernel's operation order.
+    """
+    s = 0.5 * (cov_a + cov_b)
+    d = mean_a - mean_b
+    s00, s01, s02, s03 = s[..., 0, 0], s[..., 0, 1], s[..., 0, 2], s[..., 0, 3]
+    s11, s12, s13 = s[..., 1, 1], s[..., 1, 2], s[..., 1, 3]
+    s22, s23, s33 = s[..., 2, 2], s[..., 2, 3], s[..., 3, 3]
+    d0, d1, d2, d3 = d[..., 0], d[..., 1], d[..., 2], d[..., 3]
+    det_a = s00 * s11 - s01 * s01
+    det_a = torch.where(torch.abs(det_a) > 1e-30, det_a, 1e-30)
+    ai00 = s11 / det_a
+    ai01 = -s01 / det_a
+    ai11 = s00 / det_a
+    # G = A^-1 B, B = [[s02, s03], [s12, s13]]
+    g00 = ai00 * s02 + ai01 * s12
+    g01 = ai00 * s03 + ai01 * s13
+    g10 = ai01 * s02 + ai11 * s12
+    g11 = ai01 * s03 + ai11 * s13
+    # the Schur complement C - B' G
+    m00 = s22 - (s02 * g00 + s12 * g10)
+    m01 = s23 - (s02 * g01 + s12 * g11)
+    m11 = s33 - (s03 * g01 + s13 * g11)
+    det_m = m00 * m11 - m01 * m01
+    det_m = torch.where(torch.abs(det_m) > 1e-30, det_m, 1e-30)
+    mi00 = m11 / det_m
+    mi01 = -m01 / det_m
+    mi11 = m00 / det_m
+    v0 = ai00 * d0 + ai01 * d1
+    v1 = ai01 * d0 + ai11 * d1
+    pap = d0 * v0 + d1 * v1
+    u0 = s02 * v0 + s12 * v1 - d2
+    u1 = s03 * v0 + s13 * v1 - d3
+    return pap + (u0 * u0 * mi00 + 2.0 * u0 * u1 * mi01 + u1 * u1 * mi11)
 
 
 def logsumexp(logw: torch.Tensor, dim: int = -1) -> torch.Tensor:

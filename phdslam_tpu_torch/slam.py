@@ -1,7 +1,9 @@
-"""Synthetic-data SLAM runner (port of ``phdslam_tpu/slam.py``:
-``build_schedule`` and the step-by-step runner).
+"""SLAM runners (port of ``phdslam_tpu/slam.py``: ``build_schedule`` and
+the step-by-step runner, plus the in-memory scan runner that the JAX
+package builds inline in ``eval/parity.py::_mixed_scan_fn`` and
+``tools/bench_mixed.py``).
 
-The dataset and the particle state live on the device for the whole run.
+The scans and the particle state live on the device for the whole run.
 The host holds the schedule (which steps predict, which carry
 measurements, the controls and dt), so it branches in Python without
 reading the device; the noise comes from a ``torch.Generator`` on the
@@ -75,13 +77,87 @@ def build_schedule(n_measure_steps: int, n_controls: int,
     return plans
 
 
-class SynthSLAMRunner:
+class _Runner:
+    """The step loop shared by the runners: a subclass sets ``state`` and
+    ``n_steps`` and provides :meth:`step_args`."""
+
+    def __init__(self, cfg: SlamConfig, device):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+
+    def step_args(self, n: int):
+        """Host-side inputs of step n, as phd_step takes them:
+        (z, z_mask, control, dt, do_predict, has_z)."""
+        raise NotImplementedError
+
+    def noise(self) -> StepNoise:
+        """The next step's draws from the runner's generator: one
+        prediction draw per sub-step, 3 accelerations for the CV vehicle
+        (motion_type 0), 2 control perturbations for Ackerman."""
+        P = self.state.pose.shape[0]
+        sub = max(1, self.cfg.subdivide_predict)
+        width = 3 if self.cfg.motion_type == 0 else 2
+        return StepNoise(
+            eps_pred=torch.randn((sub, P, width), generator=self.generator,
+                                 device=self.device),
+            u_resample=torch.rand((P,), generator=self.generator,
+                                  device=self.device))
+
+    def step(self, n: int):
+        """Run step n on the runner's state; returns the step's outputs."""
+        z, zm, control, dt, do_predict, has_z = self.step_args(n)
+        self.state, out = phd_step(self.state, z, zm, control, dt,
+                                   do_predict, self.cfg, self.noise(),
+                                   has_z=has_z)
+        return out
+
+    def run(self, check_every: int = 32):
+        """Run every step. Raises FloatingPointError at the first chunk of
+        ``check_every`` steps whose weights or poses hold a NaN.
+
+        Returns est_poses [T, 6], n_eff [T], resampled [T], the largest
+        overflow count, wall_s and steps_per_s (host clock around the whole
+        loop, ending in a device synchronize).
+        """
+        poses, n_effs, resampled, overflows = [], [], [], []
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        T = self.n_steps
+        for n in range(T):
+            out = self.step(n)
+            poses.append(out.expected_pose)
+            n_effs.append(out.n_eff)
+            resampled.append(out.resampled)
+            overflows.append(out.overflow)
+            if (n + 1) % check_every == 0 or n + 1 == T:
+                lo = n - n % check_every
+                bad = torch.isnan(torch.stack(n_effs[lo:])).any() \
+                    | torch.isnan(torch.stack(poses[lo:])).any()
+                if bool(bad):
+                    raise FloatingPointError(
+                        f"nan weights or poses in steps {lo}..{n}")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        return {
+            "est_poses": torch.stack(poses).cpu().numpy(),
+            "n_eff": torch.stack(n_effs).cpu().numpy(),
+            "resampled": torch.stack(resampled).cpu().numpy(),
+            "overflow": int(torch.stack(overflows).max()),
+            "wall_s": wall,
+            "steps_per_s": T / wall,
+        }
+
+
+class SynthSLAMRunner(_Runner):
     """End-to-end filter runner on a dataset directory."""
 
     def __init__(self, cfg: SlamConfig, data_dir: Optional[str] = None,
                  device="cuda"):
-        self.cfg = cfg
-        self.device = torch.device(device)
+        super().__init__(cfg, device)
         data_dir = data_dir or cfg.data_directory
         measurements = io.load_measurements(
             os.path.join(data_dir, "measurements.txt"),
@@ -104,6 +180,7 @@ class SynthSLAMRunner:
         self.schedule = build_schedule(
             len(measurements), len(self.controls), mt, ct, cfg.dt,
             cfg.n_steps)
+        self.n_steps = len(self.schedule)
         check_supported(cfg, cfg.max_components, m_max)
 
         self.state = init_state(cfg, device=self.device)
@@ -120,12 +197,8 @@ class SynthSLAMRunner:
             if plan.c_idx >= 0:
                 control = tuple(float(v) for v in self.controls[plan.c_idx])
             self.step_controls.append(control)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(cfg.seed)
 
     def step_args(self, n: int):
-        """Host-side inputs of schedule step n, as phd_step takes them:
-        (z, z_mask, control, dt, do_predict, has_z)."""
         plan = self.schedule[n]
         if plan.z_idx >= 0:
             z, zm = self.z_dev[plan.z_idx], self.mask_dev[plan.z_idx]
@@ -135,55 +208,32 @@ class SynthSLAMRunner:
         return (z, zm, self.step_controls[n], plan.dt, plan.do_predict,
                 has_z)
 
-    def noise(self) -> StepNoise:
-        """The next step's draws from the runner's generator."""
-        P = self.state.pose.shape[0]
-        sub = max(1, self.cfg.subdivide_predict)
-        return StepNoise(
-            eps_pred=torch.randn((sub, P, 2), generator=self.generator,
-                                 device=self.device),
-            u_resample=torch.rand((P,), generator=self.generator,
-                                  device=self.device))
-
     def run(self, check_every: int = 32):
-        """Run the whole schedule. Raises FloatingPointError at the first
-        chunk of ``check_every`` steps whose weights or poses hold a NaN.
+        res = super().run(check_every)
+        res["truncated_measurements"] = self.n_truncated
+        return res
 
-        Returns est_poses [T, 6], n_eff [T], resampled [T], the largest
-        overflow count, wall_s and steps_per_s (host clock around the whole
-        loop, ending in a device synchronize).
-        """
-        poses, n_effs, resampled, overflows = [], [], [], []
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        for n in range(len(self.schedule)):
-            z, zm, control, dt, do_predict, has_z = self.step_args(n)
-            self.state, out = phd_step(self.state, z, zm, control, dt,
-                                       do_predict, self.cfg, self.noise(),
-                                       has_z=has_z)
-            poses.append(out.expected_pose)
-            n_effs.append(out.n_eff)
-            resampled.append(out.resampled)
-            overflows.append(out.overflow)
-            if (n + 1) % check_every == 0 or n + 1 == len(self.schedule):
-                lo = n - n % check_every
-                chunk = torch.stack(n_effs[lo:])
-                bad = torch.isnan(chunk).any() \
-                    | torch.isnan(torch.stack(poses[lo:])).any()
-                if bool(bad):
-                    raise FloatingPointError(
-                        f"nan weights or poses in steps {lo}..{n}")
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        wall = time.perf_counter() - t0
-        T = len(self.schedule)
-        return {
-            "est_poses": torch.stack(poses).cpu().numpy(),
-            "n_eff": torch.stack(n_effs).cpu().numpy(),
-            "resampled": torch.stack(resampled).cpu().numpy(),
-            "overflow": int(torch.stack(overflows).max()),
-            "wall_s": wall,
-            "steps_per_s": T / wall,
-            "truncated_measurements": self.n_truncated,
-        }
+
+class ScanRunner(_Runner):
+    """Filter runner over scans held in memory: z_all [T, M, 2] and
+    mask_all [T, M] (numpy), one scan per step, every step after the first
+    predicting over ``dt`` with a zero control. This is how the JAX package
+    runs its synthetic mixed worlds and its mixed benchmark
+    (``eval/parity.py::_mixed_scan_fn``, ``tools/bench_mixed.py``)."""
+
+    def __init__(self, cfg: SlamConfig, z_all, mask_all, dt: float,
+                 device="cuda"):
+        super().__init__(cfg, device)
+        z_all = np.asarray(z_all, np.float32)
+        mask_all = np.asarray(mask_all, bool)
+        self.n_steps, m_max = mask_all.shape
+        self.dt = float(dt)
+        self.has_z = mask_all.any(axis=1)
+        check_supported(cfg, cfg.max_components, m_max)
+        self.state = init_state(cfg, device=self.device)
+        self.z_dev = torch.as_tensor(z_all, device=self.device)
+        self.mask_dev = torch.as_tensor(mask_all, device=self.device)
+
+    def step_args(self, n: int):
+        return (self.z_dev[n], self.mask_dev[n], (0.0, 0.0), self.dt, n > 0,
+                bool(self.has_z[n]))

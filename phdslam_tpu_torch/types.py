@@ -2,10 +2,12 @@
 
 Fixed-capacity structure-of-arrays: the map of every particle is
 [P, K, D] means, [P, K, D, D] covariances and [P, K] linear weights; a slot
-with weight 0 is empty and holds mean 0 and identity covariance. The port
-covers the static 2D map (feature_model 0), so the dynamic map, the CPHD
-cardinality and the variance estimate of the JAX state are absent. The
-random stream lives in the runner's ``torch.Generator``, not in the state.
+with weight 0 is empty and holds mean 0 and identity covariance. The 4D
+dynamic map exists only for the mixed model (feature_model 2) and is None
+otherwise, so the static path gathers nothing extra; the CPHD cardinality,
+the variance estimate and the two-scan birth memory of the JAX state are
+absent. The random stream lives in the runner's ``torch.Generator``, not
+in the state.
 """
 
 from __future__ import annotations
@@ -50,12 +52,15 @@ class FilterState:
     map_static:   2D GM map per particle
     resample_idx: [P] ancestor indices of the last step
     step:         steps taken so far
+    map_dynamic:  4D (x, y, vx, vy) GM map per particle, feature_model 2
+                  only (None otherwise)
     """
     pose: torch.Tensor
     log_weight: torch.Tensor
     map_static: GMState
     resample_idx: torch.Tensor
     step: int = 0
+    map_dynamic: Optional[GMState] = None
 
     def replace(self, **changes) -> "FilterState":
         return dataclasses.replace(self, **changes)
@@ -63,8 +68,10 @@ class FilterState:
 
 def init_state(cfg, n_particles: Optional[int] = None, device="cpu",
                dtype=torch.float32) -> FilterState:
-    """All particles at the configured prior pose with an empty map."""
+    """All particles at the configured prior pose with empty maps (the
+    [P, K, 4] dynamic map only for feature_model 2)."""
     P = n_particles if n_particles is not None else cfg.n_particles
+    K = cfg.max_components
     pose0 = torch.tensor(
         [cfg.x0, cfg.y0, cfg.yaw0, cfg.vx0, cfg.vy0, cfg.vyaw0], dtype=dtype,
         device=device)
@@ -72,9 +79,11 @@ def init_state(cfg, n_particles: Optional[int] = None, device="cpu",
     return FilterState(
         pose=pose0.expand(P, 6).clone(),
         log_weight=(-log_p).expand(P).clone(),
-        map_static=GMState.empty(P, cfg.max_components, 2, device, dtype),
+        map_static=GMState.empty(P, K, 2, device, dtype),
         resample_idx=torch.arange(P, dtype=torch.int32, device=device),
-        step=0)
+        step=0,
+        map_dynamic=(GMState.empty(P, K, 4, device, dtype)
+                     if cfg.feature_model == 2 else None))
 
 
 def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
@@ -84,11 +93,17 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
     ``arrays`` holds "pose", "log_weight", "map_mean", "map_cov",
     "map_weight", "resample_idx" and "step" (the JAX state's ``pose``,
     ``log_weight``, ``map_static.*``, ``resample_idx`` and ``step``) — the
-    keys :func:`state_to_numpy` writes.
+    keys :func:`state_to_numpy` writes — and, for a state with a dynamic
+    map, "dyn_mean", "dyn_cov" and "dyn_weight" (``map_dynamic.*``).
     """
     def t(name, dtype):
         return torch.tensor(np.asarray(arrays[name]), dtype=dtype,
                             device=device)
+    dyn = None
+    if "dyn_mean" in arrays:
+        dyn = GMState(mean=t("dyn_mean", torch.float32),
+                      cov=t("dyn_cov", torch.float32),
+                      weight=t("dyn_weight", torch.float32))
     return FilterState(
         pose=t("pose", torch.float32),
         log_weight=t("log_weight", torch.float32),
@@ -96,7 +111,8 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
                            cov=t("map_cov", torch.float32),
                            weight=t("map_weight", torch.float32)),
         resample_idx=t("resample_idx", torch.int32),
-        step=int(np.asarray(arrays["step"])))
+        step=int(np.asarray(arrays["step"])),
+        map_dynamic=dyn)
 
 
 def state_to_numpy(state: FilterState) -> dict:
@@ -105,6 +121,9 @@ def state_to_numpy(state: FilterState) -> dict:
     out = {"pose": state.pose, "log_weight": state.log_weight,
            "map_mean": gm.mean, "map_cov": gm.cov, "map_weight": gm.weight,
            "resample_idx": state.resample_idx}
+    if state.map_dynamic is not None:
+        dyn = state.map_dynamic
+        out.update(dyn_mean=dyn.mean, dyn_cov=dyn.cov, dyn_weight=dyn.weight)
     out = {k: v.detach().cpu().numpy() for k, v in out.items()}
     out["step"] = np.asarray(state.step, np.int32)
     return out

@@ -7,7 +7,8 @@ so it runs on a machine that has only PyTorch:
 
 (``--noconftest`` because tests/conftest.py imports jax for the JAX
 package's tests.) Shapes are the Ackerman main path's: K=128, M=48, T=16,
-merge_candidate_cap=512.
+merge_candidate_cap=512, and the mixed path's: M=32, detect at min_fw=0 and
+cb=0, the 4D merge at N=128 (the dynamic map's cap) and N=512.
 """
 
 import numpy as np
@@ -18,8 +19,9 @@ from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
-from phdslam_tpu_torch.kernels.merge import merge2d, merge2d_reference
-from phdslam_tpu_torch.ops.gm_merge import merge_out_2d
+from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
+                                             merge4d, merge4d_reference)
+from phdslam_tpu_torch.ops.gm_merge import merge_out
 
 pytestmark = pytest.mark.cuda
 
@@ -69,6 +71,30 @@ def merge_inputs(dev, P=32, N=512, seed=0):
     return torch.tensor(planes, dtype=torch.float32, device=dev)
 
 
+def merge4d_inputs(dev, P=32, N=128, seed=0):
+    """Clustered 4D candidates (velocity spreads ~0.3 m/s); active lanes a
+    weight-descending prefix: planes [P, 16, N]."""
+    rng = np.random.default_rng(seed)
+    centers = np.concatenate([rng.normal(0, 8, (P, 20, 2)),
+                              rng.normal(0, 0.5, (P, 20, 2))], axis=-1)
+    mean = centers[np.arange(P)[:, None], rng.integers(0, 20, (P, N))] \
+        + rng.normal(0, 0.3, (P, N, 4))
+    A = rng.normal(0, 0.4, (P, N, 4, 4))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.2 * np.eye(4)
+    w = rng.uniform(0, 1, (P, N))
+    act = rng.random((P, N)) < 0.6
+    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
+
+    def take(x):
+        return np.take_along_axis(x, order, axis=1)
+    act_s = take(act)
+    planes = [np.where(act_s, take(w), 0.0), act_s]
+    planes += [take(mean[..., i]) for i in range(4)]
+    planes += [take(cov[..., a, b]) for a in range(4) for b in range(a, 4)]
+    return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
+                        device=dev)
+
+
 def test_detect_matches_twin(dev):
     planes, z4 = detect_inputs(dev)
     build.reset_launch_counts()
@@ -94,8 +120,8 @@ def test_gather_cols_matches_twin(dev, C, R, cap):
 
 def test_merge_matches_twin(dev):
     planes = merge_inputs(dev)
-    got = merge_out_2d(merge2d(planes, 5.0, 128))
-    want = merge_out_2d(merge2d_reference(planes, 5.0, 128))
+    got = merge_out(merge2d(planes, 5.0, 128), 2)
+    want = merge_out(merge2d_reference(planes, 5.0, 128), 2)
     assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
     for g, w in zip(got[:3], want[:3]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
@@ -105,11 +131,44 @@ def test_merge_overflow_and_nan_weights(dev):
     planes = merge_inputs(dev, P=8, seed=1)
     planes[0, 0] = float("nan")
     planes[1, 0, :8] = 0.0
-    got = merge_out_2d(merge2d(planes, 5.0, 16))
-    want = merge_out_2d(merge2d_reference(planes, 5.0, 16))
+    got = merge_out(merge2d(planes, 5.0, 16), 2)
+    want = merge_out(merge2d_reference(planes, 5.0, 16), 2)
     assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
     assert int(got[3][0]) == 0 and int(got[4][0]) == 0
     assert (got[4][2:] > 0).all()          # 40 clusters into 16 slots
+
+
+def test_detect_unthresholded_matches_twin(dev):
+    """The mixed update's mode: min_fw = 0, cb = 0, M = 32."""
+    planes, z4 = detect_inputs(dev, M=32, n_valid=24)
+    got = detect(planes, z4, 16, 0.0, 0.0)
+    want = detect_reference(planes, z4, 16, 0.0, 0.0)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("N", [128, 512])
+def test_merge4d_matches_twin(dev, N):
+    planes = merge4d_inputs(dev, N=N)
+    build.reset_launch_counts()
+    got = merge_out(merge4d(planes, 2.0, 128), 4)
+    assert build.launch_counts["merge4d"] == 1
+    want = merge_out(merge4d_reference(planes, 2.0, 128), 4)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_merge4d_overflow_and_nan_weights(dev):
+    planes = merge4d_inputs(dev, P=8, N=128, seed=1)
+    planes[0, 0] = float("nan")
+    planes[1, 0, :8] = 0.0
+    got = merge_out(merge4d(planes, 2.0, 8), 4)
+    want = merge_out(merge4d_reference(planes, 2.0, 8), 4)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    assert int(got[3][0]) == 0 and int(got[4][0]) == 0
+    assert (got[4][2:] > 0).all()          # ~20 clusters into 8 slots
 
 
 def test_wrappers_reject_bad_input(dev):
@@ -118,3 +177,5 @@ def test_wrappers_reject_bad_input(dev):
         detect(planes.double(), z4.double(), 16, 1e-6, 0.05)
     with pytest.raises(ValueError):
         merge2d(merge_inputs(dev, P=2)[:, :, ::2], 5.0, 16)
+    with pytest.raises(ValueError):
+        merge4d(merge_inputs(dev, P=2), 5.0, 16)    # 7 planes, not 16

@@ -18,7 +18,7 @@ from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.merge import merge2d, merge2d_reference
-from phdslam_tpu_torch.ops.gm_merge import merge_out_2d
+from phdslam_tpu_torch.ops.gm_merge import merge_out
 
 
 # ----------------------------------------------------------------------------
@@ -164,7 +164,7 @@ def _pallas_merge(planes, min_sep, K):
 
 def _twin_merge(planes, min_sep, K):
     out = merge2d_reference(torch.from_numpy(planes), min_sep, K)
-    return tuple(x.numpy() for x in merge_out_2d(out))
+    return tuple(x.numpy() for x in merge_out(out, 2))
 
 
 def assert_same_merge(got, want):

@@ -312,6 +312,10 @@ def test_port_never_imports_jax():
     code = ("import sys\n"
             "import phdslam_tpu_torch, phdslam_tpu_torch.slam\n"
             "import phdslam_tpu_torch.eval.parity\n"
+            "import phdslam_tpu_torch.eval.ospa\n"
+            "import phdslam_tpu_torch.eval.simdata\n"
+            "import phdslam_tpu_torch.filters.mixed\n"
+            "import phdslam_tpu_torch.models.feature_motion\n"
             "import phdslam_tpu_torch.kernels.build\n"
             "import phdslam_tpu_torch.kernels.detect\n"
             "import phdslam_tpu_torch.kernels.gather_cols\n"

@@ -10,6 +10,8 @@ prediction draw from fold_in(k_pred, i) and the resampling uniforms from
 k_res.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,50 +39,67 @@ SMALL = dict(n_particles=8, max_features=32, max_measurements=8,
 N_STEPS = 5
 
 
-def jax_state_arrays(s):
-    return {"pose": np.asarray(s.pose), "log_weight": np.asarray(s.log_weight),
-            "map_mean": np.asarray(s.map_static.mean),
-            "map_cov": np.asarray(s.map_static.cov),
-            "map_weight": np.asarray(s.map_static.weight),
-            "resample_idx": np.asarray(s.resample_idx),
-            "step": np.asarray(s.step)}
+def jax_state_arrays(s, dynamic=False):
+    """Numpy copies of a JAX state under ``state_from_jax``'s keys; with
+    ``dynamic``, the mixed model's 4D map as well."""
+    out = {"pose": np.asarray(s.pose), "log_weight": np.asarray(s.log_weight),
+           "map_mean": np.asarray(s.map_static.mean),
+           "map_cov": np.asarray(s.map_static.cov),
+           "map_weight": np.asarray(s.map_static.weight),
+           "resample_idx": np.asarray(s.resample_idx),
+           "step": np.asarray(s.step)}
+    if dynamic:
+        out.update(dyn_mean=np.asarray(s.map_dynamic.mean),
+                   dyn_cov=np.asarray(s.map_dynamic.cov),
+                   dyn_weight=np.asarray(s.map_dynamic.weight))
+    return out
 
 
 def replay_noise(state, cfg):
-    """The draws JAX's phd_step makes from this state's key."""
+    """The draws JAX's phd_step makes from this state's key: per sub-step
+    a [P, 3] draw for the CV vehicle (motion_type 0), [P, 2] for
+    Ackerman."""
     P = state.pose.shape[0]
     key = jax.random.fold_in(state.rng, state.step)
     k_pred, k_res, _ = jax.random.split(key, 3)
     sub = max(1, cfg.subdivide_predict)
+    width = 3 if cfg.motion_type == 0 else 2
     eps = np.stack([np.array(jax.random.normal(
-        jax.random.fold_in(k_pred, i), (P, 2), dtype=jnp.float32))
+        jax.random.fold_in(k_pred, i), (P, width), dtype=jnp.float32))
         for i in range(sub)])
     u = np.array(jax.random.uniform(k_res, (P,), dtype=jnp.float32))
     return StepNoise(eps_pred=torch.from_numpy(eps),
                      u_resample=torch.from_numpy(u))
 
 
-def dataset(m_max):
-    ms = io.load_measurements(f"{DATA}/measurements.txt")
-    controls = io.load_controls(f"{DATA}/controls.txt")
+def dataset(m_max, data=DATA, dt=1.0):
+    ms = io.load_measurements(f"{data}/measurements.txt")
+    controls = (io.load_controls(f"{data}/controls.txt")
+                if os.path.exists(f"{data}/controls.txt")
+                else np.zeros((0, 2), np.float32))
     sched = build_schedule(
         len(ms), len(controls), io.load_timestamps(
-            f"{DATA}/measurement_times.txt"),
-        io.load_timestamps(f"{DATA}/control_times.txt"), 1.0, -1)
+            f"{data}/measurement_times.txt"),
+        io.load_timestamps(f"{data}/control_times.txt"), dt, -1)
     z, mask = io.pad_measurements(ms, m_max)
     return z, mask, controls, sched
 
 
-def test_phd_step_matches_jax():
-    jcfg = jax_load_config(CFG, SMALL)
-    tcfg = load_config(CFG, SMALL)
-    z_all, mask_all, controls, sched = dataset(tcfg.max_measurements)
+def replay_dataset(cfg_path, data, small, n_steps):
+    """Run the JAX step and the torch step side by side over the first
+    ``n_steps`` of a dataset with JAX's replayed draws, holding poses,
+    weights, the static map and the step outputs equal; returns the final
+    torch state and whether any step resampled."""
+    jcfg = jax_load_config(cfg_path, small)
+    tcfg = load_config(cfg_path, small)
+    z_all, mask_all, controls, sched = dataset(tcfg.max_measurements, data,
+                                               tcfg.dt)
     step = make_step_fn(jcfg, donate=False)
     js = jax_init_state(jcfg)
     ts = state_from_jax(jax_state_arrays(js))
     control = np.zeros(2, np.float32)
     resampled = []
-    for n, plan in enumerate(sched[:N_STEPS]):
+    for n, plan in enumerate(sched[:n_steps]):
         if plan.c_idx >= 0:
             control = controls[plan.c_idx]
         z, zm = z_all[plan.z_idx], mask_all[plan.z_idx]
@@ -105,8 +124,21 @@ def test_phd_step_matches_jax():
                                       want["resample_idx"])
         assert int(tout.overflow) == int(jout.overflow)
         resampled.append(bool(jout.resampled))
+    return ts, resampled
+
+
+def test_phd_step_matches_jax():
+    ts, resampled = replay_dataset(CFG, DATA, SMALL, N_STEPS)
     # the steps exercised resampling, and a map took shape in every particle
     assert any(resampled)
+    assert (state_to_numpy(ts)["map_weight"] > 0).sum(axis=1).min() > 0
+
+
+def test_cv_dataset_step_matches_jax():
+    """cfg/cv.cfg on data/cv (no controls, no timestamps): the static map
+    with the constant-velocity vehicle, 5 replayed steps."""
+    small = dict(SMALL, resample_threshold=0.9)
+    ts, _ = replay_dataset("cfg/cv.cfg", "data/cv", small, 5)
     assert (state_to_numpy(ts)["map_weight"] > 0).sum(axis=1).min() > 0
 
 
