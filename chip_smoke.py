@@ -13,6 +13,12 @@ drives both paths:
   package's ``tools/bench_mixed.py`` configuration): one step on the card
   against the CPU, 100 steps at P=512 and 30 at P=10240, and the accuracy
   of ``evaluate_mixed`` over five seeds at P=256;
+- monocular SC-PHD (disparity, ``cfg/disparity.cfg``): one step on the
+  card against the CPU, the 80 frames of ``data/disparity`` at P=512, the
+  JAX package's disparity bench rows (``bench.py::_disparity_row``: a
+  generated world, 60 frames) at P=200 and P=512, full-SLAM accuracy of
+  ``evaluate_disparity`` over five seeds at P=512 and known-pose mapping
+  at seed 0;
 
 then times every kernel against its twin and profiles a step of each path.
 Each phase prints its result; any failure raises and exits non-zero. The
@@ -27,6 +33,7 @@ import collections
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -34,17 +41,25 @@ import torch
 
 from phdslam_tpu_torch import load_config
 from phdslam_tpu_torch import SlamConfig
-from phdslam_tpu_torch.eval.parity import evaluate_dataset, evaluate_mixed
+from phdslam_tpu_torch.eval import simdata
+from phdslam_tpu_torch.eval.ospa import ospa_distance
+from phdslam_tpu_torch.eval.parity import (disparity_map_estimate,
+                                           evaluate_dataset,
+                                           evaluate_disparity, evaluate_mixed)
+from phdslam_tpu_torch.filters import disparity as disp
 from phdslam_tpu_torch.filters.phd import maybe_resample, predict, update
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
+                                             merge3d, merge3d_reference,
                                              merge4d, merge4d_reference)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
+from phdslam_tpu_torch.ops.math import logsumexp
 from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
-from phdslam_tpu_torch.types import FilterState, GMState
+from phdslam_tpu_torch.slam_disparity import DisparityRunner
+from phdslam_tpu_torch.types import DisparityState, FilterState, GMState
 
 CFG = "cfg/ackerman.cfg"
 DATA = "data/ackerman"
@@ -62,6 +77,17 @@ MIXED_SEEDS, P_MIXED_ACC = range(5), 256
 MIXED_BANDS = {"mean_pose_err": (0.14, 0.08), "static_ospa": (1.90, 0.35),
                "dynamic_ospa": (3.30, 1.40)}
 
+# the disparity path: cfg/disparity.cfg (K=24 slots of N=32 points, M=24
+# after padding the 28-measurement longest scan of data/disparity, cap 512)
+DISP_CFG, DISP_DATA = "cfg/disparity.cfg", "data/disparity"
+DISP_BENCH_P, DISP_BENCH_STEPS = (200, 512), 60
+DISP_SEEDS, P_DISP_ACC = range(5), 512
+# the JAX package's disparity accuracy (BENCH.md, "Round-5: disparity
+# full-SLAM accuracy", P=512 over 5 generated worlds; known-pose mapping at
+# seed 0): mean and std
+DISP_BANDS = {"mean_pose_err": (0.721, 0.043), "ospa": (0.86, 0.03)}
+DISP_KNOWN_POSE_OSPA = 0.90
+
 KERNELS = {
     "detect": ("phdslam_tpu_torch/csrc/detect.cu",
                "phdslam_tpu/ops/pallas_detect.py:49"),
@@ -71,8 +97,12 @@ KERNELS = {
                 "phdslam_tpu/ops/pallas_merge.py:55"),
     "merge4d": ("phdslam_tpu_torch/csrc/merge4d.cu",
                 "phdslam_tpu/ops/pallas_merge.py:785"),
+    "merge3d": ("phdslam_tpu_torch/csrc/merge3d.cu",
+                "phdslam_tpu/ops/pallas_merge.py:576"),
 }
 ACKERMAN_KERNELS = ("detect", "gather_cols", "merge2d")
+MIXED_KERNELS = ACKERMAN_KERNELS + ("merge4d",)
+DISP_KERNELS = ("merge3d",)
 
 
 def mixed_cfg(P=P_MAIN, K=128, M=32):
@@ -183,6 +213,34 @@ def merge4d_inputs(dev, P=P_MAIN, N=128, seed=0):
     planes = [np.where(act_s, take(w), 0.0), act_s]
     planes += [take(mean[..., i]) for i in range(4)]
     planes += [take(cov[..., a, b]) for a in range(4) for b in range(a, 4)]
+    return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
+                        device=dev)
+
+
+def merge3d_inputs(dev, P=P_MAIN, N=512, seed=0, n_centers=16, spread=3.0):
+    """Clustered (u, v, d) candidates at the spread of min_separation 20
+    (``n_centers`` clusters per particle in the image and d in 20-300,
+    members ~3 px apart, covariances 16 px^2 + A A'), active lanes a
+    weight-descending prefix: planes [P, 11, N]."""
+    rng = np.random.default_rng(seed)
+    centers = np.stack([rng.uniform(0, 640, (P, n_centers)),
+                        rng.uniform(0, 480, (P, n_centers)),
+                        rng.uniform(20, 300, (P, n_centers))], axis=-1)
+    mean = centers[np.arange(P)[:, None],
+                   rng.integers(0, n_centers, (P, N))] \
+        + rng.normal(0, spread, (P, N, 3))
+    A = rng.normal(0, 1.5, (P, N, 3, 3))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 16.0 * np.eye(3)
+    w = rng.uniform(0, 1, (P, N))
+    act = rng.random((P, N)) < 0.6
+    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
+
+    def take(x):
+        return np.take_along_axis(x, order, axis=1)
+    act_s = take(act)
+    planes = [np.where(act_s, take(w), 0.0), act_s]
+    planes += [take(mean[..., i]) for i in range(3)]
+    planes += [take(cov[..., a, b]) for a in range(3) for b in range(a, 3)]
     return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
                         device=dev)
 
@@ -315,6 +373,42 @@ def check_kernels(dev):
     require(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]),
             "merge4d: NaN case counts differ")
     phase("kernels", "merge4d NaN/zero weights: terminated, counts match")
+
+    # the disparity path's merge: K=24 slots over the 512 compacted lanes
+    errs["merge3d"] = 0.0
+    for tag, K, centers in (("", 24, 16), (" overflow", 8, 16)):
+        planes = merge3d_inputs(dev, n_centers=centers, seed=K)
+        got_planes = merge3d(planes, 20.0, K)
+        want = merge_out(merge3d_reference(planes, 20.0, K), 3)
+        got = merge_out(got_planes, 3)
+        require(bool((got_planes[:, 11] == 0).all()),
+                "merge3d: pad plane not zero")
+        require(torch.equal(got[3], want[3]), f"merge3d{tag}: n_merged "
+                "differs")
+        require(torch.equal(got[4], want[4]), f"merge3d{tag}: n_unmerged "
+                "differs")
+        for g, w in zip(got[:3], want[:3]):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        if tag:
+            require(bool((got[3] == K).all() and (got[4] > 0).all()),
+                    "merge3d overflow: not every particle overflowed")
+        err = max_err(list(zip(got[:3], want[:3])))
+        errs["merge3d"] = max(errs["merge3d"], err)
+        phase("kernels", f"merge3d{tag} P={P_MAIN} N=512 K={K}: "
+              f"clusters/particle {float(got[3].float().mean()):.1f}, left "
+              f"{float(got[4].float().mean()):.1f}, max |err| {err:.3g} "
+              "(rtol 1e-4, atol 1e-5)")
+    nan_planes = merge3d_inputs(dev, P=64, seed=1)
+    nan_planes[0, 0] = float("nan")
+    nan_planes[1, 0, :8] = 0.0
+    got = merge_out(merge3d(nan_planes, 20.0, 24), 3)
+    torch.cuda.synchronize()
+    want = merge_out(merge3d_reference(nan_planes, 20.0, 24), 3)
+    require(int(got[3][0]) == 0 and int(got[4][0]) == 0,
+            "merge3d: NaN particle emitted clusters")
+    require(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]),
+            "merge3d: NaN case counts differ")
+    phase("kernels", "merge3d NaN/zero weights: terminated, counts match")
     return errs
 
 
@@ -379,19 +473,29 @@ def step_against_cpu(r, n):
             err = max(err, max_err([(gv.cpu(), cv)]))
     require(int(ovf["gpu"]) == int(ovf["cpu"]), "step: overflow differs")
 
-    (g_st, g_neff, g_res), (c_st, c_neff, c_res) = res["gpu"], res["cpu"]
+    n_edge = check_resampling(res["gpu"], res["cpu"], c.log_weight,
+                              runs["cpu"][3].u_resample)
+    r.state = res["gpu"][0]
+    return err, c, n_edge, n_swapped
+
+
+def check_resampling(gpu, cpu, log_weight, u):
+    """nEff, the decision and the ancestors of (state, n_eff, resampled)
+    on the card against the CPU: a stratum may take another ancestor only
+    where its point (j + u_j) / P lies within 1e-4 of a cumulative weight
+    of the CPU state ``log_weight``. Returns the count of such strata."""
+    (g_st, g_neff, g_res), (c_st, c_neff, c_res) = gpu, cpu
     torch.testing.assert_close(g_neff.cpu(), c_neff, rtol=1e-4, atol=0)
     require(bool(g_res) == bool(c_res), "step: resampling decision differs")
     differ = (g_st.resample_idx.cpu() != c_st.resample_idx).nonzero()[:, 0]
-    P = c.pose.shape[0]
-    cum = torch.cumsum(torch.exp(c.log_weight.double()), dim=0)
+    P = log_weight.shape[0]
+    cum = torch.cumsum(torch.exp(log_weight.double()), dim=0)
     for j in differ.tolist():
-        point = (j + float(runs["cpu"][3].u_resample[j])) / P
+        point = (j + float(u[j])) / P
         require(float((cum - point).abs().min()) < 1e-4,
                 f"step: stratum {j} took another ancestor away from a "
                 "cumulative-weight boundary")
-    r.state = g_st
-    return err, c, len(differ), n_swapped
+    return len(differ)
 
 
 def match_slots(tag, g_w, g_mean, c_w, c_mean):
@@ -447,6 +551,169 @@ def check_mixed_step(dev, n_before=40):
           "cumulative-weight boundary")
 
 
+def disparity_runner(dev, P=P_MAIN, data=DISP_DATA, **overrides):
+    cfg = load_config(DISP_CFG, dict(overrides, n_particles=P))
+    return DisparityRunner(cfg, data, device=dev)
+
+
+def feature_means_uvd(state, cam_pose, cfg):
+    """Each feature cloud's mean in disparity space under cam_pose [P, 12],
+    0 in empty slots: [P, K, 3]."""
+    uvd = disp.world_to_disparity(state.cloud, cam_pose[:, None, None, :],
+                                  cfg)
+    return torch.where((state.feat_weight > 0)[..., None],
+                       uvd.mean(dim=2), 0.0)
+
+
+def check_disparity_step(dev, n_before=20):
+    """One disparity step at P=512 on the card against the same step with
+    the twins on the CPU, from step 20 of data/disparity and the same
+    noise. Compared before resampling, where the kernel acts: camera
+    poses, log weights, feature weights and each feature cloud's mean in
+    disparity space under the CPU camera (rtol 1e-4 / atol 1e-5, slots of
+    weight-tied features may swap, see :func:`match_slots`), and the
+    overflow; then resampling as :func:`check_resampling`."""
+    r = disparity_runner(dev)
+    cfg = r.cfg
+    for n in range(n_before):
+        r.step(n)
+    n = n_before
+    noise = r.noise()
+    require(bool(r.has_z[n]), "disparity step: no measurements at step 20")
+    cpu_state = DisparityState(
+        **{k: getattr(r.state, k).cpu() for k in (
+            "cam_pose", "log_weight", "cloud", "feat_weight",
+            "resample_idx")}, step=r.state.step)
+    runs = {"gpu": (r.state, r.z_dev[n], r.mask_dev[n], noise),
+            "cpu": (cpu_state, r.z_dev[n].cpu(), r.mask_dev[n].cpu(),
+                    type(noise)(*(x.cpu() for x in noise)))}
+    upd, ovf, res = {}, {}, {}
+    for dev_name, (st, zz, mm, nz) in runs.items():
+        st = disp.disparity_predict(st, cfg.dt, cfg, nz.eps_pred)
+        st, ovf[dev_name] = disp.disparity_update(st, zz, mm, cfg,
+                                                  nz.eps_sample)
+        st = st.replace(log_weight=st.log_weight
+                        - logsumexp(st.log_weight, dim=0))
+        upd[dev_name] = st
+        res[dev_name] = disp._resample(st, cfg, nz.u_resample)
+    g, c = upd["gpu"], upd["cpu"]
+    err = 0.0
+    for name in ("cam_pose", "log_weight", "feat_weight"):
+        gv, cv = getattr(g, name).cpu(), getattr(c, name)
+        torch.testing.assert_close(gv, cv, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+        err = max(err, max_err([(gv, cv)]))
+    n_swap, e = match_slots("feature", g.feat_weight.cpu(),
+                            feature_means_uvd(g, c.cam_pose.to(dev), cfg)
+                            .cpu(), c.feat_weight,
+                            feature_means_uvd(c, c.cam_pose, cfg))
+    err = max(err, e)
+    require(int(ovf["gpu"]) == int(ovf["cpu"]),
+            "disparity step: overflow differs")
+    n_edge = check_resampling(res["gpu"], res["cpu"], c.log_weight,
+                              noise.u_resample.cpu())
+    live = float((c.feat_weight > 0).sum(dim=1).float().mean())
+    phase("step", f"disparity step {n} at P={P_MAIN} (mean {live:.1f} live "
+          f"features of {cfg.max_features}): card vs CPU twins max |err| "
+          f"{err:.3g} (rtol 1e-4, atol 1e-5), overflow equal "
+          f"({int(ovf['cpu'])}); {n_swap} weight-tied slots swapped, "
+          f"{n_edge} resampling strata at a cumulative-weight boundary")
+
+
+def run_disparity_data(dev):
+    """data/disparity at P=512, all 80 frames: steps/s (host clock), the
+    mean camera-position error against groundtruth.npz ``traj``, OSPA(1,
+    1 m) of the MAP particle's map against its ``landmarks``, and the
+    merge3d launches (one per step with measurements)."""
+    r = disparity_runner(dev)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = r.run()
+    counts = dict(build.launch_counts)
+    gt = np.load(f"{DISP_DATA}/groundtruth.npz")
+    est = res["est_poses"]
+    require(np.isfinite(est).all(), "disparity: NaN in the poses")
+    err = np.linalg.norm(est[:, :3] - gt["traj"][:len(est), :3], axis=1)
+    est_map = disparity_map_estimate(r.state)
+    o, _, _ = ospa_distance(gt["landmarks"], est_map, p=1, c=1.0)
+    phase("disparity", f"data/disparity P={P_MAIN}, {len(est)} frames: "
+          f"{res['steps_per_s']:.2f} steps/s ({res['wall_s']:.3f} s), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, "
+          f"mean pose error {err.mean():.4f} m (final {err[-1]:.4f}), "
+          f"OSPA(1, 1 m) {o:.4f} with {len(est_map)} of "
+          f"{len(gt['landmarks'])} landmarks, overflow {res['overflow']}")
+    phase("disparity", "launches: " + ", ".join(
+        f"{k}={counts.get(k, 0)}" for k in KERNELS))
+    n_z = int(r.has_z.sum())
+    require(counts.get("merge3d", 0) == n_z > 0,
+            f"merge3d launched {counts.get('merge3d', 0)} times, steps "
+            f"with measurements {n_z}")
+    return counts
+
+
+def disparity_bench(dev):
+    """The JAX package's disparity bench rows (``bench.py::_disparity_row``):
+    a generated world (seed 0, 24 landmarks, 60 frames) at P=200 and
+    P=512; one warm run, then two runs with seeds 1000 and 1001."""
+    cfg0 = load_config(DISP_CFG)
+    _, _, ms = simdata.generate_disparity_world(
+        n_landmarks=24, n_steps=DISP_BENCH_STEPS, dt=cfg0.dt, seed=0,
+        fx=cfg0.fx, fy=cfg0.fy, u0=cfg0.u0, v0=cfg0.v0,
+        width=int(cfg0.image_width), height=int(cfg0.image_height),
+        std_uv=cfg0.std_u, pd=cfg0.pd, clutter_rate=cfg0.clutter_rate,
+        vx=cfg0.vx0)
+    with tempfile.TemporaryDirectory(prefix="disparity_bench_") as tmp:
+        simdata.write_disparity_run_dir(tmp, ms)
+        for P in DISP_BENCH_P:
+            disparity_runner(dev, P, tmp, n_steps=DISP_BENCH_STEPS).run()
+            rates = []
+            for rep in range(2):
+                res = disparity_runner(dev, P, tmp, n_steps=DISP_BENCH_STEPS,
+                                       seed=1000 + rep).run()
+                require(np.isfinite(res["est_poses"]).all(),
+                        f"disparity bench: NaN at P={P}")
+                rates.append(res["steps_per_s"])
+            phase("disparity", f"bench P={P}, {DISP_BENCH_STEPS} frames: "
+                  f"{max(rates):.2f} steps/s (runs "
+                  f"{', '.join(f'{v:.2f}' for v in rates)})")
+
+
+def disparity_accuracy(dev):
+    """Full-SLAM ``evaluate_disparity`` at P=512 over seeds 0-4 (25
+    landmarks, 60 frames) against the JAX package's mean +- 2 std, and
+    known-pose mapping at seed 0 within tests/test_disparity.py's bounds."""
+    rows = []
+    for seed in DISP_SEEDS:
+        r = evaluate_disparity(seed=seed, follow_trajectory=False,
+                               cfg_overrides={"n_particles": P_DISP_ACC},
+                               device=dev)
+        require(np.isfinite(r["pose_err"]).all() and np.isfinite(r["ospa"]),
+                f"disparity accuracy: NaN in seed {seed}")
+        rows.append([r[k] for k in DISP_BANDS])
+        phase("accuracy", f"disparity seed {seed}: pose "
+              f"{r['mean_pose_err']:.4f} m (final {r['final_pose_err']:.4f}),"
+              f" OSPA(1, 1 m) {r['ospa']:.4f}, {r['n_est']} of {r['n_true']} "
+              f"landmarks, {r['steps_per_s']:.2f} steps/s")
+    rows = np.asarray(rows)
+    for i, (k, (ref, ref_std)) in enumerate(DISP_BANDS.items()):
+        mean, std = float(rows[:, i].mean()), float(rows[:, i].std())
+        lo, hi = ref - 2 * ref_std, ref + 2 * ref_std
+        phase("accuracy", f"disparity {k} over seeds {list(DISP_SEEDS)} at "
+              f"P={P_DISP_ACC}: {mean:.4f} +- {std:.4f}, "
+              f"{'inside' if lo <= mean <= hi else 'outside'} the JAX band "
+              f"{ref} +- 2 x {ref_std}")
+    pose = float(rows[:, 0].mean())
+    require(pose <= ATE_LIMIT, f"disparity mean pose error {pose:.4f} m > "
+            f"{ATE_LIMIT} m")
+    r = evaluate_disparity(seed=0, device=dev)
+    phase("accuracy", f"disparity known-pose seed 0: OSPA(1, 1 m) "
+          f"{r['ospa']:.4f} (JAX {DISP_KNOWN_POSE_OSPA}), {r['n_est']} of "
+          f"{r['n_true']} landmarks")
+    require(abs(r["n_est"] - r["n_true"]) <= 4 and r["ospa"] < 0.97,
+            f"disparity known-pose mapping outside |n_est - n_true| <= 4, "
+            f"OSPA < 0.97: {r['n_est']}/{r['n_true']}, {r['ospa']:.4f}")
+
+
 def run_main(dev):
     build.reset_launch_counts()
     res = evaluate_dataset(CFG, ".", overrides={"n_particles": P_MAIN},
@@ -496,7 +763,7 @@ def run_mixed(dev):
           f"resampled {int(res['resampled'].sum())} steps")
     phase("mixed", "launches: " + ", ".join(f"{k}={counts.get(k, 0)}"
                                             for k in KERNELS))
-    require(all(counts.get(k, 0) > 0 for k in KERNELS),
+    require(all(counts.get(k, 0) > 0 for k in MIXED_KERNELS),
             f"a kernel of the mixed path never launched: {counts}")
 
     r = mixed_runner(dev, P=P_MIXED_SCALE, T=MIXED_SCALE_STEPS)
@@ -570,6 +837,7 @@ def time_kernels(dev):
     idx, tab = gather_inputs(dev, P_MAIN, 16, 128, 512, seed=16)
     packed = merge_inputs(dev)
     packed4 = merge4d_inputs(dev, N=128, seed=128)
+    packed3 = merge3d_inputs(dev, seed=24)
     calls = {
         "detect": (lambda: detect(planes, z4, 16, min_fw, cb),
                    lambda: detect_reference(planes, z4, 16, min_fw, cb)),
@@ -580,6 +848,8 @@ def time_kernels(dev):
                                               128)),
         "merge4d": (lambda: merge4d(packed4, 2.0, 128),
                     lambda: merge4d_reference(packed4, 2.0, 128)),
+        "merge3d": (lambda: merge3d(packed3, 20.0, 24),
+                    lambda: merge3d_reference(packed3, 20.0, 24)),
     }
     times = {}
     for name, (kern, plain) in calls.items():
@@ -593,39 +863,49 @@ def time_kernels(dev):
     return times
 
 
-def profile_step(r, label, steps=20):
-    """Where the time goes at P=512 for runner r: steps 40-59 on the host
-    clock without the profiler, then steps 60-79 under torch.profiler for
-    the device time of each layer range (filters/phd.py, filters/mixed.py)
-    and each kernel."""
-    for n in range(40):
-        r.step(n)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for n in range(40, 40 + steps):
-        r.step(n)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1000.0 / steps
+def profile_step(r, label, host=(40, 60), prof=(60, 80), prefix="phd."):
+    """Where the time goes at P=512 for runner r: the steps of ``host`` on
+    the host clock without the profiler and those of ``prof`` (as long)
+    under torch.profiler, for the device time of each layer range (the
+    ``prefix`` record_function spans of filters/phd.py, filters/mixed.py,
+    filters/disparity.py) and each kernel. Earlier steps run unobserved."""
+    steps = host[1] - host[0]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for n in range(40 + steps, 40 + 2 * steps):
+    n = 0
+    for kind, (lo, hi) in sorted((("host", host), ("prof", prof)),
+                                 key=lambda w: w[1][0]):
+        while n < lo:
             r.step(n)
+            n += 1
         torch.cuda.synchronize()
-    # device timeline: the phd.* ranges as GPU spans, and every kernel or
+        if kind == "host":
+            t0 = time.perf_counter()
+            while n < hi:
+                r.step(n)
+                n += 1
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1000.0 / steps
+        else:
+            with torch.profiler.profile(activities=acts) as prof_run:
+                while n < hi:
+                    r.step(n)
+                    n += 1
+                torch.cuda.synchronize()
+    # device timeline: the layer ranges as GPU spans, and every kernel or
     # copy. A kernel launched through ctypes has no PyTorch op to correlate
     # with, so it can sit in the gap before its range's first PyTorch
     # kernel: each device event goes to the first span that ends after it
     # starts (its own span, or the next one when it sits in a gap).
     cuda = torch.autograd.DeviceType.CUDA
-    dev_events = [e for e in prof.events() if e.device_type == cuda]
-    spans = sorted((e for e in dev_events if e.name.startswith("phd.")),
+    dev_events = [e for e in prof_run.events() if e.device_type == cuda]
+    spans = sorted((e for e in dev_events if e.name.startswith(prefix)),
                    key=lambda e: e.time_range.start)
     ends = [e.time_range.end for e in spans]
     per_layer = collections.defaultdict(float)
     per_kernel = collections.defaultdict(lambda: [0.0, 0])
     for e in dev_events:
-        if e.name.startswith("phd."):
+        if e.name.startswith(prefix):
             continue
         i = bisect.bisect_right(ends, e.time_range.start)
         owner = spans[i].name if i < len(spans) else "(after the ranges)"
@@ -635,9 +915,10 @@ def profile_step(r, label, steps=20):
     busy_ms = sum(per_layer.values()) / 1000.0 / steps
     idle = 100.0 * (1.0 - busy_ms / step_ms)
     n_launch = sum(c for _, c in per_kernel.values()) // steps
-    phase("profile", f"{label} P={P_MAIN} steps 40-59: {step_ms:.3f} "
-          f"ms/step (host "
-          f"clock, no profiler); steps 60-79 profiled: device busy "
+    phase("profile", f"{label} P={P_MAIN} steps {host[0]}-{host[1] - 1}: "
+          f"{step_ms:.3f} ms/step (host "
+          f"clock, no profiler); steps {prof[0]}-{prof[1] - 1} profiled: "
+          f"device busy "
           f"{busy_ms:.3f} ms/step (idle {idle:.1f}% of the unprofiled "
           f"step), {n_launch} device ops/step"
           + ("" if per_kernel else " - no device time recorded: not measured"))
@@ -656,20 +937,28 @@ def main():
     errs = check_kernels(dev)
     check_step(dev)
     check_mixed_step(dev)
+    check_disparity_step(dev)
     counts, _ = run_main(dev)
     run_scale(dev)
     mixed_counts = run_mixed(dev)
     mixed_accuracy(dev)
+    disp_counts = run_disparity_data(dev)
+    disparity_bench(dev)
+    disparity_accuracy(dev)
     times = time_kernels(dev)
     profile_step(SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN}),
                                  DATA, device=dev), "ackerman")
     profile_step(mixed_runner(dev), "mixed")
-    # launches: each kernel's count in the run of its path (merge4d runs
-    # only on the mixed path; the other three on both)
+    profile_step(disparity_runner(dev), "disparity", host=(40, 60),
+                 prof=(20, 40), prefix="disp.")
+    # launches: each kernel's count in the run of the first path that runs
+    # it (detect, gather_cols and merge2d: ackerman; merge4d: mixed;
+    # merge3d: disparity); every path's kernels were required > 0 there
+    path_counts = [(ACKERMAN_KERNELS, counts), (MIXED_KERNELS, mixed_counts),
+                   (DISP_KERNELS, disp_counts)]
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": int((counts if name in ACKERMAN_KERNELS
-                          else mixed_counts)[name]),
+         "launches": int(next(c for ks, c in path_counts if name in ks)[name]),
          "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1]}
         for name, (src, rep) in KERNELS.items()]}

@@ -1,18 +1,21 @@
 """Accuracy evaluation (port of ``phdslam_tpu/eval/parity.py``: the
-pose-error part of ``evaluate_dataset``, and ``evaluate_mixed`` with its
-world and configuration).
+pose-error part of ``evaluate_dataset``, ``evaluate_mixed`` with its world
+and configuration, and ``evaluate_disparity``).
 
 The dataset protocol: run the filter over the dataset, take the expected
 pose on every step that carries a measurement set, and score its XY error
 against ``groundtruth.npz`` ``traj`` at that measurement index (the ATE).
 The mixed protocol generates a world of static landmarks and moving
 targets from a seed and scores the pose error and the final static and
-dynamic maps with OSPA.
+dynamic maps with OSPA. The disparity protocol generates a camera world
+from a seed and scores the MAP particle's 3D landmark map with OSPA (and,
+in full-SLAM mode, the camera position error).
 """
 
 from __future__ import annotations
 
 import os
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 
 from ..config import SlamConfig, load_config
 from ..slam import ScanRunner, SynthSLAMRunner
+from ..slam_disparity import run_disparity
 from . import simdata
 from .ospa import extract_map_estimate, ospa_distance
 
@@ -218,3 +222,77 @@ def evaluate_mixed(n_landmarks: int = 30, n_movers: int = 2,
         "n_eff": float(run["n_eff"][-1]),
         "run": run,
     }
+
+
+def observed_landmarks(landmarks, traj, cfg: SlamConfig):
+    """Landmarks ever inside the image and in front of the camera (more
+    than 0.5 m) along the trajectory [T, >= 6]."""
+    observed = np.zeros(len(landmarks), bool)
+    for t in range(len(traj)):
+        R = simdata.camera_rotation_np(*traj[t, 3:6])
+        pc = (landmarks - traj[t, :3]) @ R
+        zc = pc[:, 2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u = cfg.u0 - cfg.fx * pc[:, 0] / zc
+            v = cfg.v0 - cfg.fy * pc[:, 1] / zc
+        observed |= ((zc < -0.5) & (u > 0) & (u < cfg.image_width)
+                     & (v > 0) & (v < cfg.image_height))
+    return observed
+
+
+def disparity_map_estimate(state):
+    """The MAP particle's landmark estimate: its feature clouds' means,
+    the round(sum w) heaviest live features."""
+    best = int(torch.argmax(state.log_weight))
+    feat_means = state.cloud[best].mean(dim=1).cpu().numpy()     # [K, 3]
+    return extract_map_estimate(state.feat_weight[best].cpu().numpy(),
+                                feat_means)
+
+
+def evaluate_disparity(cfg_path: str = "cfg/disparity.cfg",
+                       n_landmarks: int = 25, n_steps: int = 60,
+                       seed: int = 0, follow_trajectory: bool = True,
+                       ospa_c: float = 1.0,
+                       cfg_overrides: Optional[dict] = None, device="cuda"):
+    """Mapping accuracy of the monocular SC-PHD pipeline.
+
+    Generates a camera world (``simdata.generate_disparity_world``,
+    intrinsics from ``cfg_path``), runs the disparity filter (by default
+    in known-pose mapping mode, follow_trajectory, which isolates map
+    accuracy from pose drift) and scores the MAP particle's 3D landmark
+    estimate with OSPA(1, c=``ospa_c`` m) against the landmarks that were
+    ever visible. Full-SLAM mode (``follow_trajectory=False``) adds the
+    per-step camera position error. Returns the JAX version's keys plus
+    "run" (the runner's result dict).
+    """
+    cfg = load_config(cfg_path, cfg_overrides)
+    cfg.follow_trajectory = follow_trajectory
+    cfg.n_steps = n_steps
+
+    landmarks, traj, measurements = simdata.generate_disparity_world(
+        n_landmarks=n_landmarks, n_steps=n_steps, dt=cfg.dt, seed=seed,
+        fx=cfg.fx, fy=cfg.fy, u0=cfg.u0, v0=cfg.v0,
+        width=int(cfg.image_width), height=int(cfg.image_height),
+        std_uv=cfg.std_u, pd=cfg.pd, clutter_rate=cfg.clutter_rate,
+        vx=cfg.vx0)
+    observed = observed_landmarks(landmarks, traj, cfg)
+
+    with tempfile.TemporaryDirectory(prefix="disparity_eval_") as tmp:
+        simdata.write_disparity_run_dir(tmp, measurements)
+        np.savetxt(os.path.join(tmp, "traj.txt"), traj)
+        res = run_disparity(cfg, data_dir=tmp, device=device)
+    est_map = disparity_map_estimate(res["final_state"])
+    o, loc, cn = ospa_distance(landmarks[observed], est_map, p=1, c=ospa_c)
+    out = {
+        "ospa": float(o), "ospa_loc": float(loc), "ospa_cn": float(cn),
+        "n_true": int(observed.sum()), "n_est": len(est_map),
+        "steps_per_s": res["steps_per_s"], "n_eff": res["n_eff"],
+        "run": res,
+    }
+    if not follow_trajectory:
+        est = res["est_poses"][:, :3]
+        err = np.linalg.norm(est - traj[:len(est), :3], axis=1)
+        out["pose_err"] = err
+        out["mean_pose_err"] = float(err.mean())
+        out["final_pose_err"] = float(err[-1])
+    return out

@@ -1,16 +1,19 @@
-"""Synthetic ground truth and noisy range-bearing scans (a copy of the parts
-of ``phdslam_tpu/eval/simdata.py`` that the mixed-world evaluation uses:
-``wrap_angle``, ``SensorParams``, ``true_measurements``,
-``noisy_measurements`` and ``generate_world_cv``).
+"""Synthetic ground truth and noisy scans (a copy of the parts of
+``phdslam_tpu/eval/simdata.py`` that the port's evaluations use: for the
+mixed world ``wrap_angle``, ``SensorParams``, ``true_measurements``,
+``noisy_measurements`` and ``generate_world_cv``; for the monocular camera
+world ``camera_rotation_np``, ``generate_disparity_world`` and
+``write_disparity_run_dir``).
 
 The port keeps its own copy because ``phdslam_tpu/__init__.py`` imports jax;
-``tests/test_torch_mixed.py`` holds it equal to the original from the same
-seed. Pure numpy.
+``tests/test_torch_mixed.py`` and ``tests/test_torch_disparity.py`` hold it
+equal to the original from the same seed. Pure numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -81,3 +84,64 @@ def generate_world_cv(n_landmarks=40, extent=20.0, n_steps=150, dt=0.1,
         st[2] = wrap_angle(st[2] + dt * st[5] + 0.5 * dt * dt * ath)
         st[3:] += dt * np.array([ax, ay, ath])
     return landmarks, traj
+
+
+def camera_rotation_np(roll, pitch, yaw):
+    """R such that world = R @ camera (``filters/disparity.py``'s
+    ``camera_rotation`` in numpy)."""
+    cr, sr = np.cos(roll), np.sin(roll)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    return np.array([
+        [cp * cy, cr * sy + sr * sp * cy, sr * sy - cr * sp * cy],
+        [-cp * sy, cr * cy - sr * sp * sy, sr * cy + cr * sp * sy],
+        [sp, -sr * cp, cr * cp]])
+
+
+def generate_disparity_world(n_landmarks=30, n_steps=60, dt=0.5, seed=0,
+                             fx=500.0, fy=500.0, u0=320.0, v0=240.0,
+                             width=640, height=480, std_uv=1.0, pd=0.95,
+                             clutter_rate=2.0, vx=0.1):
+    """Camera translating along +x viewing landmarks at negative z:
+    landmarks x U(-2, 4), y U(-1.5, 1.5), z U(-8, -3); detections with
+    probability pd and N(0, std_uv) pixel noise inside the image, plus
+    Poisson(clutter_rate) uniform clutter.
+
+    Returns (landmarks [L, 3], cam_traj [T, 12], measurement sets).
+    """
+    rng = np.random.default_rng(seed)
+    landmarks = np.column_stack([
+        rng.uniform(-2, 4, n_landmarks),
+        rng.uniform(-1.5, 1.5, n_landmarks),
+        rng.uniform(-8, -3, n_landmarks)])
+    traj = np.zeros((n_steps, 12))
+    traj[:, 6] = vx
+    for t in range(1, n_steps):
+        traj[t, :3] = traj[t - 1, :3] + dt * traj[t - 1, 6:9]
+    measurements = []
+    for t in range(n_steps):
+        R = camera_rotation_np(*traj[t, 3:6])
+        pc = (landmarks - traj[t, :3]) @ R          # R^T (p - t)
+        zc = pc[:, 2]
+        vis = zc < -0.5
+        u = u0 - fx * pc[:, 0] / zc
+        v = v0 - fy * pc[:, 1] / zc
+        uv = np.column_stack([u, v])[vis]
+        uv = uv + rng.normal(0, std_uv, uv.shape)
+        inside = ((uv[:, 0] > 0) & (uv[:, 0] < width)
+                  & (uv[:, 1] > 0) & (uv[:, 1] < height))
+        uv = uv[inside & (rng.random(len(uv)) < pd)]
+        n_cl = rng.poisson(clutter_rate)
+        clutter = np.column_stack([rng.uniform(0, width, n_cl),
+                                   rng.uniform(0, height, n_cl)])
+        measurements.append(np.vstack([uv, clutter]).astype(np.float32))
+    return landmarks, traj, measurements
+
+
+def write_disparity_run_dir(outdir, measurements):
+    """measurements.txt in the imageMeasurementSet format (u v pairs)."""
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "measurements.txt"), "w") as fh:
+        fh.write("% image measurements, one time step per line, u v pairs\n")
+        for Z in measurements:
+            fh.write(" ".join("%g %g" % (u, v) for u, v in Z) + " \n")

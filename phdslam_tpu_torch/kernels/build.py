@@ -49,6 +49,8 @@ _SIGNATURES = {
     # packed, out, P, N, K, min_separation, stream
     "phd_merge2d": [_P, _P, _I, _I, _I, _F, _P],
     # packed, out, P, N, K, min_separation, stream
+    "phd_merge3d": [_P, _P, _I, _I, _I, _F, _P],
+    # packed, out, P, N, K, min_separation, stream
     "phd_merge4d": [_P, _P, _I, _I, _I, _F, _P],
 }
 

@@ -1,19 +1,22 @@
-"""Exact sequential greedy merge of 2D and 4D candidate planes.
+"""Exact sequential greedy merge of 2D, 3D and 4D candidate planes.
 
 ``merge2d`` replaces ``phdslam_tpu/ops/pallas_merge.py::_merge_kernel`` ->
-``_merge_core_2d`` (entry ``gm_merge_pallas_batch_packed``), ``merge4d``
-replaces ``_merge_kernel_4d`` (entry ``gm_merge_pallas_batch_packed_4d``),
-both as the fast path calls them: sorted_w=True, Mahalanobis metric (the
-4D one in the Schur form of ``ops/math.py::mahalanobis2_4d``).
+``_merge_core_2d`` (entry ``gm_merge_pallas_batch_packed``), ``merge3d``
+replaces ``_merge_kernel_3d`` (entry ``gm_merge_pallas_batch_3d``) and
+``merge4d`` replaces ``_merge_kernel_4d`` (entry
+``gm_merge_pallas_batch_packed_4d``), all as the fast paths call them:
+sorted_w=True, Mahalanobis metric (at D = 3 and 4 in the closed forms of
+``ops/math.py::mahalanobis2_3d`` and ``mahalanobis2_4d``).
 
 Input planes [P, C, N]: w, act, the D mean planes, the D(D+1)/2 upper-
-triangle covariance planes (C = 7 at D = 2, 16 at D = 4), active lanes
-weight-descending. Output planes (``ops/gm_merge.py::pack_merge_out``):
-w, mean, covariance, lanes left unmerged (broadcast), zero pads ([P, 8, K]
-at D = 2, [P, 16, K] at D = 4), clusters in greedy emission order, empty
-slots as weight 0, mean 0, identity covariance. A wrapper launches its
-CUDA kernel (csrc/merge2d.cu, csrc/merge4d.cu) for CUDA tensors and runs
-its plain twin (``*_reference``) for CPU tensors.
+triangle covariance planes (C = 7 at D = 2, 11 at D = 3, 16 at D = 4),
+active lanes weight-descending. Output planes
+(``ops/gm_merge.py::pack_merge_out``): w, mean, covariance, lanes left
+unmerged (broadcast), zero pads ([P, 8, K] at D = 2, [P, 12, K] at D = 3,
+[P, 16, K] at D = 4), clusters in greedy emission order, empty slots as
+weight 0, mean 0, identity covariance. A wrapper launches its CUDA kernel
+(csrc/merge2d.cu, merge3d.cu, merge4d.cu) for CUDA tensors and runs its
+plain twin (``*_reference``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from ..ops.gm_merge import gm_merge_batch, pack_merge_out, unpack_planes
 from . import build
 
 MAX_CANDIDATES = 2048    # 64 threads x 32 lanes each (one bit mask word)
-_PLANES = {2: (7, 8), 4: (16, 16)}      # D -> (input, output) planes
+_PLANES = {2: (7, 8), 3: (11, 12), 4: (16, 16)}  # D -> (input, output)
 
 
 def _reference(packed, min_separation, out_cap, D):
@@ -38,6 +41,12 @@ def merge2d_reference(packed, min_separation: float, out_cap: int):
     """Plain PyTorch twin of merge2d: ``ops/gm_merge.py::gm_merge_batch``
     on [P, 7, N] planes."""
     return _reference(packed, min_separation, out_cap, 2)
+
+
+def merge3d_reference(packed, min_separation: float, out_cap: int):
+    """Plain PyTorch twin of merge3d: ``ops/gm_merge.py::gm_merge_batch``
+    on [P, 11, N] planes."""
+    return _reference(packed, min_separation, out_cap, 3)
 
 
 def merge4d_reference(packed, min_separation: float, out_cap: int):
@@ -79,6 +88,17 @@ def merge2d(packed, min_separation: float, out_cap: int):
     if packed.device.type == "cpu":
         return merge2d_reference(packed, min_separation, out_cap)
     return _launch(packed, min_separation, out_cap, 2)
+
+
+def merge3d(packed, min_separation: float, out_cap: int):
+    """Greedy 3D (u, v, d) merge; same contract as
+    :func:`merge3d_reference`.
+
+    A CPU tensor runs the twin; a CUDA tensor launches the kernel.
+    """
+    if packed.device.type == "cpu":
+        return merge3d_reference(packed, min_separation, out_cap)
+    return _launch(packed, min_separation, out_cap, 3)
 
 
 def merge4d(packed, min_separation: float, out_cap: int):

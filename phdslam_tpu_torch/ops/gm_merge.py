@@ -6,9 +6,10 @@ clusters are out: pick the heaviest unmerged component, gather every
 unmerged component within ``min_separation`` (squared Mahalanobis distance
 with averaged covariance), emit their moment-matched merge and mark them
 merged. :func:`gm_merge_batch` is the plain PyTorch form, batched over
-particles, for 2D static and 4D constant-velocity features; it is the
-twin of the CUDA merge kernels (kernels/merge.py). The 4D distance is the
-JAX 4D merge kernel's Schur form (``ops/math.py::mahalanobis2_4d``).
+particles, for 2D static, 3D disparity (u, v, d) and 4D constant-velocity
+features; it is the twin of the CUDA merge kernels (kernels/merge.py).
+The 3D and 4D distances are the JAX merge kernels' closed forms
+(``ops/math.py::mahalanobis2_3d``, ``mahalanobis2_4d``).
 
 Sorts are stable with the JAX version's key order (``lax.sort`` is stable),
 so ties resolve to the lowest lane index exactly as there.
@@ -18,21 +19,21 @@ from __future__ import annotations
 
 import torch
 
-from .math import mahalanobis2, mahalanobis2_4d, sym
+from .math import mahalanobis2, mahalanobis2_3d, mahalanobis2_4d, sym
 
 
 def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap):
     """Greedy merge of every particle's mixture.
 
     mean [P, N, D], cov [P, N, D, D], weight [P, N], active [P, N] bool
-    with D 2 or 4 -> (out_mean [P, out_cap, D], out_cov [P, out_cap, D, D],
+    with D 2, 3 or 4 -> (out_mean [P, out_cap, D], out_cov [P, out_cap, D, D],
     out_weight [P, out_cap], n_merged [P], n_dropped [P]). Empty slots have
     weight 0, mean 0 and identity covariance; ``n_dropped`` counts the
     candidates left unmerged when ``out_cap`` clusters were out.
     """
     P, N, D = mean.shape
     dev, dtype = mean.device, mean.dtype
-    distance = {2: mahalanobis2, 4: mahalanobis2_4d}[D]
+    distance = {2: mahalanobis2, 3: mahalanobis2_3d, 4: mahalanobis2_4d}[D]
     unmerged = active & (weight > 0)     # NaN and w <= 0 lanes never join
     out_mean = torch.zeros((P, out_cap, D), dtype=dtype, device=dev)
     out_cov = torch.eye(D, dtype=dtype, device=dev).expand(
@@ -87,7 +88,7 @@ def _cov_from_planes(planes, D):
 
 def unpack_planes(packed, D):
     """Candidate planes [P, 2 + D + D(D+1)/2, N] (w, act, mean, upper-
-    triangle cov: 7 planes at D=2, 16 at D=4) -> (mean [P, N, D],
+    triangle cov: 7 planes at D=2, 11 at D=3, 16 at D=4) -> (mean [P, N, D],
     cov [P, N, D, D], weight [P, N], active [P, N])."""
     weight = packed[:, 0]
     active = packed[:, 1] > 0.5
@@ -100,12 +101,12 @@ def unpack_planes(packed, D):
 def pack_merge_out(om, oc, ow, n_dropped):
     """Merge results -> output planes [P, C, K]: w, mean, upper-triangle
     cov, lanes left unmerged (broadcast), then zero pads up to C = 8 at
-    D = 2 (the 2D kernel's layout) or C = 16 at D = 4."""
+    D = 2, 12 at D = 3 (the 2D and 3D kernels' layouts) or 16 at D = 4."""
     D = om.shape[-1]
     planes = [ow] + [om[..., i] for i in range(D)]
     planes += [oc[..., a, b] for a in range(D) for b in range(a, D)]
     planes.append(n_dropped.to(ow.dtype)[:, None].expand_as(ow))
-    planes += [torch.zeros_like(ow)] * ({2: 8, 4: 16}[D] - len(planes))
+    planes += [torch.zeros_like(ow)] * ({2: 8, 3: 12, 4: 16}[D] - len(planes))
     return torch.stack(planes, dim=1)
 
 
@@ -124,6 +125,48 @@ def merge_out(out, D):
     n_merged = (out_w > 0).sum(dim=-1)
     n_dropped = out[:, 1 + D + n_cov, 0].to(torch.int64)
     return out_mean, out_cov, out_w, n_merged, n_dropped
+
+
+def _heaviest_lanes(mean, cov, weight, active, n):
+    """The n heaviest active lanes, weight-descending, as lax.top_k orders
+    them (ties to the lowest lane; inactive lanes keyed -1, so last): one
+    stable sort, never ``torch.topk``, whose tie order is unspecified on
+    CUDA. Lanes past the active ones come out as (0, I, 0, False)."""
+    P, N, D = mean.shape
+    w_act = torch.where(active, weight, -1.0)
+    idx = torch.sort(-w_act, dim=-1, stable=True).indices[:, :n]
+    w = torch.gather(weight, 1, idx)
+    sel_act = torch.gather(active, 1, idx) & (w > 0)
+    m = torch.gather(mean, 1, idx[..., None].expand(P, n, D))
+    c = torch.gather(cov.reshape(P, N, D * D), 1,
+                     idx[..., None].expand(P, n, D * D)).reshape(P, n, D, D)
+    eye = torch.eye(D, dtype=mean.dtype, device=mean.device)
+    return (torch.where(sel_act[..., None], m, 0.0),
+            torch.where(sel_act[..., None, None], c, eye),
+            torch.where(sel_act, w, 0.0), sel_act)
+
+
+def compact_candidates(mean, cov, weight, active, cap):
+    """Top-``cap``-by-weight compaction of every particle's candidate set
+    (mean [P, N, D], cov [P, N, D, D], weight / active [P, N]). A cap that
+    does not bind (cap <= 0 or cap >= N) returns the set unchanged.
+
+    Returns (mean [P, cap, D], cov, weight, active, n_dropped_live [P]).
+    """
+    P, N, _ = mean.shape
+    if cap <= 0 or cap >= N:
+        return (mean, cov, weight, active,
+                torch.zeros((P,), dtype=torch.int64, device=mean.device))
+    n_live = (active & (weight > 0)).sum(dim=1)
+    return (*_heaviest_lanes(mean, cov, weight, active, cap),
+            torch.clamp_min(n_live - cap, 0))
+
+
+def sort_candidates(mean, cov, weight, active):
+    """Every lane of every particle in :func:`compact_candidates`' order
+    (heaviest active first, ties to the lowest lane), nothing dropped: the
+    sorted merge then picks the principals the argmax merge picks."""
+    return _heaviest_lanes(mean, cov, weight, active, mean.shape[1])
 
 
 def select_live_topT(grid, thr, T):

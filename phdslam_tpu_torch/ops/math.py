@@ -1,4 +1,5 @@
-"""Core math (port of ``phdslam_tpu/ops/math.py``).
+"""Core math (port of ``phdslam_tpu/ops/math.py``, plus the 3D distance
+and ``chol3`` of ``filters/disparity.py``).
 
 Batched over arbitrary leading axes on ``mean[..., D]`` / ``cov[..., D, D]``
 layouts. Every expression keeps the JAX version's operation order, so the
@@ -71,6 +72,49 @@ def mahalanobis2(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
     d = mean_a - mean_b
     S_inv = inv2(sigma)
     return torch.einsum("...i,...ij,...j->...", d, S_inv, d)
+
+
+def mahalanobis2_3d(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
+    """Squared Mahalanobis distance with averaged covariance, 3D, in the
+    closed-form adjugate inverse of the JAX package's 3D merge kernel
+    (``ops/pallas_merge.py::_merge_kernel_3d``, ``mahal3``), operation for
+    operation, with the determinant replaced by 1e-30 where its magnitude
+    is not above 1e-30."""
+    s = 0.5 * (cov_a + cov_b)
+    d = mean_a - mean_b
+    s00, s01, s02 = s[..., 0, 0], s[..., 0, 1], s[..., 0, 2]
+    s11, s12, s22 = s[..., 1, 1], s[..., 1, 2], s[..., 2, 2]
+    d0, d1, d2 = d[..., 0], d[..., 1], d[..., 2]
+    det = (s00 * (s11 * s22 - s12 * s12)
+           - s01 * (s01 * s22 - s12 * s02)
+           + s02 * (s01 * s12 - s11 * s02))
+    det = torch.where(torch.abs(det) > 1e-30, det, 1e-30)
+    i00 = (s11 * s22 - s12 * s12) / det
+    i01 = (s02 * s12 - s01 * s22) / det
+    i02 = (s01 * s12 - s02 * s11) / det
+    i11 = (s00 * s22 - s02 * s02) / det
+    i12 = (s01 * s02 - s00 * s12) / det
+    i22 = (s00 * s11 - s01 * s01) / det
+    return (d0 * d0 * i00 + d1 * d1 * i11 + d2 * d2 * i22
+            + 2.0 * (d0 * d1 * i01 + d0 * d2 * i02 + d1 * d2 * i12))
+
+
+def chol3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form lower Cholesky factor of batched 3x3 SPD matrices, with
+    the JAX version's 1e-20 floors under each pivot."""
+    a = torch.clamp_min(A[..., 0, 0], 1e-20)
+    l11 = torch.sqrt(a)
+    l21 = A[..., 1, 0] / l11
+    l31 = A[..., 2, 0] / l11
+    l22 = torch.sqrt(torch.clamp_min(A[..., 1, 1] - l21 ** 2, 1e-20))
+    l32 = (A[..., 2, 1] - l31 * l21) / l22
+    l33 = torch.sqrt(torch.clamp_min(A[..., 2, 2] - l31 ** 2 - l32 ** 2,
+                                     1e-20))
+    z = torch.zeros_like(l11)
+    return torch.stack([
+        torch.stack([l11, z, z], dim=-1),
+        torch.stack([l21, l22, z], dim=-1),
+        torch.stack([l31, l32, l33], dim=-1)], dim=-2)
 
 
 def mahalanobis2_4d(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:

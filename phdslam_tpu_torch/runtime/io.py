@@ -1,4 +1,5 @@
-"""Dataset loaders (copies of ``phdslam_tpu/runtime/io.py``'s numpy loaders).
+"""Dataset loaders (copies of ``phdslam_tpu/runtime/io.py``'s numpy loaders)
+and the disparity filter's particle dump.
 
 The port keeps its own copies because importing ``phdslam_tpu`` imports jax.
 These are the portable pure-Python paths of the originals (the JAX package
@@ -86,3 +87,17 @@ def pad_measurements(measurements: List[np.ndarray], m_max: int
             z[t, :n] = zt[:n, :2]
             mask[t, :n] = True
     return z, mask
+
+
+def write_disparity_particles_mat(path: str, state):
+    """Full disparity-particle dump as a .mat file (the reference's per-step
+    debug dump of the disparity loop): camera poses, log weights, ancestor
+    indices, per-feature particle clouds and feature weights."""
+    import scipy.io as sio
+    sio.savemat(path, {
+        "weights": state.log_weight.cpu().numpy(),
+        "particles": state.cam_pose.cpu().numpy(),
+        "resample_idx": state.resample_idx.cpu().numpy(),
+        "clouds": state.cloud.cpu().numpy(),
+        "feature_weights": state.feat_weight.cpu().numpy(),
+    })

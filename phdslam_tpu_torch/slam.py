@@ -113,21 +113,34 @@ class _Runner:
                                    has_z=has_z)
         return out
 
-    def run(self, check_every: int = 32):
+    def _after_step(self, n: int, out) -> None:
+        """Called after step n (and after its timing, with ``timing``)."""
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, check_every: int = 32, timing: bool = False):
         """Run every step. Raises FloatingPointError at the first chunk of
         ``check_every`` steps whose weights or poses hold a NaN.
 
-        Returns est_poses [T, 6], n_eff [T], resampled [T], the largest
-        overflow count, wall_s and steps_per_s (host clock around the whole
-        loop, ending in a device synchronize).
+        Returns est_poses [T, D] (the step's expected pose), n_eff [T],
+        resampled [T], the largest overflow count, wall_s and steps_per_s
+        (host clock around the whole loop, ending in a device synchronize),
+        and step_ms: with ``timing``, each step's own time (host clock,
+        synchronized after every step), else None.
         """
-        poses, n_effs, resampled, overflows = [], [], [], []
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        poses, n_effs, resampled, overflows, step_ms = [], [], [], [], []
+        self._sync()
         t0 = time.perf_counter()
         T = self.n_steps
         for n in range(T):
+            t_step = time.perf_counter()
             out = self.step(n)
+            if timing:
+                self._sync()
+                step_ms.append((time.perf_counter() - t_step) * 1000.0)
+            self._after_step(n, out)
             poses.append(out.expected_pose)
             n_effs.append(out.n_eff)
             resampled.append(out.resampled)
@@ -139,8 +152,7 @@ class _Runner:
                 if bool(bad):
                     raise FloatingPointError(
                         f"nan weights or poses in steps {lo}..{n}")
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         wall = time.perf_counter() - t0
         return {
             "est_poses": torch.stack(poses).cpu().numpy(),
@@ -149,6 +161,7 @@ class _Runner:
             "overflow": int(torch.stack(overflows).max()),
             "wall_s": wall,
             "steps_per_s": T / wall,
+            "step_ms": np.asarray(step_ms) if timing else None,
         }
 
 
@@ -208,8 +221,8 @@ class SynthSLAMRunner(_Runner):
         return (z, zm, self.step_controls[n], plan.dt, plan.do_predict,
                 has_z)
 
-    def run(self, check_every: int = 32):
-        res = super().run(check_every)
+    def run(self, check_every: int = 32, timing: bool = False):
+        res = super().run(check_every, timing)
         res["truncated_measurements"] = self.n_truncated
         return res
 

@@ -7,7 +7,9 @@ dynamic map exists only for the mixed model (feature_model 2) and is None
 otherwise, so the static path gathers nothing extra; the CPHD cardinality,
 the variance estimate and the two-scan birth memory of the JAX state are
 absent. The random stream lives in the runner's ``torch.Generator``, not
-in the state.
+in the state. :class:`DisparityState` is the monocular SC-PHD (disparity)
+filter's particle set: camera poses and per-feature clouds of world
+points.
 """
 
 from __future__ import annotations
@@ -125,5 +127,56 @@ def state_to_numpy(state: FilterState) -> dict:
         dyn = state.map_dynamic
         out.update(dyn_mean=dyn.mean, dyn_cov=dyn.cov, dyn_weight=dyn.weight)
     out = {k: v.detach().cpu().numpy() for k, v in out.items()}
+    out["step"] = np.asarray(state.step, np.int32)
+    return out
+
+
+@dataclasses.dataclass
+class DisparityState:
+    """Particle set of the monocular SC-PHD (disparity) filter, fixed
+    capacity.
+
+    cam_pose:     [P, 12] (px, py, pz, roll, pitch, yaw, vx, vy, vz, vroll,
+                  vpitch, vyaw)
+    log_weight:   [P] log particle weights
+    cloud:        [P, K, N, 3] per-feature clouds of world points
+    feat_weight:  [P, K] linear feature weights (0 = empty slot)
+    resample_idx: [P] ancestor indices of the last step
+    step:         steps taken so far
+    """
+    cam_pose: torch.Tensor
+    log_weight: torch.Tensor
+    cloud: torch.Tensor
+    feat_weight: torch.Tensor
+    resample_idx: torch.Tensor
+    step: int = 0
+
+    def replace(self, **changes) -> "DisparityState":
+        return dataclasses.replace(self, **changes)
+
+
+_DISPARITY_KEYS = ("cam_pose", "log_weight", "cloud", "feat_weight",
+                   "resample_idx")
+
+
+def disparity_state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
+                             ) -> DisparityState:
+    """Build a disparity state from numpy copies of a ``phdslam_tpu``
+    DisparityState: "cam_pose", "log_weight", "cloud", "feat_weight",
+    "resample_idx" and "step" (the JAX state's fields of those names, the
+    keys :func:`disparity_state_to_numpy` writes). The JAX state's ``rng``
+    has no counterpart: the runner's generator draws the noise."""
+    fields = {k: torch.tensor(np.asarray(arrays[k]), device=device,
+                              dtype=torch.int32 if k == "resample_idx"
+                              else torch.float32)
+              for k in _DISPARITY_KEYS}
+    return DisparityState(**fields, step=int(np.asarray(arrays["step"])))
+
+
+def disparity_state_to_numpy(state: DisparityState) -> dict:
+    """Numpy copies of a disparity state, keyed as
+    :func:`disparity_state_from_jax` reads them."""
+    out = {k: getattr(state, k).detach().cpu().numpy()
+           for k in _DISPARITY_KEYS}
     out["step"] = np.asarray(state.step, np.int32)
     return out

@@ -7,8 +7,10 @@ so it runs on a machine that has only PyTorch:
 
 (``--noconftest`` because tests/conftest.py imports jax for the JAX
 package's tests.) Shapes are the Ackerman main path's: K=128, M=48, T=16,
-merge_candidate_cap=512, and the mixed path's: M=32, detect at min_fw=0 and
-cb=0, the 4D merge at N=128 (the dynamic map's cap) and N=512.
+merge_candidate_cap=512, the mixed path's: M=32, detect at min_fw=0 and
+cb=0, the 4D merge at N=128 (the dynamic map's cap) and N=512, and the
+disparity path's: the 3D merge at K=24 over N=512 (the compacted cap) and
+N=624 (every lane of K + M K + M at M=24).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
+                                             merge3d, merge3d_reference,
                                              merge4d, merge4d_reference)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
 
@@ -91,6 +94,32 @@ def merge4d_inputs(dev, P=32, N=128, seed=0):
     planes = [np.where(act_s, take(w), 0.0), act_s]
     planes += [take(mean[..., i]) for i in range(4)]
     planes += [take(cov[..., a, b]) for a in range(4) for b in range(a, 4)]
+    return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
+                        device=dev)
+
+
+def merge3d_inputs(dev, P=64, N=512, seed=0, spread=3.0):
+    """Clustered (u, v, d) candidates at the spread of min_separation 20
+    (covariances 16 px^2 + A A'); active lanes a weight-descending prefix:
+    planes [P, 11, N]."""
+    rng = np.random.default_rng(seed)
+    centers = np.stack([rng.uniform(0, 640, (P, 30)),
+                        rng.uniform(0, 480, (P, 30)),
+                        rng.uniform(20, 300, (P, 30))], axis=-1)
+    mean = centers[np.arange(P)[:, None], rng.integers(0, 30, (P, N))] \
+        + rng.normal(0, spread, (P, N, 3))
+    A = rng.normal(0, 1.5, (P, N, 3, 3))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 16.0 * np.eye(3)
+    w = rng.uniform(0, 1, (P, N))
+    act = rng.random((P, N)) < 0.6
+    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
+
+    def take(x):
+        return np.take_along_axis(x, order, axis=1)
+    act_s = take(act)
+    planes = [np.where(act_s, take(w), 0.0), act_s]
+    planes += [take(mean[..., i]) for i in range(3)]
+    planes += [take(cov[..., a, b]) for a in range(3) for b in range(a, 3)]
     return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
                         device=dev)
 
@@ -171,6 +200,31 @@ def test_merge4d_overflow_and_nan_weights(dev):
     assert (got[4][2:] > 0).all()          # ~20 clusters into 8 slots
 
 
+@pytest.mark.parametrize("N", [512, 624])
+def test_merge3d_matches_twin(dev, N):
+    planes = merge3d_inputs(dev, N=N, seed=N)
+    build.reset_launch_counts()
+    got_planes = merge3d(planes, 20.0, 24)
+    assert build.launch_counts["merge3d"] == 1
+    assert (got_planes[:, 11] == 0).all()
+    got = merge_out(got_planes, 3)
+    want = merge_out(merge3d_reference(planes, 20.0, 24), 3)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_merge3d_overflow_and_nan_weights(dev):
+    planes = merge3d_inputs(dev, P=8, N=512, seed=1)
+    planes[0, 0] = float("nan")
+    planes[1, 0, :8] = 0.0
+    got = merge_out(merge3d(planes, 20.0, 8), 3)
+    want = merge_out(merge3d_reference(planes, 20.0, 8), 3)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    assert int(got[3][0]) == 0 and int(got[4][0]) == 0
+    assert (got[4][2:] > 0).all()          # ~30 clusters into 8 slots
+
+
 def test_wrappers_reject_bad_input(dev):
     planes, z4 = detect_inputs(dev, P=2)
     with pytest.raises(ValueError):
@@ -179,3 +233,9 @@ def test_wrappers_reject_bad_input(dev):
         merge2d(merge_inputs(dev, P=2)[:, :, ::2], 5.0, 16)
     with pytest.raises(ValueError):
         merge4d(merge_inputs(dev, P=2), 5.0, 16)    # 7 planes, not 16
+    with pytest.raises(ValueError):
+        merge3d(merge_inputs(dev, P=2), 20.0, 24)   # 7 planes, not 11
+    with pytest.raises(ValueError):
+        merge3d(merge3d_inputs(dev, P=2, N=2049), 20.0, 24)  # > 2048 lanes
+    with pytest.raises(ValueError):
+        merge3d(merge3d_inputs(dev, P=2).double(), 20.0, 24)
