@@ -19,11 +19,25 @@ drives both paths:
   generated world, 60 frames) at P=200 and P=512, full-SLAM accuracy of
   ``evaluate_disparity`` over five seeds at P=512 and known-pose mapping
   at seed 0;
+- CPHD (``cfg/ackerman_cphd.cfg``): one step on the card against the CPU,
+  the full ``data/ackerman`` sequence at P=512 (ATE and every-step OSPA)
+  and the first 60 steps at P=10240;
+- the full-grid (uncapped) route, ``merge_candidate_cap = 0``: the
+  Ackerman PHD and CPHD configurations on ``data/ackerman`` at P=512, then
+  both CPHD routes again at seeds 1-3;
+- the Hellinger merge distance (``distance_metric = 1``, min_separation
+  0.6): 100 steps of the Ackerman configuration, then 30 on the full grid;
 
 then times every kernel against its twin and profiles a step of each path.
-Each phase prints its result; any failure raises and exits non-zero. The
-last line is one JSON object naming the device. Needs a CUDA device;
-imports no jax.
+Each phase prints its result; any failure raises and exits non-zero. Each
+path's run resets the launch counts before it and requires every kernel
+variant of that path to have launched. The line before the card's name
+and power limit lists every kernel variant (the merge2d kernel's four:
+sorted or argmax principal, Mahalanobis or Hellinger) with its launches
+in the first path that runs it, its error against its twin, its time, its
+twin's, its bound and, where one PyTorch call computes the same function,
+that call's time. The last line is one JSON object naming the device.
+Needs a CUDA device; imports no jax.
 """
 
 from __future__ import annotations
@@ -53,8 +67,9 @@ from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
-                                             merge3d, merge3d_reference,
-                                             merge4d, merge4d_reference)
+                                             merge2d_variant, merge3d,
+                                             merge3d_reference, merge4d,
+                                             merge4d_reference)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
 from phdslam_tpu_torch.ops.math import logsumexp
 from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
@@ -88,13 +103,31 @@ DISP_SEEDS, P_DISP_ACC = range(5), 512
 DISP_BANDS = {"mean_pose_err": (0.721, 0.043), "ospa": (0.86, 0.03)}
 DISP_KNOWN_POSE_OSPA = 0.90
 
+# the CPHD path and the full-grid / Hellinger variants
+CPHD_CFG = "cfg/ackerman_cphd.cfg"
+# the JAX package on the CPU, cfg/ackerman_cphd.cfg at P=512 over the full
+# dataset, seeds 0-2 (reference_band.py): mean ATE and mean every-step
+# OSPA(1, 5), mean and std over the seeds
+CPHD_BAND = {"ate": (0.4415, 0.1649), "ospa": (1.5284, 0.1255)}
+# the same with merge_candidate_cap 0 (reference_band.py --set
+# merge_candidate_cap=0), seeds 0-2
+CPHD_FULL_BAND = {"ate": (0.4909, 0.0562), "ospa": (1.6151, 0.0591)}
+FULL_GRID_STEPS = None          # None: the whole dataset
+CPHD_SEEDS = (1, 2, 3)          # both CPHD routes, beside seed 0's runs
+HELL = {"distance_metric": 1, "min_separation": 0.6}
+HELL_STEPS, HELL_FULL_STEPS = 100, 30
+
+_MERGE2D = ("phdslam_tpu_torch/csrc/merge2d.cu",
+            "phdslam_tpu/ops/pallas_merge.py:55")
 KERNELS = {
     "detect": ("phdslam_tpu_torch/csrc/detect.cu",
                "phdslam_tpu/ops/pallas_detect.py:49"),
     "gather_cols": ("phdslam_tpu_torch/csrc/gather_cols.cu",
                     "phdslam_tpu/ops/pallas_select.py:46"),
-    "merge2d": ("phdslam_tpu_torch/csrc/merge2d.cu",
-                "phdslam_tpu/ops/pallas_merge.py:55"),
+    "merge2d": _MERGE2D,
+    "merge2d_argmax": _MERGE2D,
+    "merge2d_hellinger": _MERGE2D,
+    "merge2d_argmax_hellinger": _MERGE2D,
     "merge4d": ("phdslam_tpu_torch/csrc/merge4d.cu",
                 "phdslam_tpu/ops/pallas_merge.py:785"),
     "merge3d": ("phdslam_tpu_torch/csrc/merge3d.cu",
@@ -103,6 +136,14 @@ KERNELS = {
 ACKERMAN_KERNELS = ("detect", "gather_cols", "merge2d")
 MIXED_KERNELS = ACKERMAN_KERNELS + ("merge4d",)
 DISP_KERNELS = ("merge3d",)
+CPHD_KERNELS = ACKERMAN_KERNELS
+FULL_GRID_KERNELS = ("merge2d_argmax",)
+HELL_KERNELS = ("detect", "gather_cols", "merge2d_hellinger")
+HELL_FULL_KERNELS = ("merge2d_argmax_hellinger",)
+
+# the card's published peaks (H100 SXM data sheet, dense, 700 W): HBM
+# bytes/s and f32 FLOP/s outside the tensor cores
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 
 
 def mixed_cfg(P=P_MAIN, K=128, M=32):
@@ -135,8 +176,12 @@ def mixed_runner(dev, P=P_MAIN, T=MIXED_STEPS):
     return ScanRunner(mixed_cfg(P), z, mask, MIXED_DT, device=dev)
 
 
+CARD = ""                       # nvidia-smi's name and power limit
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """One result line, tagged with the card's name and power limit."""
+    print(f"[{name}] {msg}" + (f" [{CARD}]" if CARD else ""), flush=True)
 
 
 def require(cond, msg):
@@ -189,6 +234,25 @@ def merge_inputs(dev, P=P_MAIN, N=512, seed=0, spread=0.3):
                        take(mean[..., 0]), take(mean[..., 1]),
                        take(cov[..., 0, 0]), take(cov[..., 0, 1]),
                        take(cov[..., 1, 1])], axis=1)
+    return torch.tensor(planes, dtype=torch.float32, device=dev)
+
+
+def full_grid_inputs(dev, P=P_MAIN, N=6320, seed=0, frac=0.1, n_centers=40):
+    """The full grid's merge planes (K + M K + M = 6320 lanes at K=128,
+    M=48): ~``frac`` of the lanes active, spread over the lane axis in no
+    weight order, clustered means (spread 0.3 about ``n_centers``
+    centres), covariances 0.3 I + A A'."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 20, (P, n_centers, 2))
+    mean = centers[np.arange(P)[:, None],
+                   rng.integers(0, n_centers, (P, N))] \
+        + rng.normal(0, 0.3, (P, N, 2))
+    A = rng.normal(0, 0.5, (P, N, 2, 2))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.3 * np.eye(2)
+    act = rng.random((P, N)) < frac
+    w = np.where(act, rng.uniform(1e-3, 1, (P, N)), 0.0)
+    planes = np.stack([w, act, mean[..., 0], mean[..., 1], cov[..., 0, 0],
+                       cov[..., 0, 1], cov[..., 1, 1]], axis=1)
     return torch.tensor(planes, dtype=torch.float32, device=dev)
 
 
@@ -257,6 +321,8 @@ def check_device():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     phase("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
+    global CARD
+    CARD = smi
     return smi
 
 
@@ -274,6 +340,74 @@ def build_kernels():
 
 def max_err(pairs):
     return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+
+
+def check_merge2d(planes, min_sep, K, sorted_w, metric, label):
+    """One merge2d variant against its twin: equal cluster and leftover
+    counts, rtol 1e-4 / atol 1e-5 on weights, means and covariances.
+    Returns (max |err|, the kernel's merge tuple)."""
+    got = merge_out(merge2d(planes, min_sep, K, sorted_w, metric), 2)
+    torch.cuda.synchronize()
+    want = merge_out(merge2d_reference(planes, min_sep, K, sorted_w, metric),
+                     2)
+    require(torch.equal(got[3], want[3]), f"{label}: n_merged differs")
+    require(torch.equal(got[4], want[4]), f"{label}: n_unmerged differs")
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    err = max_err(list(zip(got[:3], want[:3])))
+    phase("kernels", f"{label}: clusters/particle "
+          f"{float(got[3].float().mean()):.1f}, left "
+          f"{float(got[4].float().mean()):.1f}, max |err| {err:.3g} "
+          "(rtol 1e-4, atol 1e-5)")
+    return err, got
+
+
+def check_merge2d_variants(dev, errs, min_sep):
+    """merge2d's argmax mode at the full grid's shapes in both metrics (the
+    256-thread build), the Hellinger metric in sorted mode at the det
+    route's N=512, both sorted variants above N=2048 (the 256-thread
+    build a det-route cap above 2048 takes), an argmax Hellinger case at
+    N=512 (the 64-thread build), and an overflow and a NaN case in argmax
+    mode."""
+    planes = full_grid_inputs(dev)
+    frac = float((planes[:, 1] > 0.5).float().mean())
+    h_sep = HELL["min_separation"]
+    errs["merge2d_argmax"], _ = check_merge2d(
+        planes, min_sep, 128, False, 0,
+        f"merge2d argmax P={P_MAIN} N=6320 K=128 ({100 * frac:.1f}% active)")
+    errs["merge2d_argmax_hellinger"], _ = check_merge2d(
+        planes, h_sep, 128, False, 1,
+        f"merge2d argmax hellinger P={P_MAIN} N=6320 K=128 "
+        f"({100 * frac:.1f}% active)")
+    errs["merge2d_hellinger"], _ = check_merge2d(
+        merge_inputs(dev), h_sep, 128, True, 1,
+        f"merge2d hellinger P={P_MAIN} N=512 K=128")
+    wide = merge_inputs(dev, P=64, N=4096, seed=3)
+    for metric in (0, 1):
+        name = merge2d_variant(True, metric)
+        err, _ = check_merge2d(wide, h_sep if metric else min_sep, 128, True,
+                               metric, f"{name} P=64 N=4096 K=128")
+        errs[name] = max(errs[name], err)
+    err, _ = check_merge2d(
+        full_grid_inputs(dev, N=512, seed=1, frac=0.6), h_sep, 128, False, 1,
+        f"merge2d argmax hellinger P={P_MAIN} N=512 K=128")
+    errs["merge2d_argmax_hellinger"] = max(errs["merge2d_argmax_hellinger"],
+                                           err)
+    # argmax mode, 16 slots: a NaN particle stalls and drops its lanes;
+    # active zero-weight lanes never lead but count as left
+    for metric in (0, 1):
+        bad = full_grid_inputs(dev, P=64, N=512, seed=2, frac=0.6)
+        bad[0, 0] = float("nan")
+        bad[1:, 0, :64] = 0.0
+        name = merge2d_variant(False, metric)
+        err, got = check_merge2d(
+            bad, HELL["min_separation"] if metric else min_sep, 16, False,
+            metric, f"{name} overflow + NaN P=64 N=512 K=16")
+        require(int(got[3][0]) == 0 and int(got[4][0]) == 0,
+                f"{name}: NaN particle emitted clusters or kept lanes")
+        require(bool((got[3][1:] == 16).all() and (got[4][1:] > 0).all()),
+                f"{name} overflow: not every particle overflowed")
+        errs[name] = max(errs[name], err)
 
 
 def check_kernels(dev):
@@ -328,6 +462,7 @@ def check_kernels(dev):
     require(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]),
             "merge2d: NaN case counts differ")
     phase("kernels", "merge2d NaN/zero weights: terminated, counts match")
+    check_merge2d_variants(dev, errs, cfg.min_separation)
 
     # the mixed path's detect mode: min_fw = 0, cb = 0, M = 32
     planes, z4 = detect_inputs(dev, M=32, n_valid=24)
@@ -421,7 +556,9 @@ def copy_state(state, dev):
         pose=state.pose.to(dev), log_weight=state.log_weight.to(dev),
         map_static=gm_to(state.map_static),
         resample_idx=state.resample_idx.to(dev), step=state.step,
-        map_dynamic=gm_to(state.map_dynamic))
+        map_dynamic=gm_to(state.map_dynamic),
+        cardinality=(None if state.cardinality is None
+                     else state.cardinality.to(dev)))
 
 
 def step_against_cpu(r, n):
@@ -429,8 +566,8 @@ def step_against_cpu(r, n):
     state with the same noise, with the twins on the CPU.
 
     The predicted and updated states (pose, log_weight, each map's weights
-    and means) and the overflow are compared before resampling, where the
-    kernels act. Resampling is compared as nEff, the decision and the
+    and means, the CPHD cardinality) and the overflow are compared before
+    resampling, where the kernels act. Resampling is compared as nEff, the decision and the
     ancestors: a stratum may take another ancestor only where its point
     (j + u_j) / P lies within 1e-4 of a cumulative weight of the CPU state
     (f32 cumsums of 512 weights differ by ~1e-5 between the two devices).
@@ -471,12 +608,31 @@ def step_against_cpu(r, n):
             torch.testing.assert_close(gv.cpu(), cv, rtol=1e-4, atol=1e-5,
                                        msg=lambda m, n=name: f"{n}: {m}")
             err = max(err, max_err([(gv.cpu(), cv)]))
+    if g.cardinality is not None:
+        err = max(err, check_log_card(g.cardinality.cpu(), c.cardinality))
     require(int(ovf["gpu"]) == int(ovf["cpu"]), "step: overflow differs")
 
     n_edge = check_resampling(res["gpu"], res["cpu"], c.log_weight,
                               runs["cpu"][3].u_resample)
     r.state = res["gpu"][0]
     return err, c, n_edge, n_swapped
+
+
+def check_log_card(got, want):
+    """Log cardinalities [P, C+1]: the entries within 60 nats of their
+    row's peak within rtol 1e-4 / atol 1e-5; deeper ones (probability
+    below 1e-26 of the peak, where f32 sums in another order can leave
+    LOG0 on one side) only more than 50 nats below the peak on both.
+    Returns the largest |difference| of the compared entries."""
+    require(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+            "step: non-finite cardinality")
+    peak = want.amax(dim=1, keepdim=True)
+    near = want > peak - 60.0
+    torch.testing.assert_close(got[near], want[near], rtol=1e-4, atol=1e-5,
+                               msg=lambda m: f"cardinality: {m}")
+    require(bool(((got - peak)[~near] < -50.0).all()),
+            "step: cardinality tail differs")
+    return max_err([(got[near], want[near])])
 
 
 def check_resampling(gpu, cpu, log_weight, u):
@@ -548,6 +704,26 @@ def check_mixed_step(dev, n_before=40):
           f"twins max |err| {err:.3g} (rtol 1e-4, atol 1e-5), overflow "
           f"equal; {n_swap} weight-tied "
           f"slots swapped, {n_edge} resampling strata at a "
+          "cumulative-weight boundary")
+
+
+def check_cphd_step(dev, n_before=40):
+    """One CPHD step on the card against the same step with the twins on
+    the CPU, from step 40 of cfg/ackerman_cphd.cfg at P=512 and the same
+    noise (:func:`step_against_cpu`, the cardinality included)."""
+    cfg = load_config(CPHD_CFG, {"n_particles": P_MAIN})
+    r = SynthSLAMRunner(cfg, DATA, device=dev)
+    for n in range(n_before):
+        r.step(n)
+    err, cpu_state, n_edge, n_swap = step_against_cpu(r, n_before)
+    live = int((cpu_state.map_static.weight > 0).sum(dim=1).float().mean())
+    card = torch.exp(cpu_state.cardinality)
+    mean_card = float((card * torch.arange(card.shape[1])).sum(dim=1).mean())
+    phase("step", f"CPHD step {n_before} at P={P_MAIN} (mean {live} live "
+          f"components, mean cardinality {mean_card:.2f}): card vs CPU "
+          f"twins max |err| {err:.3g} (rtol 1e-4, atol 1e-5, cardinality "
+          f"within 60 nats of its peak), overflow equal; {n_swap} "
+          f"weight-tied slots swapped, {n_edge} resampling strata at a "
           "cumulative-weight boundary")
 
 
@@ -724,7 +900,8 @@ def run_main(dev):
     phase("run", f"data/ackerman P={P_MAIN}, {len(run['n_eff'])} steps: "
           f"{res['steps_per_s']:.2f} steps/s ({run['wall_s']:.3f} s), "
           f"mean ATE {ate:.4f} m, max {res['max_pose_err']:.4f} m, "
-          f"overflow {run['overflow']}")
+          f"mean OSPA(1, 5) {res['mean_ospa']:.4f} (final "
+          f"{res['final_ospa']:.4f}), overflow {run['overflow']}")
     phase("run", "launches: " + ", ".join(f"{k}={counts.get(k, 0)}"
                                           for k in KERNELS))
     lo, hi = ATE_BAND
@@ -735,6 +912,136 @@ def run_main(dev):
     require(np.isfinite(run["est_poses"]).all(), "NaN in the poses")
     require(ate <= ATE_LIMIT, f"mean ATE {ate:.4f} m > {ATE_LIMIT} m")
     return counts, res
+
+
+def run_path(dev, label, cfg_path, overrides, kernels, n_steps=None):
+    """``evaluate_dataset`` at P=512 with the launch counts set to 0 just
+    before and read just after: steps/s, peak memory, mean ATE, mean
+    every-step OSPA(1, 5), overflow and launches. Requires finite poses and
+    weights (the runner raises at the first chunk of steps with a NaN) and
+    every kernel variant in ``kernels`` launched. Returns (counts, res)."""
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = evaluate_dataset(cfg_path, ".", n_steps=n_steps,
+                           overrides=dict(overrides, n_particles=P_MAIN),
+                           device=dev)
+    counts = dict(build.launch_counts)
+    run = res["run"]
+    require(np.isfinite(run["est_poses"]).all()
+            and np.isfinite(run["n_eff"]).all(), f"{label}: NaN")
+    phase(label, f"{cfg_path} {overrides} P={P_MAIN}, {len(run['n_eff'])} "
+          f"steps: {res['steps_per_s']:.2f} steps/s ({run['wall_s']:.3f} s),"
+          f" peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} "
+          f"MiB, mean ATE {res['mean_pose_err']:.4f} m, max "
+          f"{res['max_pose_err']:.4f} m, mean OSPA(1, 5) "
+          f"{res['mean_ospa']:.4f} (final {res['final_ospa']:.4f}), overflow "
+          f"{run['overflow']}")
+    phase(label, "launches: " + ", ".join(f"{k}={counts.get(k, 0)}"
+                                          for k in KERNELS))
+    require(all(counts.get(k, 0) > 0 for k in kernels),
+            f"{label}: a kernel of the path never launched: {counts}")
+    return counts, res
+
+
+def run_cphd(dev):
+    """cfg/ackerman_cphd.cfg at P=512 over the full dataset (against the
+    JAX package's CPU band, fail above 1.0 m), then the first 60 steps at
+    P=10240. Returns the P=512 run's (counts, res)."""
+    counts, res = run_path(dev, "cphd", CPHD_CFG, {}, CPHD_KERNELS)
+    for key, val in (("ate", res["mean_pose_err"]),
+                     ("ospa", res["mean_ospa"])):
+        ref, std = CPHD_BAND[key]
+        lo, hi = ref - 2 * std, ref + 2 * std
+        phase("cphd", f"mean {key} {val:.4f} "
+              f"{'inside' if lo <= val <= hi else 'outside'} the JAX CPU "
+              f"band {ref} +- 2 x {std} (seeds 0-2 at P={P_MAIN})")
+    require(res["mean_pose_err"] <= ATE_LIMIT,
+            f"CPHD mean ATE {res['mean_pose_err']:.4f} m > {ATE_LIMIT} m")
+    cfg = load_config(CPHD_CFG, {"n_particles": P_SCALE,
+                                 "n_steps": SCALE_STEPS})
+    torch.cuda.reset_peak_memory_stats()
+    scale = SynthSLAMRunner(cfg, DATA, device=dev).run()
+    require(np.isfinite(scale["est_poses"]).all(), f"CPHD NaN at P={P_SCALE}")
+    phase("cphd", f"P={P_SCALE}, first {SCALE_STEPS} steps: "
+          f"{scale['steps_per_s']:.2f} steps/s ({scale['wall_s']:.3f} s), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return counts, res
+
+
+def run_full_grid(dev, capped):
+    """The uncapped route (merge_candidate_cap 0: every lane through the
+    argmax merge) of the PHD and CPHD configurations at P=512, each beside
+    its capped run's ATE (``capped``: config -> mean ATE). The PHD run
+    fails above 1.0 m. Returns the PHD run's launch counts and the CPHD
+    run's result."""
+    steps = f"{FULL_GRID_STEPS} steps" if FULL_GRID_STEPS else "all steps"
+    out = {}
+    for cfg_path in (CFG, CPHD_CFG):
+        counts, res = run_path(dev, "full-grid", cfg_path,
+                               {"merge_candidate_cap": 0}, FULL_GRID_KERNELS,
+                               n_steps=FULL_GRID_STEPS)
+        ate = res["mean_pose_err"]
+        phase("full-grid", f"{cfg_path} ({steps}): mean ATE {ate:.4f} m "
+              f"beside the capped run's {capped[cfg_path]:.4f} m (full "
+              "dataset)")
+        out[cfg_path] = counts, res
+    ate = out[CFG][1]["mean_pose_err"]
+    require(ate <= ATE_LIMIT, f"full-grid PHD mean ATE {ate:.4f} m > "
+            f"{ATE_LIMIT} m")
+    return out[CFG][0], out[CPHD_CFG][1]
+
+
+def cphd_route_seeds(dev, seed0):
+    """Both CPHD routes at P=512 over the full dataset (the det route at
+    the config's cap, and the full grid, cap 0) at seeds 1-3, beside the
+    runs of seed 0 (``seed0``: route -> evaluate_dataset's result): each
+    run's mean ATE and OSPA, then each route's mean and std over seeds 0-3
+    against that route's JAX CPU band and the mean of the per-seed gaps
+    (full grid minus det route). Every run must stay finite."""
+    routes = {"det": {}, "full grid": {"merge_candidate_cap": 0}}
+    bands = {"det": CPHD_BAND, "full grid": CPHD_FULL_BAND}
+    rows = {route: [(seed0[route]["mean_pose_err"], seed0[route]["mean_ospa"])]
+            for route in routes}
+    for seed in CPHD_SEEDS:
+        for route, over in routes.items():
+            res = evaluate_dataset(CPHD_CFG, ".", overrides=dict(
+                over, n_particles=P_MAIN, seed=seed), device=dev)
+            require(np.isfinite(res["run"]["est_poses"]).all()
+                    and np.isfinite(res["run"]["n_eff"]).all(),
+                    f"CPHD {route} seed {seed}: NaN")
+            rows[route].append((res["mean_pose_err"], res["mean_ospa"]))
+            phase("cphd-seeds", f"{route} seed {seed}: mean ATE "
+                  f"{res['mean_pose_err']:.4f} m, mean OSPA(1, 5) "
+                  f"{res['mean_ospa']:.4f}, {res['steps_per_s']:.2f} steps/s")
+    seeds = [0, *CPHD_SEEDS]
+    for route, vals in rows.items():
+        v = np.asarray(vals)
+        for i, key in enumerate(("ate", "ospa")):
+            ref, std = bands[route][key]
+            mean = float(v[:, i].mean())
+            inside = ref - 2 * std <= mean <= ref + 2 * std
+            phase("cphd-seeds", f"{route} mean {key} over seeds {seeds} at "
+                  f"P={P_MAIN}: {mean:.4f} +- {v[:, i].std():.4f}, "
+                  f"{'inside' if inside else 'outside'} the JAX CPU band "
+                  f"{ref} +- 2 x {std} (seeds 0-2)")
+    gap = np.asarray(rows["full grid"]) - np.asarray(rows["det"])
+    phase("cphd-seeds", f"full grid minus det route, per seed: ATE "
+          f"{', '.join(f'{g:+.4f}' for g in gap[:, 0])} m (mean "
+          f"{gap[:, 0].mean():+.4f}), OSPA "
+          f"{', '.join(f'{g:+.4f}' for g in gap[:, 1])}")
+
+
+def run_hellinger(dev):
+    """cfg/ackerman.cfg with the Hellinger merge distance (min_separation
+    0.6, the JAX Hellinger test's value): 100 steps on the det route, then
+    30 on the full grid; both must stay finite. Returns both runs' launch
+    counts."""
+    counts, _ = run_path(dev, "hellinger", CFG, HELL, HELL_KERNELS,
+                         n_steps=HELL_STEPS)
+    counts_full, _ = run_path(dev, "hellinger", CFG,
+                              dict(HELL, merge_candidate_cap=0),
+                              HELL_FULL_KERNELS, n_steps=HELL_FULL_STEPS)
+    return counts, counts_full
 
 
 def run_scale(dev):
@@ -828,38 +1135,93 @@ def time_call(fn, iters, warmup):
     return start.elapsed_time(end) / iters
 
 
+def bound(n_bytes, n_ops):
+    """The least time (ms) the card could take: the larger of the bytes
+    over HBM bandwidth and the f32 operations over the f32 peak, and which
+    of the two it is."""
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def merge_bound(packed, K, c_out, flop_per_lane):
+    """A merge's bound on this input: it must read the act plane and, for
+    the lanes that enter (act, and w > 0 in sorted mode; counted as act
+    here), the other planes once, write its [P, c_out, K] planes, and
+    evaluate each entering lane's distance and moments at least once."""
+    P, C, N = packed.shape
+    live = int((packed[:, 1] > 0.5).sum())
+    return bound(4 * (P * N + live * (C - 1) + P * c_out * K),
+                 flop_per_lane * live)
+
+
 def time_kernels(dev):
     """Kernel against twin at the main path's shapes, in turns
-    (twin, kernel, kernel, twin); CUDA events, ms per call."""
+    (twin, kernel, kernel, twin); CUDA events, ms per call; where one
+    PyTorch call computes the same function (gather_cols: torch.gather),
+    that call too. Returns {name: (ms, plain_ms, library_ms, bound_ms,
+    bound_by)}, the bound computed from these inputs."""
     cfg = load_config(CFG)
     min_fw, cb = cfg.min_feature_weight, cfg.clutter_density + cfg.birth_weight
+    min_sep, h_sep = cfg.min_separation, HELL["min_separation"]
     planes, z4 = detect_inputs(dev)
     idx, tab = gather_inputs(dev, P_MAIN, 16, 128, 512, seed=16)
+    idx_long = idx.long()[:, None, :].expand(-1, tab.shape[1], -1)
     packed = merge_inputs(dev)
+    grid = full_grid_inputs(dev)
     packed4 = merge4d_inputs(dev, N=128, seed=128)
     packed3 = merge3d_inputs(dev, seed=24)
+    P, _, K = planes.shape
+    M, T = z4.shape[0], 16
+    # name: (kernel, twin, twin iterations, library call, bound)
     calls = {
-        "detect": (lambda: detect(planes, z4, 16, min_fw, cb),
-                   lambda: detect_reference(planes, z4, 16, min_fw, cb)),
+        "detect": (lambda: detect(planes, z4, T, min_fw, cb),
+                   lambda: detect_reference(planes, z4, T, min_fw, cb), 5,
+                   None,
+                   # ~20 FLOP per (p, m, k) lane for pdw, 1 for selection
+                   bound(4 * (planes.numel() + z4.numel()) + 8 * P * M * T
+                         + 8 * P * M, 21 * P * M * K)),
         "gather_cols": (lambda: gather_cols(idx, tab),
-                        lambda: gather_cols_reference(idx, tab)),
-        "merge2d": (lambda: merge2d(packed, cfg.min_separation, 128),
-                    lambda: merge2d_reference(packed, cfg.min_separation,
-                                              128)),
+                        lambda: gather_cols_reference(idx, tab), 5,
+                        lambda: torch.gather(tab, 2, idx_long),
+                        bound(4 * (idx.numel() + tab.numel()
+                                   + tab.shape[0] * tab.shape[1]
+                                   * idx.shape[1]), 0)),
+        "merge2d": (lambda: merge2d(packed, min_sep, 128),
+                    lambda: merge2d_reference(packed, min_sep, 128), 5, None,
+                    merge_bound(packed, 128, 8, 27)),
+        "merge2d_argmax": (
+            lambda: merge2d(grid, min_sep, 128, False),
+            lambda: merge2d_reference(grid, min_sep, 128, False), 2, None,
+            merge_bound(grid, 128, 8, 27)),
+        "merge2d_hellinger": (
+            lambda: merge2d(packed, h_sep, 128, True, 1),
+            lambda: merge2d_reference(packed, h_sep, 128, True, 1), 5, None,
+            merge_bound(packed, 128, 8, 40)),
+        "merge2d_argmax_hellinger": (
+            lambda: merge2d(grid, h_sep, 128, False, 1),
+            lambda: merge2d_reference(grid, h_sep, 128, False, 1), 2, None,
+            merge_bound(grid, 128, 8, 40)),
         "merge4d": (lambda: merge4d(packed4, 2.0, 128),
-                    lambda: merge4d_reference(packed4, 2.0, 128)),
+                    lambda: merge4d_reference(packed4, 2.0, 128), 5, None,
+                    merge_bound(packed4, 128, 16, 120)),
         "merge3d": (lambda: merge3d(packed3, 20.0, 24),
-                    lambda: merge3d_reference(packed3, 20.0, 24)),
+                    lambda: merge3d_reference(packed3, 20.0, 24), 5, None,
+                    merge_bound(packed3, 24, 12, 70)),
     }
     times = {}
-    for name, (kern, plain) in calls.items():
-        p1 = time_call(plain, 5, 1)
+    for name, (kern, plain, iters, lib, (b_ms, b_by)) in calls.items():
+        p1 = time_call(plain, iters, 1)
         k1 = time_call(kern, 50, 5)
         k2 = time_call(kern, 50, 5)
-        p2 = time_call(plain, 5, 1)
-        times[name] = (min(k1, k2), min(p1, p2))
+        p2 = time_call(plain, iters, 1)
+        lib_ms = None
+        if lib is not None:
+            lib_ms = min(time_call(lib, 50, 5), time_call(lib, 50, 5))
+        times[name] = (min(k1, k2), min(p1, p2), lib_ms, b_ms, b_by)
         phase("timing", f"{name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-              f"{p1:.4f}/{p2:.4f} ms per call")
+              f"{p1:.4f}/{p2:.4f} ms per call, bound {b_ms:.5f} ms "
+              f"({b_by})" + ("" if lib_ms is None else
+                             f", library call {lib_ms:.4f} ms"))
     return times
 
 
@@ -867,8 +1229,10 @@ def profile_step(r, label, host=(40, 60), prof=(60, 80), prefix="phd."):
     """Where the time goes at P=512 for runner r: the steps of ``host`` on
     the host clock without the profiler and those of ``prof`` (as long)
     under torch.profiler, for the device time of each layer range (the
-    ``prefix`` record_function spans of filters/phd.py, filters/mixed.py,
-    filters/disparity.py) and each kernel. Earlier steps run unobserved."""
+    ``prefix`` record_function spans, a string or a tuple of them, of
+    filters/phd.py, filters/mixed.py, filters/cphd.py,
+    filters/disparity.py) and each kernel. Earlier steps run
+    unobserved."""
     steps = host[1] - host[0]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -938,29 +1302,47 @@ def main():
     check_step(dev)
     check_mixed_step(dev)
     check_disparity_step(dev)
-    counts, _ = run_main(dev)
+    check_cphd_step(dev)
+    counts, main_res = run_main(dev)
     run_scale(dev)
     mixed_counts = run_mixed(dev)
     mixed_accuracy(dev)
     disp_counts = run_disparity_data(dev)
     disparity_bench(dev)
     disparity_accuracy(dev)
+    cphd_counts, cphd_res = run_cphd(dev)
+    grid_counts, cphd_full_res = run_full_grid(
+        dev, {CFG: main_res["mean_pose_err"],
+              CPHD_CFG: cphd_res["mean_pose_err"]})
+    cphd_route_seeds(dev, {"det": cphd_res, "full grid": cphd_full_res})
+    hell_counts, hell_full_counts = run_hellinger(dev)
     times = time_kernels(dev)
     profile_step(SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN}),
                                  DATA, device=dev), "ackerman")
     profile_step(mixed_runner(dev), "mixed")
     profile_step(disparity_runner(dev), "disparity", host=(40, 60),
                  prof=(20, 40), prefix="disp.")
+    profile_step(SynthSLAMRunner(load_config(CPHD_CFG,
+                                             {"n_particles": P_MAIN}),
+                                 DATA, device=dev), "cphd",
+                 prefix=("phd.", "cphd."))
     # launches: each kernel's count in the run of the first path that runs
     # it (detect, gather_cols and merge2d: ackerman; merge4d: mixed;
-    # merge3d: disparity); every path's kernels were required > 0 there
+    # merge3d: disparity; merge2d_argmax: the full-grid PHD run;
+    # merge2d_hellinger and merge2d_argmax_hellinger: the Hellinger runs);
+    # every path's kernels were required > 0 there, the CPHD run's too
     path_counts = [(ACKERMAN_KERNELS, counts), (MIXED_KERNELS, mixed_counts),
-                   (DISP_KERNELS, disp_counts)]
+                   (DISP_KERNELS, disp_counts), (CPHD_KERNELS, cphd_counts),
+                   (FULL_GRID_KERNELS, grid_counts),
+                   (HELL_KERNELS, hell_counts),
+                   (HELL_FULL_KERNELS, hell_full_counts)]
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": int(next(c for ks, c in path_counts if name in ks)[name]),
          "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": times[name][3], "bound_by": times[name][4],
+         "library_ms": times[name][2]}
         for name, (src, rep) in KERNELS.items()]}
     print(json.dumps(report))
     print(smi)

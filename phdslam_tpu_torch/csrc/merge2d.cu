@@ -1,40 +1,55 @@
 // Exact sequential greedy moment-matched merge of 2D Gaussian candidates.
 //
 // Replaces phdslam_tpu/ops/pallas_merge.py::_merge_kernel -> _merge_core_2d
-// as the fast path runs it (sorted_w=True, Mahalanobis metric). Input
-// planes [P, 7, N]: w, act, mean x, mean y, cov 00, 01, 11; the active
-// lanes are weight-descending (top-cap-compacted), so the greedy principal
-// is always the first unmerged lane. Each trip: every unmerged lane within
-// squared Mahalanobis distance min_sep (averaged covariance) of the
+// in its four variants: the principal is the first unmerged lane
+// (sorted_w=True: active lanes weight-descending, top-cap-compacted) or the
+// argmax of w over the unmerged lanes, ties to the lowest lane
+// (sorted_w=False: any lane order, the full candidate grid); the distance
+// is the squared Mahalanobis distance with averaged covariance (metric 0)
+// or the Hellinger form (metric 1, with the tiny-determinant identity
+// fallback of ops/math.py::hellinger2), operation for operation as the
+// Pallas kernel's pair_dist. Input planes [P, 7, N]: w, act, mean x, mean
+// y, cov 00, 01, 11. Each trip: every unmerged lane within min_sep of the
 // principal joins it; their moment-matched merge is emitted into the next
 // output slot. Output planes [P, 8, K]: w, mean x, mean y, cov 00, 01, 11,
 // then the count of lanes left unmerged (broadcast), then 0. Empty slots
-// hold w 0, mean 0 and identity covariance. Lanes with w <= 0 or NaN never
-// enter; every trip emits its principal, so the loop ends after at most K
-// trips whatever the weights hold.
+// hold w 0, mean 0 and identity covariance.
+//
+// Which lanes enter: sorted mode takes act & w > 0, so NaN and w <= 0
+// lanes never enter. Argmax mode takes every act lane, as the Pallas
+// kernel does: a lane with w <= 0 can be absorbed but never leads, and the
+// row stalls (its remaining lanes are dropped, not counted as left) once
+// no unmerged lane has w > 0 or any unmerged lane's w is NaN (jnp.argmax
+// picks the NaN, whose max > 0 test fails). The two modes differ only in
+// the leftover count when out_cap binds and in rows holding NaN. Every
+// trip emits its principal, so the loop ends after at most K trips.
 //
 // What bounds it on Hopper: the greedy loop is sequential in the clusters
 // (tens to ~130 trips per particle), and each trip touches only the
 // particle's live lanes, so it is bound by the latency of two block-wide
-// reductions per trip, not by bytes or FLOPs. Design: one block of 64
-// threads (2 warps) per particle keeps the reductions to warp shuffles
-// plus one barrier each; the candidate planes sit in shared memory for the
-// whole loop; each thread owns lanes tid + 64 j and tracks them as a bit
-// mask, so a trip visits only still-unmerged lanes (the live count, not
-// the padded width N, sets the cost: the TPU version's width switch comes
-// for free). The next principal falls out of the second reduction as the
-// lowest still-unmerged lane. The TPU kernel's R-principals-per-trip
-// validity chain and lane cumsum existed to amortise its per-trip control
-// overhead and are not needed here.
+// reductions per trip, not by bytes or FLOPs. Design: one block per
+// particle, 64 threads (2 warps) up to N = 2048 and 256 threads (8 warps)
+// up to N = 8192 (the full grid K + M K + M = 6320 at K = 128, M = 48); each
+// thread owns lanes tid + threads * j and tracks them as a 32-bit mask, so
+// a trip visits only still-unmerged lanes (the live count, not the padded
+// width N, sets the cost). The act plane is read once; the other six
+// planes are read into shared memory only for the lanes that enter (5-15%
+// of the full grid), with the planes sized to N in dynamic shared memory
+// (up to 192 KB, opted into above 48 KB). The next principal falls out of
+// the trip's second reduction: the lowest unmerged lane (sorted) or the
+// (w descending, lane ascending) maximum with a NaN flag (argmax). The TPU
+// kernel's R-principals-per-trip validity chain and lane cumsum existed to
+// amortise its per-trip control overhead and are not needed here.
 
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cmath>
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 256;
+constexpr int kPlanes = 6;     // w, mean x, mean y, cov 00, 01, 11
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -50,17 +65,117 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
-__device__ __forceinline__ int first_lane(unsigned own, int tid) {
-  return own ? tid + (__ffs(own) - 1) * kThreads : INT_MAX;
+// (w descending, lane ascending): does (wa, ia) come before (wb, ib)?
+__device__ __forceinline__ bool heavier(float wa, int ia, float wb, int ib) {
+  return wa > wb || (wa == wb && ia < ib);
 }
 
+__device__ __forceinline__ void warp_best(float& w, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ow = __shfl_xor_sync(0xffffffffu, w, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (heavier(ow, oi, w, i)) {
+      w = ow;
+      i = oi;
+    }
+  }
+}
+
+template <int kMetric>
+__device__ __forceinline__ float pair_dist(float dx, float dy, float a00,
+                                           float a01, float a11, float b00,
+                                           float b01, float b11) {
+  if (kMetric == 0) {
+    const float s00 = 0.5f * (a00 + b00);
+    const float s01 = 0.5f * (a01 + b01);
+    const float s11 = 0.5f * (a11 + b11);
+    const float det = fmaxf(s00 * s11 - s01 * s01, 1e-30f);
+    return (dx * dx * s11 - 2.f * dx * dy * s01 + dy * dy * s00) / det;
+  }
+  const float s00 = a00 + b00;
+  const float s01 = a01 + b01;
+  const float s11 = a11 + b11;
+  const float det_s = s00 * s11 - s01 * s01;
+  const bool ok = det_s > 1.1754944e-38f;
+  const float det_safe = ok ? det_s : 1.f;
+  const float quad_inv =
+      (dx * dx * s11 - 2.f * dx * dy * s01 + dy * dy * s00) / det_safe;
+  const float quad_eye = dx * dx + dy * dy;
+  const float eps = -0.25f * (ok ? quad_inv : quad_eye);
+  const float det_half = det_s / 4.f;
+  const float det_prod = (a00 * a11 - a01 * a01) * (b00 * b11 - b01 * b01);
+  const float ratio = sqrtf(fmaxf(det_prod, 0.f)) / fmaxf(det_half, 1e-30f);
+  return 1.f - sqrtf(fmaxf(ratio, 0.f)) * expf(eps);
+}
+
+// The principal among the block's unmerged lanes (``own`` per thread), or
+// INT_MAX when there is none: the lowest lane (sorted mode), or the
+// heaviest lane when its weight is > 0 and no unmerged weight is NaN
+// (argmax mode). Ends with a __syncthreads after which every thread reads
+// the partials; the next writes come after the trip's next barrier.
+template <int kThreads, bool kArgmax>
+__device__ __forceinline__ int block_principal(unsigned own, const float* w,
+                                               int tid, float* red_w,
+                                               int* red_i, int* red_nan) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (!kArgmax) {
+    const int first =
+        warp_min(own ? tid + (__ffs(own) - 1) * kThreads : INT_MAX);
+    if (lane == 0) red_i[warp] = first;
+    __syncthreads();
+    int head = red_i[0];
+#pragma unroll
+    for (int q = 1; q < kWarps; ++q) head = min(head, red_i[q]);
+    return head;
+  }
+  float bw = -INFINITY;
+  int bi = INT_MAX;
+  bool nan_seen = false;
+  for (unsigned b = own; b; b &= b - 1) {      // lanes ascending
+    const int i = tid + kThreads * (__ffs(b) - 1);
+    const float wi = w[i];
+    if (isnan(wi)) {
+      nan_seen = true;
+    } else if (wi > bw) {
+      bw = wi;
+      bi = i;
+    }
+  }
+  warp_best(bw, bi);
+  const bool warp_nan = __any_sync(0xffffffffu, nan_seen);
+  if (lane == 0) {
+    red_w[warp] = bw;
+    red_i[warp] = bi;
+    red_nan[warp] = warp_nan;
+  }
+  __syncthreads();
+  bw = red_w[0];
+  bi = red_i[0];
+  bool any_nan = red_nan[0];
+#pragma unroll
+  for (int q = 1; q < kWarps; ++q) {
+    if (heavier(red_w[q], red_i[q], bw, bi)) {
+      bw = red_w[q];
+      bi = red_i[q];
+    }
+    any_nan = any_nan || red_nan[q];
+  }
+  return (!any_nan && bw > 0.f) ? bi : INT_MAX;
+}
+
+template <int kThreads, bool kArgmax, int kMetric>
 __global__ void __launch_bounds__(kThreads)
 merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
                int N, int K, float min_sep) {
-  extern __shared__ float s[];                  // [7, N]
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ float s[];                  // [kPlanes, N]
   __shared__ float red[2][kWarps][3];           // double-buffered partials
-  __shared__ int red_next[kWarps];
-  __shared__ int red_first[kWarps];
+  __shared__ float red_w[kWarps];               // principal partials
+  __shared__ int red_i[kWarps];
+  __shared__ int red_nan[kWarps];
   __shared__ int red_left[kWarps];
 
   const int p = blockIdx.x;
@@ -68,28 +183,32 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const float* in = packed + static_cast<size_t>(p) * 7 * N;
-  for (int i = tid; i < 7 * N; i += kThreads) s[i] = in[i];
-  __syncthreads();
-  const float* w = s;
-  const float* act = s + N;
-  const float* mx = s + 2 * N;
-  const float* my = s + 3 * N;
-  const float* c00 = s + 4 * N;
-  const float* c01 = s + 5 * N;
-  const float* c11 = s + 6 * N;
+  float* w = s;
+  float* mx = s + N;
+  float* my = s + 2 * N;
+  float* c00 = s + 3 * N;
+  float* c01 = s + 4 * N;
+  float* c11 = s + 5 * N;
 
-  // bit j of own: lane tid + kThreads * j is still unmerged
+  // bit j of own: lane tid + kThreads * j is still unmerged. Only the
+  // lanes that enter are ever read again, so only theirs are staged.
   unsigned own = 0;
   for (int j = 0; tid + kThreads * j < N; ++j) {
     const int i = tid + kThreads * j;
-    if (act[i] > 0.5f && w[i] > 0.f) own |= 1u << j;
+    if (!(in[N + i] > 0.5f)) continue;
+    const float wi = in[i];
+    if (!kArgmax && !(wi > 0.f)) continue;
+    own |= 1u << j;
+    w[i] = wi;
+    mx[i] = in[2 * N + i];
+    my[i] = in[3 * N + i];
+    c00[i] = in[4 * N + i];
+    c01[i] = in[5 * N + i];
+    c11[i] = in[6 * N + i];
   }
-  int head = warp_min(first_lane(own, tid));
-  if (lane == 0) red_first[warp] = head;
-  __syncthreads();
-  head = red_first[0];
-#pragma unroll
-  for (int q = 1; q < kWarps; ++q) head = min(head, red_first[q]);
+  // (the reduction's barrier also publishes the staged planes)
+  int head = block_principal<kThreads, kArgmax>(own, w, tid, red_w, red_i,
+                                                red_nan);
 
   float* o = out + static_cast<size_t>(p) * 8 * K;
   int c = 0;
@@ -103,14 +222,8 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
     for (unsigned b = own; b; b &= b - 1) {
       const int j = __ffs(b) - 1;
       const int i = tid + kThreads * j;
-      const float dx = pmx - mx[i];
-      const float dy = pmy - my[i];
-      const float s00 = 0.5f * (c00[i] + p00);
-      const float s01 = 0.5f * (c01[i] + p01);
-      const float s11 = 0.5f * (c11[i] + p11);
-      const float det = fmaxf(s00 * s11 - s01 * s01, 1e-30f);
-      const float d = (dx * dx * s11 - 2.f * dx * dy * s01
-                       + dy * dy * s00) / det;
+      const float d = pair_dist<kMetric>(pmx - mx[i], pmy - my[i], c00[i],
+                                         c01[i], c11[i], p00, p01, p11);
       if (d < min_sep || i == head) {
         sel |= 1u << j;
         const float wi = w[i];
@@ -154,22 +267,20 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
     b0 = warp_sum(b0);
     b1 = warp_sum(b1);
     b2 = warp_sum(b2);
-    const int nxt = warp_min(first_lane(own, tid));
     if (lane == 0) {
       red[1][warp][0] = b0;
       red[1][warp][1] = b1;
       red[1][warp][2] = b2;
-      red_next[warp] = nxt;
     }
-    __syncthreads();
+    // (the principal's barrier also publishes red[1])
+    head = block_principal<kThreads, kArgmax>(own, w, tid, red_w, red_i,
+                                              red_nan);
     float m00 = 0.f, m01 = 0.f, m11 = 0.f;
-    head = INT_MAX;
 #pragma unroll
     for (int q = 0; q < kWarps; ++q) {
       m00 += red[1][q][0];
       m01 += red[1][q][1];
       m11 += red[1][q][2];
-      head = min(head, red_next[q]);
     }
     if (tid == 0) {
       o[c] = W;
@@ -181,6 +292,9 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
     }
     ++c;
   }
+  // a row that stalled with budget left drops its remaining lanes (argmax
+  // mode; in sorted mode nothing is left then)
+  if (c < K) own = 0;
 
   const int left = static_cast<int>(warp_sum(static_cast<float>(__popc(own))));
   if (lane == 0) red_left[warp] = left;
@@ -202,20 +316,47 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
   }
 }
 
-}  // namespace
-
-extern "C" int phd_merge2d(const float* packed, float* out, int P, int N,
-                           int K, float min_sep, void* stream) {
-  if (P <= 0 || K <= 0) return 0;
-  if (N < 0 || N > 32 * kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * 7 * static_cast<size_t>(N);
+template <int kThreads, bool kArgmax, int kMetric>
+int launch(const float* packed, float* out, int P, int N, int K,
+           float min_sep, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kPlanes * static_cast<size_t>(N);
+  auto* kernel = merge2d_kernel<kThreads, kArgmax, kMetric>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  merge2d_kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      packed, out, N, K, min_sep);
+  kernel<<<P, kThreads, smem, stream>>>(packed, out, N, K, min_sep);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kThreads>
+int dispatch(const float* packed, float* out, int P, int N, int K,
+             float min_sep, int argmax, int metric, cudaStream_t stream) {
+  if (argmax) {
+    return metric ? launch<kThreads, true, 1>(packed, out, P, N, K, min_sep,
+                                              stream)
+                  : launch<kThreads, true, 0>(packed, out, P, N, K, min_sep,
+                                              stream);
+  }
+  return metric ? launch<kThreads, false, 1>(packed, out, P, N, K, min_sep,
+                                             stream)
+                : launch<kThreads, false, 0>(packed, out, P, N, K, min_sep,
+                                             stream);
+}
+
+}  // namespace
+
+extern "C" int phd_merge2d(const float* packed, float* out, int P, int N,
+                           int K, float min_sep, int argmax, int metric,
+                           void* stream) {
+  if (P <= 0 || K <= 0) return 0;
+  if (N < 0 || N > 32 * kMaxThreads || (metric != 0 && metric != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (N <= 32 * 64)
+    return dispatch<64>(packed, out, P, N, K, min_sep, argmax, metric, st);
+  return dispatch<kMaxThreads>(packed, out, P, N, K, min_sep, argmax, metric,
+                               st);
 }

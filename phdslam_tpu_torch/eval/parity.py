@@ -1,10 +1,12 @@
-"""Accuracy evaluation (port of ``phdslam_tpu/eval/parity.py``: the
-pose-error part of ``evaluate_dataset``, ``evaluate_mixed`` with its world
-and configuration, and ``evaluate_disparity``).
+"""Accuracy evaluation (port of ``phdslam_tpu/eval/parity.py``:
+``evaluate_dataset``, ``evaluate_mixed`` with its world and configuration,
+and ``evaluate_disparity``).
 
 The dataset protocol: run the filter over the dataset, take the expected
 pose on every step that carries a measurement set, and score its XY error
-against ``groundtruth.npz`` ``traj`` at that measurement index (the ATE).
+against ``groundtruth.npz`` ``traj`` at that measurement index (the ATE),
+and the MAP map of every such step with OSPA(1, 5) against the landmarks
+observed so far.
 The mixed protocol generates a world of static landmarks and moving
 targets from a seed and scores the pose error and the final static and
 dynamic maps with OSPA. The disparity protocol generates a camera world
@@ -31,19 +33,26 @@ from .ospa import extract_map_estimate, ospa_distance
 def evaluate_dataset(cfg_path: str, repo_root: str = ".",
                      n_steps: Optional[int] = None,
                      overrides: Optional[dict] = None, device="cuda"):
-    """Run the filter on a dataset and score its pose error.
+    """Run the filter on a dataset and score it against its ground truth.
 
-    Returns pose_err [T] (m), its mean/max/final, est_poses, steps_per_s
-    and the runner's result dict under "run".
+    OSPA(p=1, c=5) is scored on every measurement step, as the JAX version
+    does by default: the MAP particle's map estimate against the landmarks
+    observed up to that step (``groundtruth.npz`` ``cumulative_counts``,
+    all landmarks when absent). Returns pose_err [T] (m) and ospa [T] with
+    their mean/final (and the max pose error), est_poses, steps_per_s and
+    the runner's result dict under "run".
     """
     cfg = load_config(cfg_path, overrides)
     data_dir = os.path.join(repo_root, cfg.data_directory)
     if n_steps:
         cfg.n_steps = n_steps
-    traj = np.load(os.path.join(data_dir, "groundtruth.npz"))["traj"]
+    gt = np.load(os.path.join(data_dir, "groundtruth.npz"))
+    traj, landmarks = gt["traj"], gt["landmarks"]
+    cum_counts = (gt["cumulative_counts"] if "cumulative_counts" in gt.files
+                  else np.full(len(traj), len(landmarks)))
 
     r = SynthSLAMRunner(cfg, data_dir, device=device)
-    res = r.run()
+    res = r.run(collect_maps=True)
 
     midx = [i for i, p in enumerate(r.schedule) if p.z_idx >= 0]
     zidx = [p.z_idx for p in r.schedule if p.z_idx >= 0]
@@ -51,12 +60,21 @@ def evaluate_dataset(cfg_path: str, repo_root: str = ".",
     T = min(len(est), len(traj))
     pose_err = np.linalg.norm(est[:T, :2] - traj[np.asarray(zidx[:T]), :2],
                               axis=1)
+    ospas = []
+    for j in range(T):
+        est_map = extract_map_estimate(res["map_weights"][midx[j]],
+                                       res["map_means"][midx[j]])
+        true_map = landmarks[:cum_counts[min(zidx[j], len(cum_counts) - 1)]]
+        ospas.append(ospa_distance(true_map, est_map, p=1, c=5)[0])
     return {
         "pose_err": pose_err,
+        "ospa": np.asarray(ospas),
         "est_poses": est,
         "final_pose_err": float(pose_err[-1]),
         "mean_pose_err": float(pose_err.mean()),
         "max_pose_err": float(pose_err.max()),
+        "final_ospa": float(ospas[-1]),
+        "mean_ospa": float(np.mean(ospas)),
         "steps_per_s": res["steps_per_s"],
         "run": res,
     }

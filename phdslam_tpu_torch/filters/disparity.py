@@ -79,9 +79,9 @@ def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
     n_full = K + M * K + M
     cap = cfg.merge_candidate_cap
     width = cap if 0 < cap < n_full else n_full
-    if width > MAX_CANDIDATES:
+    if width > MAX_CANDIDATES[3]:
         bad.append(f"merge_candidate_cap={cap}: {width} merge lanes "
-                   f"(ported: <= {MAX_CANDIDATES})")
+                   f"(ported: <= {MAX_CANDIDATES[3]})")
     if bad:
         raise NotImplementedError(
             "configuration outside the ported disparity path: "

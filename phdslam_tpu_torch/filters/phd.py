@@ -1,21 +1,28 @@
 """Rao-Blackwellized GM-PHD SLAM filter step (port of
-``phdslam_tpu/filters/phd.py``, fast det route).
+``phdslam_tpu/filters/phd.py``: the det route and the full-grid route).
 
-One step runs vehicle prediction, the GM-PHD measurement update, MAP
-extraction and systematic resampling on fixed-capacity [P, K, D] state.
-The JAX version writes the update for one particle and vmaps it; here
-every function carries the particle axis explicitly. The update's device
-work goes through the kernels of ``kernels/``: the fused detection +
-top-T, the column gather (candidate tables and post-merge compaction) and
-the greedy merges (2D for the static map, 4D for the dynamic one).
+One step runs vehicle prediction, the measurement update (GM-PHD here, or
+the CPHD update of ``filters/cphd.py``), MAP extraction and systematic
+resampling on fixed-capacity [P, K, D] state. The JAX version writes the
+update for one particle and vmaps it; here every function carries the
+particle axis explicitly. The update's device work goes through the
+kernels of ``kernels/``: the fused detection + top-T, the column gather
+(candidate tables and post-merge compaction) and the greedy merges (2D
+for the static map, 4D for the dynamic one).
 
-Scope (:func:`check_supported`): PHD (filter_type 0) with MAP extraction,
-one prediction particle per particle and the compacted det route
-(0 < detection_topk < K, 0 < merge_candidate_cap < K + M K + M), on
-  - the static 2D map (feature_model 0) with cluster-process weighting
-    (particle_weighting 0), Ackerman or constant-velocity vehicle;
+Scope (:func:`check_supported`): MAP extraction and one prediction
+particle per particle, on
+  - the static 2D map (feature_model 0), Ackerman or constant-velocity
+    vehicle, with the PHD update (filter_type 0, cluster-process
+    weighting) or the CPHD update (filter_type 1), Mahalanobis or
+    Hellinger merge distance, on either route: the compacted det route
+    (0 < detection_topk < K, 0 < merge_candidate_cap < the full grid's
+    width) or the full-grid route (merge_candidate_cap 0 or at least the
+    width K + M K + M, K + M K for CPHD, at M = max_measurements: every
+    lane goes to the argmax merge, as the reference does);
   - the mixed jump-Markov static 2D + dynamic 4D maps (feature_model 2,
-    ``filters/mixed.py``'s fast route) with weighting 0 or 1.
+    ``filters/mixed.py``'s fast route, PHD, Mahalanobis) with weighting 0
+    or 1.
 The JAX version's live-width ``lax.switch`` families are exact prefix
 slices, so this port runs everything at full width instead.
 
@@ -30,7 +37,7 @@ for the GPU.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,11 +46,11 @@ from torch.profiler import record_function
 from ..config import SlamConfig
 from ..kernels.detect import detect
 from ..kernels.gather_cols import gather_cols
-from ..kernels.merge import merge2d, merge4d
+from ..kernels.merge import MAX_CANDIDATES, merge2d, merge4d
 from ..models import feature_motion, measurement, vehicle
 from ..ops import ekf
 from ..ops.gm_merge import merge_out, topcap_sort
-from ..ops.math import logsumexp
+from ..ops.math import LOG0, logsumexp, safe_log
 from ..ops.resample import effective_sample_ratio, systematic_ancestors
 from ..types import FilterState, GMState
 
@@ -66,25 +73,42 @@ class StepOutputs(NamedTuple):
     log_weight: torch.Tensor      # [P] particle log weights (post-step)
     poses: torch.Tensor           # [P, 6] particle poses (post-step)
     resample_idx: torch.Tensor    # [P] ancestor indices
+    cardinality: Optional[torch.Tensor]  # [C+1] MAP particle's log
+                                  # cardinality (post-step), CPHD only
+
+
+def full_grid_width(cfg: SlamConfig, K: int, M: int) -> int:
+    """Merge lanes of the uncapped route: [K persistent | M K detections |
+    M births] for PHD, no birth lanes for CPHD (its births join after the
+    merge)."""
+    return K + M * K + (M if cfg.filter_type == 0 else 0)
+
+
+def uses_full_grid(cfg: SlamConfig, K: int, M: int) -> bool:
+    """True when the candidate cap does not bind (0, or at least the full
+    grid's width): the JAX version's slow route, every lane merged."""
+    return not 0 < cfg.merge_candidate_cap < full_grid_width(cfg, K, M)
 
 
 def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
     """Raise for a configuration outside the ported path."""
     mixed = cfg.feature_model == 2
     ported = {
-        "filter_type": (cfg.filter_type, (0,)),
+        "filter_type": (cfg.filter_type, (0,) if mixed else (0, 1)),
         "feature_model": (cfg.feature_model, (0, 2)),
         "motion_type": (cfg.motion_type, (0, 1)),
-        # weighting 2 (and compute_variance) would take the per-particle
-        # slow route of the mixed update, which is not ported
-        "particle_weighting": (cfg.particle_weighting,
-                               (0, 1) if mixed else (0,)),
-        "distance_metric": (cfg.distance_metric, (0,)),
+        "distance_metric": (cfg.distance_metric, (0,) if mixed else (0, 1)),
         "n_predict_particles": (max(1, cfg.n_predict_particles), (1,)),
         "compute_variance": (bool(cfg.compute_variance), (False,)),
         "premerge_consolidate": (cfg.premerge_consolidate, (0,)),
         "merge_spatial_tiles": (cfg.merge_spatial_tiles, (0,)),
     }
+    if cfg.filter_type == 0:
+        # weighting 2 (and compute_variance) would take the per-particle
+        # slow route of the mixed update, which is not ported; the CPHD
+        # update weights particles by its own Psi terms
+        ported["particle_weighting"] = (cfg.particle_weighting,
+                                        (0, 1) if mixed else (0,))
     if mixed:
         ported["birth_velocity_init"] = (cfg.birth_velocity_init, (0,))
         ported["mixed_fast_path"] = (cfg.mixed_fast_path, (1,))
@@ -93,11 +117,27 @@ def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
     if not cfg.map_estimate & 1:
         bad.append(f"map_estimate={cfg.map_estimate} (ported: MAP, bit 0)")
     T, cap = cfg.detection_topk, cfg.merge_candidate_cap
-    if not 0 < T < K:
-        bad.append(f"detection_topk={T} (ported: 0 < T < K={K})")
-    if not 0 < cap < K + M * K + M:
-        bad.append(f"merge_candidate_cap={cap} (ported: 0 < cap < "
-                   f"{K + M * K + M})")
+    n_full = full_grid_width(cfg, K, M)
+    # the runners pad M to the longest scan, the JAX version to
+    # max_measurements; between the two widths the JAX version would take
+    # the det route
+    n_jax = full_grid_width(cfg, K, max(M, cfg.max_measurements))
+    if n_full <= cap < n_jax:
+        bad.append(f"merge_candidate_cap={cap}: the full grid at the padded "
+                   f"M={M} ({n_full} lanes) but not at max_measurements="
+                   f"{cfg.max_measurements} ({n_jax}), where the JAX version "
+                   "takes the det route")
+    elif not uses_full_grid(cfg, K, M):
+        if not 0 < T < K:
+            # the JAX version's top-cap lane route without stage 1
+            bad.append(f"detection_topk={T} with the binding "
+                       f"merge_candidate_cap={cap} (ported: 0 < T < K={K})")
+    elif mixed:
+        bad.append(f"merge_candidate_cap={cap} (the mixed full grid; "
+                   f"ported: 0 < cap < {n_full})")
+    elif n_full > MAX_CANDIDATES[2]:
+        bad.append(f"merge_candidate_cap={cap}: the full grid's {n_full} "
+                   f"lanes (merge2d is built for <= {MAX_CANDIDATES[2]})")
     if bad:
         raise NotImplementedError(
             "configuration outside the ported path: " + "; ".join(bad))
@@ -223,44 +263,138 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
 def deferred_gather(idx, cand_w, sel_act, mean, cov, pre: ekf.PreUpdate, z,
                     b_mean, b_cov):
     """The deferred-gather dict of a stage-2 selection: flat candidate ids
-    ``idx`` [P, cap] over [K persistent | M*K detections | M births] as
-    table columns and masks, plus the feature-minor source tables."""
+    ``idx`` [P, cap] over [K persistent | M*K detections | M births] (no
+    birth lanes when ``b_mean`` is None) as table columns and masks, plus
+    the feature-minor source tables."""
     K, M = mean.shape[-2], z.shape[0]
-    k_eff, m_eff, is_p, is_d = ekf.candidate_gather_indices(idx, K, M, True)
+    k_eff, m_eff, is_p, is_d = ekf.candidate_gather_indices(
+        idx, K, M, b_mean is not None)
     t_k, t_m = ekf.candidate_tables_T(mean, cov, pre, z, b_mean, b_cov)
     return dict(k_eff=k_eff.to(torch.int32), m_eff=m_eff.to(torch.int32),
                 is_p=is_p, is_d=is_d, sel_act=sel_act, cand_w=cand_w,
                 t_k=t_k, t_m=t_m)
 
 
-def _finish_candidates_packed(g, D):
+def _finish_candidates_packed(g, D, has_birth=True):
     """Run the deferred candidate gather (two column gathers) and pack the
     candidates as planes [P, 2 + D + D(D+1)/2, cap]: w, act, the means,
-    the upper-triangle covariances."""
+    the upper-triangle covariances. ``has_birth``: the lane layout holds
+    the M birth lanes (PHD) or not (CPHD)."""
     r_k = gather_cols(g["k_eff"], g["t_k"])
     r_m = gather_cols(g["m_eff"], g["t_m"])
     mean_pl, cov_pl = ekf.combine_selected_planes(
-        r_k, r_m, g["is_p"], g["is_d"], g["sel_act"], D, True)
+        r_k, r_m, g["is_p"], g["is_d"], g["sel_act"], D, has_birth)
     planes = [g["cand_w"], g["sel_act"].to(g["cand_w"].dtype)] \
         + mean_pl + cov_pl
     return torch.stack(planes, dim=-2)
 
 
-_MERGE = {2: merge2d, 4: merge4d}
-
-
-def gather_merge(gather, D, cfg: SlamConfig, out_cap):
+def gather_merge(gather, D, cfg: SlamConfig, out_cap, has_birth=True):
     """Gather + combine + greedy merge of a deferred-gather dict (the JAX
     version's ``gather_merge_width_switched`` at full width). Returns the
     merge tuple (mean, cov, w, n_merged, n_dropped)."""
     with record_function("phd.gather"):
-        packed = _finish_candidates_packed(gather, D)
+        packed = _finish_candidates_packed(gather, D, has_birth)
     with record_function("phd.merge"):
-        # the JAX version's merge dispatch (width switch, tiling, metric
-        # routes) reduces here to the Mahalanobis kernel of the feature
-        # dimension, which loops only over live lanes
-        return merge_out(_MERGE[D](packed, float(cfg.min_separation),
-                                   out_cap), D)
+        # the JAX version's merge dispatch (width switch, tiling) reduces
+        # here to the sorted-mode kernel of the feature dimension, which
+        # loops only over live lanes
+        if D == 2:
+            out = merge2d(packed, float(cfg.min_separation), out_cap,
+                          metric=cfg.distance_metric)
+        else:
+            out = merge4d(packed, float(cfg.min_separation), out_cap)
+        return merge_out(out, D)
+
+
+def merge_full_grid(packed, cfg: SlamConfig, out_cap):
+    """Greedy merge of full-grid candidate planes [P, 7, N] in any lane
+    order: the argmax-mode 2D kernel, as the JAX version's
+    ``merge_batch_dispatch(sorted_prefix=False)`` runs it. Returns the
+    merge tuple."""
+    with record_function("phd.merge"):
+        return merge_out(merge2d(packed, float(cfg.min_separation), out_cap,
+                                 sorted_w=False,
+                                 metric=cfg.distance_metric), 2)
+
+
+def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
+    """Pre-merge half of the full-grid route for all particles (the JAX
+    version's ``_update_single_pre`` with its cap not binding, batched over
+    P): the log-domain normalizer over each measurement's detection lanes,
+    clutter density and birth weight, and every lane of [K persistent |
+    M K detections | M births] packed as merge planes [P, 7, N] (w, act,
+    mean, upper-triangle cov) with inactive lanes sanitized to (0, 0, I).
+    ``compact_candidates`` at such a cap is the identity, so nothing is
+    dropped before the merge."""
+    P, K, D = mean.shape
+    M = z.shape[0]
+    dev, dtype = mean.device, mean.dtype
+    pose_b = pose[:, None, :]
+
+    cls = measurement.classify_in_range(pose_b, mean, weight, cfg)
+    in_m = cls == measurement.IN_RANGE
+    near_m = cls == measurement.NEARLY_IN_RANGE
+    out_m = (cls == measurement.OUT_OF_RANGE) & (weight > 0)
+    pre = ekf.ekf_preupdate(pose_b, mean, cov, cfg)
+    det_valid = z_mask[:, None] & in_m[:, None, :]              # [P, M, K]
+    mean_det, logw_part, _ = ekf.ekf_detection_terms(pre, mean, weight, z)
+    logw_part = torch.where(det_valid, logw_part, LOG0)
+
+    # per-measurement normalizer: detections + clutter density + birth
+    def log_of(v):
+        return safe_log(torch.tensor(v, dtype=dtype, device=dev))
+    log_bw = log_of(cfg.birth_weight)
+    all_logw = torch.cat([logw_part,
+                          log_of(cfg.clutter_density).expand(P, M, 1),
+                          log_bw.expand(P, M, 1)], dim=-1)
+    mmax = torch.amax(all_logw, dim=-1, keepdim=True)
+    log_norm = mmax.squeeze(-1) + torch.log(
+        torch.sum(torch.exp(all_logw - mmax), dim=-1))          # [P, M]
+    w_det = torch.where(det_valid, torch.exp(logw_part - log_norm[..., None]),
+                        0.0)
+    w_birth = torch.where(z_mask, torch.exp(log_bw - log_norm), 0.0)
+    w_nd = torch.where(in_m, weight * (1.0 - pre.pd), 0.0)
+    b_mean, b_cov = measurement.birth_mean_cov(pose_b, z, cfg)
+
+    # cluster-process weighting, as on the det route
+    n_valid_z = z_mask.to(dtype).sum()
+    card_pred = torch.where(in_m, pre.pd * weight, 0.0).sum(dim=1) \
+        + n_valid_z * cfg.birth_weight
+    dlog_w = torch.where(z_mask, log_norm, 0.0).sum(dim=1) - card_pred
+
+    min_fw = cfg.min_feature_weight
+    act_a = (in_m & (w_nd >= min_fw)) | near_m
+    w_a = torch.where(in_m, w_nd, torch.where(near_m, weight, 0.0))
+    act_b = det_valid & (w_det >= min_fw)
+    act_c = z_mask & (w_birth >= min_fw)
+    packed = full_grid_planes(
+        [w_a, w_det, w_birth], [act_a, act_b, act_c],
+        [mean, mean_det, b_mean],
+        [cov, pre.cov_upd[:, None].expand(P, M, K, D, D), b_cov])
+    return dict(packed=packed, dlog_w=dlog_w, out_m=out_m,
+                n_compact=torch.zeros((P,), dtype=torch.int64, device=dev))
+
+
+def full_grid_planes(ws, acts, means, covs):
+    """Merge planes [P, 7, N] of lane blocks concatenated in order (each
+    block's weights / actives [P, ...], means [P, ..., 2], covariances
+    [P, ..., 2, 2], flattened to [P, n_b]): w, act, mean x, mean y,
+    cov 00, 01, 11, inactive lanes sanitized to w 0, mean 0, identity
+    covariance (masked lanes can hold non-finite values, such as births
+    from padded zero measurements)."""
+    P = ws[0].shape[0]
+
+    def cat(blocks):
+        return torch.cat([b.reshape(P, -1) for b in blocks], dim=1)
+    act = cat(acts)
+    planes = [torch.where(act, cat(ws), 0.0), act.to(ws[0].dtype)]
+    planes += [torch.where(act, cat([m[..., i] for m in means]), 0.0)
+               for i in range(2)]
+    planes += [torch.where(act, cat([c[..., a, b] for c in covs]),
+                           1.0 if a == b else 0.0)
+               for a, b in ((0, 0), (0, 1), (1, 1))]
+    return torch.stack(planes, dim=1)
 
 
 def _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
@@ -313,20 +447,34 @@ def _post_compact_batched(mg, pre, mean, cov, weight, cfg: SlamConfig):
 
 
 def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
-    """All-particle update: pre-half + merge at full width, then the
-    post-half compaction. Returns (new_mean, new_cov, new_w, dlog_w,
-    overflow [P])."""
-    K = mean.shape[-2]
-    check_supported(cfg, K, z.shape[0])
-    mg, bits = _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg,
-                                out_cap=K)
+    """All-particle update: pre-half + merge at full width on the det route
+    or the full-grid route, then the post-half compaction (the JAX
+    version's ``_update_single_post`` has the same arithmetic on the
+    full-grid route: scheme 2 is not ported). Returns (new_mean, new_cov,
+    new_w, dlog_w, overflow [P])."""
+    K, M = mean.shape[-2], z.shape[0]
+    check_supported(cfg, K, M)
+    if uses_full_grid(cfg, K, M):
+        with record_function("phd.pre"):
+            bits = _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg)
+        mg = merge_full_grid(bits["packed"], cfg, K)
+    else:
+        mg, bits = _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg,
+                                    out_cap=K)
     with record_function("phd.post"):
         return _post_compact_batched(mg, bits, mean, cov, weight, cfg)
 
 
-def update(state: FilterState, z, z_mask, cfg: SlamConfig):
+def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None):
     """Measurement update over all particles; returns (state, overflow).
-    The mixed model (feature_model 2) updates both maps jointly."""
+    The mixed model (feature_model 2) updates both maps jointly; the CPHD
+    filter (filter_type 1) runs ``filters/cphd.py::cphd_update`` with
+    ``consts`` (built from cfg when None)."""
+    if cfg.filter_type == 1:
+        from .cphd import cphd_constants, cphd_update
+        if consts is None:
+            consts = cphd_constants(cfg, device=state.pose.device)
+        return cphd_update(state, z, z_mask, consts, cfg)
     if cfg.feature_model == 2:
         from .mixed import mixed_update
         return mixed_update(state, z, z_mask, cfg)
@@ -384,6 +532,8 @@ def maybe_resample(state: FilterState, has_measurements: bool,
         log_weight=torch.where(do_resample, -log_p, state.log_weight),
         map_static=take(state.map_static),
         map_dynamic=take(state.map_dynamic),
+        cardinality=(None if state.cardinality is None
+                     else state.cardinality[idx]),
         resample_idx=idx.to(torch.int32))
     return state, n_eff, do_resample
 
@@ -393,13 +543,14 @@ def maybe_resample(state: FilterState, has_measurements: bool,
 # ----------------------------------------------------------------------------
 
 def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
-             cfg: SlamConfig, noise: StepNoise, has_z=None):
+             cfg: SlamConfig, noise: StepNoise, has_z=None, consts=None):
     """One filter step: predict -> update -> extract -> resample.
 
     ``z`` [M, 2] padded measurements with ``z_mask`` [M] marking real ones;
     ``control`` = (v_encoder, alpha); ``do_predict`` gates the motion
     model. ``has_z`` (whether z_mask has any True) is read from the device
-    when not given; the runner passes it from the host schedule.
+    when not given; the runner passes it from the host schedule, and the
+    CPHD constants (``filters/cphd.py::cphd_constants``) it built once.
     """
     if has_z is None:
         has_z = bool(z_mask.any())
@@ -408,14 +559,19 @@ def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
             state = predict(state, control, dt, cfg, noise.eps_pred)
     overflow = torch.zeros((), dtype=torch.int64, device=state.pose.device)
     if has_z:
-        state, overflow = update(state, z, z_mask, cfg)
+        state, overflow = update(state, z, z_mask, cfg, consts)
     with record_function("phd.extract_resample"):
         expected_pose, (mm, mc, mw) = extract(state, cfg)
         state, n_eff, resampled = maybe_resample(state, has_z, cfg,
                                                  noise.u_resample)
+        # the MAP particle's cardinality after resampling, argmax ties to
+        # the lowest index, as the JAX version extracts it
+        cn = (None if state.cardinality is None
+              else state.cardinality[torch.argmax(state.log_weight)])
     state = state.replace(step=state.step + 1)
     out = StepOutputs(expected_pose=expected_pose, map_mean=mm, map_cov=mc,
                       map_weight=mw, n_eff=n_eff, resampled=resampled,
                       overflow=overflow, log_weight=state.log_weight,
-                      poses=state.pose, resample_idx=state.resample_idx)
+                      poses=state.pose, resample_idx=state.resample_idx,
+                      cardinality=cn)
     return state, out

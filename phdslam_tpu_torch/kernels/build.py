@@ -46,8 +46,8 @@ _SIGNATURES = {
     "phd_detect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # idx, tab, out, P, C, R, cap, stream
     "phd_gather_cols": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # packed, out, P, N, K, min_separation, stream
-    "phd_merge2d": [_P, _P, _I, _I, _I, _F, _P],
+    # packed, out, P, N, K, min_separation, argmax, metric, stream
+    "phd_merge2d": [_P, _P, _I, _I, _I, _F, _I, _I, _P],
     # packed, out, P, N, K, min_separation, stream
     "phd_merge3d": [_P, _P, _I, _I, _I, _F, _P],
     # packed, out, P, N, K, min_separation, stream

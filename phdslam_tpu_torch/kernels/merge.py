@@ -1,11 +1,14 @@
 """Exact sequential greedy merge of 2D, 3D and 4D candidate planes.
 
 ``merge2d`` replaces ``phdslam_tpu/ops/pallas_merge.py::_merge_kernel`` ->
-``_merge_core_2d`` (entry ``gm_merge_pallas_batch_packed``), ``merge3d``
-replaces ``_merge_kernel_3d`` (entry ``gm_merge_pallas_batch_3d``) and
-``merge4d`` replaces ``_merge_kernel_4d`` (entry
-``gm_merge_pallas_batch_packed_4d``), all as the fast paths call them:
-sorted_w=True, Mahalanobis metric (at D = 3 and 4 in the closed forms of
+``_merge_core_2d`` (entries ``gm_merge_pallas_batch_packed`` and
+``gm_merge_pallas_batch``) in its four variants: sorted_w True (the fast
+paths' top-cap-compacted, weight-descending lanes) or False (argmax
+principal over any lane order: the full candidate grid), Mahalanobis or
+Hellinger metric. ``merge3d`` replaces ``_merge_kernel_3d`` (entry
+``gm_merge_pallas_batch_3d``) and ``merge4d`` replaces ``_merge_kernel_4d``
+(entry ``gm_merge_pallas_batch_packed_4d``), both as the fast paths call
+them: sorted_w=True, Mahalanobis metric (in the closed forms of
 ``ops/math.py::mahalanobis2_3d`` and ``mahalanobis2_4d``).
 
 Input planes [P, C, N]: w, act, the D mean planes, the D(D+1)/2 upper-
@@ -16,7 +19,8 @@ unmerged (broadcast), zero pads ([P, 8, K] at D = 2, [P, 12, K] at D = 3,
 [P, 16, K] at D = 4), clusters in greedy emission order, empty slots as
 weight 0, mean 0, identity covariance. A wrapper launches its CUDA kernel
 (csrc/merge2d.cu, merge3d.cu, merge4d.cu) for CUDA tensors and runs its
-plain twin (``*_reference``) for CPU tensors.
+plain twin (``*_reference``) for CPU tensors. Each merge2d variant counts
+its launches under its own name (:func:`merge2d_variant`).
 """
 
 from __future__ import annotations
@@ -26,21 +30,34 @@ import torch
 from ..ops.gm_merge import gm_merge_batch, pack_merge_out, unpack_planes
 from . import build
 
-MAX_CANDIDATES = 2048    # 64 threads x 32 lanes each (one bit mask word)
+# lanes per particle: one 32-bit mask word per thread, 64 threads (merge3d,
+# merge4d) or up to 256 (merge2d, whose full-grid route needs K + M K + M)
+MAX_CANDIDATES = {2: 8192, 3: 2048, 4: 2048}
 _PLANES = {2: (7, 8), 3: (11, 12), 4: (16, 16)}  # D -> (input, output)
 
 
-def _reference(packed, min_separation, out_cap, D):
+def merge2d_variant(sorted_w: bool = True, metric: int = 0) -> str:
+    """The launch-count name of a merge2d variant: "merge2d" (sorted,
+    Mahalanobis), "merge2d_argmax", "merge2d_hellinger",
+    "merge2d_argmax_hellinger"."""
+    return "merge2d" + ("" if sorted_w else "_argmax") \
+        + ("_hellinger" if metric == 1 else "")
+
+
+def _reference(packed, min_separation, out_cap, D, sorted_w=True, metric=0):
     mean, cov, w, act = unpack_planes(packed, D)
-    om, oc, ow, _, n_dropped = gm_merge_batch(mean, cov, w, act,
-                                              min_separation, out_cap)
+    om, oc, ow, _, n_dropped = gm_merge_batch(
+        mean, cov, w, act, min_separation, out_cap, distance_metric=metric,
+        argmax=not sorted_w)
     return pack_merge_out(om, oc, ow, n_dropped)
 
 
-def merge2d_reference(packed, min_separation: float, out_cap: int):
+def merge2d_reference(packed, min_separation: float, out_cap: int,
+                      sorted_w: bool = True, metric: int = 0):
     """Plain PyTorch twin of merge2d: ``ops/gm_merge.py::gm_merge_batch``
-    on [P, 7, N] planes."""
-    return _reference(packed, min_separation, out_cap, 2)
+    on [P, 7, N] planes, in sorted (``sorted_w``) or argmax mode, with the
+    Mahalanobis (``metric`` 0) or Hellinger (1) distance."""
+    return _reference(packed, min_separation, out_cap, 2, sorted_w, metric)
 
 
 def merge3d_reference(packed, min_separation: float, out_cap: int):
@@ -55,7 +72,7 @@ def merge4d_reference(packed, min_separation: float, out_cap: int):
     return _reference(packed, min_separation, out_cap, 4)
 
 
-def _launch(packed, min_separation, out_cap, D):
+def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0):
     name = f"merge{D}d"
     c_in, c_out = _PLANES[D]
     build.require(packed.device.type == "cuda",
@@ -66,28 +83,37 @@ def _launch(packed, min_separation, out_cap, D):
     build.require(packed.dtype == torch.float32 and packed.is_contiguous(),
                   f"{name}: contiguous float32 planes required")
     P, _, N = packed.shape
-    build.require(N <= MAX_CANDIDATES and out_cap > 0,
-                  f"{name}: N={N} (max {MAX_CANDIDATES}), out_cap={out_cap}")
+    build.require(N <= MAX_CANDIDATES[D] and out_cap > 0,
+                  f"{name}: N={N} (max {MAX_CANDIDATES[D]}), "
+                  f"out_cap={out_cap}")
+    build.require(metric in (0, 1) and (D == 2 or (sorted_w and metric == 0)),
+                  f"{name}: sorted_w={sorted_w}, metric={metric} not built")
     out = torch.empty((P, c_out, out_cap), dtype=torch.float32,
                       device=packed.device)
     if P == 0:
         return out
+    args = [packed.data_ptr(), out.data_ptr(), P, N, out_cap,
+            float(min_separation)]
+    if D == 2:
+        args += [int(not sorted_w), int(metric)]
     fn = getattr(build.library(), f"phd_{name}")
-    err = fn(packed.data_ptr(), out.data_ptr(), P, N, out_cap,
-             float(min_separation), build.stream_handle(packed.device))
+    err = fn(*args, build.stream_handle(packed.device))
     build.check_launch(err, name)
-    build.launch_counts[name] += 1
+    build.launch_counts[merge2d_variant(sorted_w, metric) if D == 2
+                        else name] += 1
     return out
 
 
-def merge2d(packed, min_separation: float, out_cap: int):
+def merge2d(packed, min_separation: float, out_cap: int,
+            sorted_w: bool = True, metric: int = 0):
     """Greedy 2D merge; same contract as :func:`merge2d_reference`.
 
     A CPU tensor runs the twin; a CUDA tensor launches the kernel.
     """
     if packed.device.type == "cpu":
-        return merge2d_reference(packed, min_separation, out_cap)
-    return _launch(packed, min_separation, out_cap, 2)
+        return merge2d_reference(packed, min_separation, out_cap, sorted_w,
+                                 metric)
+    return _launch(packed, min_separation, out_cap, 2, sorted_w, metric)
 
 
 def merge3d(packed, min_separation: float, out_cap: int):

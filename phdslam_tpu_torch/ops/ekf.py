@@ -1,5 +1,5 @@
 """Batched EKF pre-update for range-bearing measurements (port of
-``phdslam_tpu/ops/ekf.py``, the parts the fast det route runs).
+``phdslam_tpu/ops/ekf.py``, the parts the det and full-grid routes run).
 
 The innovation covariance S, the gain and the Joseph-form covariance are
 computed once per feature; only means and weights are per (measurement,
@@ -16,7 +16,10 @@ from typing import NamedTuple
 import torch
 
 from ..models.measurement import detection_probability, predict_measurement
-from .math import wrap_angle
+from .math import safe_log, wrap_angle
+
+# log(2 pi) as the JAX version evaluates it: the f32 log of f32(2 pi)
+_LOG_2PI = float(torch.log(torch.tensor(2.0 * math.pi, dtype=torch.float32)))
 
 
 class PreUpdate(NamedTuple):
@@ -91,6 +94,48 @@ def ekf_preupdate(pose, mean, cov, cfg) -> PreUpdate:
     gain = torch.stack([g0, g1], dim=-1)                    # [..., K, D, 2]
     return PreUpdate(r=r, bearing=bearing, pd=pd, det_S=det_S, gain=gain,
                      cov_upd=cov_upd, si00=si00, si01=si01, si11=si11)
+
+
+def _innovations(pre: PreUpdate, z):
+    """Range and wrapped bearing innovations [..., M, K] of z [M, 2]
+    against each feature's predicted measurement (pre [..., K])."""
+    innov_r = z[:, None, 0] - pre.r[..., None, :]
+    innov_b = wrap_angle(z[:, None, 1] - pre.bearing[..., None, :])
+    return innov_r, innov_b
+
+
+def ekf_detection_logw(pre: PreUpdate, weight, z):
+    """Partial log-weights of every (measurement, feature) lane:
+    log pd + log w - d'S^-1 d / 2 - log 2 pi - log det S / 2.
+
+    pre / weight [..., K], z [M, 2] -> (log_w_partial [..., M, K],
+    log_like [..., M, K]): the full grids of the uncapped route.
+    """
+    innov_r, innov_b = _innovations(pre, z)
+    dist = (pre.si00[..., None, :] * innov_r * innov_r
+            + 2.0 * pre.si01[..., None, :] * innov_r * innov_b
+            + pre.si11[..., None, :] * innov_b * innov_b)
+    log_like = -0.5 * dist - _LOG_2PI \
+        - 0.5 * safe_log(pre.det_S)[..., None, :]
+    log_w_partial = safe_log(pre.pd)[..., None, :] \
+        + safe_log(weight)[..., None, :] + log_like
+    return log_w_partial, log_like
+
+
+def ekf_detection_means(pre: PreUpdate, mean, z):
+    """EKF-updated means of every (measurement, feature) lane:
+    mean [..., K, D] -> [..., M, K, D]."""
+    innov_r, innov_b = _innovations(pre, z)
+    upd = pre.gain[..., None, :, :, 0] * innov_r[..., None] \
+        + pre.gain[..., None, :, :, 1] * innov_b[..., None]
+    return mean[..., None, :, :] + upd
+
+
+def ekf_detection_terms(pre: PreUpdate, mean, weight, z):
+    """(mean_upd [..., M, K, D], log_w_partial [..., M, K],
+    log_like [..., M, K]) of every (measurement, feature) lane."""
+    log_w_partial, log_like = ekf_detection_logw(pre, weight, z)
+    return ekf_detection_means(pre, mean, z), log_w_partial, log_like
 
 
 def ekf_detection_linear(pre: PreUpdate, weight, z):

@@ -1,11 +1,11 @@
 """Greedy moment-matched Gaussian-mixture merge and candidate selection
-(port of ``phdslam_tpu/ops/gm_merge.py``, the parts the fast path runs).
+(port of ``phdslam_tpu/ops/gm_merge.py``, the parts the ported paths run).
 
 The greedy merge repeats until no candidate is left or ``out_cap``
 clusters are out: pick the heaviest unmerged component, gather every
 unmerged component within ``min_separation`` (squared Mahalanobis distance
-with averaged covariance), emit their moment-matched merge and mark them
-merged. :func:`gm_merge_batch` is the plain PyTorch form, batched over
+with averaged covariance, or the 2D Hellinger distance), emit their
+moment-matched merge and mark them merged. :func:`gm_merge_batch` is the plain PyTorch form, batched over
 particles, for 2D static, 3D disparity (u, v, d) and 4D constant-velocity
 features; it is the twin of the CUDA merge kernels (kernels/merge.py).
 The 3D and 4D distances are the JAX merge kernels' closed forms
@@ -19,10 +19,12 @@ from __future__ import annotations
 
 import torch
 
-from .math import mahalanobis2, mahalanobis2_3d, mahalanobis2_4d, sym
+from .math import (hellinger2, mahalanobis2, mahalanobis2_3d,
+                   mahalanobis2_4d, sym)
 
 
-def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap):
+def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap,
+                   distance_metric=0, argmax=False):
     """Greedy merge of every particle's mixture.
 
     mean [P, N, D], cov [P, N, D, D], weight [P, N], active [P, N] bool
@@ -30,11 +32,27 @@ def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap):
     out_weight [P, out_cap], n_merged [P], n_dropped [P]). Empty slots have
     weight 0, mean 0 and identity covariance; ``n_dropped`` counts the
     candidates left unmerged when ``out_cap`` clusters were out.
+    ``distance_metric`` 1 selects the Hellinger distance (D = 2).
+
+    The default is the contract of the sorted-mode merge kernels: NaN and
+    w <= 0 lanes never enter. ``argmax=True`` is the contract of the 2D
+    kernel's argmax mode (the JAX package's ``_merge_core_2d`` with
+    sorted_w=False, not its XLA ``gm_merge``): every active lane enters, a
+    w <= 0 lane can be absorbed but never leads, and a particle stalls,
+    dropping its remaining lanes, once no unmerged lane has w > 0 or any
+    unmerged lane's w is NaN. The principal picks are the same in both
+    modes; the leftover count differs when ``out_cap`` binds.
     """
     P, N, D = mean.shape
     dev, dtype = mean.device, mean.dtype
-    distance = {2: mahalanobis2, 3: mahalanobis2_3d, 4: mahalanobis2_4d}[D]
-    unmerged = active & (weight > 0)     # NaN and w <= 0 lanes never join
+    if distance_metric == 1:
+        assert D == 2, "the Hellinger distance is 2D"
+        distance = hellinger2
+    else:
+        distance = {2: mahalanobis2, 3: mahalanobis2_3d,
+                    4: mahalanobis2_4d}[D]
+    # sorted contract: NaN and w <= 0 lanes never join
+    unmerged = active.clone() if argmax else active & (weight > 0)
     out_mean = torch.zeros((P, out_cap, D), dtype=dtype, device=dev)
     out_cov = torch.eye(D, dtype=dtype, device=dev).expand(
         P, out_cap, D, D).clone()
@@ -44,10 +62,16 @@ def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap):
     lanes = torch.arange(N, device=dev)
 
     for c in range(out_cap):
-        live = unmerged.any(dim=1)                            # [P]
+        if argmax:
+            w_act = torch.where(unmerged, weight, -1.0)
+            live = (torch.amax(w_act, dim=1) > 0) \
+                & ~torch.isnan(w_act).any(dim=1)
+            unmerged = unmerged & live[:, None]               # stalled rows
+        else:
+            live = unmerged.any(dim=1)                        # [P]
+            w_act = torch.where(unmerged, weight, -torch.inf)
         if not bool(live.any()):
             break
-        w_act = torch.where(unmerged, weight, -torch.inf)
         imax = torch.argmax(w_act, dim=1)                     # first max
         max_mean = mean[rows, imax]
         max_cov = cov[rows, imax]

@@ -2,7 +2,8 @@
 and ``chol3`` of ``filters/disparity.py``).
 
 Batched over arbitrary leading axes on ``mean[..., D]`` / ``cov[..., D, D]``
-layouts. Every expression keeps the JAX version's operation order, so the
+layouts. ``jax.scipy.special.gammaln`` maps to ``torch.lgamma`` (f32 in,
+f32 out). Every expression keeps the JAX version's operation order, so the
 two agree to f32 rounding on the same inputs.
 """
 
@@ -159,6 +160,50 @@ def mahalanobis2_4d(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
     u0 = s02 * v0 + s12 * v1 - d2
     u1 = s03 * v0 + s13 * v1 - d3
     return pap + (u0 * u0 * mi00 + 2.0 * u0 * u1 * mi01 + u1 * u1 * mi11)
+
+
+def hellinger2(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
+    """Hellinger-style distance of 2D Gaussians (the JAX package's
+    ``ops/math.py::hellinger2``):
+
+      1 - sqrt( sqrt(det A det B) / det((A + B) / 2) ) exp(-d'(A + B)^-1 d / 4)
+
+    in the closed form of its 2D merge kernel (``ops/pallas_merge.py::
+    _merge_core_2d``, ``pair_dist`` at metric 1), operation for operation,
+    with the identity in place of (A + B)^-1 where det(A + B) is not above
+    the smallest normal f32."""
+    d = mean_a - mean_b
+    dx, dy = d[..., 0], d[..., 1]
+    a00, a01, a11 = cov_a[..., 0, 0], cov_a[..., 0, 1], cov_a[..., 1, 1]
+    b00, b01, b11 = cov_b[..., 0, 0], cov_b[..., 0, 1], cov_b[..., 1, 1]
+    s00 = a00 + b00
+    s01 = a01 + b01
+    s11 = a11 + b11
+    det_s = s00 * s11 - s01 * s01
+    ok = det_s > 1.1754944e-38
+    det_safe = torch.where(ok, det_s, 1.0)
+    quad_inv = (dx * dx * s11 - 2.0 * dx * dy * s01 + dy * dy * s00) \
+        / det_safe
+    quad_eye = dx * dx + dy * dy
+    eps = -0.25 * torch.where(ok, quad_inv, quad_eye)
+    det_half = det_s / 4.0
+    det_prod = (a00 * a11 - a01 * a01) * (b00 * b11 - b01 * b01)
+    ratio = torch.sqrt(torch.clamp_min(det_prod, 0.0)) \
+        / torch.clamp_min(det_half, 1e-30)
+    return 1.0 - torch.sqrt(torch.clamp_min(ratio, 0.0)) * torch.exp(eps)
+
+
+def masked_logsumexp(logw: torch.Tensor, mask: torch.Tensor,
+                     dim: int = -1) -> torch.Tensor:
+    """Log-sum-exp over ``dim`` of the entries where ``mask``; LOG0 where
+    nothing is selected (the max is floored at LOG0 / 2 so that LOG0 - LOG0
+    never enters)."""
+    logw = torch.where(mask, logw, LOG0)
+    m = torch.amax(logw, dim=dim, keepdim=True)
+    m_safe = torch.clamp_min(m, LOG0 * 0.5)
+    s = torch.sum(torch.where(mask, torch.exp(logw - m_safe), 0.0), dim=dim)
+    out = m_safe.squeeze(dim) + torch.log(torch.clamp_min(s, 1e-38))
+    return torch.where(torch.any(mask, dim=dim), out, LOG0)
 
 
 def logsumexp(logw: torch.Tensor, dim: int = -1) -> torch.Tensor:

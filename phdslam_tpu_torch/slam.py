@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .config import SlamConfig
+from .filters.cphd import cphd_constants
 from .filters.phd import StepNoise, check_supported, phd_step
 from .runtime import io
 from .types import init_state
@@ -86,6 +87,9 @@ class _Runner:
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
+        # the CPHD update's constant tables, built once per run
+        self.consts = (cphd_constants(cfg, device=self.device)
+                       if cfg.filter_type == 1 else None)
 
     def step_args(self, n: int):
         """Host-side inputs of step n, as phd_step takes them:
@@ -110,7 +114,7 @@ class _Runner:
         z, zm, control, dt, do_predict, has_z = self.step_args(n)
         self.state, out = phd_step(self.state, z, zm, control, dt,
                                    do_predict, self.cfg, self.noise(),
-                                   has_z=has_z)
+                                   has_z=has_z, consts=self.consts)
         return out
 
     def _after_step(self, n: int, out) -> None:
@@ -120,7 +124,8 @@ class _Runner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, check_every: int = 32, timing: bool = False):
+    def run(self, check_every: int = 32, timing: bool = False,
+            collect_maps: bool = False):
         """Run every step. Raises FloatingPointError at the first chunk of
         ``check_every`` steps whose weights or poses hold a NaN.
 
@@ -128,9 +133,12 @@ class _Runner:
         resampled [T], the largest overflow count, wall_s and steps_per_s
         (host clock around the whole loop, ending in a device synchronize),
         and step_ms: with ``timing``, each step's own time (host clock,
-        synchronized after every step), else None.
+        synchronized after every step), else None. With ``collect_maps``,
+        also each step's MAP map (map_means [T, K, 2], map_weights [T, K]),
+        kept on the device until the end.
         """
         poses, n_effs, resampled, overflows, step_ms = [], [], [], [], []
+        maps = []
         self._sync()
         t0 = time.perf_counter()
         T = self.n_steps
@@ -141,6 +149,8 @@ class _Runner:
                 self._sync()
                 step_ms.append((time.perf_counter() - t_step) * 1000.0)
             self._after_step(n, out)
+            if collect_maps:
+                maps.append((out.map_mean, out.map_weight))
             poses.append(out.expected_pose)
             n_effs.append(out.n_eff)
             resampled.append(out.resampled)
@@ -154,7 +164,7 @@ class _Runner:
                         f"nan weights or poses in steps {lo}..{n}")
         self._sync()
         wall = time.perf_counter() - t0
-        return {
+        res = {
             "est_poses": torch.stack(poses).cpu().numpy(),
             "n_eff": torch.stack(n_effs).cpu().numpy(),
             "resampled": torch.stack(resampled).cpu().numpy(),
@@ -163,6 +173,10 @@ class _Runner:
             "steps_per_s": T / wall,
             "step_ms": np.asarray(step_ms) if timing else None,
         }
+        if collect_maps:
+            for i, key in enumerate(("map_means", "map_weights")):
+                res[key] = torch.stack([m[i] for m in maps]).cpu().numpy()
+        return res
 
 
 class SynthSLAMRunner(_Runner):
@@ -221,8 +235,9 @@ class SynthSLAMRunner(_Runner):
         return (z, zm, self.step_controls[n], plan.dt, plan.do_predict,
                 has_z)
 
-    def run(self, check_every: int = 32, timing: bool = False):
-        res = super().run(check_every, timing)
+    def run(self, check_every: int = 32, timing: bool = False,
+            collect_maps: bool = False):
+        res = super().run(check_every, timing, collect_maps)
         res["truncated_measurements"] = self.n_truncated
         return res
 

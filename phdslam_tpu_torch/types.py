@@ -3,9 +3,10 @@
 Fixed-capacity structure-of-arrays: the map of every particle is
 [P, K, D] means, [P, K, D, D] covariances and [P, K] linear weights; a slot
 with weight 0 is empty and holds mean 0 and identity covariance. The 4D
-dynamic map exists only for the mixed model (feature_model 2) and is None
-otherwise, so the static path gathers nothing extra; the CPHD cardinality,
-the variance estimate and the two-scan birth memory of the JAX state are
+dynamic map exists only for the mixed model (feature_model 2) and the
+log cardinality distribution only for the CPHD filter (filter_type 1);
+each is None otherwise, so the static PHD path gathers nothing extra. The
+variance estimate and the two-scan birth memory of the JAX state are
 absent. The random stream lives in the runner's ``torch.Generator``, not
 in the state. :class:`DisparityState` is the monocular SC-PHD (disparity)
 filter's particle set: camera poses and per-feature clouds of world
@@ -56,6 +57,8 @@ class FilterState:
     step:         steps taken so far
     map_dynamic:  4D (x, y, vx, vy) GM map per particle, feature_model 2
                   only (None otherwise)
+    cardinality:  [P, C+1] log cardinality distribution per particle,
+                  filter_type 1 (CPHD) only (None otherwise)
     """
     pose: torch.Tensor
     log_weight: torch.Tensor
@@ -63,6 +66,7 @@ class FilterState:
     resample_idx: torch.Tensor
     step: int = 0
     map_dynamic: Optional[GMState] = None
+    cardinality: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "FilterState":
         return dataclasses.replace(self, **changes)
@@ -71,13 +75,19 @@ class FilterState:
 def init_state(cfg, n_particles: Optional[int] = None, device="cpu",
                dtype=torch.float32) -> FilterState:
     """All particles at the configured prior pose with empty maps (the
-    [P, K, 4] dynamic map only for feature_model 2)."""
+    [P, K, 4] dynamic map only for feature_model 2) and, for the CPHD
+    filter, a uniform cardinality over 0..max_cardinality."""
     P = n_particles if n_particles is not None else cfg.n_particles
     K = cfg.max_components
     pose0 = torch.tensor(
         [cfg.x0, cfg.y0, cfg.yaw0, cfg.vx0, cfg.vy0, cfg.vyaw0], dtype=dtype,
         device=device)
     log_p = torch.log(torch.tensor(float(P), dtype=dtype, device=device))
+    cardinality = None
+    if cfg.filter_type == 1:
+        C1 = cfg.max_cardinality + 1
+        log_c = torch.log(torch.tensor(float(C1), dtype=dtype, device=device))
+        cardinality = (-log_c).expand(P, C1).clone()
     return FilterState(
         pose=pose0.expand(P, 6).clone(),
         log_weight=(-log_p).expand(P).clone(),
@@ -85,7 +95,8 @@ def init_state(cfg, n_particles: Optional[int] = None, device="cpu",
         resample_idx=torch.arange(P, dtype=torch.int32, device=device),
         step=0,
         map_dynamic=(GMState.empty(P, K, 4, device, dtype)
-                     if cfg.feature_model == 2 else None))
+                     if cfg.feature_model == 2 else None),
+        cardinality=cardinality)
 
 
 def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
@@ -96,7 +107,8 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
     "map_weight", "resample_idx" and "step" (the JAX state's ``pose``,
     ``log_weight``, ``map_static.*``, ``resample_idx`` and ``step``) — the
     keys :func:`state_to_numpy` writes — and, for a state with a dynamic
-    map, "dyn_mean", "dyn_cov" and "dyn_weight" (``map_dynamic.*``).
+    map, "dyn_mean", "dyn_cov" and "dyn_weight" (``map_dynamic.*``), for a
+    CPHD state "cardinality".
     """
     def t(name, dtype):
         return torch.tensor(np.asarray(arrays[name]), dtype=dtype,
@@ -114,7 +126,9 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
                            weight=t("map_weight", torch.float32)),
         resample_idx=t("resample_idx", torch.int32),
         step=int(np.asarray(arrays["step"])),
-        map_dynamic=dyn)
+        map_dynamic=dyn,
+        cardinality=(t("cardinality", torch.float32)
+                     if "cardinality" in arrays else None))
 
 
 def state_to_numpy(state: FilterState) -> dict:
@@ -126,6 +140,8 @@ def state_to_numpy(state: FilterState) -> dict:
     if state.map_dynamic is not None:
         dyn = state.map_dynamic
         out.update(dyn_mean=dyn.mean, dyn_cov=dyn.cov, dyn_weight=dyn.weight)
+    if state.cardinality is not None:
+        out["cardinality"] = state.cardinality
     out = {k: v.detach().cpu().numpy() for k, v in out.items()}
     out["step"] = np.asarray(state.step, np.int32)
     return out

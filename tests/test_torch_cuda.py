@@ -10,7 +10,10 @@ package's tests.) Shapes are the Ackerman main path's: K=128, M=48, T=16,
 merge_candidate_cap=512, the mixed path's: M=32, detect at min_fw=0 and
 cb=0, the 4D merge at N=128 (the dynamic map's cap) and N=512, and the
 disparity path's: the 3D merge at K=24 over N=512 (the compacted cap) and
-N=624 (every lane of K + M K + M at M=24).
+N=624 (every lane of K + M K + M at M=24), and the full-grid route's: the
+2D merge in argmax mode over N=6320 (K + M K + M at K=128, M=48) and at
+its limit N=8192, with either metric, the Hellinger metric in both modes,
+and sorted mode over N=4096.
 """
 
 import numpy as np
@@ -21,9 +24,11 @@ from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
-from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
-                                             merge3d, merge3d_reference,
-                                             merge4d, merge4d_reference)
+from phdslam_tpu_torch.kernels.merge import (MAX_CANDIDATES, merge2d,
+                                             merge2d_reference,
+                                             merge2d_variant, merge3d,
+                                             merge3d_reference, merge4d,
+                                             merge4d_reference)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
 
 pytestmark = pytest.mark.cuda
@@ -72,6 +77,80 @@ def merge_inputs(dev, P=32, N=512, seed=0):
                        take(cov[..., 0, 0]), take(cov[..., 0, 1]),
                        take(cov[..., 1, 1])], axis=1)
     return torch.tensor(planes, dtype=torch.float32, device=dev)
+
+
+def full_grid_inputs(dev, P=16, N=6320, seed=0, frac=0.1, n_centers=40):
+    """The full grid's merge planes: ~``frac`` of the lanes active, spread
+    over the lane axis in no weight order, clustered means (spread 0.3
+    about ``n_centers`` centres), covariances 0.3 I + A A'."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 20, (P, n_centers, 2))
+    mean = centers[np.arange(P)[:, None],
+                   rng.integers(0, n_centers, (P, N))] \
+        + rng.normal(0, 0.3, (P, N, 2))
+    A = rng.normal(0, 0.5, (P, N, 2, 2))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.3 * np.eye(2)
+    act = rng.random((P, N)) < frac
+    w = np.where(act, rng.uniform(1e-3, 1, (P, N)), 0.0)
+    planes = np.stack([w, act, mean[..., 0], mean[..., 1], cov[..., 0, 0],
+                       cov[..., 0, 1], cov[..., 1, 1]], axis=1)
+    return torch.tensor(planes, dtype=torch.float32, device=dev)
+
+
+def assert_merge_matches(planes, min_sep, K, sorted_w=True, metric=0):
+    """Kernel against twin: one launch counted under the variant's name,
+    equal cluster and leftover counts, rtol 1e-4 / atol 1e-5 on weights,
+    means and covariances. Returns the kernel's merge tuple."""
+    build.reset_launch_counts()
+    got = merge_out(merge2d(planes, min_sep, K, sorted_w, metric), 2)
+    assert build.launch_counts[merge2d_variant(sorted_w, metric)] == 1
+    want = merge_out(merge2d_reference(planes, min_sep, K, sorted_w, metric),
+                     2)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("metric", [0, 1])
+@pytest.mark.parametrize("N", [6320, 8192])
+def test_merge2d_argmax_full_grid_matches_twin(dev, N, metric):
+    """The full grid (N = 6320) and the kernel's limit (N = 8192), in the
+    256-thread build, with either metric (min_separation 5 Mahalanobis,
+    0.6 Hellinger)."""
+    min_sep = 0.6 if metric else 5.0
+    got = assert_merge_matches(full_grid_inputs(dev, N=N, seed=N), min_sep,
+                               128, sorted_w=False, metric=metric)
+    assert (got[3] > 10).all()
+    with pytest.raises(ValueError):
+        merge2d(full_grid_inputs(dev, P=2, N=MAX_CANDIDATES[2] + 1), min_sep,
+                128, sorted_w=False, metric=metric)
+
+
+@pytest.mark.parametrize("sorted_w", [True, False])
+def test_merge2d_hellinger_matches_twin(dev, sorted_w):
+    planes = merge_inputs(dev) if sorted_w else \
+        full_grid_inputs(dev, P=32, N=512, frac=0.6)
+    assert_merge_matches(planes, 0.6, 128, sorted_w, metric=1)
+
+
+@pytest.mark.parametrize("metric", [0, 1])
+def test_merge2d_sorted_wide_matches_twin(dev, metric):
+    """Sorted mode above N = 2048 (a det-route cap of 2049-6319 lanes):
+    the 256-thread build."""
+    assert_merge_matches(merge_inputs(dev, N=4096, seed=3),
+                         0.6 if metric else 5.0, 128, metric=metric)
+
+
+def test_merge2d_argmax_overflow_and_nan_weights(dev):
+    """Argmax mode: a NaN particle stalls and drops its lanes, active
+    zero-weight lanes never lead but count as left when 16 slots bind."""
+    planes = full_grid_inputs(dev, P=8, N=512, seed=1, frac=0.6)
+    planes[0, 0] = float("nan")
+    planes[1, 0, :64] = 0.0
+    got = assert_merge_matches(planes, 5.0, 16, sorted_w=False)
+    assert int(got[3][0]) == 0 and int(got[4][0]) == 0
+    assert (got[4][1:] > 0).all()          # ~40 clusters into 16 slots
 
 
 def merge4d_inputs(dev, P=32, N=128, seed=0):

@@ -315,6 +315,7 @@ def test_port_never_imports_jax():
             "import phdslam_tpu_torch.eval.ospa\n"
             "import phdslam_tpu_torch.eval.simdata\n"
             "import phdslam_tpu_torch.filters.mixed\n"
+            "import phdslam_tpu_torch.filters.cphd\n"
             "import phdslam_tpu_torch.filters.disparity\n"
             "import phdslam_tpu_torch.slam_disparity\n"
             "import phdslam_tpu_torch.models.feature_motion\n"
