@@ -26,9 +26,24 @@ drives both paths:
   Ackerman PHD and CPHD configurations on ``data/ackerman`` at P=512, then
   both CPHD routes again at seeds 1-3;
 - the Hellinger merge distance (``distance_metric = 1``, min_separation
-  0.6): 100 steps of the Ackerman configuration, then 30 on the full grid;
+  0.6): 100 steps of the Ackerman configuration, then 30 on the full grid,
+  then 100 on the fused gather + merge;
+- the kernel knobs: ``fused_gather_merge`` with ``detect_adaptive`` (the
+  full ``data/ackerman`` run at P=512, which must reproduce the plain run's
+  mean ATE within 1e-3 m) and ``premerge_consolidate`` (Ackerman P=512 and
+  one step against the CPU);
+- the dense configuration (``cfg/dense.cfg`` on ``data/dense``: K=1024,
+  T=32, cap 1536, M padded to the longest scan): one step of a 64-particle
+  subset on the card against the CPU for each of plain, fused + adaptive and
+  consolidating + adaptive, the 200 steps at P=1024 for each, fused +
+  adaptive at P=10240 twice (every pose must repeat), each stage of one
+  P=10240 step twice with its peak memory, the P=10240 run twice more with
+  the resampling's former 1D scan, and the JAX package's CPU runs'
+  particle counts and seeds (P=64 and P=256) beside their results;
 
-then times every kernel against its twin and profiles a step of each path.
+then times every kernel against its twin (the knob variants and the
+existing kernels at the dense shapes too) and profiles a step of each
+path.
 Each phase prints its result; any failure raises and exits non-zero. Each
 path's run resets the launch counts before it and requires every kernel
 variant of that path to have launched. The line before the card's name
@@ -44,11 +59,13 @@ from __future__ import annotations
 
 import bisect
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -60,17 +77,28 @@ from phdslam_tpu_torch.eval.ospa import ospa_distance
 from phdslam_tpu_torch.eval.parity import (disparity_map_estimate,
                                            evaluate_dataset,
                                            evaluate_disparity, evaluate_mixed)
+from phdslam_tpu_torch.eval.scenes import (Scene, detect_planes, map_scene,
+                                           tables_payload)
 from phdslam_tpu_torch.filters import disparity as disp
-from phdslam_tpu_torch.filters.phd import maybe_resample, predict, update
+from phdslam_tpu_torch.filters.phd import (_finish_candidates_packed,
+                                           _post_compact_batched,
+                                           _update_pre, gather_merge,
+                                           maybe_resample, predict, update)
 from phdslam_tpu_torch.kernels import build
-from phdslam_tpu_torch.kernels.detect import detect, detect_reference
+from phdslam_tpu_torch.kernels.detect import (detect, detect_reference,
+                                              detect_variant, detection_grid)
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
+from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
+                                                   gather_rows_reference)
 from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
+                                             merge2d_tables,
+                                             merge2d_tables_reference,
                                              merge2d_variant, merge3d,
                                              merge3d_reference, merge4d,
                                              merge4d_reference)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
+from phdslam_tpu_torch.ops import resample
 from phdslam_tpu_torch.ops.math import logsumexp
 from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
 from phdslam_tpu_torch.slam_disparity import DisparityRunner
@@ -117,23 +145,70 @@ CPHD_SEEDS = (1, 2, 3)          # both CPHD routes, beside seed 0's runs
 HELL = {"distance_metric": 1, "min_separation": 0.6}
 HELL_STEPS, HELL_FULL_STEPS = 100, 30
 
+# the kernel knobs and the dense configuration
+FUSED_ADAPTIVE = {"fused_gather_merge": 1, "detect_adaptive": 1}
+CONS = {"premerge_consolidate": 1}
+ATE_REPRO = 1e-3                # m: fused + adaptive against the plain run
+DENSE_CFG, DENSE_DATA = "cfg/dense.cfg", "data/dense"
+P_DENSE, P_DENSE_SCALE = 1024, 10240
+P_DENSE_STEP = 64               # the particle subset of the dense step gate
+DENSE_VARIANTS = {"plain": {}, "fused + adaptive": FUSED_ADAPTIVE,
+                  "consolidating + adaptive": dict(CONS, detect_adaptive=1)}
+# the JAX package's dense rows (ROADMAP.md, "Held against the reference"):
+# P=1024 ATE 0.27-0.36 m, OSPA 1.19-1.28; P=10240 0.307 m, 1.153
+DENSE_BAND = {"ate": (0.27, 0.36), "ospa": (1.19, 1.28)}
+DENSE_SCALE_REF = {"ate": 0.307, "ospa": 1.153}
+# the JAX package on the CPU, cfg/dense.cfg over the full dataset, one
+# line per seed from 0 (reference_band.py cfg/dense.cfg --particles P
+# --seeds ...): mean ATE (m), mean every-step OSPA(1, 5)
+DENSE_CPU_SEEDS = {
+    64: [(0.4116, 1.1712), (0.7735, 1.4136), (0.6596, 1.3130),
+         (0.6295, 1.3053), (0.4947, 1.2343), (0.1766, 1.0414),
+         (0.2332, 1.0787), (0.2300, 1.0695), (0.2999, 1.1144),
+         (1.1501, 1.6768), (0.4447, 1.2299), (0.1329, 1.0311),
+         (0.2842, 1.1154), (0.4215, 1.1680), (0.7085, 1.3656),
+         (0.2341, 1.0825), (0.3498, 1.1305), (0.3032, 1.1126),
+         (0.2018, 1.0687), (0.2510, 1.0773)],
+    256: [(0.5235, 1.2305), (0.6813, 1.3474), (0.2138, 1.0592),
+          (0.1601, 1.0372), (0.1383, 1.0461), (0.2052, 1.0549),
+          (0.2366, 1.0996), (0.2075, 1.0560)],
+}
+# the kernel phase's shapes of the knob variants: config, P, K, M (the
+# padded longest scan), valid measurements, T
+VARIANT_SHAPES = {"ackerman": (CFG, P_MAIN, 128, 48, 44, 16),
+                  "dense": (DENSE_CFG, P_DENSE, 1024, 72, 65, 32)}
+
 _MERGE2D = ("phdslam_tpu_torch/csrc/merge2d.cu",
             "phdslam_tpu/ops/pallas_merge.py:55")
+_DETECT = "phdslam_tpu_torch/csrc/detect.cu"
+_TABLES = (_MERGE2D[0], "phdslam_tpu/ops/pallas_merge.py:417")
 KERNELS = {
-    "detect": ("phdslam_tpu_torch/csrc/detect.cu",
-               "phdslam_tpu/ops/pallas_detect.py:49"),
+    "detect": (_DETECT, "phdslam_tpu/ops/pallas_detect.py:49"),
+    "detect_adaptive": (_DETECT, "phdslam_tpu/ops/pallas_detect.py:166"),
+    "detect_cons": (_DETECT, "phdslam_tpu/ops/pallas_detect.py:111"),
+    "detect_cons_adaptive": (_DETECT, "phdslam_tpu/ops/pallas_detect.py:111"),
     "gather_cols": ("phdslam_tpu_torch/csrc/gather_cols.cu",
                     "phdslam_tpu/ops/pallas_select.py:46"),
+    "gather_rows": ("phdslam_tpu_torch/csrc/gather_rows.cu",
+                    "phdslam_tpu/ops/pallas_select.py:118"),
     "merge2d": _MERGE2D,
     "merge2d_argmax": _MERGE2D,
     "merge2d_hellinger": _MERGE2D,
     "merge2d_argmax_hellinger": _MERGE2D,
+    "merge2d_tables": _TABLES,
+    "merge2d_tables_hellinger": _TABLES,
     "merge4d": ("phdslam_tpu_torch/csrc/merge4d.cu",
                 "phdslam_tpu/ops/pallas_merge.py:785"),
     "merge3d": ("phdslam_tpu_torch/csrc/merge3d.cu",
                 "phdslam_tpu/ops/pallas_merge.py:576"),
 }
 ACKERMAN_KERNELS = ("detect", "gather_cols", "merge2d")
+KNOB_KERNELS = ("detect_adaptive", "gather_cols", "merge2d_tables")
+CONS_KERNELS = ("detect_cons", "gather_cols", "merge2d")
+DENSE_KERNELS = {"plain": ACKERMAN_KERNELS, "fused + adaptive": KNOB_KERNELS,
+                 "consolidating + adaptive": ("detect_cons_adaptive",
+                                              "gather_cols", "merge2d")}
+HELL_FUSED_KERNELS = ("detect", "gather_cols", "merge2d_tables_hellinger")
 MIXED_KERNELS = ACKERMAN_KERNELS + ("merge4d",)
 DISP_KERNELS = ("merge3d",)
 CPHD_KERNELS = ACKERMAN_KERNELS
@@ -547,6 +622,190 @@ def check_kernels(dev):
     return errs
 
 
+def boundary_columns(planes, z4, min_fw, cb, rel=1e-5):
+    """[P, K] feature columns whose consolidation f32 rounding can move
+    between the card and the twin (exp and the row sums round differently):
+    a lane within ``rel`` of the live threshold, or a head tie (the two
+    heaviest live w_det, or the heaviest and the persistent wp, within
+    ``rel``). The quadratics themselves are the same bits on both sides."""
+    _, _, pdw = detection_grid(planes, z4)
+    norm = pdw.sum(dim=-1, keepdim=True) + cb
+    thr = min_fw * norm
+    edge = ((pdw - thr).abs() <= rel * thr).any(dim=1)
+    wd = torch.where((pdw >= thr) & (pdw > 0), pdw / norm, 0.0)
+    top2 = wd.topk(2, dim=1).values
+    wp = planes[:, 6]
+    tie = (top2[:, 0] > 0) & ((top2[:, 0] - top2[:, 1] <= rel * top2[:, 0])
+                              | ((wp - top2[:, 0]).abs() <= rel * wp))
+    return edge | tie
+
+
+def compare_detect(got, want, label, planes=None, z4=None, min_fw=0.0,
+                   cb=0.0):
+    """A detect kernel's outputs against its twin's: norm and vals rtol
+    1e-5, idx where selected, the counts exactly and idx 0 where nothing is
+    selected; with cons, the head coordinates, member counts and pers_in
+    exactly and the sums rtol 1e-4 / atol 1e-5. A column whose
+    consolidation differs (a member flip) must be a boundary column
+    (:func:`boundary_columns`); its column and the rows holding its live
+    lanes are then left out. Returns (max |err|, flipped columns)."""
+    rows = torch.ones_like(want[3], dtype=torch.bool)            # [P, M]
+    flips = 0
+    if len(want) == 5:
+        flip = (got[4][:, 6:] != want[4][:, 6:]).any(dim=1)        # [P, K]
+        flips = int(flip.sum())
+        if flips:
+            edge = boundary_columns(planes, z4, min_fw, cb)
+            require(not bool((flip & ~edge).any()),
+                    f"{label}: consolidation differs in a column away from "
+                    "an f32 boundary")
+            _, _, pdw = detection_grid(planes, z4)
+            rows = ~((pdw > 0) & flip[:, None, :]).any(dim=-1)
+        keep = ~flip[:, None, :].expand_as(want[4])
+        torch.testing.assert_close(got[4][keep], want[4][keep], rtol=1e-4,
+                                   atol=1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[0][rows], want[0][rows], rtol=1e-5,
+                               atol=0)
+    sel = (want[0] > 0) & rows[..., None]
+    require(torch.equal(got[1][sel], want[1][sel]), f"{label}: idx differs")
+    require(bool((got[1][~(want[0] > 0) & rows[..., None]] == 0).all()),
+            f"{label}: an unselected idx is not 0")
+    require(torch.equal(got[3][rows], want[3][rows]),
+            f"{label}: live count differs")
+    err = max_err([(got[0][rows], want[0][rows]), (got[2], want[2])]
+                  + ([(got[4], want[4])] if len(want) == 5 and not flips
+                     else []))
+    return err, flips
+
+
+def far_persistent_scene(dev):
+    """tests/test_consolidate.py's scene (its sensor settings): one feature
+    at (5, 0) with covariance I, measured at (8, 0); the copy heads its
+    column and the persistent copy is live but beyond min_separation 4."""
+    cfg = load_config(CFG, dict(min_separation=4.0, std_range=0.25,
+                                std_bearing=0.02, max_range=12.0,
+                                clutter_rate=1.0, pd=0.9, birth_weight=0.01,
+                                min_feature_weight=1e-5))
+    P, K = 2, 8
+    mean = torch.zeros((P, K, 2))
+    mean[:, 0] = torch.tensor([5.0, 0.0])
+    w = torch.zeros((P, K))
+    w[:, 0] = 1.0
+    s = Scene(torch.zeros((P, 6)), mean, torch.eye(2).expand(P, K, 2, 2),
+              w, torch.tensor([[8.0, 0.0], [0.0, 0.0]]),
+              torch.tensor([True, False]))
+    return cfg, Scene(*(x.contiguous().to(dev) for x in s))
+
+
+def check_variants(dev, errs):
+    """The knob variants against their twins at the Ackerman and the dense
+    shapes (:data:`VARIANT_SHAPES`, scenes of eval/scenes.py): adaptive
+    trips bit-equal to the static kernel with trips running dry; the
+    consolidating kernel, static and adaptive, with persistent heads and
+    multi-member columns, and on the far-persistent scene; the fused gather
+    + merge in both metrics against the two-kernel route on the card and
+    against its twin, with equal counts; the row gather with indices out
+    of range and a ragged P. The plain detect at the dense shape too."""
+    for shape, (path, P, K, M, n_valid, T) in VARIANT_SHAPES.items():
+        cfg = load_config(path)
+        s = map_scene(cfg, P, K, M, n_valid, seed=0, device=dev)
+        min_fw = cfg.min_feature_weight
+        cb = cfg.clutter_density + cfg.birth_weight
+        planes, z4 = detect_planes(cfg, s)
+        static = detect(planes, z4, T, min_fw, cb)
+        adapt = detect(planes, z4, T, min_fw, cb, adaptive=True)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(adapt, static)),
+                f"detect_adaptive {shape}: not bit-equal to the static trips")
+        dry = int((adapt[3] < T).sum())
+        require(dry > 0, f"detect_adaptive {shape}: no row ran dry")
+        err, _ = compare_detect(adapt, detect_reference(planes, z4, T, min_fw,
+                                                        cb), "detect_adaptive")
+        errs["detect_adaptive"] = max(errs.get("detect_adaptive", 0.0), err)
+        errs["detect"] = max(errs["detect"], err)
+        phase("kernels", f"detect_adaptive {shape} P={P} K={K} M={M} T={T}: "
+              f"bit-equal to the static kernel, {dry} of {adapt[3].numel()} "
+              f"rows with fewer than T live lanes; against the twin max "
+              f"|err| {err:.3g} (rtol 1e-5), idx and counts equal")
+
+        planes13, _ = detect_planes(cfg, s, consolidate=True)
+        for adaptive in (False, True):
+            name = detect_variant(True, adaptive)
+            args = (planes13, z4, T, min_fw, cb, cfg.min_separation)
+            got = detect(*args, adaptive=adaptive)
+            torch.cuda.synchronize()
+            want = detect_reference(*args)
+            err, flips = compare_detect(got, want, name, planes13, z4,
+                                        min_fw, cb)
+            errs[name] = max(errs.get(name, 0.0), err)
+            c = want[4]
+            heads = int(((c[:, 8] > 0) & (c[:, 6] == 0) & (c[:, 7] == 0))
+                        .sum())
+            far = int(((planes13[:, 6] > 0) & (c[:, 9] == 0)
+                       & ((c[:, 6] != 0) | (c[:, 7] != 0))).sum())
+            require(heads > 0 and far > 0 and bool((c[:, 8] > 1).any()),
+                    f"{name} {shape}: the scene lacks a case")
+            phase("kernels", f"{name} {shape} P={P} K={K} M={M} T={T}: "
+                  f"{int(c[:, 8].sum())} members in {int((c[:, 8] > 0).sum())}"
+                  f" columns ({int((c[:, 8] > 1).sum())} with several), "
+                  f"{heads} persistent heads, {far} far-persistent columns "
+                  f"kept; max |err| {err:.3g}, {flips} member flips at an f32 "
+                  "boundary")
+
+        g, ints, flts = tables_payload(cfg, s)
+        for metric in (0, 1):
+            name = merge2d_variant(True, metric, tables=True)
+            min_sep = HELL["min_separation"] if metric else cfg.min_separation
+            got = merge_out(merge2d_tables(ints, flts, g["t_k"], g["t_m"],
+                                           min_sep, K, metric), 2)
+            two = merge_out(merge2d(_finish_candidates_packed(g, 2), min_sep,
+                                    K, metric=metric), 2)
+            torch.cuda.synchronize()
+            want = merge_out(merge2d_tables_reference(
+                ints, flts, g["t_k"], g["t_m"], min_sep, K, metric), 2)
+            for other, tag in ((two, "two-kernel route"), (want, "twin")):
+                require(torch.equal(got[3], other[3])
+                        and torch.equal(got[4], other[4]),
+                        f"{name} {shape}: counts differ from the {tag}")
+                for a, b in zip(got[:3], other[:3]):
+                    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+            err = max_err(list(zip(got[:3], want[:3])))
+            errs[name] = max(errs.get(name, 0.0), err)
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, two))
+            phase("kernels", f"{name} {shape} P={P} N={ints.shape[-1]} K={K}:"
+                  f" clusters/particle {float(got[3].float().mean()):.1f}, "
+                  f"{'bit-equal to' if bitwise else 'within rtol 1e-4 of'} "
+                  f"the two-kernel route on the card, max |err| vs twin "
+                  f"{err:.3g} (rtol 1e-4, atol 1e-5), counts equal")
+
+    cfg, s = far_persistent_scene(dev)
+    planes13, z4 = detect_planes(cfg, s, consolidate=True)
+    args = (planes13, z4, 4, cfg.min_feature_weight,
+            cfg.clutter_density + cfg.birth_weight, cfg.min_separation)
+    got = detect(*args)
+    torch.cuda.synchronize()
+    compare_detect(got, detect_reference(*args), "detect_cons far")
+    require(bool((got[3][:, 0] == 1).all() and (got[4][:, 8:, 0] == 0).all()
+                 and (got[4][:, 6, 0] > 2).all()),
+            "detect_cons: the far persistent copy's column consolidated")
+    phase("kernels", "detect_cons far-persistent scene: the copy heads, no "
+          "member, pers_in 0, as the twin")
+
+    errs["gather_rows"] = 0.0
+    for P, R, C, cap in ((P_MAIN + 1, 128, 16, 512), (256, 1024, 16, 1536)):
+        g_ = torch.Generator().manual_seed(R)
+        idx = torch.randint(-2, R + 2, (P, cap), generator=g_,
+                            dtype=torch.int32).to(dev)
+        tab = (torch.randn((P, R, C), generator=g_) * 10.0).to(dev)
+        got = gather_rows(idx, tab)
+        require(torch.equal(got, gather_rows_reference(idx, tab)),
+                f"gather_rows P={P} R={R} C={C} cap={cap}: not bitwise equal")
+        n_out = int(((idx < 0) | (idx >= R)).sum())
+        phase("kernels", f"gather_rows P={P} R={R} C={C} cap={cap}: bitwise "
+              f"equal, {n_out} indices out of range gave zero rows")
+
+
 def copy_state(state, dev):
     def gm_to(gm):
         return (None if gm is None else
@@ -672,19 +931,53 @@ def match_slots(tag, g_w, g_mean, c_w, c_mean):
     return int((~ok).sum()), float(diff.max()) if diff.numel() else 0.0
 
 
-def check_step(dev, n_before=40):
+def check_step(dev, n_before=40, overrides=None):
     """One Ackerman step on the card against the same step with the twins
-    on the CPU, from step 40 and the same noise (:func:`step_against_cpu`)."""
-    cfg = load_config(CFG, {"n_particles": P_MAIN})
+    on the CPU, from step 40 and the same noise (:func:`step_against_cpu`),
+    with the config ``overrides`` (a kernel knob)."""
+    cfg = load_config(CFG, dict(overrides or {}, n_particles=P_MAIN))
     r = SynthSLAMRunner(cfg, DATA, device=dev)
     for n in range(n_before):
         r.step(n)
     err, cpu_state, n_edge, n_swap = step_against_cpu(r, n_before)
     live = int((cpu_state.map_static.weight > 0).sum(dim=1).float().mean())
-    phase("step", f"step {n_before} at P={P_MAIN} (mean {live} live "
-          f"components): card vs CPU twins max |err| {err:.3g} (rtol 1e-4, "
-          f"atol 1e-5), overflow equal; {n_swap} weight-tied slots swapped, "
-          f"{n_edge} resampling strata at a cumulative-weight boundary")
+    phase("step", f"step {n_before} at P={P_MAIN} {overrides or ''} (mean "
+          f"{live} live components): card vs CPU twins max |err| {err:.3g} "
+          f"(rtol 1e-4, atol 1e-5), overflow equal; {n_swap} weight-tied "
+          f"slots swapped, {n_edge} resampling strata at a cumulative-weight "
+          "boundary")
+
+
+def check_dense_steps(dev, n_before=40):
+    """The dense configuration's step 40 on the card against the CPU twins
+    for each variant (plain, fused + adaptive, consolidating + adaptive):
+    the plain runner at P=1024 takes the first 40 steps on the card, then
+    each variant steps every 16th particle of that state (64) on the card
+    and on the CPU from the same noise (:func:`step_against_cpu`)."""
+    base = SynthSLAMRunner(load_config(DENSE_CFG, {"n_particles": P_DENSE}),
+                           DENSE_DATA, device=dev)
+    for n in range(n_before):
+        base.step(n)
+    idx = torch.arange(0, P_DENSE, P_DENSE // P_DENSE_STEP, device=dev)
+    gm = base.state.map_static
+    sub = base.state.replace(
+        pose=base.state.pose[idx], log_weight=base.state.log_weight[idx],
+        map_static=GMState(mean=gm.mean[idx], cov=gm.cov[idx],
+                           weight=gm.weight[idx]),
+        resample_idx=base.state.resample_idx[idx])
+    for label, over in DENSE_VARIANTS.items():
+        r = SynthSLAMRunner(load_config(DENSE_CFG, dict(
+            over, n_particles=P_DENSE_STEP)), DENSE_DATA, device=dev)
+        r.state = sub
+        err, cpu_state, n_edge, n_swap = step_against_cpu(r, n_before)
+        live = float((cpu_state.map_static.weight > 0).sum(dim=1).float()
+                     .mean())
+        phase("step", f"dense step {n_before}, {label}, {P_DENSE_STEP} of "
+              f"P={P_DENSE} (M={base.m_max}, mean {live:.1f} live "
+              f"components): card vs CPU twins max |err| {err:.3g} (rtol "
+              f"1e-4, atol 1e-5), overflow equal; {n_swap} weight-tied slots "
+              f"swapped, {n_edge} resampling strata at a cumulative-weight "
+              "boundary")
 
 
 def check_mixed_step(dev, n_before=40):
@@ -914,22 +1207,25 @@ def run_main(dev):
     return counts, res
 
 
-def run_path(dev, label, cfg_path, overrides, kernels, n_steps=None):
-    """``evaluate_dataset`` at P=512 with the launch counts set to 0 just
-    before and read just after: steps/s, peak memory, mean ATE, mean
-    every-step OSPA(1, 5), overflow and launches. Requires finite poses and
-    weights (the runner raises at the first chunk of steps with a NaN) and
-    every kernel variant in ``kernels`` launched. Returns (counts, res)."""
+def run_path(dev, label, cfg_path, overrides, kernels, n_steps=None,
+             P=P_MAIN):
+    """``evaluate_dataset`` at P particles (512 by default) with the launch
+    counts set to 0 just before and read just after: steps/s, peak memory,
+    mean ATE, mean every-step OSPA(1, 5), overflow and launches. Requires
+    finite poses and weights (the runner raises at the first chunk of steps
+    with a NaN) and every kernel variant in ``kernels`` launched. Returns
+    (counts, res)."""
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     res = evaluate_dataset(cfg_path, ".", n_steps=n_steps,
-                           overrides=dict(overrides, n_particles=P_MAIN),
+                           overrides=dict(overrides, n_particles=P),
                            device=dev)
     counts = dict(build.launch_counts)
     run = res["run"]
     require(np.isfinite(run["est_poses"]).all()
             and np.isfinite(run["n_eff"]).all(), f"{label}: NaN")
-    phase(label, f"{cfg_path} {overrides} P={P_MAIN}, {len(run['n_eff'])} "
+    phase(label, f"{cfg_path} {overrides} P={P} M={run['m_max']}, "
+          f"{len(run['n_eff'])} "
           f"steps: {res['steps_per_s']:.2f} steps/s ({run['wall_s']:.3f} s),"
           f" peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} "
           f"MiB, mean ATE {res['mean_pose_err']:.4f} m, max "
@@ -1033,15 +1329,254 @@ def cphd_route_seeds(dev, seed0):
 
 def run_hellinger(dev):
     """cfg/ackerman.cfg with the Hellinger merge distance (min_separation
-    0.6, the JAX Hellinger test's value): 100 steps on the det route, then
-    30 on the full grid; both must stay finite. Returns both runs' launch
-    counts."""
+    0.6, the JAX Hellinger test's value): 100 steps on the det route, 30 on
+    the full grid, then 100 on the det route with the fused gather + merge
+    (merge2d_tables_hellinger); all must stay finite. Returns the three
+    runs' launch counts."""
     counts, _ = run_path(dev, "hellinger", CFG, HELL, HELL_KERNELS,
                          n_steps=HELL_STEPS)
     counts_full, _ = run_path(dev, "hellinger", CFG,
                               dict(HELL, merge_candidate_cap=0),
                               HELL_FULL_KERNELS, n_steps=HELL_FULL_STEPS)
-    return counts, counts_full
+    counts_fused, _ = run_path(dev, "hellinger", CFG,
+                               dict(HELL, fused_gather_merge=1),
+                               HELL_FUSED_KERNELS, n_steps=HELL_STEPS)
+    return counts, counts_full, counts_fused
+
+
+def run_knobs(dev, plain):
+    """data/ackerman at P=512 over the whole dataset with fused_gather_merge
+    + detect_adaptive, which must reproduce the plain run's (``plain``,
+    evaluate_dataset's result) mean ATE within 1e-3 m, and with
+    premerge_consolidate, reported beside the plain run (fail on NaN or
+    ATE > 1.0 m). Returns both runs' launch counts."""
+    knob_counts, res = run_path(dev, "knobs", CFG, FUSED_ADAPTIVE,
+                                KNOB_KERNELS)
+    diff = abs(res["mean_pose_err"] - plain["mean_pose_err"])
+    same = np.array_equal(res["run"]["est_poses"], plain["run"]["est_poses"])
+    phase("knobs", f"fused + adaptive: mean ATE {res['mean_pose_err']:.4f} "
+          f"m vs the plain run's {plain['mean_pose_err']:.4f} (|diff| "
+          f"{diff:.3g}, gate {ATE_REPRO}); every pose "
+          f"{'identical to' if same else 'not identical to'} the plain run's")
+    require(diff <= ATE_REPRO, f"fused + adaptive ATE moved by {diff:.3g} m")
+    cons_counts, res = run_path(dev, "knobs", CFG, CONS, CONS_KERNELS)
+    phase("knobs", f"consolidation: mean ATE {res['mean_pose_err']:.4f} m, "
+          f"OSPA {res['mean_ospa']:.4f} beside the plain "
+          f"{plain['mean_pose_err']:.4f} m, {plain['mean_ospa']:.4f} (no "
+          "band: consolidation moves Ackerman accuracy)")
+    require(res["mean_pose_err"] <= ATE_LIMIT,
+            f"consolidation: mean ATE {res['mean_pose_err']:.4f} m > "
+            f"{ATE_LIMIT} m")
+    return knob_counts, cons_counts
+
+
+def run_dense(dev):
+    """cfg/dense.cfg on data/dense (200 steps) at P=1024 plain, fused +
+    adaptive and consolidating + adaptive, each against the JAX package's
+    dense band (fail on NaN or ATE > 1.0 m); then fused + adaptive at
+    P=10240, its peak memory, its ATE and OSPA beside the JAX package's
+    P=10240 row, and a second run that must repeat every pose bit for bit
+    (:func:`audit_dense_scale` locates what would not). Returns each
+    P=1024 variant's launch counts."""
+    out = {}
+    for label, over in DENSE_VARIANTS.items():
+        counts, res = run_path(dev, "dense", DENSE_CFG, over,
+                               DENSE_KERNELS[label], P=P_DENSE)
+        for key, val in (("ate", res["mean_pose_err"]),
+                         ("ospa", res["mean_ospa"])):
+            lo, hi = DENSE_BAND[key]
+            phase("dense", f"{label} P={P_DENSE}: mean {key} {val:.4f} "
+                  f"{'inside' if lo <= val <= hi else 'outside'} the JAX "
+                  f"band {lo}-{hi}")
+        require(res["mean_pose_err"] <= ATE_LIMIT,
+                f"dense {label}: mean ATE {res['mean_pose_err']:.4f} m > "
+                f"{ATE_LIMIT} m")
+        out[label] = counts
+    runs = []
+    for _ in range(2):
+        counts, res = run_path(dev, "dense", DENSE_CFG, FUSED_ADAPTIVE,
+                               KNOB_KERNELS, P=P_DENSE_SCALE)
+        phase("dense", f"fused + adaptive P={P_DENSE_SCALE}: mean ATE "
+              f"{res['mean_pose_err']:.4f} m, OSPA {res['mean_ospa']:.4f} "
+              f"beside the JAX package's {DENSE_SCALE_REF['ate']} m, "
+              f"{DENSE_SCALE_REF['ospa']}")
+        require(res["mean_pose_err"] <= ATE_LIMIT,
+                f"dense P={P_DENSE_SCALE}: mean ATE "
+                f"{res['mean_pose_err']:.4f} m > {ATE_LIMIT} m")
+        runs.append(res["est_poses"])
+    differ = np.nonzero((runs[0] != runs[1]).any(axis=1))[0]
+    phase("dense", f"P={P_DENSE_SCALE} twice: "
+          + ("every pose bit-equal" if not len(differ) else
+             f"poses differ from measurement step {differ[0]} on"))
+    require(not len(differ), f"dense P={P_DENSE_SCALE}: a second run does "
+            "not repeat the first")
+    return out
+
+
+def same_bits(a, b):
+    """Tensors, or dicts, tuples, lists and dataclasses of them, equal bit
+    for bit (a NaN equals the same NaN); anything else equal."""
+    if dataclasses.is_dataclass(a):
+        return all(same_bits(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(same_bits, a, b))
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.shape == b.shape and torch.equal(a, b)
+    return a == b
+
+
+def memory_at_peak(fn, top=8):
+    """Run fn once under the CUDA allocator's history and return (peak
+    bytes allocated during fn above what was live before it, the ``top``
+    largest allocations live at that peak as (bytes, innermost frame of
+    this repo's code))."""
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=500000,
+                                             stacks="python")
+    try:
+        fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    live, total, peak, at_peak = {}, 0, 0, {}
+    for ev in snap["device_traces"][0]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            total += ev["size"]
+            if total > peak:
+                peak, at_peak = total, dict(live)
+        elif ev["action"] in ("free_requested", "free_completed"):
+            gone = live.pop(ev["addr"], None)
+            total -= gone["size"] if gone else 0
+
+    def site(ev):
+        for fr in ev.get("frames", []):
+            if "phdslam_tpu_torch" in fr["filename"]:
+                path = fr["filename"].split("phdslam_tpu_torch", 1)[1]
+                return f"phdslam_tpu_torch{path}:{fr['line']} {fr['name']}"
+        return "(outside phdslam_tpu_torch)"
+    big = sorted(at_peak.values(), key=lambda e: -e["size"])[:top]
+    return peak, [(e["size"], site(e)) for e in big]
+
+
+def audit_dense_scale(dev, n_before=40):
+    """What the P=10240 dense run (fused + adaptive) repeats and what it
+    holds: from the state after ``n_before`` steps, each stage of one step
+    (predict, the update's pre half with detect_adaptive, merge2d_tables,
+    the post half, resampling) runs twice from the same inputs and must
+    give the same bits; its peak memory above its inputs is printed, and
+    the largest allocations live at the whole step's peak with the line
+    that made them. Then the whole P=10240 run twice with the resampling's
+    scan as it was before, a 1D torch.cumsum, whose f32 rounding depends on
+    the order in which its tiles finish: reported, not gated (whether the
+    two runs part depends on the timing of the call)."""
+    cfg = load_config(DENSE_CFG, dict(FUSED_ADAPTIVE,
+                                      n_particles=P_DENSE_SCALE))
+    r = SynthSLAMRunner(cfg, DENSE_DATA, device=dev)
+    for n in range(n_before):
+        r.step(n)
+    z, zm, ctl, dt, do_pred, has_z = r.step_args(n_before)
+    require(do_pred and has_z, "dense audit: the step lacks a stage")
+    noise = r.noise()
+    st = r.state
+    K = cfg.max_components
+    stages = {}
+
+    def stage(label, fn):
+        outs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outs.append(fn())
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        same = same_bits(*outs)
+        stages[label] = same
+        phase("dense", f"audit P={P_DENSE_SCALE} step {n_before} {label}: "
+              f"{'bit-equal' if same else 'DIFFERS'} on a second call, peak "
+              f"{peak / 2**20:.0f} MiB above its inputs")
+        return outs[0]
+
+    st_p = stage("predict", lambda: predict(st, ctl, dt, cfg,
+                                            noise.eps_pred))
+    gm = st_p.map_static
+    pre = stage("pre (detect_adaptive)", lambda: _update_pre(
+        st_p.pose, gm.mean, gm.cov, gm.weight, z, zm, cfg))
+    mg = stage("merge2d_tables", lambda: gather_merge(
+        pre["gather"], 2, cfg, K, fused=True))
+    post = stage("post", lambda: _post_compact_batched(
+        mg, pre, gm.mean, gm.cov, gm.weight, cfg))
+    log_w = st_p.log_weight + post[3]
+    st_u = st_p.replace(
+        map_static=GMState(mean=post[0], cov=post[1], weight=post[2]),
+        log_weight=log_w - logsumexp(log_w, dim=0))
+    stage("resample", lambda: maybe_resample(st_u, True, cfg,
+                                             noise.u_resample))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peak, big = memory_at_peak(lambda: r.step(n_before))
+    phase("dense", f"audit P={P_DENSE_SCALE} step {n_before}: peak "
+          f"{peak / 2**20:.0f} MiB above the {base / 2**20:.0f} MiB live "
+          "before it; largest at the peak: " + "; ".join(
+              f"{b / 2**20:.0f} MiB {s}" for b, s in big))
+    require(all(stages.values()), f"dense audit: a stage does not repeat "
+            f"itself: {stages}")
+
+    # the resampling with the 1D torch.cumsum it took before: the same
+    # 200 steps twice, reported beside run_dense's fixed-order pair
+    plain_scan = mock.patch.object(resample, "cumsum_fixed_order",
+                                   lambda x: torch.cumsum(x, dim=0))
+    runs = []
+    with plain_scan:
+        for _ in range(2):
+            runs.append(evaluate_dataset(DENSE_CFG, ".", overrides=dict(
+                FUSED_ADAPTIVE, n_particles=P_DENSE_SCALE), device=dev))
+    differ = np.nonzero((runs[0]["est_poses"] != runs[1]["est_poses"])
+                        .any(axis=1))[0]
+    phase("dense", f"P={P_DENSE_SCALE} twice with a 1D torch.cumsum in the "
+          "resampling: mean ATE " + ", ".join(
+              f"{r['mean_pose_err']:.4f}" for r in runs) + " m; "
+          + ("every pose bit-equal" if not len(differ) else
+             f"poses differ from measurement step {differ[0]} on"))
+
+
+def dense_seeds(dev):
+    """A second witness for the dense band: the port at the particle counts
+    and seeds of the JAX package's CPU runs (:data:`DENSE_CPU_SEEDS`), each
+    seed's ATE and OSPA, then per metric both packages' mean and std over
+    the seeds and the difference of the means with its standard error
+    (each package draws its own noise, so only the distributions compare).
+    Fail on NaN; no ATE bound, since at P=64 single draws of either
+    package pass 1 m."""
+    for P, jax_rows in DENSE_CPU_SEEDS.items():
+        rows = []
+        for seed in range(len(jax_rows)):
+            res = evaluate_dataset(DENSE_CFG, ".", overrides={
+                "n_particles": P, "seed": seed}, device=dev)
+            require(np.isfinite(res["run"]["est_poses"]).all(),
+                    f"dense P={P} seed {seed}: NaN")
+            rows.append((res["mean_pose_err"], res["mean_ospa"]))
+            phase("dense", f"P={P} seed {seed}: mean ATE "
+                  f"{res['mean_pose_err']:.4f} m, OSPA "
+                  f"{res['mean_ospa']:.4f}")
+        for i, key in enumerate(("ate", "ospa")):
+            port = np.asarray(rows)[:, i]
+            ref = np.asarray(jax_rows)[:, i]
+            diff = float(port.mean() - ref.mean())
+            se = float(np.sqrt(port.var(ddof=1) / len(port)
+                               + ref.var(ddof=1) / len(ref)))
+            phase("dense", f"P={P} seeds 0-{len(rows) - 1}: {key} port "
+                  f"{port.mean():.4f} +- {port.std():.4f}, JAX CPU "
+                  f"{ref.mean():.4f} +- {ref.std():.4f}; port - JAX "
+                  f"{diff:+.4f}, standard error {se:.4f} "
+                  f"({'within' if abs(diff) <= 2 * se else 'beyond'} 2)")
 
 
 def run_scale(dev):
@@ -1154,11 +1689,37 @@ def merge_bound(packed, K, c_out, flop_per_lane):
                  flop_per_lane * live)
 
 
+def detect_bound(planes, z4, T, flop_per_lane, extra_bytes=0):
+    """A detect variant's bound: its planes and z4 read once, vals, idx,
+    norm and count (and ``extra_bytes`` more outputs) written once, and
+    ``flop_per_lane`` f32 operations per (p, m, k) lane."""
+    P, _, K = planes.shape
+    M = z4.shape[0]
+    return bound(4 * (planes.numel() + z4.numel()) + 8 * P * M * T
+                 + 8 * P * M + extra_bytes, flop_per_lane * P * M * K)
+
+
+def tables_bound(ints, flts, K, flop_per_lane):
+    """The fused merge's bound on this input: it must read the sel_act
+    plane, and for each entering lane (sel_act and w > 0) its weight, its
+    four ints and the 8 table values it combines; write [P, 8, K]; and
+    evaluate each entering lane's distance and moments at least once."""
+    P, _, N = ints.shape
+    live = int(((flts[:, 1] > 0.5) & (flts[:, 0] > 0)).sum())
+    return bound(4 * (P * N + 13 * live + P * 8 * K), flop_per_lane * live)
+
+
 def time_kernels(dev):
     """Kernel against twin at the main path's shapes, in turns
     (twin, kernel, kernel, twin); CUDA events, ms per call; where one
-    PyTorch call computes the same function (gather_cols: torch.gather),
-    that call too. Returns {name: (ms, plain_ms, library_ms, bound_ms,
+    PyTorch call computes the same function (gather_cols, gather_rows:
+    torch.gather), that call too. The knob variants run at the shapes of
+    the first path that launches them (detect_cons_adaptive: the dense
+    path's; the rest: the Ackerman path's, on eval/scenes.py's scenes), and
+    the dense path's kernels run at its shapes too (rows named "... dense",
+    printed only, as are the two-kernel route's rows, which time the
+    gather + combine + merge2d that merge2d_tables replaces on its
+    inputs). Returns {name: (ms, plain_ms, library_ms, bound_ms,
     bound_by)}, the bound computed from these inputs."""
     cfg = load_config(CFG)
     min_fw, cb = cfg.min_feature_weight, cfg.clutter_density + cfg.birth_weight
@@ -1208,6 +1769,7 @@ def time_kernels(dev):
                     lambda: merge3d_reference(packed3, 20.0, 24), 5, None,
                     merge_bound(packed3, 24, 12, 70)),
     }
+    calls.update(knob_calls(dev, cfg))
     times = {}
     for name, (kern, plain, iters, lib, (b_ms, b_by)) in calls.items():
         p1 = time_call(plain, iters, 1)
@@ -1225,8 +1787,102 @@ def time_kernels(dev):
     return times
 
 
+def knob_calls(dev, cfg):
+    """time_kernels' rows of the knob variants and of the dense path's
+    kernels: name -> (kernel, twin, twin iterations, library call, bound)."""
+    min_fw, cb = cfg.min_feature_weight, cfg.clutter_density + cfg.birth_weight
+    T, K = 16, 128
+    s = map_scene(cfg, P_MAIN, K, 48, 44, seed=0, device=dev)
+    p6, z4 = detect_planes(cfg, s)
+    p13, _ = detect_planes(cfg, s, consolidate=True)
+    g, ints, flts = tables_payload(cfg, s)
+    tabs = (ints, flts, g["t_k"], g["t_m"])
+    h_sep = HELL["min_separation"]
+    ridx, rtab = gather_inputs(dev, P_MAIN, 16, 128, 512, seed=17)
+    rtab = rtab.transpose(1, 2).contiguous()            # [P, R=128, C=16]
+    ridx_long = ridx.long()[:, :, None].expand(-1, -1, rtab.shape[2])
+
+    dcfg = load_config(DENSE_CFG)
+    d_fw, d_cb = dcfg.min_feature_weight, \
+        dcfg.clutter_density + dcfg.birth_weight
+    dT, dK, d_sep = 32, 1024, dcfg.min_separation
+    ds = map_scene(dcfg, P_DENSE, dK, 72, 65, seed=0, device=dev)
+    d6, dz4 = detect_planes(dcfg, ds)
+    d13, _ = detect_planes(dcfg, ds, consolidate=True)
+    dg, dints, dflts = tables_payload(dcfg, ds)
+    dtabs = (dints, dflts, dg["t_k"], dg["t_m"])
+    dpacked = _finish_candidates_packed(dg, 2)
+    return {
+        "detect_adaptive": (
+            lambda: detect(p6, z4, T, min_fw, cb, adaptive=True),
+            lambda: detect_reference(p6, z4, T, min_fw, cb, adaptive=True),
+            5, None, detect_bound(p6, z4, T, 21)),
+        "detect_cons": (
+            lambda: detect(p13, z4, T, min_fw, cb, cfg.min_separation),
+            lambda: detect_reference(p13, z4, T, min_fw, cb,
+                                     cfg.min_separation), 5, None,
+            # the grid once (~21 FLOP per lane) and the column pass's
+            # quadratic, test and sums (~16)
+            detect_bound(p13, z4, T, 37, 40 * P_MAIN * K)),
+        "detect_cons_adaptive": (
+            lambda: detect(d13, dz4, dT, d_fw, d_cb, d_sep, adaptive=True),
+            lambda: detect_reference(d13, dz4, dT, d_fw, d_cb, d_sep), 2,
+            None, detect_bound(d13, dz4, dT, 37, 40 * P_DENSE * dK)),
+        "gather_rows": (
+            lambda: gather_rows(ridx, rtab),
+            lambda: gather_rows_reference(ridx, rtab), 5,
+            lambda: torch.gather(rtab, 1, ridx_long),
+            bound(4 * (ridx.numel() + rtab.numel()
+                       + ridx.numel() * rtab.shape[2]), 0)),
+        "merge2d_tables": (
+            lambda: merge2d_tables(*tabs, cfg.min_separation, K),
+            lambda: merge2d_tables_reference(*tabs, cfg.min_separation, K),
+            5, None, tables_bound(ints, flts, K, 27)),
+        "merge2d_tables_hellinger": (
+            lambda: merge2d_tables(*tabs, h_sep, K, 1),
+            lambda: merge2d_tables_reference(*tabs, h_sep, K, 1), 5, None,
+            tables_bound(ints, flts, K, 40)),
+        "detect dense": (
+            lambda: detect(d6, dz4, dT, d_fw, d_cb),
+            lambda: detect_reference(d6, dz4, dT, d_fw, d_cb), 2, None,
+            detect_bound(d6, dz4, dT, 21)),
+        "detect_adaptive dense": (
+            lambda: detect(d6, dz4, dT, d_fw, d_cb, adaptive=True),
+            lambda: detect_reference(d6, dz4, dT, d_fw, d_cb), 2, None,
+            detect_bound(d6, dz4, dT, 21)),
+        "gather_cols dense": (
+            lambda: gather_cols(dg["k_eff"], dg["t_k"]),
+            lambda: gather_cols_reference(dg["k_eff"], dg["t_k"]), 2,
+            lambda: torch.gather(dg["t_k"], 2, dg["k_eff"].long()[:, None, :]
+                                 .expand(-1, dg["t_k"].shape[1], -1)),
+            bound(4 * (dg["k_eff"].numel() + dg["t_k"].numel()
+                       + dg["t_k"].shape[1] * dg["k_eff"].numel()), 0)),
+        "merge2d dense": (
+            lambda: merge2d(dpacked, d_sep, dK),
+            lambda: merge2d_reference(dpacked, d_sep, dK), 1, None,
+            merge_bound(dpacked, dK, 8, 27)),
+        "merge2d_tables dense": (
+            lambda: merge2d_tables(*dtabs, d_sep, dK),
+            lambda: merge2d_tables_reference(*dtabs, d_sep, dK), 1, None,
+            tables_bound(dints, dflts, dK, 27)),
+        # the two-kernel route the fused kernel replaces, on the same
+        # tables: gather_cols x2, the combine's PyTorch ops, merge2d
+        "two-kernel route": (
+            lambda: merge2d(_finish_candidates_packed(g, 2),
+                            cfg.min_separation, K),
+            lambda: merge2d_reference(_finish_candidates_packed(g, 2),
+                                      cfg.min_separation, K), 1, None,
+            tables_bound(ints, flts, K, 27)),
+        "two-kernel route dense": (
+            lambda: merge2d(_finish_candidates_packed(dg, 2), d_sep, dK),
+            lambda: merge2d_reference(dpacked, d_sep, dK), 1, None,
+            tables_bound(dints, dflts, dK, 27)),
+    }
+
+
 def profile_step(r, label, host=(40, 60), prof=(60, 80), prefix="phd."):
-    """Where the time goes at P=512 for runner r: the steps of ``host`` on
+    """Where the time goes for runner r (P=512 unless it holds another
+    count): the steps of ``host`` on
     the host clock without the profiler and those of ``prof`` (as long)
     under torch.profiler, for the device time of each layer range (the
     ``prefix`` record_function spans, a string or a tuple of them, of
@@ -1279,7 +1935,8 @@ def profile_step(r, label, host=(40, 60), prof=(60, 80), prefix="phd."):
     busy_ms = sum(per_layer.values()) / 1000.0 / steps
     idle = 100.0 * (1.0 - busy_ms / step_ms)
     n_launch = sum(c for _, c in per_kernel.values()) // steps
-    phase("profile", f"{label} P={P_MAIN} steps {host[0]}-{host[1] - 1}: "
+    phase("profile", f"{label} P={r.state.log_weight.shape[0]} steps "
+          f"{host[0]}-{host[1] - 1}: "
           f"{step_ms:.3f} ms/step (host "
           f"clock, no profiler); steps {prof[0]}-{prof[1] - 1} profiled: "
           f"device busy "
@@ -1299,11 +1956,15 @@ def main():
     dev = torch.device("cuda:0")
     build_kernels()
     errs = check_kernels(dev)
+    check_variants(dev, errs)
     check_step(dev)
+    check_step(dev, overrides=CONS)
     check_mixed_step(dev)
     check_disparity_step(dev)
     check_cphd_step(dev)
+    check_dense_steps(dev)
     counts, main_res = run_main(dev)
+    knob_counts, cons_counts = run_knobs(dev, main_res)
     run_scale(dev)
     mixed_counts = run_mixed(dev)
     mixed_accuracy(dev)
@@ -1315,7 +1976,10 @@ def main():
         dev, {CFG: main_res["mean_pose_err"],
               CPHD_CFG: cphd_res["mean_pose_err"]})
     cphd_route_seeds(dev, {"det": cphd_res, "full grid": cphd_full_res})
-    hell_counts, hell_full_counts = run_hellinger(dev)
+    hell_counts, hell_full_counts, hell_fused_counts = run_hellinger(dev)
+    dense_counts = run_dense(dev)
+    audit_dense_scale(dev)
+    dense_seeds(dev)
     times = time_kernels(dev)
     profile_step(SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN}),
                                  DATA, device=dev), "ackerman")
@@ -1326,19 +1990,33 @@ def main():
                                              {"n_particles": P_MAIN}),
                                  DATA, device=dev), "cphd",
                  prefix=("phd.", "cphd."))
+    profile_step(SynthSLAMRunner(load_config(DENSE_CFG,
+                                             {"n_particles": P_DENSE}),
+                                 DENSE_DATA, device=dev), "dense")
     # launches: each kernel's count in the run of the first path that runs
-    # it (detect, gather_cols and merge2d: ackerman; merge4d: mixed;
-    # merge3d: disparity; merge2d_argmax: the full-grid PHD run;
-    # merge2d_hellinger and merge2d_argmax_hellinger: the Hellinger runs);
-    # every path's kernels were required > 0 there, the CPHD run's too
-    path_counts = [(ACKERMAN_KERNELS, counts), (MIXED_KERNELS, mixed_counts),
+    # it (detect, gather_cols and merge2d: ackerman; detect_adaptive and
+    # merge2d_tables: ackerman fused + adaptive; detect_cons: ackerman
+    # consolidating; detect_cons_adaptive: dense consolidating + adaptive;
+    # merge4d: mixed; merge3d: disparity; merge2d_argmax: the full-grid PHD
+    # run; merge2d_hellinger, merge2d_argmax_hellinger and
+    # merge2d_tables_hellinger: the Hellinger runs); every path's kernels
+    # were required > 0 there, the CPHD and dense runs' too. gather_rows is
+    # on no path (the JAX package's paths never call it): 0.
+    path_counts = [(ACKERMAN_KERNELS, counts), (KNOB_KERNELS, knob_counts),
+                   (CONS_KERNELS, cons_counts),
+                   (DENSE_KERNELS["consolidating + adaptive"],
+                    dense_counts["consolidating + adaptive"]),
+                   (MIXED_KERNELS, mixed_counts),
                    (DISP_KERNELS, disp_counts), (CPHD_KERNELS, cphd_counts),
                    (FULL_GRID_KERNELS, grid_counts),
                    (HELL_KERNELS, hell_counts),
-                   (HELL_FULL_KERNELS, hell_full_counts)]
+                   (HELL_FULL_KERNELS, hell_full_counts),
+                   (HELL_FUSED_KERNELS, hell_fused_counts),
+                   (("gather_rows",), {})]
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": int(next(c for ks, c in path_counts if name in ks)[name]),
+         "launches": int(next(c for ks, c in path_counts
+                              if name in ks).get(name, 0)),
          "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": times[name][3], "bound_by": times[name][4],

@@ -40,16 +40,30 @@
 // (w descending, lane ascending) maximum with a NaN flag (argmax). The TPU
 // kernel's R-principals-per-trip validity chain and lane cumsum existed to
 // amortise its per-trip control overhead and are not needed here.
+//
+// merge2d_tables_kernel replaces pallas_merge.py::_merge_tables_kernel
+// (fused_gather_merge, entry gm_merge_pallas_batch_tables) in sorted mode
+// with either metric: the same greedy core, staged straight from the
+// deferred-gather tables, so the packed [P, 7, N] planes, the two column
+// gathers and the combine of the two-kernel route never exist. Built with
+// --fmad=false and the two-kernel route's order of terms, it reproduces
+// that route bit for bit on the lanes that enter, except for a bearing
+// innovation at +-pi, where its floor-form wrap (the Pallas kernel's) and
+// the combine's C-fmod wrap can differ.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
 
+#include "wrap.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr int kPlanes = 6;     // w, mean x, mean y, cov 00, 01, 11
+constexpr int kTablesK = 16;   // t_k rows (the fused route)
+constexpr int kTablesM = 8;    // t_m rows
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -166,51 +180,39 @@ __device__ __forceinline__ int block_principal(unsigned own, const float* w,
   return (!any_nan && bw > 0.f) ? bi : INT_MAX;
 }
 
-template <int kThreads, bool kArgmax, int kMetric>
-__global__ void __launch_bounds__(kThreads)
-merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
-               int N, int K, float min_sep) {
-  constexpr int kWarps = kThreads / 32;
-  extern __shared__ float s[];                  // [kPlanes, N]
-  __shared__ float red[2][kWarps][3];           // double-buffered partials
-  __shared__ float red_w[kWarps];               // principal partials
-  __shared__ int red_i[kWarps];
-  __shared__ int red_nan[kWarps];
-  __shared__ int red_left[kWarps];
+// The block's shared scratch for the trip reductions
+template <int kWarps>
+struct Scratch {
+  float red[2][kWarps][3];                      // double-buffered partials
+  float red_w[kWarps];                          // principal partials
+  int red_i[kWarps];
+  int red_nan[kWarps];
+  int red_left[kWarps];
+};
 
-  const int p = blockIdx.x;
+// The greedy loop over the staged planes s = [w, mean x, mean y, cov 00,
+// 01, 11] x N (``own``: this thread's entering lanes), writing the
+// particle's output planes o [8, K]. Shared by both kernels below, so the
+// packed and the table routes run one core.
+template <int kThreads, bool kArgmax, int kMetric>
+__device__ __forceinline__ void greedy_merge(unsigned own, const float* s,
+                                             float* o, int N, int K,
+                                             float min_sep,
+                                             Scratch<kThreads / 32>& sc) {
+  constexpr int kWarps = kThreads / 32;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* in = packed + static_cast<size_t>(p) * 7 * N;
-  float* w = s;
-  float* mx = s + N;
-  float* my = s + 2 * N;
-  float* c00 = s + 3 * N;
-  float* c01 = s + 4 * N;
-  float* c11 = s + 5 * N;
+  const float* w = s;
+  const float* mx = s + N;
+  const float* my = s + 2 * N;
+  const float* c00 = s + 3 * N;
+  const float* c01 = s + 4 * N;
+  const float* c11 = s + 5 * N;
 
-  // bit j of own: lane tid + kThreads * j is still unmerged. Only the
-  // lanes that enter are ever read again, so only theirs are staged.
-  unsigned own = 0;
-  for (int j = 0; tid + kThreads * j < N; ++j) {
-    const int i = tid + kThreads * j;
-    if (!(in[N + i] > 0.5f)) continue;
-    const float wi = in[i];
-    if (!kArgmax && !(wi > 0.f)) continue;
-    own |= 1u << j;
-    w[i] = wi;
-    mx[i] = in[2 * N + i];
-    my[i] = in[3 * N + i];
-    c00[i] = in[4 * N + i];
-    c01[i] = in[5 * N + i];
-    c11[i] = in[6 * N + i];
-  }
   // (the reduction's barrier also publishes the staged planes)
-  int head = block_principal<kThreads, kArgmax>(own, w, tid, red_w, red_i,
-                                                red_nan);
-
-  float* o = out + static_cast<size_t>(p) * 8 * K;
+  int head = block_principal<kThreads, kArgmax>(own, w, tid, sc.red_w,
+                                                sc.red_i, sc.red_nan);
   int c = 0;
   while (head != INT_MAX && c < K) {
     const float pmx = mx[head], pmy = my[head];
@@ -236,17 +238,17 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
     a1 = warp_sum(a1);
     a2 = warp_sum(a2);
     if (lane == 0) {
-      red[0][warp][0] = a0;
-      red[0][warp][1] = a1;
-      red[0][warp][2] = a2;
+      sc.red[0][warp][0] = a0;
+      sc.red[0][warp][1] = a1;
+      sc.red[0][warp][2] = a2;
     }
     __syncthreads();
     float W = 0.f, sx = 0.f, sy = 0.f;
 #pragma unroll
     for (int q = 0; q < kWarps; ++q) {
-      W += red[0][q][0];
-      sx += red[0][q][1];
-      sy += red[0][q][2];
+      W += sc.red[0][q][0];
+      sx += sc.red[0][q][1];
+      sy += sc.red[0][q][2];
     }
     own &= ~sel;
     const float w_safe = fmaxf(W, 1e-30f);
@@ -268,19 +270,19 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
     b1 = warp_sum(b1);
     b2 = warp_sum(b2);
     if (lane == 0) {
-      red[1][warp][0] = b0;
-      red[1][warp][1] = b1;
-      red[1][warp][2] = b2;
+      sc.red[1][warp][0] = b0;
+      sc.red[1][warp][1] = b1;
+      sc.red[1][warp][2] = b2;
     }
     // (the principal's barrier also publishes red[1])
-    head = block_principal<kThreads, kArgmax>(own, w, tid, red_w, red_i,
-                                              red_nan);
+    head = block_principal<kThreads, kArgmax>(own, w, tid, sc.red_w,
+                                              sc.red_i, sc.red_nan);
     float m00 = 0.f, m01 = 0.f, m11 = 0.f;
 #pragma unroll
     for (int q = 0; q < kWarps; ++q) {
-      m00 += red[1][q][0];
-      m01 += red[1][q][1];
-      m11 += red[1][q][2];
+      m00 += sc.red[1][q][0];
+      m01 += sc.red[1][q][1];
+      m11 += sc.red[1][q][2];
     }
     if (tid == 0) {
       o[c] = W;
@@ -297,11 +299,11 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
   if (c < K) own = 0;
 
   const int left = static_cast<int>(warp_sum(static_cast<float>(__popc(own))));
-  if (lane == 0) red_left[warp] = left;
+  if (lane == 0) sc.red_left[warp] = left;
   __syncthreads();
   int n_left = 0;
 #pragma unroll
-  for (int q = 0; q < kWarps; ++q) n_left += red_left[q];
+  for (int q = 0; q < kWarps; ++q) n_left += sc.red_left[q];
   for (int k = c + tid; k < K; k += kThreads) {
     o[k] = 0.f;
     o[K + k] = 0.f;
@@ -314,6 +316,106 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
     o[6 * K + k] = static_cast<float>(n_left);
     o[7 * K + k] = 0.f;
   }
+}
+
+// Packed planes [P, 7, N] in: the act plane is read for every lane, the
+// other six only for the lanes that enter.
+template <int kThreads, bool kArgmax, int kMetric>
+__global__ void __launch_bounds__(kThreads)
+merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
+               int N, int K, float min_sep) {
+  extern __shared__ float s[];                  // [kPlanes, N]
+  __shared__ Scratch<kThreads / 32> sc;
+  const int tid = threadIdx.x;
+  const float* in = packed + static_cast<size_t>(blockIdx.x) * 7 * N;
+
+  // bit j of own: lane tid + kThreads * j is still unmerged. Only the
+  // lanes that enter are ever read again, so only theirs are staged.
+  unsigned own = 0;
+  for (int j = 0; tid + kThreads * j < N; ++j) {
+    const int i = tid + kThreads * j;
+    if (!(in[N + i] > 0.5f)) continue;
+    const float wi = in[i];
+    if (!kArgmax && !(wi > 0.f)) continue;
+    own |= 1u << j;
+    s[i] = wi;
+    for (int c = 1; c < kPlanes; ++c) s[c * N + i] = in[(c + 1) * N + i];
+  }
+  greedy_merge<kThreads, kArgmax, kMetric>(
+      own, s, out + static_cast<size_t>(blockIdx.x) * 8 * K, N, K, min_sep,
+      sc);
+}
+
+// The fused gather + combine + merge (sorted mode): lanes from the
+// deferred-gather tables instead of packed planes. ints [P, 4, N] (k_eff,
+// m_eff, is_p, is_d), flts [P, 2, N] (cand_w, sel_act), t_k [P, 16, Kt]
+// rows mean 0-1 | cov row-major 2-5 | cov_upd 6-9 | gain 10-13 | r 14 |
+// bearing 15, t_m [P, 8, Mt] rows zr | zb | birth mean 2-3 | birth cov
+// 4-7. A lane enters when sel_act and w > 0; its table columns are read
+// from device memory (a particle's tables, 8-64 KB, stay in L2) and
+// combined as ops/ekf.py::combine_selected_planes does, with the Pallas
+// kernel's floor-form bearing wrap; an index outside its table reads 0,
+// as gather_cols does.
+template <int kThreads, int kMetric>
+__global__ void __launch_bounds__(kThreads)
+merge2d_tables_kernel(const int* __restrict__ ints,
+                      const float* __restrict__ flts,
+                      const float* __restrict__ tk,
+                      const float* __restrict__ tm, float* __restrict__ out,
+                      int N, int Kt, int Mt, int K, float min_sep) {
+  extern __shared__ float s[];                  // [kPlanes, N]
+  __shared__ Scratch<kThreads / 32> sc;
+  const int tid = threadIdx.x;
+  const size_t p = blockIdx.x;
+  const int* ip = ints + p * 4 * N;
+  const float* fp = flts + p * 2 * N;
+  const float* tkp = tk + p * kTablesK * Kt;
+  const float* tmp = tm + p * kTablesM * Mt;
+
+  unsigned own = 0;
+  for (int j = 0; tid + kThreads * j < N; ++j) {
+    const int i = tid + kThreads * j;
+    if (!(fp[N + i] > 0.5f)) continue;
+    const float wi = fp[i];
+    if (!(wi > 0.f)) continue;
+    own |= 1u << j;
+    const int k = ip[i];
+    const int m = ip[N + i];
+    const bool k_ok = k >= 0 && k < Kt;
+    const bool m_ok = m >= 0 && m < Mt;
+    auto tkv = [&](int c) { return k_ok ? tkp[c * Kt + k] : 0.f; };
+    auto tmv = [&](int c) { return m_ok ? tmp[c * Mt + m] : 0.f; };
+    float vx, vy, v00, v01, v11;
+    if (ip[2 * N + i] > 0) {                    // persistent
+      vx = tkv(0);
+      vy = tkv(1);
+      v00 = tkv(2);
+      v01 = tkv(3);
+      v11 = tkv(5);
+    } else if (ip[3 * N + i] > 0) {             // detection
+      const float innov_r = tmv(0) - tkv(14);
+      const float innov_b = phd::wrap_angle_floor(tmv(1) - tkv(15));
+      vx = tkv(0) + tkv(10) * innov_r + tkv(11) * innov_b;
+      vy = tkv(1) + tkv(12) * innov_r + tkv(13) * innov_b;
+      v00 = tkv(6);
+      v01 = tkv(7);
+      v11 = tkv(9);
+    } else {                                    // birth
+      vx = tmv(2);
+      vy = tmv(3);
+      v00 = tmv(4);
+      v01 = tmv(5);
+      v11 = tmv(7);
+    }
+    s[i] = wi;
+    s[N + i] = vx;
+    s[2 * N + i] = vy;
+    s[3 * N + i] = v00;
+    s[4 * N + i] = v01;
+    s[5 * N + i] = v11;
+  }
+  greedy_merge<kThreads, false, kMetric>(own, s, out + p * 8 * K, N, K,
+                                         min_sep, sc);
 }
 
 template <int kThreads, bool kArgmax, int kMetric>
@@ -346,6 +448,34 @@ int dispatch(const float* packed, float* out, int P, int N, int K,
                                              stream);
 }
 
+template <int kThreads, int kMetric>
+int launch_tables(const int* ints, const float* flts, const float* tk,
+                  const float* tm, float* out, int P, int N, int Kt, int Mt,
+                  int K, float min_sep, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kPlanes * static_cast<size_t>(N);
+  auto* kernel = merge2d_tables_kernel<kThreads, kMetric>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<P, kThreads, smem, stream>>>(ints, flts, tk, tm, out, N, Kt, Mt,
+                                         K, min_sep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kThreads>
+int dispatch_tables(const int* ints, const float* flts, const float* tk,
+                    const float* tm, float* out, int P, int N, int Kt,
+                    int Mt, int K, float min_sep, int metric,
+                    cudaStream_t stream) {
+  return metric ? launch_tables<kThreads, 1>(ints, flts, tk, tm, out, P, N,
+                                             Kt, Mt, K, min_sep, stream)
+                : launch_tables<kThreads, 0>(ints, flts, tk, tm, out, P, N,
+                                             Kt, Mt, K, min_sep, stream);
+}
+
 }  // namespace
 
 extern "C" int phd_merge2d(const float* packed, float* out, int P, int N,
@@ -359,4 +489,20 @@ extern "C" int phd_merge2d(const float* packed, float* out, int P, int N,
     return dispatch<64>(packed, out, P, N, K, min_sep, argmax, metric, st);
   return dispatch<kMaxThreads>(packed, out, P, N, K, min_sep, argmax, metric,
                                st);
+}
+
+extern "C" int phd_merge2d_tables(const int* ints, const float* flts,
+                                  const float* tk, const float* tm,
+                                  float* out, int P, int N, int Kt, int Mt,
+                                  int K, float min_sep, int metric,
+                                  void* stream) {
+  if (P <= 0 || K <= 0) return 0;
+  if (N < 0 || N > 32 * kMaxThreads || (metric != 0 && metric != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (N <= 32 * 64)
+    return dispatch_tables<64>(ints, flts, tk, tm, out, P, N, Kt, Mt, K,
+                               min_sep, metric, st);
+  return dispatch_tables<kMaxThreads>(ints, flts, tk, tm, out, P, N, Kt, Mt,
+                                      K, min_sep, metric, st);
 }

@@ -312,7 +312,7 @@ def _pre_lambdas(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
         z4 = torch.stack([z[:, 0], z[:, 1], z_mask.to(dtype),
                           torch.zeros_like(z[:, 0])], dim=1)
         out["det"] = detect(_detection_planes(in_m, pre, weight), z4, T,
-                            0.0, 0.0)
+                            0.0, 0.0, adaptive=bool(cfg.detect_adaptive))
         log_lambda = safe_log(out["det"][2]) + log_kr - log_kd
     else:
         out["logw_part"] = torch.where(

@@ -107,8 +107,11 @@ def _update_mixed_pre(pose, gs: GMState, gd: GMState, z, z_label, z_mask,
     in_d, near_d, _, pre_d = _classify_pre(pose_b, gd, cfg)
     z4 = torch.stack([z[:, 0], z[:, 1], z_mask.to(dtype),
                       torch.zeros_like(z[:, 0])], dim=1)
-    det_s = detect(_detection_planes(in_s, pre_s, gs.weight), z4, T, 0.0, 0.0)
-    det_d = detect(_detection_planes(in_d, pre_d, gd.weight), z4, T, 0.0, 0.0)
+    adaptive = bool(cfg.detect_adaptive)
+    det_s = detect(_detection_planes(in_s, pre_s, gs.weight), z4, T, 0.0, 0.0,
+                   adaptive=adaptive)
+    det_d = detect(_detection_planes(in_d, pre_d, gd.weight), z4, T, 0.0, 0.0,
+                   adaptive=adaptive)
     sum_s, sum_d = det_s[2], det_d[2]                          # [P, M]
 
     bw_s, bw_d, birth_norm = _birth_weights(z_label, M, cfg, dtype, dev)

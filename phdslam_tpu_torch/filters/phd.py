@@ -24,7 +24,15 @@ particle per particle, on
     ``filters/mixed.py``'s fast route, PHD, Mahalanobis) with weighting 0
     or 1.
 The JAX version's live-width ``lax.switch`` families are exact prefix
-slices, so this port runs everything at full width instead.
+slices, so this port runs everything at full width instead. Three kernel
+knobs act where they act in the JAX version: ``detect_adaptive`` (every
+detect call: trips stop once a row's lanes are used up, same outputs),
+``premerge_consolidate`` (the PHD det route with the Mahalanobis metric:
+the detect kernel collapses same-source detection copies onto the
+persistent lane, :func:`consolidates`) and ``fused_gather_merge`` (the
+PHD det route without consolidation: one merge2d_tables kernel reads the
+deferred-gather tables; the CPHD and mixed updates keep the two-kernel
+route).
 
 Random draws are inputs (:class:`StepNoise`), so a test can replay the JAX
 version's keys. Profiler ranges (``phd.predict``, ``phd.pre``, ``phd.gather``,
@@ -46,7 +54,8 @@ from torch.profiler import record_function
 from ..config import SlamConfig
 from ..kernels.detect import detect
 from ..kernels.gather_cols import gather_cols
-from ..kernels.merge import MAX_CANDIDATES, merge2d, merge4d
+from ..kernels.merge import (MAX_CANDIDATES, merge2d, merge2d_tables, merge4d,
+                             tables_operands)
 from ..models import feature_motion, measurement, vehicle
 from ..ops import ekf
 from ..ops.gm_merge import merge_out, topcap_sort
@@ -100,7 +109,6 @@ def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
         "distance_metric": (cfg.distance_metric, (0,) if mixed else (0, 1)),
         "n_predict_particles": (max(1, cfg.n_predict_particles), (1,)),
         "compute_variance": (bool(cfg.compute_variance), (False,)),
-        "premerge_consolidate": (cfg.premerge_consolidate, (0,)),
         "merge_spatial_tiles": (cfg.merge_spatial_tiles, (0,)),
     }
     if cfg.filter_type == 0:
@@ -181,17 +189,107 @@ def predict(state: FilterState, control, dt, cfg: SlamConfig,
 # Measurement update
 # ----------------------------------------------------------------------------
 
-def _detection_planes(in_m, pre: ekf.PreUpdate, weight):
+def _detection_planes(in_m, pre: ekf.PreUpdate, weight, consolidate=False,
+                      cov=None, min_fw=0.0):
     """Input planes of the detect kernel [P, 6, K]: r, bearing, si00, si01,
     si11, pref = pd w / (2 pi sqrt det S), zero out of range (the JAX
-    version's ``_detection_planes_single``, batched over P)."""
+    version's ``_detection_planes_single``, batched over P).
+
+    With ``consolidate`` (same-source pre-consolidation), [P, 13, K]: 7
+    more rows from the map's covariance ``cov`` [P, K, 2, 2]: wp (the
+    persistent candidate weight w (1 - pd), zero out of range or below
+    ``min_fw``), the copy-copy quadratic G' cov_upd^-1 G and the
+    copy-persistent quadratic G' ((cov + cov_upd) / 2)^-1 G in innovation
+    coordinates (upper triangles), each inverse from the determinant
+    clamped at 1e-30."""
     pref = torch.where(
         in_m,
         pre.pd * weight / (2.0 * math.pi
                            * torch.sqrt(torch.clamp_min(pre.det_S, 1e-30))),
         0.0)
-    return torch.stack([pre.r, pre.bearing, pre.si00, pre.si01, pre.si11,
-                        pref], dim=1)
+    rows = [pre.r, pre.bearing, pre.si00, pre.si01, pre.si11, pref]
+    if consolidate:
+        w_nd = weight * (1.0 - pre.pd)
+        rows.append(torch.where(in_m & (w_nd >= min_fw), w_nd, 0.0))
+        g00, g01 = pre.gain[..., 0, 0], pre.gain[..., 0, 1]
+        g10, g11 = pre.gain[..., 1, 0], pre.gain[..., 1, 1]
+
+        def quad(c00, c01, c11):
+            det = torch.clamp_min(c00 * c11 - c01 * c01, 1e-30)
+            i00, i01, i11 = c11 / det, -c01 / det, c00 / det
+            # G' Cinv G with G columns (g00, g10), (g01, g11)
+            return (g00 * g00 * i00 + 2.0 * g00 * g10 * i01
+                    + g10 * g10 * i11,
+                    g00 * g01 * i00 + (g00 * g11 + g01 * g10) * i01
+                    + g10 * g11 * i11,
+                    g01 * g01 * i00 + 2.0 * g01 * g11 * i01
+                    + g11 * g11 * i11)
+        cu00 = pre.cov_upd[..., 0, 0]
+        cu01 = pre.cov_upd[..., 0, 1]
+        cu11 = pre.cov_upd[..., 1, 1]
+        rows += quad(cu00, cu01, cu11)
+        rows += quad(0.5 * (cov[..., 0, 0] + cu00),
+                     0.5 * (cov[..., 0, 1] + cu01),
+                     0.5 * (cov[..., 1, 1] + cu11))
+    return torch.stack(rows, dim=1)
+
+
+def consolidates(cfg: SlamConfig) -> bool:
+    """Whether the PHD det route runs same-source pre-consolidation: where
+    the JAX version does (premerge_consolidate on the 2D map, not with
+    scheme-2 weighting or the Hellinger metric; the mixed and CPHD updates
+    never read the knob)."""
+    return bool(cfg.premerge_consolidate) and cfg.particle_weighting != 2 \
+        and cfg.distance_metric == 0
+
+
+def _fold_consolidated(cons, in_m, w_a, act_a, mean, cov, pre, min_fw):
+    """Moment-match each column's members (their w_det moments about the
+    head's innovation c, from the detect kernel) and, when ``pers_in``,
+    the persistent copy into the persistent lane (the JAX version's fold in
+    ``_update_single_pre``). Returns (w_a, act_a, cons_rows): the new
+    persistent weights and actives and the 5 consolidated table rows (mean
+    x, y, cov 00, 01, 11; the map's own where a column has no member)."""
+    Sw, Sdur, Sdub, Srr, Srb, Sbb, c_r, c_b, n_mem, pers_in = cons.unbind(1)
+    # the wp plane the kernel gated heads and membership on
+    wp = torch.where(in_m & (w_a >= min_fw), w_a, 0.0)
+    cons_on = n_mem > 0.5
+    wpin = torch.where(pers_in > 0.5, wp, 0.0)
+    W = Sw + wpin
+    W_safe = torch.clamp_min(W, 1e-30)
+    # mean: u-bar = (Sw c + S du) / W (the persistent copy sits at u = 0)
+    ub_r = (Sw * c_r + Sdur) / W_safe
+    ub_b = (Sw * c_b + Sdub) / W_safe
+    g00, g01 = pre.gain[..., 0, 0], pre.gain[..., 0, 1]
+    g10, g11 = pre.gain[..., 1, 0], pre.gain[..., 1, 1]
+    mc_x = mean[..., 0] + g00 * ub_r + g01 * ub_b
+    mc_y = mean[..., 1] + g10 * ub_r + g11 * ub_b
+    # spread about u-bar, accumulated about c so the quadratic terms stay
+    # O(min_sep)
+    dc_r = ub_r - c_r
+    dc_b = ub_b - c_b
+    sp_rr = (Srr + wpin * c_r * c_r) / W_safe - dc_r * dc_r
+    sp_rb = (Srb + wpin * c_r * c_b) / W_safe - dc_r * dc_b
+    sp_bb = (Sbb + wpin * c_b * c_b) / W_safe - dc_b * dc_b
+    cu00 = pre.cov_upd[..., 0, 0]
+    cu01 = pre.cov_upd[..., 0, 1]
+    cu11 = pre.cov_upd[..., 1, 1]
+    base00 = (Sw * cu00 + wpin * cov[..., 0, 0]) / W_safe
+    base01 = (Sw * cu01 + wpin * cov[..., 0, 1]) / W_safe
+    base11 = (Sw * cu11 + wpin * cov[..., 1, 1]) / W_safe
+    # + G spread G' (rows of G: (g00, g01), (g10, g11))
+    cc00 = base00 + g00 * g00 * sp_rr + 2.0 * g00 * g01 * sp_rb \
+        + g01 * g01 * sp_bb
+    cc01 = base01 + g00 * g10 * sp_rr \
+        + (g00 * g11 + g01 * g10) * sp_rb + g01 * g11 * sp_bb
+    cc11 = base11 + g10 * g10 * sp_rr + 2.0 * g10 * g11 * sp_rb \
+        + g11 * g11 * sp_bb
+    cons_rows = (torch.where(cons_on, mc_x, mean[..., 0]),
+                 torch.where(cons_on, mc_y, mean[..., 1]),
+                 torch.where(cons_on, cc00, cov[..., 0, 0]),
+                 torch.where(cons_on, cc01, cov[..., 0, 1]),
+                 torch.where(cons_on, cc11, cov[..., 1, 1]))
+    return torch.where(cons_on, W, w_a), act_a | cons_on, cons_rows
 
 
 def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
@@ -200,7 +298,9 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
     vmapped): in-range classes, EKF pre-update, the detect kernel,
     normalizers and particle weights, the two-stage candidate selection
     (top-T per measurement, then the global top-cap) and the
-    deferred-gather tables.
+    deferred-gather tables. With :func:`consolidates`, the detect kernel
+    collapses each column's same-source copies and the persistent lanes
+    become their moment-matched clusters (:func:`_fold_consolidated`).
     """
     P, K, D = mean.shape
     M = z.shape[0]
@@ -216,11 +316,15 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
 
     T = cfg.detection_topk
     min_fw = cfg.min_feature_weight
+    consolidate = consolidates(cfg)
     z4 = torch.stack([z[:, 0], z[:, 1], z_mask.to(dtype),
                       torch.zeros_like(z[:, 0])], dim=1)
-    vals_d, idx_d, norm, count_d = detect(
-        _detection_planes(in_m, pre, weight), z4, T, float(min_fw),
-        float(cfg.clutter_density + cfg.birth_weight))
+    det = detect(
+        _detection_planes(in_m, pre, weight, consolidate, cov, min_fw), z4,
+        T, float(min_fw), float(cfg.clutter_density + cfg.birth_weight),
+        min_sep=float(cfg.min_separation) if consolidate else 0.0,
+        adaptive=bool(cfg.detect_adaptive))
+    vals_d, idx_d, norm, count_d = det[:4]
 
     log_norm = torch.log(norm)                                 # [P, M]
     w_birth = torch.where(z_mask, cfg.birth_weight / norm, 0.0)
@@ -238,6 +342,10 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
     act_a = (in_m & (w_nd >= min_fw)) | near_m
     w_a = torch.where(in_m, w_nd, torch.where(near_m, weight, 0.0))
     act_c = z_mask & (w_birth >= min_fw)
+    cons_rows = None
+    if consolidate:
+        w_a, act_a, cons_rows = _fold_consolidated(
+            det[4], in_m, w_a, act_a, mean, cov, pre, min_fw)
 
     # stage 1 (the detect kernel): heaviest T live detection lanes per z;
     # stage 2: global top-cap by weight over [K persistent | M*T | M births]
@@ -255,24 +363,26 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
     idx, cand_w, sel_act, n_drop = topcap_sort(
         red_w, red_act, red_flat, cfg.merge_candidate_cap)
     gather = deferred_gather(idx, cand_w, sel_act, mean, cov, pre, z,
-                             b_mean, b_cov)
+                             b_mean, b_cov, cons_rows)
     return dict(gather=gather, dlog_w=dlog_w, out_m=out_m,
                 n_compact=n_drop + n_extra)
 
 
 def deferred_gather(idx, cand_w, sel_act, mean, cov, pre: ekf.PreUpdate, z,
-                    b_mean, b_cov):
+                    b_mean, b_cov, cons_rows=None):
     """The deferred-gather dict of a stage-2 selection: flat candidate ids
     ``idx`` [P, cap] over [K persistent | M*K detections | M births] (no
     birth lanes when ``b_mean`` is None) as table columns and masks, plus
-    the feature-minor source tables."""
+    the feature-minor source tables (with the 5 consolidated rows of
+    ``cons_rows`` when given; ``cons`` says so)."""
     K, M = mean.shape[-2], z.shape[0]
     k_eff, m_eff, is_p, is_d = ekf.candidate_gather_indices(
         idx, K, M, b_mean is not None)
-    t_k, t_m = ekf.candidate_tables_T(mean, cov, pre, z, b_mean, b_cov)
+    t_k, t_m = ekf.candidate_tables_T(mean, cov, pre, z, b_mean, b_cov,
+                                      cons_rows)
     return dict(k_eff=k_eff.to(torch.int32), m_eff=m_eff.to(torch.int32),
                 is_p=is_p, is_d=is_d, sel_act=sel_act, cand_w=cand_w,
-                t_k=t_k, t_m=t_m)
+                t_k=t_k, t_m=t_m, cons=cons_rows is not None)
 
 
 def _finish_candidates_packed(g, D, has_birth=True):
@@ -283,16 +393,28 @@ def _finish_candidates_packed(g, D, has_birth=True):
     r_k = gather_cols(g["k_eff"], g["t_k"])
     r_m = gather_cols(g["m_eff"], g["t_m"])
     mean_pl, cov_pl = ekf.combine_selected_planes(
-        r_k, r_m, g["is_p"], g["is_d"], g["sel_act"], D, has_birth)
+        r_k, r_m, g["is_p"], g["is_d"], g["sel_act"], D, has_birth,
+        cons_rows=g["cons"])
     planes = [g["cand_w"], g["sel_act"].to(g["cand_w"].dtype)] \
         + mean_pl + cov_pl
     return torch.stack(planes, dim=-2)
 
 
-def gather_merge(gather, D, cfg: SlamConfig, out_cap, has_birth=True):
+def gather_merge(gather, D, cfg: SlamConfig, out_cap, has_birth=True,
+                 fused=False):
     """Gather + combine + greedy merge of a deferred-gather dict (the JAX
-    version's ``gather_merge_width_switched`` at full width). Returns the
-    merge tuple (mean, cov, w, n_merged, n_dropped)."""
+    version's ``gather_merge_width_switched`` at full width). ``fused``
+    (the PHD det route with fused_gather_merge and no consolidated rows):
+    one merge2d_tables kernel instead of two column gathers, the combine
+    and merge2d. Returns the merge tuple (mean, cov, w, n_merged,
+    n_dropped)."""
+    if fused:
+        with record_function("phd.gather"):
+            ints, flts = tables_operands(gather)
+        with record_function("phd.merge"):
+            return merge_out(merge2d_tables(
+                ints, flts, gather["t_k"], gather["t_m"],
+                float(cfg.min_separation), out_cap, cfg.distance_metric), 2)
     with record_function("phd.gather"):
         packed = _finish_candidates_packed(gather, D, has_birth)
     with record_function("phd.merge"):
@@ -403,7 +525,11 @@ def _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
     merge tuple and the post-half inputs (out_m, dlog_w, n_compact)."""
     with record_function("phd.pre"):
         pre = _update_pre(pose, mean, cov, weight, z, z_mask, cfg)
-    mg = gather_merge(pre["gather"], mean.shape[-1], cfg, out_cap)
+    # the fused route as the JAX version gates it: not over consolidated
+    # rows, which take the two-kernel route
+    fused = bool(cfg.fused_gather_merge) and not pre["gather"]["cons"]
+    mg = gather_merge(pre["gather"], mean.shape[-1], cfg, out_cap,
+                      fused=fused)
     bits = dict(out_m=pre["out_m"], dlog_w=pre["dlog_w"],
                 n_compact=pre["n_compact"])
     return mg, bits

@@ -2,8 +2,12 @@
 
 | module          | CUDA source          | replaces (JAX package)                 |
 | detect.py       | csrc/detect.cu       | ops/pallas_detect.py::_detect_kernel   |
+|                 |                      | (plain, adaptive, consolidating)       |
 | gather_cols.py  | csrc/gather_cols.cu  | ops/pallas_select.py::_cols_kernel     |
+| gather_rows.py  | csrc/gather_rows.cu  | ops/pallas_select.py::_rows_kernel     |
 | merge.py        | csrc/merge2d.cu      | ops/pallas_merge.py::_merge_kernel     |
+|                 |                      | and ::_merge_tables_kernel             |
+| merge.py        | csrc/merge3d.cu      | ops/pallas_merge.py::_merge_kernel_3d  |
 | merge.py        | csrc/merge4d.cu      | ops/pallas_merge.py::_merge_kernel_4d  |
 
 A wrapper runs its twin for a CPU tensor and launches its kernel for a CUDA

@@ -3,7 +3,8 @@
 ``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` (one ``nvcc`` process
 per source, all started together) and link into one shared library with
 a plain C interface, loaded with ctypes. The library lands in
-``build/phdslam_tpu_torch/<hash of the sources and flags>/`` at the root of
+``build/phdslam_tpu_torch/<hash of the sources, headers and flags>/`` at
+the root of
 the checkout (listed in ``.gitignore``) on first use, so a fresh checkout
 builds once and later processes reuse the file. Nothing here runs at
 import time: machines without ``nvcc`` import the package and use the
@@ -42,12 +43,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # planes, z4, vals, idx, norm, count, P, K, M, T, min_fw, cb, stream
-    "phd_detect": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # planes, z4, vals, idx, norm, count, cons (NULL: plain), P, K, M, T,
+    # min_fw, cb, min_sep, adaptive, stream
+    "phd_detect": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                   _I, _P],
     # idx, tab, out, P, C, R, cap, stream
     "phd_gather_cols": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # idx, tab, out, P, R, C, cap, stream
+    "phd_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # packed, out, P, N, K, min_separation, argmax, metric, stream
     "phd_merge2d": [_P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # ints, flts, t_k, t_m, out, P, N, K tables, M tables, K out,
+    # min_separation, metric, stream
+    "phd_merge2d_tables": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                           _P],
     # packed, out, P, N, K, min_separation, stream
     "phd_merge3d": [_P, _P, _I, _I, _I, _F, _P],
     # packed, out, P, N, K, min_separation, stream
@@ -80,7 +89,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):       # the sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME

@@ -1,7 +1,8 @@
 """Fused detection grid + normalizer + top-T selection.
 
-Replaces ``phdslam_tpu/ops/pallas_detect.py::_detect_kernel`` (plain mode,
-entry ``detection_topT_batch``). For every particle p and measurement m:
+Replaces ``phdslam_tpu/ops/pallas_detect.py::_detect_kernel`` (entry
+``detection_topT_batch``) in all of its modes. For every particle p and
+measurement m:
 
   pdw[m, k] = pref[k] * exp(-0.5 d' S^-1 d)   (d = (zr - r, wrap(zb - b)))
   norm[m]   = sum_k pdw[m, k] + cb             (cb = clutter + birth weight)
@@ -10,9 +11,16 @@ entry ``detection_topT_batch``). For every particle p and measurement m:
   count[m]  = number of live lanes
 
 Trips past the live lanes, and rows whose measurement is invalid, give
-vals = idx = 0; an invalid row's norm is cb. :func:`detect` launches the
-CUDA kernel (csrc/detect.cu) for CUDA tensors and runs the plain twin
-:func:`detect_reference` for CPU tensors.
+vals = idx = 0; an invalid row's norm is cb. ``adaptive`` (detect_adaptive)
+stops the trips once a row's lanes are used up: the same outputs, bit for
+bit. ``min_sep > 0`` (premerge_consolidate) takes planes [P, 13, K] and
+collapses, per feature column, the detection copies within min_sep of the
+column's greedy head (see :func:`_consolidate`): members leave the count
+and the top-T, and a fifth output cons [P, 10, K] carries their moment
+sums. :func:`detect` launches the CUDA kernel (csrc/detect.cu) for CUDA
+tensors and runs the plain twin :func:`detect_reference` for CPU tensors;
+each variant counts its launches under its own name
+(:func:`detect_variant`).
 """
 
 from __future__ import annotations
@@ -25,11 +33,20 @@ from . import build
 
 TWO_PI = 2.0 * math.pi
 MAX_FEATURES = 1024      # 32 features per lane in the kernel's registers
+N_PLANES = {False: 6, True: 13}     # consolidating -> input planes
+
+
+def detect_variant(cons: bool = False, adaptive: bool = False) -> str:
+    """The launch-count name of a detect variant: "detect",
+    "detect_adaptive", "detect_cons", "detect_cons_adaptive"."""
+    return "detect" + ("_cons" if cons else "") \
+        + ("_adaptive" if adaptive else "")
 
 
 def _wrap_angle_floor(a):
     """The Pallas kernel's wrap (floor-mod form, then the shifts of
-    ops/math.py::wrap_angle); the CUDA kernel computes the same steps."""
+    ops/math.py::wrap_angle); the CUDA kernel computes the same steps
+    (csrc/wrap.cuh)."""
     r = a - TWO_PI * torch.floor(a / TWO_PI)
     r = torch.where((a < 0) & (r > 0), r - TWO_PI, r)
     r = torch.where(r > math.pi, r - TWO_PI, r)
@@ -37,48 +54,119 @@ def _wrap_angle_floor(a):
     return r
 
 
-def detect_reference(planes, z4, top_t, min_fw, cb):
-    """Plain PyTorch twin. planes [P, 6, K] (r, bearing, si00, si01, si11,
-    pref), z4 [M, 4] (zr, zb, valid, pad) -> (vals [P, M, T] f32,
-    idx [P, M, T] int32, norm [P, M] f32, count [P, M] int32).
+def _plane(planes, i):
+    return planes[:, i, None, :]                     # [P, 1, K]
 
-    The selection is ``ops/gm_merge.py::select_live_topT``'s stable sort.
-    """
-    def plane(i):
-        return planes[:, i, None, :]                 # [P, 1, K]
 
+def _consolidate(planes, ir, ib, pdw, norm, live, min_sep):
+    """Same-source pre-consolidation of the Pallas kernel (its ``cons_ref``
+    branch), op for op. Per feature column: the head is the heaviest of the
+    live copies (w_det = pdw / norm, the lowest m among ties) and the
+    persistent lane (wp, which wins ties); members are the live copies
+    within min_sep of the head (the copy-persistent quadratic about (0, 0)
+    when the persistent lane heads, the copy-copy one about the head copy's
+    innovation otherwise), none when the persistent lane is live but not
+    within min_sep of the head copy. Returns (cons [P, 10, K], member
+    [P, M, K])."""
+    M = pdw.shape[1]
+    wp = _plane(planes, 6)
+    q00, q01, q11 = (_plane(planes, i) for i in (7, 8, 9))
+    p00, p01, p11 = (_plane(planes, i) for i in (10, 11, 12))
+    w_det = pdw / norm[..., None]
+    wdl = torch.where(live, w_det, 0.0)
+    colmax = wdl.amax(dim=1, keepdim=True)                   # [P, 1, K]
+    has_copy = colmax > 0.0
+    iota_m = torch.arange(M, device=pdw.device)[None, :, None]
+    am = torch.where((wdl == colmax) & live, iota_m, M).amin(dim=1,
+                                                             keepdim=True)
+    is_head = live & (iota_m == am)
+    uh_r = torch.where(is_head, ir, 0.0).sum(dim=1, keepdim=True)
+    uh_b = torch.where(is_head, ib, 0.0).sum(dim=1, keepdim=True)
+    head_p = (wp >= colmax) & (wp > 0.0)
+    c_r = torch.where(head_p, 0.0, uh_r)
+    c_b = torch.where(head_p, 0.0, uh_b)
+    du_r = ir - c_r
+    du_b = ib - c_b
+    quad_q = q00 * du_r * du_r + 2.0 * q01 * du_r * du_b + q11 * du_b * du_b
+    quad_p = p00 * du_r * du_r + 2.0 * p01 * du_r * du_b + p11 * du_b * du_b
+    quad = torch.where(head_p, quad_p, quad_q)
+    pers_near = p00 * uh_r * uh_r + 2.0 * p01 * uh_r * uh_b \
+        + p11 * uh_b * uh_b
+    pers_in = (wp > 0.0) & (head_p | (pers_near < min_sep)) & has_copy
+    flag = has_copy & ((wp <= 0.0) | pers_in)
+    member = live & (quad < min_sep) & flag
+    wm = torch.where(member, w_det, 0.0)
+
+    def ssum(x):
+        return x.sum(dim=1, keepdim=True)
+    cons = torch.cat([
+        ssum(wm), ssum(wm * du_r), ssum(wm * du_b), ssum(wm * du_r * du_r),
+        ssum(wm * du_r * du_b), ssum(wm * du_b * du_b), c_r, c_b,
+        ssum(member.to(pdw.dtype)), pers_in.to(pdw.dtype)], dim=1)
+    return cons, member
+
+
+def detection_grid(planes, z4):
+    """The twin's [P, M, K] grid: the innovations (ir, ib) and pdw (0 on
+    invalid measurements)."""
     zr = z4[None, :, 0:1]                            # [1, M, 1]
     zb = z4[None, :, 1:2]
     zvalid = z4[None, :, 2:3] > 0.5
-    ir = zr - plane(0)
-    ib = _wrap_angle_floor(zb - plane(1))
-    dist = plane(2) * ir * ir + 2.0 * plane(3) * ir * ib \
-        + plane(4) * ib * ib
-    pdw = torch.where(zvalid, plane(5) * torch.exp(-0.5 * dist), 0.0)
+    ir = zr - _plane(planes, 0)
+    ib = _wrap_angle_floor(zb - _plane(planes, 1))
+    dist = _plane(planes, 2) * ir * ir + 2.0 * _plane(planes, 3) * ir * ib \
+        + _plane(planes, 4) * ib * ib
+    pdw = torch.where(zvalid, _plane(planes, 5) * torch.exp(-0.5 * dist), 0.0)
+    return ir, ib, pdw
+
+
+def detect_reference(planes, z4, top_t, min_fw, cb, min_sep=0.0,
+                     adaptive=False):
+    """Plain PyTorch twin. planes [P, 6, K] (r, bearing, si00, si01, si11,
+    pref; with ``min_sep > 0`` [P, 13, K]: then wp, q00, q01, q11, p00,
+    p01, p11), z4 [M, 4] (zr, zb, valid, pad) -> (vals [P, M, T] f32,
+    idx [P, M, T] int32, norm [P, M] f32, count [P, M] int32[, cons
+    [P, 10, K] f32 with ``min_sep > 0``]).
+
+    The selection is ``ops/gm_merge.py::select_live_topT``'s stable sort,
+    which stops at the live lanes by itself. ``adaptive`` is unused: it is
+    here so that :func:`detect` and its twin take the same arguments, and
+    it changes nothing in the kernel's outputs either.
+    """
+    ir, ib, pdw = detection_grid(planes, z4)
     norm = pdw.sum(dim=-1) + cb                      # [P, M]
     live = (pdw >= min_fw * norm[..., None]) & (pdw > 0)
+    cons = None
+    if min_sep > 0:
+        cons, member = _consolidate(planes, ir, ib, pdw, norm, live, min_sep)
+        live = live & ~member
     neg = torch.where(live, -pdw, 1.0)
     neg_s, idx_s = torch.sort(neg, dim=-1, stable=True)
     vals = torch.clamp_min(-neg_s[..., :top_t], 0.0)
     idx = torch.where(vals > 0, idx_s[..., :top_t], 0).to(torch.int32)
     count = live.sum(dim=-1).to(torch.int32)
-    return vals, idx, norm, count
+    if cons is None:
+        return vals, idx, norm, count
+    return vals, idx, norm, count, cons
 
 
-def detect(planes, z4, top_t: int, min_fw: float, cb: float):
+def detect(planes, z4, top_t: int, min_fw: float, cb: float,
+           min_sep: float = 0.0, adaptive: bool = False):
     """Batched detection + top-T; same contract as :func:`detect_reference`.
 
     A CPU tensor runs the twin; a CUDA tensor launches the kernel.
     """
     if planes.device.type == "cpu":
-        return detect_reference(planes, z4, top_t, min_fw, cb)
+        return detect_reference(planes, z4, top_t, min_fw, cb, min_sep,
+                                adaptive)
     build.require(planes.device.type == "cuda",
                   f"detect: unsupported device {planes.device}")
+    cons_on = min_sep > 0
     P, C, K = planes.shape
     M = z4.shape[0]
-    build.require(C == 6 and z4.shape == (M, 4),
+    build.require(C == N_PLANES[cons_on] and z4.shape == (M, 4),
                   f"detect: planes {tuple(planes.shape)}, z4 "
-                  f"{tuple(z4.shape)}")
+                  f"{tuple(z4.shape)}, min_sep {min_sep}")
     build.require(planes.dtype == torch.float32 and z4.dtype == torch.float32,
                   "detect: float32 inputs required")
     build.require(z4.device == planes.device, "detect: z4 on another device")
@@ -91,12 +179,20 @@ def detect(planes, z4, top_t: int, min_fw: float, cb: float):
     idx = torch.empty((P, M, top_t), dtype=torch.int32, device=dev)
     norm = torch.empty((P, M), dtype=torch.float32, device=dev)
     count = torch.empty((P, M), dtype=torch.int32, device=dev)
+    cons = (torch.empty((P, 10, K), dtype=torch.float32, device=dev)
+            if cons_on else None)
+    outs = (vals, idx, norm, count) + ((cons,) if cons_on else ())
     if P == 0 or M == 0:
-        return vals, idx, norm, count
+        if cons_on:
+            cons.zero_()                 # no measurement, no member
+        return outs
     err = build.library().phd_detect(
         planes.data_ptr(), z4.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        norm.data_ptr(), count.data_ptr(), P, K, M, top_t, float(min_fw),
-        float(cb), build.stream_handle(dev))
-    build.check_launch(err, "detect")
-    build.launch_counts["detect"] += 1
-    return vals, idx, norm, count
+        norm.data_ptr(), count.data_ptr(),
+        cons.data_ptr() if cons_on else None, P, K, M, top_t, float(min_fw),
+        float(cb), float(min_sep), int(bool(adaptive)),
+        build.stream_handle(dev))
+    name = detect_variant(cons_on, adaptive)
+    build.check_launch(err, name)
+    build.launch_counts[name] += 1
+    return outs

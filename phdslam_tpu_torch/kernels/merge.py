@@ -21,26 +21,40 @@ weight 0, mean 0, identity covariance. A wrapper launches its CUDA kernel
 (csrc/merge2d.cu, merge3d.cu, merge4d.cu) for CUDA tensors and runs its
 plain twin (``*_reference``) for CPU tensors. Each merge2d variant counts
 its launches under its own name (:func:`merge2d_variant`).
+
+``merge2d_tables`` replaces ``_merge_tables_kernel`` (fused_gather_merge,
+entry ``gm_merge_pallas_batch_tables``): the fused column gather + combine
++ sorted-mode merge, reading each entering lane straight from the
+deferred-gather tables, with either metric. Its twin is the two-kernel
+route in plain PyTorch (two ``gather_cols_reference``, the combine,
+``merge2d_reference``) with the Pallas kernel's floor-form bearing wrap.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.ekf import combine_selected_planes
 from ..ops.gm_merge import gm_merge_batch, pack_merge_out, unpack_planes
 from . import build
+from .detect import _wrap_angle_floor
+from .gather_cols import gather_cols_reference
 
 # lanes per particle: one 32-bit mask word per thread, 64 threads (merge3d,
 # merge4d) or up to 256 (merge2d, whose full-grid route needs K + M K + M)
 MAX_CANDIDATES = {2: 8192, 3: 2048, 4: 2048}
 _PLANES = {2: (7, 8), 3: (11, 12), 4: (16, 16)}  # D -> (input, output)
+TABLE_ROWS = (16, 8)     # t_k, t_m rows of the fused route (D = 2, births)
 
 
-def merge2d_variant(sorted_w: bool = True, metric: int = 0) -> str:
+def merge2d_variant(sorted_w: bool = True, metric: int = 0,
+                    tables: bool = False) -> str:
     """The launch-count name of a merge2d variant: "merge2d" (sorted,
     Mahalanobis), "merge2d_argmax", "merge2d_hellinger",
-    "merge2d_argmax_hellinger"."""
-    return "merge2d" + ("" if sorted_w else "_argmax") \
+    "merge2d_argmax_hellinger", and the fused route's "merge2d_tables",
+    "merge2d_tables_hellinger"."""
+    return "merge2d" + ("_tables" if tables else "") \
+        + ("" if sorted_w else "_argmax") \
         + ("_hellinger" if metric == 1 else "")
 
 
@@ -135,3 +149,78 @@ def merge4d(packed, min_separation: float, out_cap: int):
     if packed.device.type == "cpu":
         return merge4d_reference(packed, min_separation, out_cap)
     return _launch(packed, min_separation, out_cap, 4)
+
+
+def merge2d_tables_reference(ints, flts, t_k, t_m, min_separation: float,
+                             out_cap: int, metric: int = 0):
+    """Plain PyTorch twin of merge2d_tables: the two-kernel route. ints
+    [P, 4, N] int (k_eff, m_eff, is_p, is_d), flts [P, 2, N] f32 (cand_w,
+    sel_act), t_k [P, 16, K], t_m [P, 8, M] -> merge planes [P, 8, out_cap]
+    of the sorted-mode merge of the combined candidates (the Pallas
+    kernel's floor-form bearing wrap; w zeroed off sel_act)."""
+    r_k = gather_cols_reference(ints[:, 0], t_k)
+    r_m = gather_cols_reference(ints[:, 1], t_m)
+    sel = flts[:, 1] > 0.5
+    mean_pl, cov_pl = combine_selected_planes(
+        r_k, r_m, ints[:, 2] > 0, ints[:, 3] > 0, sel, 2, True,
+        wrap=_wrap_angle_floor)
+    packed = torch.stack([torch.where(sel, flts[:, 0], 0.0),
+                          sel.to(flts.dtype)] + mean_pl + cov_pl, dim=1)
+    return merge2d_reference(packed, min_separation, out_cap, True, metric)
+
+
+def tables_operands(gather):
+    """merge2d_tables' lane operands from a deferred-gather dict
+    (``filters/phd.py::deferred_gather``): ints [P, 4, N] int32 (k_eff,
+    m_eff, is_p, is_d) and flts [P, 2, N] (cand_w, sel_act)."""
+    g = gather
+    ints = torch.stack([g["k_eff"].to(torch.int32),
+                        g["m_eff"].to(torch.int32),
+                        g["is_p"].to(torch.int32), g["is_d"].to(torch.int32)],
+                       dim=1)
+    flts = torch.stack([g["cand_w"], g["sel_act"].to(g["cand_w"].dtype)],
+                       dim=1)
+    return ints, flts
+
+
+def merge2d_tables(ints, flts, t_k, t_m, min_separation: float,
+                   out_cap: int, metric: int = 0):
+    """Fused column gather + combine + sorted greedy 2D merge; same
+    contract as :func:`merge2d_tables_reference`.
+
+    A CPU tensor runs the twin; a CUDA tensor launches the kernel (ints
+    int32, the rest float32, all contiguous).
+    """
+    if flts.device.type == "cpu":
+        return merge2d_tables_reference(ints, flts, t_k, t_m, min_separation,
+                                        out_cap, metric)
+    name = merge2d_variant(True, metric, tables=True)
+    dev = flts.device
+    build.require(dev.type == "cuda", f"{name}: unsupported device {dev}")
+    P, _, N = ints.shape
+    build.require(ints.shape == (P, 4, N) and flts.shape == (P, 2, N)
+                  and t_k.dim() == 3 and t_m.dim() == 3
+                  and (t_k.shape[:2], t_m.shape[:2])
+                  == ((P, TABLE_ROWS[0]), (P, TABLE_ROWS[1])),
+                  f"{name}: ints {tuple(ints.shape)}, flts "
+                  f"{tuple(flts.shape)}, t_k {tuple(t_k.shape)}, t_m "
+                  f"{tuple(t_m.shape)}")
+    build.require(ints.dtype == torch.int32 and all(
+        x.dtype == torch.float32 for x in (flts, t_k, t_m)),
+        f"{name}: int32 ints and float32 planes required")
+    build.require(all(x.device == dev and x.is_contiguous()
+                      for x in (ints, flts, t_k, t_m)),
+                  f"{name}: contiguous inputs on one device required")
+    build.require(N <= MAX_CANDIDATES[2] and out_cap > 0 and metric in (0, 1),
+                  f"{name}: N={N} (max {MAX_CANDIDATES[2]}), "
+                  f"out_cap={out_cap}, metric={metric}")
+    out = torch.empty((P, 8, out_cap), dtype=torch.float32, device=dev)
+    if P == 0:
+        return out
+    err = build.library().phd_merge2d_tables(
+        ints.data_ptr(), flts.data_ptr(), t_k.data_ptr(), t_m.data_ptr(),
+        out.data_ptr(), P, N, t_k.shape[2], t_m.shape[2], out_cap,
+        float(min_separation), int(metric), build.stream_handle(dev))
+    build.check_launch(err, name)
+    build.launch_counts[name] += 1
+    return out

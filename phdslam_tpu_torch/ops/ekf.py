@@ -177,13 +177,15 @@ def candidate_gather_indices(idx, K, M, has_birth):
 
 
 def candidate_tables_T(mean, cov, pre: PreUpdate, z, b_mean=None,
-                       b_cov=None):
+                       b_cov=None, cons_rows=None):
     """Gather source tables with the feature axis minor.
 
     mean [P, K, D] -> t_k [P, Ck, K] rows: mean | cov row-major | cov_upd |
-    gain row-major | r | bearing (Ck = 16 at D = 2). z [M, 2] (shared) with
-    births [P, M, ...] -> t_m [P, Cm, M] rows: z | birth mean | birth cov
-    (Cm = 8 at D = 2).
+    gain row-major | r | bearing (Ck = 16 at D = 2), then the 5 rows of
+    ``cons_rows`` when given (same-source pre-consolidation: the
+    consolidated mean x, y and upper-triangle covariance, [P, K] each).
+    z [M, 2] (shared) with births [P, M, ...] -> t_m [P, Cm, M] rows:
+    z | birth mean | birth cov (Cm = 8 at D = 2).
     """
     P, K, D = mean.shape
     rows_k = [mean[..., i] for i in range(D)]
@@ -191,6 +193,8 @@ def candidate_tables_T(mean, cov, pre: PreUpdate, z, b_mean=None,
     rows_k += [pre.cov_upd[..., a, b] for a in range(D) for b in range(D)]
     rows_k += [pre.gain[..., i, j] for i in range(D) for j in range(2)]
     rows_k += [pre.r, pre.bearing]
+    if cons_rows is not None:
+        rows_k += list(cons_rows)
     t_k = torch.stack(rows_k, dim=-2)
     M = z.shape[0]
     rows_m = [z[:, 0].expand(P, M), z[:, 1].expand(P, M)]
@@ -201,18 +205,24 @@ def candidate_tables_T(mean, cov, pre: PreUpdate, z, b_mean=None,
     return t_k, t_m
 
 
-def combine_selected_planes(r_k, r_m, is_p, is_d, sel_act, D, has_birth):
+def combine_selected_planes(r_k, r_m, is_p, is_d, sel_act, D, has_birth,
+                            cons_rows=False, wrap=wrap_angle):
     """Plane-form candidate assembly from gathered table columns.
 
     r_k [..., Ck, cap], r_m [..., Cm, cap]; masks [..., cap]. Returns
     (mean_planes: D tensors [..., cap], cov_planes: D(D+1)/2 tensors in
     row-major upper-triangle order), empty lanes sanitized to (0, I).
+    ``cons_rows``: persistent lanes take the 5 consolidated rows that
+    :func:`candidate_tables_T` appended instead of the raw mean and cov.
+    ``wrap``: the bearing wrap (the fused merge kernel's twin passes the
+    Pallas kernel's floor form).
     """
     o_cov = D
     o_cov_upd = D + D * D
     o_gain = D + 2 * D * D
     o_r = D + 2 * D * D + 2 * D
     o_bear = o_r + 1
+    o_cons = o_bear + 1     # 5 rows: mean x/y, c00, c01, c11 (cons_rows)
 
     def take_k(c):
         return r_k[..., c, :]
@@ -221,11 +231,11 @@ def combine_selected_planes(r_k, r_m, is_p, is_d, sel_act, D, has_birth):
         return r_m[..., c, :]
 
     innov_r = take_m(0) - take_k(o_r)
-    innov_b = wrap_angle(take_m(1) - take_k(o_bear))
+    innov_b = wrap(take_m(1) - take_k(o_bear))
 
     mean_planes = []
     for i in range(D):
-        mean_k = take_k(i)
+        mean_k = take_k(o_cons + i) if cons_rows else take_k(i)
         mean_d = take_k(i) + take_k(o_gain + 2 * i) * innov_r \
             + take_k(o_gain + 2 * i + 1) * innov_b
         if has_birth:
@@ -236,9 +246,11 @@ def combine_selected_planes(r_k, r_m, is_p, is_d, sel_act, D, has_birth):
         mean_planes.append(torch.where(sel_act, mp, 0.0))
 
     cov_planes = []
+    tri = 0
     for a in range(D):
         for b in range(a, D):
-            ck = take_k(o_cov + a * D + b)
+            ck = take_k(o_cons + D + tri if cons_rows else o_cov + a * D + b)
+            tri += 1
             cu = take_k(o_cov_upd + a * D + b)
             if has_birth:
                 cb_ = take_m(2 + D + a * D + b)

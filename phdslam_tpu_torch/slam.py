@@ -150,7 +150,9 @@ class _Runner:
                 step_ms.append((time.perf_counter() - t_step) * 1000.0)
             self._after_step(n, out)
             if collect_maps:
-                maps.append((out.map_mean, out.map_weight))
+                # copies: the MAP map is a view into the whole [P, K] map,
+                # which the list would otherwise keep alive every step
+                maps.append((out.map_mean.clone(), out.map_weight.clone()))
             poses.append(out.expected_pose)
             n_effs.append(out.n_eff)
             resampled.append(out.resampled)
@@ -239,6 +241,7 @@ class SynthSLAMRunner(_Runner):
             collect_maps: bool = False):
         res = super().run(check_every, timing, collect_maps)
         res["truncated_measurements"] = self.n_truncated
+        res["m_max"] = self.m_max
         return res
 
 

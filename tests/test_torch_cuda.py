@@ -13,23 +13,37 @@ disparity path's: the 3D merge at K=24 over N=512 (the compacted cap) and
 N=624 (every lane of K + M K + M at M=24), and the full-grid route's: the
 2D merge in argmax mode over N=6320 (K + M K + M at K=128, M=48) and at
 its limit N=8192, with either metric, the Hellinger metric in both modes,
-and sorted mode over N=4096.
+and sorted mode over N=4096. The knob variants run at the Ackerman shapes
+and the dense configuration's (K=1024, M=72, T=32, cap 1536): the detect
+kernel with adaptive trips and with pre-consolidation, the fused gather +
+merge against the two-kernel route on the card, and the row gather. The
+resampling's fixed-order cumsum repeats its bits at P=10240.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from phdslam_tpu_torch import load_config
+from phdslam_tpu_torch.eval.scenes import (detect_planes, map_scene,
+                                           tables_payload)
+from phdslam_tpu_torch.filters.phd import _finish_candidates_packed
 from phdslam_tpu_torch.kernels import build
-from phdslam_tpu_torch.kernels.detect import detect, detect_reference
+from phdslam_tpu_torch.kernels.detect import (detect, detect_reference,
+                                              detect_variant)
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
+from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
+                                                   gather_rows_reference)
 from phdslam_tpu_torch.kernels.merge import (MAX_CANDIDATES, merge2d,
                                              merge2d_reference,
+                                             merge2d_tables,
+                                             merge2d_tables_reference,
                                              merge2d_variant, merge3d,
                                              merge3d_reference, merge4d,
                                              merge4d_reference)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
+from phdslam_tpu_torch.ops.resample import cumsum_fixed_order
 
 pytestmark = pytest.mark.cuda
 
@@ -318,3 +332,164 @@ def test_wrappers_reject_bad_input(dev):
         merge3d(merge3d_inputs(dev, P=2, N=2049), 20.0, 24)  # > 2048 lanes
     with pytest.raises(ValueError):
         merge3d(merge3d_inputs(dev, P=2).double(), 20.0, 24)
+
+
+# ----------------------------------------------------------------------------
+# the knob variants, at the Ackerman and the dense shapes
+# ----------------------------------------------------------------------------
+
+# config, P, K, M (padded), valid measurements, T
+SHAPES = {"ackerman": ("cfg/ackerman.cfg", 64, 128, 48, 44, 16),
+          "dense": ("cfg/dense.cfg", 32, 1024, 72, 65, 32)}
+
+
+def shape_scene(dev, shape, seed=0):
+    path, P, K, M, n_valid, T = SHAPES[shape]
+    cfg = load_config(path)
+    return cfg, map_scene(cfg, P, K, M, n_valid, seed, dev), T
+
+
+def assert_detect_matches(got, want):
+    """Kernel against twin: values rtol 1e-5, indices where selected, the
+    counts (and member counts) exactly, the cons sums rtol 1e-4 / atol
+    1e-6, index 0 where nothing is selected."""
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    sel = want[0] > 0
+    assert torch.equal(got[1][sel], want[1][sel])
+    assert (got[1][~sel] == 0).all()
+    assert torch.equal(got[3], want[3])
+    if len(want) == 5:
+        assert torch.equal(got[4][:, 6:], want[4][:, 6:])
+        torch.testing.assert_close(got[4][:, :6], want[4][:, :6], rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_detect_adaptive_bit_equal_to_static(dev, shape):
+    """T above many rows' live counts: the adaptive kernel writes the (0, 0)
+    tail into its torch.empty outputs as the static trips do."""
+    cfg, s, T = shape_scene(dev, shape)
+    planes, z4 = detect_planes(cfg, s)
+    args = (planes, z4, T, cfg.min_feature_weight,
+            cfg.clutter_density + cfg.birth_weight)
+    build.reset_launch_counts()
+    got = detect(*args, adaptive=True)
+    static = detect(*args)
+    assert build.launch_counts == {"detect_adaptive": 1, "detect": 1}
+    for a, b in zip(got, static):
+        assert torch.equal(a, b)
+    assert (got[3] < T).any() and (got[3] > 0).any()
+    assert_detect_matches(got, detect_reference(*args))
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_detect_cons_matches_twin(dev, shape, adaptive):
+    cfg, s, T = shape_scene(dev, shape, seed=1)
+    planes, z4 = detect_planes(cfg, s, consolidate=True)
+    args = (planes, z4, T, cfg.min_feature_weight,
+            cfg.clutter_density + cfg.birth_weight, cfg.min_separation)
+    build.reset_launch_counts()
+    got = detect(*args, adaptive=adaptive)
+    assert build.launch_counts[detect_variant(True, adaptive)] == 1
+    assert_detect_matches(got, detect_reference(*args))
+    cons = got[4]
+    assert (cons[:, 8] > 1).any() and (cons[:, 9] > 0).any()
+    # persistent heads (c = 0 with members) among the heavy first features
+    assert ((cons[:, 8, :4] > 0) & (cons[:, 6, :4] == 0)).any()
+
+
+def test_detect_cons_far_persistent(dev):
+    """tests/test_consolidate.py's far-persistent scene: the column's
+    persistent copy is live but beyond min_sep of the copy, so nothing
+    consolidates there."""
+    from phdslam_tpu_torch.eval.scenes import Scene
+    cfg = load_config("cfg/ackerman.cfg", dict(
+        min_separation=4.0, std_range=0.25, std_bearing=0.02, max_range=12.0,
+        clutter_rate=1.0, pd=0.9, birth_weight=0.01, min_feature_weight=1e-5))
+    P, K = 2, 8
+    mean = torch.zeros((P, K, 2))
+    mean[:, 0] = torch.tensor([5.0, 0.0])
+    w = torch.zeros((P, K))
+    w[:, 0] = 1.0
+    s = Scene(torch.zeros((P, 6)), mean, torch.eye(2).expand(P, K, 2, 2),
+              w, torch.tensor([[8.0, 0.0], [0.0, 0.0]]),
+              torch.tensor([True, False]))
+    s = Scene(*(x.contiguous().to(dev) for x in s))
+    planes, z4 = detect_planes(cfg, s, consolidate=True)
+    args = (planes, z4, 4, cfg.min_feature_weight,
+            cfg.clutter_density + cfg.birth_weight, cfg.min_separation)
+    got = detect(*args)
+    assert_detect_matches(got, detect_reference(*args))
+    # the copy heads (c = its innovation), no member, pers_in 0
+    assert (got[3][:, 0] == 1).all() and (got[4][:, 8:, 0] == 0).all()
+    assert (got[4][:, 6, 0] > 2).all()
+
+
+@pytest.mark.parametrize("metric", [0, 1])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_merge2d_tables_matches_two_kernel_route(dev, shape, metric):
+    """The fused kernel against the two-kernel route on the card
+    (gather_cols twice, the combine, merge2d) and against its twin: equal
+    counts, values rtol 1e-4 / atol 1e-5."""
+    cfg, s, _ = shape_scene(dev, shape)
+    min_sep = 0.6 if metric else cfg.min_separation
+    K = s.mean.shape[1]
+    g, ints, flts = tables_payload(cfg, s)
+    build.reset_launch_counts()
+    got = merge_out(merge2d_tables(ints, flts, g["t_k"], g["t_m"], min_sep,
+                                   K, metric), 2)
+    assert build.launch_counts[merge2d_variant(True, metric, True)] == 1
+    for want in (merge_out(merge2d(_finish_candidates_packed(g, 2), min_sep,
+                                   K, metric=metric), 2),
+                 merge_out(merge2d_tables_reference(
+                     ints, flts, g["t_k"], g["t_m"], min_sep, K, metric), 2)):
+        assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+        for a, b in zip(got[:3], want[:3]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert (got[3] > 10).all()
+
+
+def test_merge2d_dense_matches_twin(dev):
+    """Sorted mode at the dense configuration's cap 1536 into K=1024."""
+    got = assert_merge_matches(merge_inputs(dev, N=1536, seed=5), 5.0, 1024)
+    assert (got[3] > 10).all()
+
+
+@pytest.mark.parametrize("P,R,C,cap", [(65, 128, 16, 512),
+                                       (16, 1024, 16, 1536)])
+def test_gather_rows_matches_twin(dev, P, R, C, cap):
+    """A ragged P and indices outside [0, R) (zero rows)."""
+    g = torch.Generator().manual_seed(R)
+    idx = torch.randint(-2, R + 2, (P, cap), generator=g, dtype=torch.int32)
+    tab = torch.randn((P, R, C), generator=g)
+    build.reset_launch_counts()
+    got = gather_rows(idx.to(dev), tab.to(dev))
+    assert build.launch_counts["gather_rows"] == 1
+    assert torch.equal(got.cpu(), gather_rows_reference(idx, tab))
+    assert (got[(idx.to(dev) < 0) | (idx.to(dev) >= R)] == 0).all()
+
+
+def test_detect_dense_matches_twin(dev):
+    """The plain kernel at K=1024 (32 features per lane)."""
+    cfg, s, T = shape_scene(dev, "dense", seed=2)
+    planes, z4 = detect_planes(cfg, s)
+    args = (planes, z4, T, cfg.min_feature_weight,
+            cfg.clutter_density + cfg.birth_weight)
+    assert_detect_matches(detect(*args), detect_reference(*args))
+
+
+def test_resampling_cumsum_repeats_on_the_card(dev):
+    """The resampling's fixed-order cumsum gives the same bits on every call
+    at P=10240, where a 1D torch.cumsum spans several scan tiles, and stays
+    within f32 rounding of the float64 cumsum."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = torch.softmax(torch.randn((10240,), generator=g, device=dev) * 2.0,
+                      dim=0)
+    first = cumsum_fixed_order(w)
+    for _ in range(50):
+        assert torch.equal(cumsum_fixed_order(w), first)
+    torch.testing.assert_close(first.cpu().double(),
+                               torch.cumsum(w.cpu().double(), dim=0),
+                               rtol=1e-5, atol=1e-7)

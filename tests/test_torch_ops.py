@@ -262,6 +262,32 @@ def test_resampling_matches_jax():
     assert (got == np.argmax(lw)).sum() > 1
 
 
+@pytest.mark.parametrize("n", [1000, 1024, 3000])
+def test_fixed_order_cumsum_and_resampling(n):
+    """The resampling cumsum: torch.cumsum itself up to one block of 1024,
+    the row-blocked scan beyond (n = 3000: two full rows and a padded one)
+    within f32 rounding of the float64 cumsum and non-decreasing; the
+    ancestors equal JAX's except where a stratum point lies within 1e-5 of
+    a cumulative weight."""
+    rng = np.random.default_rng(n)
+    lw = rng.normal(0, 2, n).astype(np.float32)
+    lw -= np.log(np.exp(lw.astype(np.float64)).sum()).astype(np.float32)
+    w = torch.exp(torch.from_numpy(lw))
+    got = tres.cumsum_fixed_order(w)
+    exact = np.cumsum(w.double().numpy())
+    np.testing.assert_allclose(got.numpy(), exact, rtol=1e-5, atol=1e-7)
+    assert bool((got[1:] >= got[:-1]).all())
+    if n <= tres.SCAN_BLOCK:
+        assert torch.equal(got, torch.cumsum(w, dim=0))
+    key = jax.random.PRNGKey(n)
+    u = np.array(jax.random.uniform(key, (n,), dtype=jnp.float32))
+    anc = tres.systematic_ancestors(torch.from_numpy(lw), torch.from_numpy(u),
+                                    n).numpy()
+    want = np.asarray(jres.systematic_ancestors(jnp.asarray(lw), key, n))
+    for j in np.nonzero(anc != want)[0]:
+        assert np.abs(exact - (j + u[j]) / n).min() < 1e-5
+
+
 # ----------------------------------------------------------------------------
 # config and loaders: copies held equal to the originals
 # ----------------------------------------------------------------------------
@@ -323,6 +349,9 @@ def test_port_never_imports_jax():
             "import phdslam_tpu_torch.kernels.detect\n"
             "import phdslam_tpu_torch.kernels.gather_cols\n"
             "import phdslam_tpu_torch.kernels.merge\n"
+            "import phdslam_tpu_torch.kernels.gather_rows\n"
+            "import phdslam_tpu_torch.eval.scenes\n"
+            "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'phdslam_tpu')\n"
             "             or m.startswith(('jax.', 'phdslam_tpu.')))\n"
