@@ -42,17 +42,25 @@ drives both paths:
   particle counts and seeds (P=64 and P=256) beside their results;
 
 then times every kernel against its twin (the knob variants and the
-existing kernels at the dense shapes too) and profiles a step of each
-path.
+existing kernels at the dense shapes too, the two gathers at every shape
+the paths launch, each with ``torch.gather`` beside it) and profiles a
+step of each path. The gathers are held bit for bit against their twins
+at those shapes and at unaligned, ragged, out-of-range and above-budget
+cases, each of their two modes (the slab staged in shared memory, or read
+through ``__ldg``) counted under its own name.
 Each phase prints its result; any failure raises and exits non-zero. Each
 path's run resets the launch counts before it and requires every kernel
 variant of that path to have launched. The line before the card's name
 and power limit lists every kernel variant (the merge2d kernel's four:
-sorted or argmax principal, Mahalanobis or Hellinger) with its launches
-in the first path that runs it, its error against its twin, its time, its
-twin's, its bound and, where one PyTorch call computes the same function,
-that call's time. The last line is one JSON object naming the device.
-Needs a CUDA device; imports no jax.
+sorted or argmax principal, Mahalanobis or Hellinger; each gather's two
+modes) with its launches
+in the first path that runs it, its error against its twin, its time per
+eager call, its twin's, its bound and, where one PyTorch call computes the
+same function, that call's time; the kernel's and the library call's
+device times beside them. The last line is one JSON object naming the
+device.
+Needs a CUDA device and ``gather_bench.py`` (the gathers' cases and the
+timing helpers) beside it; imports no jax.
 """
 
 from __future__ import annotations
@@ -70,6 +78,8 @@ from unittest import mock
 import numpy as np
 import torch
 
+from gather_bench import (GATHER_CASES, GATHER_TIMED, cycling, gather_bound,
+                          gather_case, gather_sets, graph_ms, time_call)
 from phdslam_tpu_torch import load_config
 from phdslam_tpu_torch import SlamConfig
 from phdslam_tpu_torch.eval import simdata
@@ -182,15 +192,22 @@ _MERGE2D = ("phdslam_tpu_torch/csrc/merge2d.cu",
             "phdslam_tpu/ops/pallas_merge.py:55")
 _DETECT = "phdslam_tpu_torch/csrc/detect.cu"
 _TABLES = (_MERGE2D[0], "phdslam_tpu/ops/pallas_merge.py:417")
+# the gathers' two modes, counted under two names: the per-particle slab
+# staged in shared memory, or (above build.GATHER_SMEM_BUDGET) read through
+# __ldg
+_COLS = ("phdslam_tpu_torch/csrc/gather_cols.cu",
+         "phdslam_tpu/ops/pallas_select.py:46")
+_ROWS = ("phdslam_tpu_torch/csrc/gather_rows.cu",
+         "phdslam_tpu/ops/pallas_select.py:118")
 KERNELS = {
     "detect": (_DETECT, "phdslam_tpu/ops/pallas_detect.py:49"),
     "detect_adaptive": (_DETECT, "phdslam_tpu/ops/pallas_detect.py:166"),
     "detect_cons": (_DETECT, "phdslam_tpu/ops/pallas_detect.py:111"),
     "detect_cons_adaptive": (_DETECT, "phdslam_tpu/ops/pallas_detect.py:111"),
-    "gather_cols": ("phdslam_tpu_torch/csrc/gather_cols.cu",
-                    "phdslam_tpu/ops/pallas_select.py:46"),
-    "gather_rows": ("phdslam_tpu_torch/csrc/gather_rows.cu",
-                    "phdslam_tpu/ops/pallas_select.py:118"),
+    "gather_cols": _COLS,
+    "gather_cols_ldg": _COLS,
+    "gather_rows": _ROWS,
+    "gather_rows_ldg": _ROWS,
     "merge2d": _MERGE2D,
     "merge2d_argmax": _MERGE2D,
     "merge2d_hellinger": _MERGE2D,
@@ -281,13 +298,6 @@ def detect_inputs(dev, P=P_MAIN, K=128, M=48, n_valid=44, seed=0):
                   axis=1)
     return (torch.tensor(planes, dtype=torch.float32, device=dev),
             torch.tensor(z4, dtype=torch.float32, device=dev))
-
-
-def gather_inputs(dev, P, C, R, cap, seed):
-    g = torch.Generator().manual_seed(seed)
-    idx = torch.randint(0, R, (P, cap), generator=g, dtype=torch.int32)
-    tab = torch.randn((P, C, R), generator=g) * 10.0
-    return idx.to(dev), tab.to(dev)
 
 
 def merge_inputs(dev, P=P_MAIN, N=512, seed=0, spread=0.3):
@@ -485,6 +495,38 @@ def check_merge2d_variants(dev, errs, min_sep):
         errs[name] = max(errs[name], err)
 
 
+def check_gathers(dev, errs):
+    """Both gathers bit for bit against their twins at every case of
+    gather_bench.GATHER_CASES, each launch counted under its mode's name
+    (the slab staged in shared memory, or read through __ldg above
+    build.GATHER_SMEM_BUDGET); both modes of each must run."""
+    fns = {"cols": (gather_cols, gather_cols_reference),
+           "rows": (gather_rows, gather_rows_reference)}
+    modes = collections.Counter()
+    for case, (kind, P, C, R, cap, opt) in GATHER_CASES.items():
+        kern, twin = fns[kind]
+        idx, tab = gather_case(dev, case)
+        build.reset_launch_counts()
+        got = kern(idx, tab)
+        torch.cuda.synchronize()
+        name = f"gather_{kind}" + (
+            "" if build.gather_staged(C * R) else "_ldg")
+        label = f"{name} {case} P={P} C={C} R={R} cap={cap} {opt or ''}"
+        require(dict(build.launch_counts) == {name: 1},
+                f"{label}: launched {dict(build.launch_counts)}")
+        require(torch.equal(got, twin(idx, tab)),
+                f"{label}: not bitwise equal")
+        modes[name] += 1
+        n_out = int(((idx < 0) | (idx >= R)).sum())
+        phase("kernels", f"{label}: bitwise equal, {n_out} of "
+              f"{idx.numel()} indices out of range gave zeros")
+    for kind in fns:
+        require(all(modes[f"gather_{kind}{m}"] for m in ("", "_ldg")),
+                f"gather_{kind}: a mode never ran: {dict(modes)}")
+    for name in modes:
+        errs[name] = 0.0
+
+
 def check_kernels(dev):
     """Each kernel against its twin at the main path's shapes."""
     errs = {}
@@ -504,14 +546,7 @@ def check_kernels(dev):
     phase("kernels", f"detect P={P_MAIN} K=128 M=48 T=16: {int(sel.sum())} "
           f"selected lanes, max |err| {errs['detect']:.3g} (rtol 1e-5)")
 
-    errs["gather_cols"] = 0.0
-    for C, R, cap in ((16, 128, 512), (8, 48, 512), (5, 256, 128)):
-        idx, tab = gather_inputs(dev, P_MAIN, C, R, cap, seed=C)
-        got = gather_cols(idx, tab)
-        require(torch.equal(got, gather_cols_reference(idx, tab)),
-                f"gather_cols C={C} R={R} cap={cap}: not bitwise equal")
-        phase("kernels", f"gather_cols P={P_MAIN} C={C} R={R} cap={cap}: "
-              "bitwise equal")
+    check_gathers(dev, errs)
 
     planes = merge_inputs(dev)
     got = merge_out(merge2d(planes, cfg.min_separation, 128), 2)
@@ -705,8 +740,8 @@ def check_variants(dev, errs):
     consolidating kernel, static and adaptive, with persistent heads and
     multi-member columns, and on the far-persistent scene; the fused gather
     + merge in both metrics against the two-kernel route on the card and
-    against its twin, with equal counts; the row gather with indices out
-    of range and a ragged P. The plain detect at the dense shape too."""
+    against its twin, with equal counts. The plain detect at the dense
+    shape too."""
     for shape, (path, P, K, M, n_valid, T) in VARIANT_SHAPES.items():
         cfg = load_config(path)
         s = map_scene(cfg, P, K, M, n_valid, seed=0, device=dev)
@@ -791,19 +826,6 @@ def check_variants(dev, errs):
             "detect_cons: the far persistent copy's column consolidated")
     phase("kernels", "detect_cons far-persistent scene: the copy heads, no "
           "member, pers_in 0, as the twin")
-
-    errs["gather_rows"] = 0.0
-    for P, R, C, cap in ((P_MAIN + 1, 128, 16, 512), (256, 1024, 16, 1536)):
-        g_ = torch.Generator().manual_seed(R)
-        idx = torch.randint(-2, R + 2, (P, cap), generator=g_,
-                            dtype=torch.int32).to(dev)
-        tab = (torch.randn((P, R, C), generator=g_) * 10.0).to(dev)
-        got = gather_rows(idx, tab)
-        require(torch.equal(got, gather_rows_reference(idx, tab)),
-                f"gather_rows P={P} R={R} C={C} cap={cap}: not bitwise equal")
-        n_out = int(((idx < 0) | (idx >= R)).sum())
-        phase("kernels", f"gather_rows P={P} R={R} C={C} cap={cap}: bitwise "
-              f"equal, {n_out} indices out of range gave zero rows")
 
 
 def copy_state(state, dev):
@@ -1656,20 +1678,6 @@ def mixed_accuracy(dev):
             f"{ATE_LIMIT} m")
 
 
-def time_call(fn, iters, warmup):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(n_bytes, n_ops):
     """The least time (ms) the card could take: the larger of the bytes
     over HBM bandwidth and the f32 operations over the f32 peak, and which
@@ -1711,22 +1719,26 @@ def tables_bound(ints, flts, K, flop_per_lane):
 
 def time_kernels(dev):
     """Kernel against twin at the main path's shapes, in turns
-    (twin, kernel, kernel, twin); CUDA events, ms per call; where one
-    PyTorch call computes the same function (gather_cols, gather_rows:
-    torch.gather), that call too. The knob variants run at the shapes of
-    the first path that launches them (detect_cons_adaptive: the dense
+    (twin, kernel, library, kernel, library, twin); CUDA events, ms per
+    eager call, host included (gather_bench.time_call: 50 calls after 5);
+    the library call is one PyTorch call that computes the same function
+    (gather_cols, gather_rows: torch.gather), where there is one. Beside each, the device time of the
+    kernel and of the library call (gather_bench.graph_ms: 50 calls
+    replayed from a CUDA graph), printed and returned. The gathers run at
+    every shape the paths launch (gather_calls), each call on the next of
+    enough input sets to exceed the L2. The knob variants run at the shapes
+    of the first path that launches them (detect_cons_adaptive: the dense
     path's; the rest: the Ackerman path's, on eval/scenes.py's scenes), and
     the dense path's kernels run at its shapes too (rows named "... dense",
     printed only, as are the two-kernel route's rows, which time the
     gather + combine + merge2d that merge2d_tables replaces on its
-    inputs). Returns {name: (ms, plain_ms, library_ms, bound_ms,
-    bound_by)}, the bound computed from these inputs."""
+    inputs). Returns {name: (ms, plain_ms, library_ms, bound_ms, bound_by,
+    device_ms, library_device_ms)}, the bound computed from these
+    inputs."""
     cfg = load_config(CFG)
     min_fw, cb = cfg.min_feature_weight, cfg.clutter_density + cfg.birth_weight
     min_sep, h_sep = cfg.min_separation, HELL["min_separation"]
     planes, z4 = detect_inputs(dev)
-    idx, tab = gather_inputs(dev, P_MAIN, 16, 128, 512, seed=16)
-    idx_long = idx.long()[:, None, :].expand(-1, tab.shape[1], -1)
     packed = merge_inputs(dev)
     grid = full_grid_inputs(dev)
     packed4 = merge4d_inputs(dev, N=128, seed=128)
@@ -1741,12 +1753,6 @@ def time_kernels(dev):
                    # ~20 FLOP per (p, m, k) lane for pdw, 1 for selection
                    bound(4 * (planes.numel() + z4.numel()) + 8 * P * M * T
                          + 8 * P * M, 21 * P * M * K)),
-        "gather_cols": (lambda: gather_cols(idx, tab),
-                        lambda: gather_cols_reference(idx, tab), 5,
-                        lambda: torch.gather(tab, 2, idx_long),
-                        bound(4 * (idx.numel() + tab.numel()
-                                   + tab.shape[0] * tab.shape[1]
-                                   * idx.shape[1]), 0)),
         "merge2d": (lambda: merge2d(packed, min_sep, 128),
                     lambda: merge2d_reference(packed, min_sep, 128), 5, None,
                     merge_bound(packed, 128, 8, 27)),
@@ -1769,22 +1775,62 @@ def time_kernels(dev):
                     lambda: merge3d_reference(packed3, 20.0, 24), 5, None,
                     merge_bound(packed3, 24, 12, 70)),
     }
+    calls.update(gather_calls(dev))
     calls.update(knob_calls(dev, cfg))
     times = {}
     for name, (kern, plain, iters, lib, (b_ms, b_by)) in calls.items():
+        # kernel and library call in turns: the host's share of an eager
+        # call drifts with the shared host's load
         p1 = time_call(plain, iters, 1)
-        k1 = time_call(kern, 50, 5)
-        k2 = time_call(kern, 50, 5)
+        k1 = time_call(kern)
+        l1 = None if lib is None else time_call(lib)
+        k2 = time_call(kern)
+        l2 = None if lib is None else time_call(lib)
         p2 = time_call(plain, iters, 1)
-        lib_ms = None
+        k_dev = graph_ms(kern)
+        lib_ms = lib_dev = None
         if lib is not None:
-            lib_ms = min(time_call(lib, 50, 5), time_call(lib, 50, 5))
-        times[name] = (min(k1, k2), min(p1, p2), lib_ms, b_ms, b_by)
-        phase("timing", f"{name}: kernel {k1:.4f}/{k2:.4f} ms, plain "
-              f"{p1:.4f}/{p2:.4f} ms per call, bound {b_ms:.5f} ms "
-              f"({b_by})" + ("" if lib_ms is None else
-                             f", library call {lib_ms:.4f} ms"))
+            lib_ms, lib_dev = min(l1, l2), graph_ms(lib)
+        times[name] = (min(k1, k2), min(p1, p2), lib_ms, b_ms, b_by, k_dev,
+                       lib_dev)
+        phase("timing", f"{name}: kernel {k1:.4f}/{k2:.4f} ms per call "
+              f"({k_dev:.4f} on the device), plain {p1:.4f}/{p2:.4f} ms per "
+              f"call, bound {b_ms:.5f} ms ({b_by}, {100 * b_ms / k_dev:.0f}% "
+              f"of the kernel's device time)"
+              + ("" if lib_ms is None else
+                 f", library call {lib_ms:.4f} ms per call ({lib_dev:.4f} "
+                 f"on the device)"))
     return times
+
+
+def gather_calls(dev):
+    """time_kernels' rows of the two gathers at gather_bench.GATHER_TIMED
+    (name -> kernel, twin, twin iterations, torch.gather, bound): the
+    kernel's own name at its main shape (the column gather's t_k, the row
+    gather's R=128) and, with "_ldg", above the shared-memory budget;
+    "<kernel> <case>" for the rest. Kernel and torch.gather take the next
+    of the case's input sets at each call (gather_bench.gather_sets); the
+    twin the first; the bound is the mean over the sets."""
+    fns = {"cols": (gather_cols, gather_cols_reference),
+           "rows": (gather_rows, gather_rows_reference)}
+    named = {"t_k": "gather_cols", "above budget": "gather_cols_ldg",
+             "rows": "gather_rows", "rows above budget": "gather_rows_ldg"}
+    calls = {}
+    for case in GATHER_TIMED:
+        kind, P, C, R, cap, _ = GATHER_CASES[case]
+        kern, twin = fns[kind]
+        sets = gather_sets(dev, case)
+        idx, tab = sets[0][:2]
+        name = named.get(case, f"gather_{kind} "
+                         f"{case.removeprefix('rows ')}")
+        calls[name] = (
+            cycling(lambda i, t, a, x, k=kern: k(i, t), sets),
+            lambda k=twin, i=idx, t=tab: k(i, t),
+            2 if P * C * cap > 2 ** 22 else 5,
+            cycling(lambda i, t, a, x: torch.gather(t, a, x), sets),
+            (sum(gather_bound(s[0], C, R) for s in sets) / len(sets),
+             "bytes"))
+    return calls
 
 
 def knob_calls(dev, cfg):
@@ -1798,9 +1844,6 @@ def knob_calls(dev, cfg):
     g, ints, flts = tables_payload(cfg, s)
     tabs = (ints, flts, g["t_k"], g["t_m"])
     h_sep = HELL["min_separation"]
-    ridx, rtab = gather_inputs(dev, P_MAIN, 16, 128, 512, seed=17)
-    rtab = rtab.transpose(1, 2).contiguous()            # [P, R=128, C=16]
-    ridx_long = ridx.long()[:, :, None].expand(-1, -1, rtab.shape[2])
 
     dcfg = load_config(DENSE_CFG)
     d_fw, d_cb = dcfg.min_feature_weight, \
@@ -1828,12 +1871,6 @@ def knob_calls(dev, cfg):
             lambda: detect(d13, dz4, dT, d_fw, d_cb, d_sep, adaptive=True),
             lambda: detect_reference(d13, dz4, dT, d_fw, d_cb, d_sep), 2,
             None, detect_bound(d13, dz4, dT, 37, 40 * P_DENSE * dK)),
-        "gather_rows": (
-            lambda: gather_rows(ridx, rtab),
-            lambda: gather_rows_reference(ridx, rtab), 5,
-            lambda: torch.gather(rtab, 1, ridx_long),
-            bound(4 * (ridx.numel() + rtab.numel()
-                       + ridx.numel() * rtab.shape[2]), 0)),
         "merge2d_tables": (
             lambda: merge2d_tables(*tabs, cfg.min_separation, K),
             lambda: merge2d_tables_reference(*tabs, cfg.min_separation, K),
@@ -1850,13 +1887,6 @@ def knob_calls(dev, cfg):
             lambda: detect(d6, dz4, dT, d_fw, d_cb, adaptive=True),
             lambda: detect_reference(d6, dz4, dT, d_fw, d_cb), 2, None,
             detect_bound(d6, dz4, dT, 21)),
-        "gather_cols dense": (
-            lambda: gather_cols(dg["k_eff"], dg["t_k"]),
-            lambda: gather_cols_reference(dg["k_eff"], dg["t_k"]), 2,
-            lambda: torch.gather(dg["t_k"], 2, dg["k_eff"].long()[:, None, :]
-                                 .expand(-1, dg["t_k"].shape[1], -1)),
-            bound(4 * (dg["k_eff"].numel() + dg["t_k"].numel()
-                       + dg["t_k"].shape[1] * dg["k_eff"].numel()), 0)),
         "merge2d dense": (
             lambda: merge2d(dpacked, d_sep, dK),
             lambda: merge2d_reference(dpacked, d_sep, dK), 1, None,
@@ -2001,7 +2031,9 @@ def main():
     # run; merge2d_hellinger, merge2d_argmax_hellinger and
     # merge2d_tables_hellinger: the Hellinger runs); every path's kernels
     # were required > 0 there, the CPHD and dense runs' too. gather_rows is
-    # on no path (the JAX package's paths never call it): 0.
+    # on no path (the JAX package's paths never call it), and no path's
+    # slab exceeds the gathers' shared-memory budget (gather_cols_ldg,
+    # gather_rows_ldg): 0.
     path_counts = [(ACKERMAN_KERNELS, counts), (KNOB_KERNELS, knob_counts),
                    (CONS_KERNELS, cons_counts),
                    (DENSE_KERNELS["consolidating + adaptive"],
@@ -2012,7 +2044,8 @@ def main():
                    (HELL_KERNELS, hell_counts),
                    (HELL_FULL_KERNELS, hell_full_counts),
                    (HELL_FUSED_KERNELS, hell_fused_counts),
-                   (("gather_rows",), {})]
+                   (("gather_rows", "gather_cols_ldg", "gather_rows_ldg"),
+                    {})]
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": int(next(c for ks, c in path_counts
@@ -2020,7 +2053,8 @@ def main():
          "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": times[name][3], "bound_by": times[name][4],
-         "library_ms": times[name][2]}
+         "library_ms": times[name][2], "device_ms": times[name][5],
+         "library_device_ms": times[name][6]}
         for name, (src, rep) in KERNELS.items()]}
     print(json.dumps(report))
     print(smi)

@@ -10,7 +10,14 @@
 | merge.py        | csrc/merge3d.cu      | ops/pallas_merge.py::_merge_kernel_3d  |
 | merge.py        | csrc/merge4d.cu      | ops/pallas_merge.py::_merge_kernel_4d  |
 
+Shared headers: ``csrc/bulk_copy.cuh`` (the TMA bulk copy of a slab into
+shared memory on an mbarrier, used by both gathers) and ``csrc/wrap.cuh``
+(the bearing wrap of detect.cu and merge2d.cu).
+
 A wrapper runs its twin for a CPU tensor and launches its kernel for a CUDA
 tensor (or raises); there is no fallback from one to the other. Launches
-are counted in ``build.launch_counts``.
+are counted in ``build.launch_counts``, each variant under its own name
+(the gathers: ``gather_cols`` / ``gather_rows`` with the slab staged in
+shared memory, ``gather_cols_ldg`` / ``gather_rows_ldg`` above
+``build.GATHER_SMEM_BUDGET``).
 """

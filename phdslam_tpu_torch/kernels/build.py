@@ -47,10 +47,10 @@ _SIGNATURES = {
     # min_fw, cb, min_sep, adaptive, stream
     "phd_detect": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                    _I, _P],
-    # idx, tab, out, P, C, R, cap, stream
-    "phd_gather_cols": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # idx, tab, out, P, R, C, cap, stream
-    "phd_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # idx, tab, out, P, C, R, cap, staged, vec, stream
+    "phd_gather_cols": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # idx, tab, out, P, R, C, cap, staged, vec, stream
+    "phd_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # packed, out, P, N, K, min_separation, argmax, metric, stream
     "phd_merge2d": [_P, _P, _I, _I, _I, _F, _I, _I, _P],
     # ints, flts, t_k, t_m, out, P, N, K tables, M tables, K out,
@@ -62,6 +62,11 @@ _SIGNATURES = {
     # packed, out, P, N, K, min_separation, stream
     "phd_merge4d": [_P, _P, _I, _I, _I, _F, _P],
 }
+
+# shared memory a gather block may take for its particle's staged table
+# slab: two such blocks fit on an H100 SM (228 KB). A larger slab is read
+# through __ldg by the same kernel, counted under the "_ldg" name.
+GATHER_SMEM_BUDGET = 96 * 1024
 
 _lib = None
 last_build_log = ""
@@ -144,8 +149,36 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def gather_staged(n_floats: int) -> bool:
+    """Whether a gather stages a per-particle slab of ``n_floats`` in
+    shared memory (csrc/bulk_copy.cuh::staged_smem_bytes within
+    GATHER_SMEM_BUDGET)."""
+    return 16 + 4 * n_floats + 16 <= GATHER_SMEM_BUDGET
+
+
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    # the raw handle of the device's current stream, read without building
+    # a torch.cuda.Stream object (microseconds a launch on the host)
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def check_gather(name: str, idx, tab, C: int, R: int) -> None:
+    """The gathers' arguments: int32 idx [P, cap] and float32 tab [P, ...]
+    of C columns by R gathered rows, both contiguous on one CUDA device,
+    and a particle's table and output under 2**31 elements (the kernels'
+    offsets inside a particle are 32-bit). The message is formatted only on
+    a failure, so a passing check costs the host little."""
+    if (tab.is_cuda and idx.dim() == 2 and idx.shape[0] == tab.shape[0]
+            and idx.dtype == torch.int32 and tab.dtype == torch.float32
+            and idx.get_device() == tab.get_device()
+            and idx.is_contiguous() and tab.is_contiguous()
+            and C * max(R, idx.shape[1]) < 2 ** 31):
+        return
+    raise ValueError(
+        f"{name}: needs int32 idx [P, cap] and float32 tab [P, ...], "
+        f"contiguous on one CUDA device, under 2**31 elements a particle; "
+        f"got idx {tuple(idx.shape)} {idx.dtype} on {idx.device}, tab "
+        f"{tuple(tab.shape)} {tab.dtype} on {tab.device}")
 
 
 def check_launch(err: int, name: str) -> None:

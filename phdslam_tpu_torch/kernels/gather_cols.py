@@ -29,29 +29,27 @@ def gather_cols(idx, tab):
     """Column gather; same contract as :func:`gather_cols_reference`.
 
     A CPU tensor runs the twin; a CUDA tensor launches the kernel
-    (idx must be int32).
+    (idx must be int32), counted as ``gather_cols`` when each particle's
+    [C, R] slab fits ``build.GATHER_SMEM_BUDGET`` (staged in shared memory)
+    and as ``gather_cols_ldg`` above it (the table read through ``__ldg``).
     """
-    if tab.device.type == "cpu":
+    if tab.is_cpu:
         return gather_cols_reference(idx, tab)
-    build.require(tab.device.type == "cuda",
-                  f"gather_cols: unsupported device {tab.device}")
     P, C, R = tab.shape
-    build.require(idx.dim() == 2 and idx.shape[0] == P,
-                  f"gather_cols: idx {tuple(idx.shape)} vs tab "
-                  f"{tuple(tab.shape)}")
-    build.require(idx.dtype == torch.int32 and tab.dtype == torch.float32,
-                  "gather_cols: int32 idx and float32 tab required")
-    build.require(idx.device == tab.device, "gather_cols: idx on another "
-                  "device")
-    build.require(idx.is_contiguous() and tab.is_contiguous(),
-                  "gather_cols: contiguous inputs required")
+    build.check_gather("gather_cols", idx, tab, C, R)
     cap = idx.shape[1]
-    out = torch.empty((P, C, cap), dtype=torch.float32, device=tab.device)
+    out = tab.new_empty((P, C, cap))
     if out.numel() == 0:
         return out
+    # the [C, R] slab goes to shared memory when it fits the budget, else
+    # a thread per output reads the table through __ldg; 16-byte index
+    # loads and stores need cap % 4 == 0 and aligned idx and out
+    staged = build.gather_staged(C * R)
+    i_ptr, o_ptr = idx.data_ptr(), out.data_ptr()
+    vec = cap % 4 == 0 and (i_ptr | o_ptr) % 16 == 0
     err = build.library().phd_gather_cols(
-        idx.data_ptr(), tab.data_ptr(), out.data_ptr(), P, C, R, cap,
+        i_ptr, tab.data_ptr(), o_ptr, P, C, R, cap, staged, vec,
         build.stream_handle(tab.device))
     build.check_launch(err, "gather_cols")
-    build.launch_counts["gather_cols"] += 1
+    build.launch_counts["gather_cols" if staged else "gather_cols_ldg"] += 1
     return out

@@ -32,29 +32,27 @@ def gather_rows(idx, tab):
     """Row gather; same contract as :func:`gather_rows_reference`.
 
     A CPU tensor runs the twin; a CUDA tensor launches the kernel
-    (idx must be int32).
+    (idx must be int32), counted as ``gather_rows`` when each particle's
+    [R, C] slab fits ``build.GATHER_SMEM_BUDGET`` (staged in shared memory)
+    and as ``gather_rows_ldg`` above it (the table read through ``__ldg``).
     """
-    if tab.device.type == "cpu":
+    if tab.is_cpu:
         return gather_rows_reference(idx, tab)
-    build.require(tab.device.type == "cuda",
-                  f"gather_rows: unsupported device {tab.device}")
     P, R, C = tab.shape
-    build.require(idx.dim() == 2 and idx.shape[0] == P,
-                  f"gather_rows: idx {tuple(idx.shape)} vs tab "
-                  f"{tuple(tab.shape)}")
-    build.require(idx.dtype == torch.int32 and tab.dtype == torch.float32,
-                  "gather_rows: int32 idx and float32 tab required")
-    build.require(idx.device == tab.device, "gather_rows: idx on another "
-                  "device")
-    build.require(idx.is_contiguous() and tab.is_contiguous(),
-                  "gather_rows: contiguous inputs required")
+    build.check_gather("gather_rows", idx, tab, C, R)
     cap = idx.shape[1]
-    out = torch.empty((P, cap, C), dtype=torch.float32, device=tab.device)
+    out = tab.new_empty((P, cap, C))
     if out.numel() == 0:
         return out
+    # the [R, C] slab goes to shared memory when it fits the budget, else
+    # the kernel reads the table through __ldg; 16-byte row copies need
+    # C % 4 == 0 and aligned tab and out
+    staged = build.gather_staged(R * C)
+    t_ptr, o_ptr = tab.data_ptr(), out.data_ptr()
+    vec = C % 4 == 0 and (t_ptr | o_ptr) % 16 == 0
     err = build.library().phd_gather_rows(
-        idx.data_ptr(), tab.data_ptr(), out.data_ptr(), P, R, C, cap,
+        idx.data_ptr(), t_ptr, o_ptr, P, R, C, cap, staged, vec,
         build.stream_handle(tab.device))
     build.check_launch(err, "gather_rows")
-    build.launch_counts["gather_rows"] += 1
+    build.launch_counts["gather_rows" if staged else "gather_rows_ldg"] += 1
     return out

@@ -16,14 +16,17 @@ its limit N=8192, with either metric, the Hellinger metric in both modes,
 and sorted mode over N=4096. The knob variants run at the Ackerman shapes
 and the dense configuration's (K=1024, M=72, T=32, cap 1536): the detect
 kernel with adaptive trips and with pre-consolidation, the fused gather +
-merge against the two-kernel route on the card, and the row gather. The
-resampling's fixed-order cumsum repeats its bits at P=10240.
+merge against the two-kernel route on the card, and the row gather. Both
+gathers run at the paths' shapes and at ragged, unaligned, out-of-range
+and above-budget cases, in both their modes. The resampling's fixed-order
+cumsum repeats its bits at P=10240.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gather_bench import GATHER_CASES, gather_case
 from phdslam_tpu_torch import load_config
 from phdslam_tpu_torch.eval.scenes import (detect_planes, map_scene,
                                            tables_payload)
@@ -230,14 +233,25 @@ def test_detect_matches_twin(dev):
     assert torch.equal(got[3], want[3])
 
 
-@pytest.mark.parametrize("C,R,cap", [(16, 128, 512), (8, 48, 512),
-                                     (5, 256, 128)])
-def test_gather_cols_matches_twin(dev, C, R, cap):
-    g = torch.Generator().manual_seed(C)
-    idx = torch.randint(-2, R + 2, (64, cap), generator=g, dtype=torch.int32)
-    tab = torch.randn((64, C, R), generator=g)
-    got = gather_cols(idx.to(dev), tab.to(dev))
-    assert torch.equal(got.cpu(), gather_cols_reference(idx, tab))
+def gather_named(dev, case):
+    """(idx, tab) on the card for gather_bench.GATHER_CASES[case], and the
+    launch name its slab's size selects."""
+    kind, P, C, R, cap, _ = GATHER_CASES[case]
+    idx, tab = gather_case(dev, case)
+    return idx, tab, f"gather_{kind}" + (
+        "" if build.gather_staged(C * R) else "_ldg")
+
+
+@pytest.mark.parametrize("case", [c for c, v in GATHER_CASES.items()
+                                  if v[0] == "cols"])
+def test_gather_cols_matches_twin(dev, case):
+    """Bit for bit, each launch counted under its mode's name."""
+    idx, tab, name = gather_named(dev, case)
+    build.reset_launch_counts()
+    got = gather_cols(idx, tab)
+    torch.cuda.synchronize()
+    assert dict(build.launch_counts) == {name: 1}
+    assert torch.equal(got, gather_cols_reference(idx, tab))
 
 
 def test_merge_matches_twin(dev):
@@ -332,6 +346,13 @@ def test_wrappers_reject_bad_input(dev):
         merge3d(merge3d_inputs(dev, P=2, N=2049), 20.0, 24)  # > 2048 lanes
     with pytest.raises(ValueError):
         merge3d(merge3d_inputs(dev, P=2).double(), 20.0, 24)
+    idx, tab = gather_case(dev, "t_k")
+    for bad in ((idx.long(), tab), (idx, tab.double()), (idx[:, ::2], tab),
+                (idx[:2], tab), (idx.cpu(), tab)):
+        with pytest.raises(ValueError):
+            gather_cols(*bad)
+        with pytest.raises(ValueError):
+            gather_rows(*bad)
 
 
 # ----------------------------------------------------------------------------
@@ -457,18 +478,19 @@ def test_merge2d_dense_matches_twin(dev):
     assert (got[3] > 10).all()
 
 
-@pytest.mark.parametrize("P,R,C,cap", [(65, 128, 16, 512),
-                                       (16, 1024, 16, 1536)])
-def test_gather_rows_matches_twin(dev, P, R, C, cap):
-    """A ragged P and indices outside [0, R) (zero rows)."""
-    g = torch.Generator().manual_seed(R)
-    idx = torch.randint(-2, R + 2, (P, cap), generator=g, dtype=torch.int32)
-    tab = torch.randn((P, R, C), generator=g)
+@pytest.mark.parametrize("case", [c for c, v in GATHER_CASES.items()
+                                  if v[0] == "rows"])
+def test_gather_rows_matches_twin(dev, case):
+    """Bit for bit, zero rows for indices outside [0, R), each launch
+    counted under its mode's name."""
+    idx, tab, name = gather_named(dev, case)
+    R = tab.shape[1]
     build.reset_launch_counts()
-    got = gather_rows(idx.to(dev), tab.to(dev))
-    assert build.launch_counts["gather_rows"] == 1
-    assert torch.equal(got.cpu(), gather_rows_reference(idx, tab))
-    assert (got[(idx.to(dev) < 0) | (idx.to(dev) >= R)] == 0).all()
+    got = gather_rows(idx, tab)
+    torch.cuda.synchronize()
+    assert dict(build.launch_counts) == {name: 1}
+    assert torch.equal(got, gather_rows_reference(idx, tab))
+    assert (got[(idx < 0) | (idx >= R)] == 0).all()
 
 
 def test_detect_dense_matches_twin(dev):

@@ -131,22 +131,36 @@ def uvd64(cloud, cam_pose, cfg):
     return out
 
 
-def match_clouds(got, want, cfg, rtol=1e-4, atol=2e-3):
+def match_clouds(got, want, cfg, rtol=1e-4, atol=2e-3, spread_rtol=7e-4):
     """Clouds slot by slot in disparity space (under the JAX camera), except
     that a slot may hold another feature of the same particle where the two
     weights tie within rtol 1e-5 / atol 1e-6 (the recombine sorts by
     weight, and f32 rounding can order two tied weights either way).
-    Returns the number of such swapped slots."""
+    Returns the number of such swapped slots.
+
+    Each coordinate is held to atol + rtol |want| + spread_rtol times the
+    standard deviation of the JAX slot's points in that coordinate. The
+    points are drawn through the Gaussian fit's covariance, which differs
+    by up to ~7e-4 relative between the frameworks (see
+    test_update_halves_match_jax), so a drawn point moves by that share of
+    its cloud's spread, and that spread (tens of pixels in d) is not
+    bounded by the absolute atol. Against a float64 evaluation of the same
+    step (the port's code in f64 from the same state and draws), JAX's own
+    f32 points lie up to 4.6e-4 of the spread away and the port's up to
+    4.1e-4, several times atol at d's spread."""
     cam = want["cam_pose"]
     live = want["feat_weight"] > 0
     g = uvd64(got["cloud"], cam, cfg)
     w = uvd64(want["cloud"], cam, cfg)
-    ok = np.isclose(g, w, rtol=rtol, atol=atol).all(axis=(-1, -2)) | ~live
+    with np.errstate(invalid="ignore"):     # empty slots: inf - inf
+        tol = atol + rtol * np.abs(w) + spread_rtol * w.std(axis=2,
+                                                             keepdims=True)
+        err = np.abs(g - w)
+    ok = (err <= tol).all(axis=(-1, -2)) | ~live
     for p, k in zip(*np.nonzero(~ok)):
         tied = np.isclose(want["feat_weight"][p], got["feat_weight"][p, k],
                           rtol=1e-5, atol=1e-6)
-        same = np.isclose(w[p], g[p, k][None], rtol=rtol,
-                          atol=atol).all(axis=(-1, -2))
+        same = (np.abs(w[p] - g[p, k][None]) <= tol[p]).all(axis=(-1, -2))
         assert (tied & same).any(), f"cloud of particle {p} slot {k}"
     return int((~ok).sum())
 
@@ -499,7 +513,8 @@ def test_update_halves_match_jax(jax_runs, name):
     want = dict(cam_pose=cp, cloud=np.asarray(j_post[0]),
                 feat_weight=np.asarray(j_post[1]))
     close(got["feat_weight"], want["feat_weight"], rtol=1e-6, atol=0)
-    assert match_clouds(got, want, cfg, rtol=1e-5, atol=1e-4) == 0
+    assert match_clouds(got, want, cfg, rtol=1e-5, atol=1e-4,
+                        spread_rtol=0.0) == 0
     close(post[2], j_post[2], rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(post[3].numpy(), j_post[3])
 

@@ -12,11 +12,13 @@ import torch
 
 from phdslam_tpu.ops.pallas_detect import detection_topT_batch
 from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch_packed
-from phdslam_tpu.ops.pallas_select import onehot_cols_batch
+from phdslam_tpu.ops.pallas_select import (onehot_cols_batch,
+                                           onehot_rows_batch)
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
+from phdslam_tpu_torch.kernels.gather_rows import gather_rows
 from phdslam_tpu_torch.kernels.merge import merge2d, merge2d_reference
 from phdslam_tpu_torch.ops.gm_merge import merge_out
 
@@ -120,20 +122,28 @@ def test_detect_wrapper_runs_twin_on_cpu():
 
 
 # ----------------------------------------------------------------------------
-# gather_cols
+# gather_cols and gather_rows
 # ----------------------------------------------------------------------------
 
 # the three call shapes of the update, cut to size: candidate tables t_k
-# (C=16) and t_m (C=8), and the post-merge compaction (C=5, R=2K)
+# (C=16) and t_m (C=8), and the post-merge compaction (C=5, R=2K); then the
+# CUDA kernel's edge cases, with indices from [-2, R + 2) (some out of
+# range): C R not a multiple of 4 (its slab's bulk copy has a head and a
+# tail), cap not a multiple of 4 (scalar index loads and stores), cap 1
+# and a single particle
 GATHER_SHAPES = {"t_k": (4, 16, 32, 64), "t_m": (4, 8, 8, 64),
                  "post": (4, 5, 64, 32)}
+GATHER_EDGES = {"cr_ragged": (4, 5, 47, 64), "cap_ragged": (4, 5, 47, 61),
+                "cap_1": (3, 16, 32, 1), "p_1": (1, 16, 32, 64)}
 
 
-@pytest.mark.parametrize("shape", sorted(GATHER_SHAPES))
+@pytest.mark.parametrize("shape",
+                         sorted(GATHER_SHAPES) + sorted(GATHER_EDGES))
 def test_gather_cols_twin_matches_pallas(shape):
-    P, C, R, cap = GATHER_SHAPES[shape]
+    P, C, R, cap = GATHER_SHAPES.get(shape) or GATHER_EDGES[shape]
     rng = np.random.default_rng(C)
-    idx = rng.integers(0, R, (P, cap)).astype(np.int32)
+    lo, hi = (-2, R + 2) if shape in GATHER_EDGES else (0, R)
+    idx = rng.integers(lo, hi, (P, cap)).astype(np.int32)
     tab = rng.normal(0, 10, (P, C, R)).astype(np.float32)
     want = np.asarray(onehot_cols_batch(jnp.asarray(idx), jnp.asarray(tab),
                                         interpret=True))
@@ -151,6 +161,29 @@ def test_gather_cols_out_of_range_gives_zero():
                                         interpret=True))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (got[0, :, 2:] == 0).all() and (got[1, :, 1] == 0).all()
+
+
+# the row gather's edge cases (P, cap, R, C), indices from [-2, R + 2): C
+# and R C not multiples of 4 (scalar row copies, a slab with a head and a
+# tail), cap not a multiple of 4, cap 1, a single particle
+GATHER_ROWS_EDGES = {"c_ragged": (4, 64, 47, 5),
+                     "cap_ragged": (4, 61, 32, 16),
+                     "cap_1": (3, 1, 32, 16), "p_1": (1, 64, 47, 5)}
+
+
+@pytest.mark.parametrize("shape", sorted(GATHER_ROWS_EDGES))
+def test_gather_rows_twin_matches_pallas_edges(shape):
+    P, cap, R, C = GATHER_ROWS_EDGES[shape]
+    rng = np.random.default_rng(R)
+    idx = rng.integers(-2, R + 2, (P, cap)).astype(np.int32)
+    tab = rng.normal(0, 10, (P, R, C)).astype(np.float32)
+    want = np.asarray(onehot_rows_batch(jnp.asarray(idx), jnp.asarray(tab),
+                                        interpret=True))
+    build.reset_launch_counts()
+    got = gather_rows(torch.from_numpy(idx), torch.from_numpy(tab)).numpy()
+    assert not build.launch_counts                       # twin: no launch
+    np.testing.assert_array_equal(got, want)
+    assert (got[(idx < 0) | (idx >= R)] == 0).all()
 
 
 # ----------------------------------------------------------------------------

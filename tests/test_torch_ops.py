@@ -351,7 +351,7 @@ def test_port_never_imports_jax():
             "import phdslam_tpu_torch.kernels.merge\n"
             "import phdslam_tpu_torch.kernels.gather_rows\n"
             "import phdslam_tpu_torch.eval.scenes\n"
-            "import chip_smoke\n"
+            "import chip_smoke, gather_bench\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', "
             "'phdslam_tpu')\n"
             "             or m.startswith(('jax.', 'phdslam_tpu.')))\n"

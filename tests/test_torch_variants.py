@@ -196,7 +196,20 @@ def test_detection_planes_consolidate_matches_jax():
                                  cfg.min_feature_weight).numpy()
     want = consolidating_planes(cfg, pose, mean, cov, w)
     assert got.shape == want.shape == (4, 13, 32)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    # rows 8 and 11 are the off-diagonal q01 of the quadratics G' C^-1 G
+    # (rows 7-9 and 10-12): a sum of three products that cancel, so both
+    # frameworks' f32 values carry an error set by the diagonal, not by q01
+    # itself. Against a float64 evaluation of the same formulas on the same
+    # inputs, JAX's q01 lies up to 1.2e-6 and the port's up to 1.6e-6 of
+    # sqrt(q00 q11) away (2.2e-4 absolute on a q01 of 12); so each q01 is
+    # held to 4e-6 of its own column's sqrt(q00 q11), every other row to
+    # rtol 1e-5.
+    off = np.array([8, 11])
+    rest = np.setdiff1d(np.arange(13), off)
+    np.testing.assert_allclose(got[:, rest], want[:, rest], rtol=1e-5,
+                               atol=1e-6)
+    scale = np.sqrt(np.abs(want[:, off - 1] * want[:, off + 1]))
+    assert (np.abs(got[:, off] - want[:, off]) <= 4e-6 * scale).all()
     assert (got[:, 6] > 0).any()
 
 
