@@ -43,11 +43,15 @@ drives both paths:
 
 then times every kernel against its twin (the knob variants and the
 existing kernels at the dense shapes too, the two gathers at every shape
-the paths launch, each with ``torch.gather`` beside it) and profiles a
-step of each path. The gathers are held bit for bit against their twins
-at those shapes and at unaligned, ragged, out-of-range and above-budget
-cases, each of their two modes (the slab staged in shared memory, or read
-through ``__ldg``) counted under its own name.
+the paths launch, each with ``torch.gather`` beside it, and the update's
+kernels on the inputs captured from step 60 of the dense and Ackerman
+runs, ``detect_bench.capture_step``) and profiles a step of each path.
+The detect kernel is also held against its twin at the selection's
+edges (``detect_bench.DETECT_EDGES``). The gathers are held bit for bit
+against their twins at those shapes and at unaligned, ragged,
+out-of-range and above-budget cases, each of their two modes (the slab
+staged in shared memory, or read through ``__ldg``) counted under its
+own name.
 Each phase prints its result; any failure raises and exits non-zero. Each
 path's run resets the launch counts before it and requires every kernel
 variant of that path to have launched. The line before the card's name
@@ -59,8 +63,10 @@ eager call, its twin's, its bound and, where one PyTorch call computes the
 same function, that call's time; the kernel's and the library call's
 device times beside them. The last line is one JSON object naming the
 device.
-Needs a CUDA device and ``gather_bench.py`` (the gathers' cases and the
-timing helpers) beside it; imports no jax.
+Needs a CUDA device, ``gather_bench.py`` (the gathers' cases and the
+timing helpers) and ``detect_bench.py`` (the detect kernels' edge cases,
+the step capture and the comparison with the twin) beside it; imports no
+jax.
 """
 
 from __future__ import annotations
@@ -69,7 +75,6 @@ import bisect
 import collections
 import dataclasses
 import json
-import subprocess
 import sys
 import tempfile
 import time
@@ -78,8 +83,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-from gather_bench import (GATHER_CASES, GATHER_TIMED, cycling, gather_bound,
-                          gather_case, gather_sets, graph_ms, time_call)
+from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, bound, capture_step,
+                          captured_args, check_case, compare_detect,
+                          detect_bound, detect_edge_case, live_counts,
+                          max_err, merge_lanes, require)
+from gather_bench import (GATHER_CASES, GATHER_TIMED, card_name, cycling,
+                          gather_bound, gather_case, gather_sets, graph_ms,
+                          time_call)
 from phdslam_tpu_torch import load_config
 from phdslam_tpu_torch import SlamConfig
 from phdslam_tpu_torch.eval import simdata
@@ -96,7 +106,7 @@ from phdslam_tpu_torch.filters.phd import (_finish_candidates_packed,
                                            maybe_resample, predict, update)
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import (detect, detect_reference,
-                                              detect_variant, detection_grid)
+                                              detect_variant)
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
@@ -233,10 +243,6 @@ FULL_GRID_KERNELS = ("merge2d_argmax",)
 HELL_KERNELS = ("detect", "gather_cols", "merge2d_hellinger")
 HELL_FULL_KERNELS = ("merge2d_argmax_hellinger",)
 
-# the card's published peaks (H100 SXM data sheet, dense, 700 W): HBM
-# bytes/s and f32 FLOP/s outside the tensor cores
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
-
 
 def mixed_cfg(P=P_MAIN, K=128, M=32):
     """tools/bench_mixed.py's mixed configuration (fast route, 4D stage-2
@@ -275,10 +281,6 @@ def phase(name, msg):
     """One result line, tagged with the card's name and power limit."""
     print(f"[{name}] {msg}" + (f" [{CARD}]" if CARD else ""), flush=True)
 
-
-def require(cond, msg):
-    if not cond:
-        raise AssertionError(msg)
 
 
 # ----------------------------------------------------------------------------
@@ -400,10 +402,7 @@ def merge3d_inputs(dev, P=P_MAIN, N=512, seed=0, n_centers=16, spread=3.0):
 
 def check_device():
     require(torch.cuda.is_available(), "no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     phase("device", f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     global CARD
@@ -421,10 +420,6 @@ def build_kernels():
     for ln in regs:
         phase("build", ln)
     phase("build", f"{path} ready in {took:.2f} s")
-
-
-def max_err(pairs):
-    return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
 
 
 def check_merge2d(planes, min_sep, K, sorted_w, metric, label):
@@ -657,63 +652,6 @@ def check_kernels(dev):
     return errs
 
 
-def boundary_columns(planes, z4, min_fw, cb, rel=1e-5):
-    """[P, K] feature columns whose consolidation f32 rounding can move
-    between the card and the twin (exp and the row sums round differently):
-    a lane within ``rel`` of the live threshold, or a head tie (the two
-    heaviest live w_det, or the heaviest and the persistent wp, within
-    ``rel``). The quadratics themselves are the same bits on both sides."""
-    _, _, pdw = detection_grid(planes, z4)
-    norm = pdw.sum(dim=-1, keepdim=True) + cb
-    thr = min_fw * norm
-    edge = ((pdw - thr).abs() <= rel * thr).any(dim=1)
-    wd = torch.where((pdw >= thr) & (pdw > 0), pdw / norm, 0.0)
-    top2 = wd.topk(2, dim=1).values
-    wp = planes[:, 6]
-    tie = (top2[:, 0] > 0) & ((top2[:, 0] - top2[:, 1] <= rel * top2[:, 0])
-                              | ((wp - top2[:, 0]).abs() <= rel * wp))
-    return edge | tie
-
-
-def compare_detect(got, want, label, planes=None, z4=None, min_fw=0.0,
-                   cb=0.0):
-    """A detect kernel's outputs against its twin's: norm and vals rtol
-    1e-5, idx where selected, the counts exactly and idx 0 where nothing is
-    selected; with cons, the head coordinates, member counts and pers_in
-    exactly and the sums rtol 1e-4 / atol 1e-5. A column whose
-    consolidation differs (a member flip) must be a boundary column
-    (:func:`boundary_columns`); its column and the rows holding its live
-    lanes are then left out. Returns (max |err|, flipped columns)."""
-    rows = torch.ones_like(want[3], dtype=torch.bool)            # [P, M]
-    flips = 0
-    if len(want) == 5:
-        flip = (got[4][:, 6:] != want[4][:, 6:]).any(dim=1)        # [P, K]
-        flips = int(flip.sum())
-        if flips:
-            edge = boundary_columns(planes, z4, min_fw, cb)
-            require(not bool((flip & ~edge).any()),
-                    f"{label}: consolidation differs in a column away from "
-                    "an f32 boundary")
-            _, _, pdw = detection_grid(planes, z4)
-            rows = ~((pdw > 0) & flip[:, None, :]).any(dim=-1)
-        keep = ~flip[:, None, :].expand_as(want[4])
-        torch.testing.assert_close(got[4][keep], want[4][keep], rtol=1e-4,
-                                   atol=1e-5)
-    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
-    torch.testing.assert_close(got[0][rows], want[0][rows], rtol=1e-5,
-                               atol=0)
-    sel = (want[0] > 0) & rows[..., None]
-    require(torch.equal(got[1][sel], want[1][sel]), f"{label}: idx differs")
-    require(bool((got[1][~(want[0] > 0) & rows[..., None]] == 0).all()),
-            f"{label}: an unselected idx is not 0")
-    require(torch.equal(got[3][rows], want[3][rows]),
-            f"{label}: live count differs")
-    err = max_err([(got[0][rows], want[0][rows]), (got[2], want[2])]
-                  + ([(got[4], want[4])] if len(want) == 5 and not flips
-                     else []))
-    return err, flips
-
-
 def far_persistent_scene(dev):
     """tests/test_consolidate.py's scene (its sensor settings): one feature
     at (5, 0) with covariance I, measured at (8, 0); the copy heads its
@@ -826,6 +764,34 @@ def check_variants(dev, errs):
             "detect_cons: the far persistent copy's column consolidated")
     phase("kernels", "detect_cons far-persistent scene: the copy heads, no "
           "member, pers_in 0, as the twin")
+    check_detect_edges(dev, errs)
+
+
+def check_detect_edges(dev, errs):
+    """The detect kernel at the selection's edges (detect_bench.DETECT_EDGES:
+    live count exactly T and T + 1, every lane dead, K 100, T = K, T 1,
+    M 1, a NaN in a plane, duplicated features, K 1024 at min_fw 0), plain
+    and consolidating, against the twin; adaptive bit-equal to static."""
+    for case in DETECT_EDGES:
+        for cons in (False, True):
+            planes, z4, T, min_fw, cb = (
+                torch.from_numpy(x).to(dev) if isinstance(x, np.ndarray)
+                else x for x in detect_edge_case(case, cons))
+            args = (planes, z4, T, min_fw, cb, MIN_SEP_EDGES if cons else 0.0)
+            static = detect(*args)
+            adapt = detect(*args, adaptive=True)
+            torch.cuda.synchronize()
+            name = detect_variant(cons)
+            require(same_bits(adapt, static),
+                    f"{name} edge {case}: adaptive differs from static")
+            err, _ = compare_detect(static, detect_reference(*args),
+                                    f"{name} edge {case}", planes, z4,
+                                    min_fw, cb)
+            for n in (name, detect_variant(cons, True)):
+                errs[n] = max(errs.get(n, 0.0), err)
+    phase("kernels", f"detect edges: {len(DETECT_EDGES)} cases, plain and "
+          "consolidating, each static and adaptive (bit-equal), idx and "
+          "counts equal to the twin's, values within rtol 1e-5")
 
 
 def copy_state(state, dev):
@@ -1678,14 +1644,6 @@ def mixed_accuracy(dev):
             f"{ATE_LIMIT} m")
 
 
-def bound(n_bytes, n_ops):
-    """The least time (ms) the card could take: the larger of the bytes
-    over HBM bandwidth and the f32 operations over the f32 peak, and which
-    of the two it is."""
-    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def merge_bound(packed, K, c_out, flop_per_lane):
     """A merge's bound on this input: it must read the act plane and, for
     the lanes that enter (act, and w > 0 in sorted mode; counted as act
@@ -1695,16 +1653,6 @@ def merge_bound(packed, K, c_out, flop_per_lane):
     live = int((packed[:, 1] > 0.5).sum())
     return bound(4 * (P * N + live * (C - 1) + P * c_out * K),
                  flop_per_lane * live)
-
-
-def detect_bound(planes, z4, T, flop_per_lane, extra_bytes=0):
-    """A detect variant's bound: its planes and z4 read once, vals, idx,
-    norm and count (and ``extra_bytes`` more outputs) written once, and
-    ``flop_per_lane`` f32 operations per (p, m, k) lane."""
-    P, _, K = planes.shape
-    M = z4.shape[0]
-    return bound(4 * (planes.numel() + z4.numel()) + 8 * P * M * T
-                 + 8 * P * M + extra_bytes, flop_per_lane * P * M * K)
 
 
 def tables_bound(ints, flts, K, flop_per_lane):
@@ -1732,7 +1680,9 @@ def time_kernels(dev):
     the dense path's kernels run at its shapes too (rows named "... dense",
     printed only, as are the two-kernel route's rows, which time the
     gather + combine + merge2d that merge2d_tables replaces on its
-    inputs). Returns {name: (ms, plain_ms, library_ms, bound_ms, bound_by,
+    inputs), and so do the update's kernels on the inputs captured from
+    step 60 of real runs (rows "... captured", :func:`captured_calls`).
+    Returns {name: (ms, plain_ms, library_ms, bound_ms, bound_by,
     device_ms, library_device_ms)}, the bound computed from these
     inputs."""
     cfg = load_config(CFG)
@@ -1743,16 +1693,12 @@ def time_kernels(dev):
     grid = full_grid_inputs(dev)
     packed4 = merge4d_inputs(dev, N=128, seed=128)
     packed3 = merge3d_inputs(dev, seed=24)
-    P, _, K = planes.shape
-    M, T = z4.shape[0], 16
+    T = 16
     # name: (kernel, twin, twin iterations, library call, bound)
     calls = {
         "detect": (lambda: detect(planes, z4, T, min_fw, cb),
                    lambda: detect_reference(planes, z4, T, min_fw, cb), 5,
-                   None,
-                   # ~20 FLOP per (p, m, k) lane for pdw, 1 for selection
-                   bound(4 * (planes.numel() + z4.numel()) + 8 * P * M * T
-                         + 8 * P * M, 21 * P * M * K)),
+                   None, detect_bound(planes, z4, T)),
         "merge2d": (lambda: merge2d(packed, min_sep, 128),
                     lambda: merge2d_reference(packed, min_sep, 128), 5, None,
                     merge_bound(packed, 128, 8, 27)),
@@ -1833,9 +1779,70 @@ def gather_calls(dev):
     return calls
 
 
+def captured_calls(dev):
+    """time_kernels' rows of the update's kernels on the exact inputs of
+    step 60 of real runs (detect_bench.capture_step): detect and merge2d of
+    Ackerman P=512 and of dense P=1024, detect_adaptive and merge2d_tables
+    of dense fused + adaptive, detect_cons_adaptive of dense consolidating
+    + adaptive. Each is held against its twin on those inputs first, and
+    the live counts of the detect rows with a valid measurement and the
+    entering lanes and trips of each merge particle are printed. Returns
+    name -> (kernel, twin, twin iterations, library call, bound)."""
+    rows = {}
+    for run, tag in (("ackerman", ""), ("dense", " dense"),
+                     ("dense fused + adaptive", " dense"),
+                     ("dense consolidating + adaptive", " dense")):
+        calls, step = capture_step(dev, run)
+        for kernel, (args, kw) in calls.items():
+            if kernel == "detect":
+                a = captured_args((args, kw))
+                planes, z4, T = a[:3]
+                got, name, err, flips = check_case(f"{run} captured", a)
+                stats = live_counts(got[3], z4, T)
+                rows[f"{name}{tag} captured"] = (
+                    lambda a=a: detect(*a), lambda a=a: detect_reference(*a),
+                    1, None, detect_bound(*a[:6]))
+                phase("captured", f"{run} step {step}: {name} P="
+                      f"{planes.shape[0]} K={planes.shape[2]} M="
+                      f"{z4.shape[0]} T={T}: live lanes per valid row "
+                      f"{json.dumps(stats)}; against the twin max |err| "
+                      f"{err:.3g}, {flips} member flips at an f32 boundary")
+                continue
+            fused = kernel == "merge2d_tables"
+            fn = merge2d_tables if fused else merge2d
+            twin = merge2d_tables_reference if fused else merge2d_reference
+            got = merge_out(fn(*args, **kw), 2)
+            want = merge_out(twin(*args, **kw), 2)
+            require(torch.equal(got[3], want[3])
+                    and torch.equal(got[4], want[4]),
+                    f"{kernel} captured {run}: counts differ from the twin")
+            for g, w in zip(got[:3], want[:3]):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+            K = args[5] if fused else args[2]
+            if fused:
+                ints, flts = args[:2]
+                enter = (flts[:, 1] > 0.5) & (flts[:, 0] > 0)
+                b = tables_bound(ints, flts, K, 27)
+            else:
+                enter = (args[0][:, 1] > 0.5) & (args[0][:, 0] > 0)
+                b = merge_bound(args[0], K, 8, 27)
+            name = merge2d_variant(True, kw.get("metric", 0), tables=fused)
+            rows[f"{name}{tag} captured"] = (
+                lambda f=fn, a=args, k=kw: f(*a, **k),
+                lambda f=twin, a=args, k=kw: f(*a, **k), 1, None, b)
+            phase("captured", f"{run} step {step}: {name} P="
+                  f"{enter.shape[0]} N={enter.shape[1]} K={K}: per particle "
+                  f"{json.dumps(merge_lanes(enter.sum(dim=1), got[3]))}; "
+                  f"counts equal to the twin's, max |err| "
+                  f"{max_err(list(zip(got[:3], want[:3]))):.3g} (rtol "
+                  "1e-4, atol 1e-5)")
+    return rows
+
+
 def knob_calls(dev, cfg):
     """time_kernels' rows of the knob variants and of the dense path's
-    kernels: name -> (kernel, twin, twin iterations, library call, bound)."""
+    kernels, then those of :func:`captured_calls`: name -> (kernel, twin,
+    twin iterations, library call, bound)."""
     min_fw, cb = cfg.min_feature_weight, cfg.clutter_density + cfg.birth_weight
     T, K = 16, 128
     s = map_scene(cfg, P_MAIN, K, 48, 44, seed=0, device=dev)
@@ -1855,22 +1862,20 @@ def knob_calls(dev, cfg):
     dg, dints, dflts = tables_payload(dcfg, ds)
     dtabs = (dints, dflts, dg["t_k"], dg["t_m"])
     dpacked = _finish_candidates_packed(dg, 2)
-    return {
+    rows = {
         "detect_adaptive": (
             lambda: detect(p6, z4, T, min_fw, cb, adaptive=True),
             lambda: detect_reference(p6, z4, T, min_fw, cb, adaptive=True),
-            5, None, detect_bound(p6, z4, T, 21)),
+            5, None, detect_bound(p6, z4, T)),
         "detect_cons": (
             lambda: detect(p13, z4, T, min_fw, cb, cfg.min_separation),
             lambda: detect_reference(p13, z4, T, min_fw, cb,
                                      cfg.min_separation), 5, None,
-            # the grid once (~21 FLOP per lane) and the column pass's
-            # quadratic, test and sums (~16)
-            detect_bound(p13, z4, T, 37, 40 * P_MAIN * K)),
+            detect_bound(p13, z4, T, min_fw, cb, cfg.min_separation)),
         "detect_cons_adaptive": (
             lambda: detect(d13, dz4, dT, d_fw, d_cb, d_sep, adaptive=True),
             lambda: detect_reference(d13, dz4, dT, d_fw, d_cb, d_sep), 2,
-            None, detect_bound(d13, dz4, dT, 37, 40 * P_DENSE * dK)),
+            None, detect_bound(d13, dz4, dT, d_fw, d_cb, d_sep)),
         "merge2d_tables": (
             lambda: merge2d_tables(*tabs, cfg.min_separation, K),
             lambda: merge2d_tables_reference(*tabs, cfg.min_separation, K),
@@ -1882,11 +1887,11 @@ def knob_calls(dev, cfg):
         "detect dense": (
             lambda: detect(d6, dz4, dT, d_fw, d_cb),
             lambda: detect_reference(d6, dz4, dT, d_fw, d_cb), 2, None,
-            detect_bound(d6, dz4, dT, 21)),
+            detect_bound(d6, dz4, dT)),
         "detect_adaptive dense": (
             lambda: detect(d6, dz4, dT, d_fw, d_cb, adaptive=True),
             lambda: detect_reference(d6, dz4, dT, d_fw, d_cb), 2, None,
-            detect_bound(d6, dz4, dT, 21)),
+            detect_bound(d6, dz4, dT)),
         "merge2d dense": (
             lambda: merge2d(dpacked, d_sep, dK),
             lambda: merge2d_reference(dpacked, d_sep, dK), 1, None,
@@ -1908,6 +1913,8 @@ def knob_calls(dev, cfg):
             lambda: merge2d_reference(dpacked, d_sep, dK), 1, None,
             tables_bound(dints, dflts, dK, 27)),
     }
+    rows.update(captured_calls(dev))
+    return rows
 
 
 def profile_step(r, label, host=(40, 60), prof=(60, 80), prefix="phd."):

@@ -209,28 +209,47 @@ def graph_ms(fn, iters=50):
     return best
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def bench_parser(doc):
+    """The side-by-side options of a bench script: --root DIR, the
+    checkout whose phdslam_tpu_torch is timed, and --label NAME."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
         __file__)), help="checkout whose phdslam_tpu_torch is timed")
     ap.add_argument("--label", default="", help="tag on every line")
-    args = ap.parse_args()
+    return ap
+
+
+def open_checkout(prog, root):
+    """Imports phdslam_tpu_torch from ``root`` (exits if it comes from
+    elsewhere, or if there is no CUDA device) and builds its kernels.
+    Returns the card's name and power limit."""
     if not torch.cuda.is_available():
-        sys.exit("gather_bench.py: no CUDA device")
-    root = os.path.abspath(args.root)
+        sys.exit(f"{prog}: no CUDA device")
+    root = os.path.abspath(root)
     sys.path.insert(0, root)
+    from phdslam_tpu_torch.kernels import build
+    if not build.__file__.startswith(root):
+        sys.exit(f"{prog}: imported {build.__file__}, not {root}")
+    build.library()
+    return card_name()
+
+
+def main():
+    args = bench_parser(__doc__).parse_args()
+    card = open_checkout("gather_bench.py", args.root)
     from phdslam_tpu_torch.kernels import build
     from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                        gather_cols_reference)
     from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
                                                        gather_rows_reference)
-    if not build.__file__.startswith(root):
-        sys.exit(f"gather_bench.py: imported {build.__file__}, not {root}")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    build.library()
     dev = torch.device("cuda:0")
     kernels = {"cols": (gather_cols, gather_cols_reference),
                "rows": (gather_rows, gather_rows_reference)}

@@ -1,18 +1,20 @@
 // Fused detection grid + normalizer + top-T selection for the GM-PHD update.
 //
-// Replaces phdslam_tpu/ops/pallas_detect.py::_detect_kernel in all of its
-// modes: plain, with adaptive trips (adaptive=True) and with same-source
-// pre-consolidation (cons_ref, min_sep > 0), alone or together.
+// Replaces phdslam_tpu/ops/pallas_detect.py::_detect_kernel (entry
+// detection_topT_batch) in all of its modes: plain, with adaptive trips
+// (adaptive=True) and with same-source pre-consolidation (cons_ref,
+// min_sep > 0), alone or together.
 // Semantics, per particle p and measurement m:
 //   pdw[k]  = pref[k] * exp(-0.5 d' S^-1 d), d = (zr - r[k], wrap(zb - b[k]))
 //   norm    = sum_k pdw[k] + cb
 //   live[k] = pdw[k] >= min_fw * norm && pdw[k] > 0 (and z valid)
-//   vals/idx: the T heaviest live lanes, ties to the lowest k; trips past
-//   the live lanes emit (0, 0); count = number of live lanes.
-// Adaptive trips stop a row once its lanes are used up and write the (0, 0)
-// tail the static trips would have written, so the outputs are the same
-// bits (the Pallas kernel exits per block of 8 particles; a per-warp exit
-// gives the same outputs).
+//   vals/idx: the T heaviest live lanes, ties to the lowest k; the slots
+//   past the live lanes hold (0, 0); count = number of live lanes.
+// A NaN pdw is never live, and a NaN norm leaves its whole row dead. The
+// TPU kernel's adaptive trips stop once a block's lanes are used up and
+// give the static trips' outputs; this kernel's selection costs the same
+// whatever the trip count, so adaptive=True launches the same kernel
+// (counted under its own name by the wrapper).
 // Consolidation (planes [P, 13, K]: the 6 above, then wp, the copy-copy
 // quadratic q00 q01 q11 and the copy-persistent quadratic p00 p01 p11 in
 // innovation coordinates): per feature column k, the head is the heaviest
@@ -26,42 +28,76 @@
 // Sw | Sdu_r | Sdu_b | Sduu_rr | Sduu_rb | Sduu_bb | c_r | c_b |
 // n_members | pers_in.
 //
-// What bounds it on Hopper: per (p, m) the work is K exp() plus T
-// arg-max reductions over K lanes; the only device-memory traffic is the
-// particle's 6 (13) x K input planes and (2T + 2) outputs per row (and 10 x
-// K cons), so the kernel is latency- and instruction-bound, not
-// bandwidth-bound.
-// Design, plain: one warp per (p, m) row, K / 32 features per lane held in
-// registers, so the [M, K] grid never leaves the register file (the TPU
-// kernel kept it in VMEM for the same reason). A block of 8 warps serves 8
-// measurements of one particle and stages that particle's planes in shared
-// memory once. The normalizer and live count are warp shuffles; each of
-// the T trips is a lane-local max followed by a 5-step shuffle
-// (max value, lowest index) reduction, which reproduces the TPU kernel's
-// lowest-index tie rule without the one-hot iota planes it needed.
-// Design, consolidating: the top-T needs per-column facts over all M rows
-// (the column max, the head row, membership), which no row block sees, and
-// the [M, K] grid does not fit in shared memory at K = 1024. So one block
-// per particle runs three passes over the grid, recomputing pdw each time
-// with the same device function (the same bits): (1) a warp per row for
-// the normalizers, kept in shared memory; (2) a thread per column (a warp
-// per 32 columns) for the head, the member test and the member sums, the
-// membership kept as an [M, K] bit mask in shared memory (one __ballot_sync
-// word per 32 columns and row); (3) a warp per row for the count and the
-// top-T over the live lanes that are not members.
+// What bounds it on Hopper: instructions and their latency, not bytes.
+// Device memory sees the particle's 6 (13) x K planes and (2T + 2) outputs
+// per row (and 10 x K cons). On an H100 SXM (3.35 TB/s, 67 TFLOP/s f32)
+// that is 0.0015 ms of HBM time at the Ackerman shape (P = 512, K = 128,
+// M = 48), and at the dense one (P = 1024, K = 1024, M = 72, T = 32) the
+// ~21 f32 operations per (p, m, k) lane, one exp among them, take 0.024
+// ms; the exact expf and the wrap's IEEE division make it ~55 issued
+// instructions a lane, which --fmad=false and bit equality keep.
+//
+// What the first design lost. Its selection was T arg-max trips over
+// every lane's K / 32 registers, each a 32-long dependent compare chain, a
+// 5-step shuffle reduction of (value, index) pairs and a 32-compare
+// removal: by count about 32 x 190 instructions a lane of every dense
+// row, 3x the pdw pass, even where a row has only a few live lanes (the
+// usual case: a measurement gates a few features; at most 17 of 1024 in
+// a dense step). It kept a second 32-register copy
+// of the row and had no launch bound, and it staged each particle's planes
+// once per block of 8 rows (9 times at M = 72). The consolidating kernel
+// evaluated the [M, K] grid four times (once for the normalizers, twice in
+// the column pass, once for the selection).
+//
+// This design. One block of 8 warps per particle (both kernels): the
+// particle's 6 pdw planes are staged into shared memory once by a TMA bulk
+// copy (bulk_copy.cuh::stage_slab), and each warp loops over rows m =
+// warp, warp + 8, ... with the row's pdw in registers (K / 32 a lane), as
+// the TPU kernel kept its grid in VMEM. The pdw arithmetic and the order
+// of every sum are the first design's, so every output is the same bits.
+// The selection reads each value a fixed number of times:
+//   - keys: a lane's float bits where it is live, else 0 (a live pdw is
+//     > 0, so its bits order as unsigned integers, and no dead or padding
+//     lane can ever rank ahead of a live one);
+//   - count <= 32: every live (value, index) pair is compacted to one
+//     slot a lane (__ballot_sync / __popc, through 256 bytes of shared
+//     memory a warp); count > 32 with T <= 32: the T-th largest key is
+//     found bit by bit (31 warp-wide counts: the largest threshold with at
+//     least T keys at or above it), and the keys above it plus the
+//     lowest-index keys equal to it fill exactly T slots;
+//   - a 15-stage warp bitonic sort on (value descending, index ascending)
+//     puts the t-th heaviest in lane t, which writes (value, index) or,
+//     past the selected lanes, (0, 0): the trips' tie rule and tail.
+// Only T > 32 with more than 32 live lanes (no shipped configuration) runs
+// trips, over the keys in place.
+// Consolidating: pass 1, a warp per row, evaluates the grid once for the
+// normalizers and writes the live lanes as an [M, K / 32] bit mask in
+// shared memory (one ballot word per 32 columns); pass 2, a thread per
+// column, finds the head and the member sums visiting only the live rows
+// of its column (their pdw again, by the same device function: the same
+// bits), reads the 7 consolidation planes straight from device memory, and
+// clears the members' bits; pass 3, a warp per row, counts the words' bits
+// and, at count <= 32, evaluates pdw only for the compacted live lanes
+// before the sort (a full row only above 32).
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
 
+#include "bulk_copy.cuh"
 #include "wrap.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;                       // warps per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMinBlocks = 4;                   // per SM: <= 64 registers
+constexpr int kPdwPlanes = 6;                   // staged per particle
 constexpr int kConsPlanes = 13;
 constexpr int kConsOut = 10;
+constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // pdw of feature k against (zr, zb), with its innovation (ir, ib); planes
@@ -76,8 +112,8 @@ __device__ __forceinline__ float lane_pdw(const float* sp, int K, int k,
   return sp[5 * K + k] * expf(-0.5f * dist);
 }
 
-// One warp's row: pdw of features lane + 32 j into registers; returns the
-// warp-wide sum of pdw
+// One warp's row: pdw of features lane + 32 j into registers (0 past K and
+// on an invalid z); returns the warp-wide sum of pdw
 template <int KPL>
 __device__ __forceinline__ float row_pdw(const float* sp, int K, int lane,
                                          float zr, float zb, bool zvalid,
@@ -96,57 +132,91 @@ __device__ __forceinline__ float row_pdw(const float* sp, int K, int lane,
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    sum += __shfl_xor_sync(kFull, sum, off);
   return sum;
 }
 
-// One warp's row: live lanes (pdw >= thr, > 0, and not a member when
-// ``member`` holds the row's bit words), their count and the top-T
-template <int KPL, bool kAdaptive>
-__device__ __forceinline__ void row_select(const float (&pdw)[KPL], int K,
-                                           int lane, float thr,
-                                           const unsigned* member, int T,
-                                           float* vals, int* idx,
-                                           int* count) {
-  // work: live pdw, -1 for dead lanes (as in the TPU kernel), -2 past K so
-  // padding lanes never win even once every real lane is exhausted
-  float work[KPL];
-  int cnt = 0;
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int k = lane + 32 * j;
-    bool live = k < K && pdw[j] >= thr && pdw[j] > 0.f;
-    if (live && member != nullptr && ((member[j] >> lane) & 1u)) live = false;
-    work[j] = live ? pdw[j] : (k < K ? -1.f : -2.f);
-    cnt += live ? 1 : 0;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-  if (lane == 0) *count = cnt;
+// A warp's scratch for compacting a row's selected lanes: one slot a lane
+struct Slots {
+  float v[32];
+  int i[32];
+};
 
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+// bytes of dynamic shared memory before the warps' Slots: the barrier and
+// the particle's staged pdw planes
+__host__ __device__ constexpr size_t slots_offset(int K) {
+  return align16(phd::staged_smem_bytes(kPdwPlanes * K));
+}
+
+// (av, ai) ranks ahead of (bv, bi): heavier, or as heavy and a lower index
+__device__ __forceinline__ bool ahead(float av, int ai, float bv, int bi) {
+  return av > bv || (av == bv && ai < bi);
+}
+
+// Bitonic sort of one (value, index) pair a lane across the warp: lane t
+// ends up with the t-th in (value descending, index ascending) order.
+// Empty slots carry (-1, INT_MAX) and sort last.
+__device__ __forceinline__ void warp_sort(float& v, int& i, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, v, j);
+      const int oi = __shfl_xor_sync(kFull, i, j);
+      // the lane that keeps the better of the pair
+      const bool keep_ahead = ((lane & j) == 0) == ((lane & k) == 0);
+      if (ahead(ov, oi, v, i) == keep_ahead) {
+        v = ov;
+        i = oi;
+      }
+    }
+  }
+}
+
+// Lane t < T writes the t-th selected pair, (0, 0) at t >= n_sel
+__device__ __forceinline__ void write_row(float v, int i, int n_sel, int T,
+                                          int lane, float* vals, int* idx) {
+  if (lane < T) {
+    const bool sel = lane < n_sel;
+    vals[lane] = sel ? v : 0.f;
+    idx[lane] = sel ? i : 0;
+  }
+  for (int u = 32 + lane; u < T; u += 32) {
+    vals[u] = 0.f;
+    idx[u] = 0;
+  }
+}
+
+// T trips over the keys in place (T > 32 with more than 32 eligible lanes
+// only): each takes the heaviest key, lowest index among ties, and zeroes
+// it; a trip that finds no key left writes the (0, 0) tail
+template <int KPL>
+__device__ __forceinline__ void select_trips(unsigned (&key)[KPL], int T,
+                                          int lane, float* vals, int* idx) {
   for (int t = 0; t < T; ++t) {
-    float bv = -3.f;
+    unsigned bv = 0u;
     int bk = INT_MAX;
 #pragma unroll
     for (int j = 0; j < KPL; ++j) {      // k rises with j: strict > keeps
-      if (work[j] > bv) {                // the lowest k among equal values
-        bv = work[j];
+      if (key[j] > bv) {                 // the lowest k among equal keys
+        bv = key[j];
         bk = lane + 32 * j;
       }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int ok = __shfl_xor_sync(0xffffffffu, bk, off);
+      const unsigned ov = __shfl_xor_sync(kFull, bv, off);
+      const int ok = __shfl_xor_sync(kFull, bk, off);
       if (ov > bv || (ov == bv && ok < bk)) {
         bv = ov;
         bk = ok;
       }
     }
-    // every lane holds the same (bv, bk): the exit is warp-uniform. A trip
-    // over used-up lanes (bv = -1, bk = 0) emits (0, 0), as written here.
-    if (kAdaptive && bv <= 0.f) {
+    if (bv == 0u) {                      // warp-uniform: every lane agrees
       for (int u = t + lane; u < T; u += 32) {
         vals[u] = 0.f;
         idx[u] = 0;
@@ -154,105 +224,200 @@ __device__ __forceinline__ void row_select(const float (&pdw)[KPL], int K,
       return;
     }
     if (lane == 0) {
-      vals[t] = fmaxf(bv, 0.f);
+      vals[t] = __uint_as_float(bv);
       idx[t] = bk;
     }
 #pragma unroll
     for (int j = 0; j < KPL; ++j)
-      if (lane + 32 * j == bk) work[j] = -1.f;
+      if (lane + 32 * j == bk) key[j] = 0u;
   }
 }
 
-template <int KPL, bool kAdaptive>
-__global__ void detect_kernel(const float* __restrict__ planes,
-                              const float* __restrict__ z4,
-                              float* __restrict__ vals,
-                              int* __restrict__ idx,
-                              float* __restrict__ norm,
-                              int* __restrict__ count,
-                              int K, int M, int T, float min_fw, float cb) {
-  extern __shared__ float sp[];                 // [6, K] of particle p
-  const int p = blockIdx.x;
-  const float* src = planes + static_cast<size_t>(p) * 6 * K;
-  for (int i = threadIdx.x; i < 6 * K; i += blockDim.x) sp[i] = src[i];
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.y * kWarps + warp;
-  if (m >= M) return;
-
-  float pdw[KPL];
-  const float nrm = row_pdw<KPL>(sp, K, lane, z4[4 * m], z4[4 * m + 1],
-                                 z4[4 * m + 2] > 0.5f, pdw) + cb;
-  const size_t row = static_cast<size_t>(p) * M + m;
-  if (lane == 0) norm[row] = nrm;
-  row_select<KPL, kAdaptive>(pdw, K, lane, min_fw * nrm, nullptr, T,
-                             vals + row * T, idx + row * T, count + row);
+// The top-T of one warp's row from its keys (a lane's pdw bits where it is
+// eligible, 0 elsewhere) and their warp-uniform count
+template <int KPL>
+__device__ __forceinline__ void select_keys(unsigned (&key)[KPL], int cnt,
+                                            int T, int lane, Slots& s,
+                                            float* vals, int* idx) {
+  if (cnt == 0) {
+    write_row(0.f, 0, 0, T, lane, vals, idx);
+    return;
+  }
+  if (cnt > 32 && T > 32) {
+    select_trips<KPL>(key, T, lane, vals, idx);
+    return;
+  }
+  // select the keys above thr and the r lowest-index keys equal to it
+  unsigned thr = 0u;
+  int r = 0;
+  if (cnt > 32) {
+    // T < cnt: thr = the T-th largest key, the largest value with at least
+    // T keys at or above it, bit by bit (live keys are > 0 with bit 31
+    // clear)
+    for (int b = 30; b >= 0; --b) {
+      const unsigned c = thr | (1u << b);
+      int n = 0;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) n += key[j] >= c ? 1 : 0;
+      if (__reduce_add_sync(kFull, n) >= T) thr = c;
+    }
+    int n_gt = 0;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) n_gt += key[j] > thr ? 1 : 0;
+    r = T - __reduce_add_sync(kFull, n_gt);
+  }
+  // compaction in index order (j, then lane): the equal keys' ranks count
+  // up from the lowest index
+  const unsigned below = (1u << lane) - 1u;
+  int base = 0, seen = 0;
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    bool sel = key[j] > thr;
+    if (r > 0) {                         // warp-uniform
+      const bool eq = key[j] == thr;
+      const unsigned eqm = __ballot_sync(kFull, eq);
+      sel = sel || (eq && seen + __popc(eqm & below) < r);
+      seen += __popc(eqm);
+    }
+    const unsigned sm = __ballot_sync(kFull, sel);
+    if (sel) {
+      const int pos = base + __popc(sm & below);
+      s.v[pos] = __uint_as_float(key[j]);
+      s.i[pos] = lane + 32 * j;
+    }
+    base += __popc(sm);
+  }
+  __syncwarp();
+  float v = -1.f;
+  int i = INT_MAX;
+  if (lane < base) {
+    v = s.v[lane];
+    i = s.i[lane];
+  }
+  __syncwarp();                          // the slots are free again
+  warp_sort(v, i, lane);
+  write_row(v, i, base, T, lane, vals, idx);
 }
 
-template <int KPL, bool kAdaptive>
-__global__ void __launch_bounds__(32 * kWarps)
+template <int KPL>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+detect_kernel(const float* __restrict__ planes, const float* __restrict__ z4,
+              float* __restrict__ vals, int* __restrict__ idx,
+              float* __restrict__ norm, int* __restrict__ count, int K,
+              int M, int T, float min_fw, float cb) {
+  // barrier + staged [6, K] planes of particle p | Slots [kWarps]
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int p = blockIdx.x;
+  uint64_t* bar;
+  const float* sp = phd::stage_slab(
+      planes + static_cast<size_t>(p) * kPdwPlanes * K, kPdwPlanes * K, smem,
+      &bar);
+  Slots* slots = reinterpret_cast<Slots*>(smem + slots_offset(K));
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  __syncthreads();                      // the slab's head and tail
+  phd::mbar_wait(bar, 0);               // its bulk-copied middle
+
+  for (int m = warp; m < M; m += kWarps) {
+    float pdw[KPL];
+    const float nrm = row_pdw<KPL>(sp, K, lane, z4[4 * m], z4[4 * m + 1],
+                                   z4[4 * m + 2] > 0.5f, pdw) + cb;
+    const float thr = min_fw * nrm;
+    // pdw is 0 past K, so no padding lane is live
+    unsigned key[KPL];
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const bool live = pdw[j] >= thr && pdw[j] > 0.f;
+      key[j] = live ? __float_as_uint(pdw[j]) : 0u;
+      cnt += live ? 1 : 0;
+    }
+    cnt = __reduce_add_sync(kFull, cnt);
+    const size_t row = static_cast<size_t>(p) * M + m;
+    if (lane == 0) {
+      norm[row] = nrm;
+      count[row] = cnt;
+    }
+    select_keys<KPL>(key, cnt, T, lane, slots[warp], vals + row * T,
+                     idx + row * T);
+  }
+}
+
+template <int KPL>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 detect_cons_kernel(const float* __restrict__ planes,
                    const float* __restrict__ z4, float* __restrict__ vals,
                    int* __restrict__ idx, float* __restrict__ norm,
                    int* __restrict__ count, float* __restrict__ cons, int K,
                    int M, int T, float min_fw, float cb, float min_sep) {
-  // [13, K] planes | z4 [M, 4] | norms [M] | member bits [M, W]
-  extern __shared__ float sp[];
+  // barrier + staged [6, K] pdw planes | Slots [kWarps] | z4 [M, 4] |
+  // norms [M] | bit words [M, W]: the live lanes after pass 1, the live
+  // lanes that are not members after pass 2
+  extern __shared__ __align__(16) unsigned char smem[];
   const int W = (K + 31) / 32;
-  float* sz = sp + kConsPlanes * K;
-  float* snorm = sz + 4 * M;
-  unsigned* sbits = reinterpret_cast<unsigned*>(snorm + M);
   const int p = blockIdx.x;
   const float* src = planes + static_cast<size_t>(p) * kConsPlanes * K;
-  for (int i = threadIdx.x; i < kConsPlanes * K; i += blockDim.x)
-    sp[i] = src[i];
+  uint64_t* bar;
+  const float* sp = phd::stage_slab(src, kPdwPlanes * K, smem, &bar);
+  Slots* slots = reinterpret_cast<Slots*>(smem + slots_offset(K));
+  float* sz = reinterpret_cast<float*>(slots + kWarps);
+  float* snorm = sz + 4 * M;
+  unsigned* sbits = reinterpret_cast<unsigned*>(snorm + M);
   for (int i = threadIdx.x; i < 4 * M; i += blockDim.x) sz[i] = z4[i];
-  __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  __syncthreads();
+  phd::mbar_wait(bar, 0);
 
-  // pass 1: the normalizers, a warp per row
+  // pass 1: a warp per row: the normalizer, and the live lanes as words
+  // (word j: features 32 j .. 32 j + 31, bit = lane)
   for (int m = warp; m < M; m += kWarps) {
     float pdw[KPL];
     const float nrm = row_pdw<KPL>(sp, K, lane, sz[4 * m], sz[4 * m + 1],
                                    sz[4 * m + 2] > 0.5f, pdw) + cb;
+    const float thr = min_fw * nrm;
+    unsigned word = 0u;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const unsigned b = __ballot_sync(kFull, pdw[j] >= thr && pdw[j] > 0.f);
+      if (lane == j) word = b;
+    }
+    if (lane < W) sbits[m * W + lane] = word;
     if (lane == 0) snorm[m] = nrm;
   }
   __syncthreads();
 
-  // pass 2: a thread per column k, a warp per 32 consecutive columns
+  // pass 2: a thread per column k, a warp per 32 consecutive columns (one
+  // bit word a row, which only this warp reads and writes)
   float* cp = cons + static_cast<size_t>(p) * kConsOut * K;
+  const float* gx = src + kPdwPlanes * K;        // wp, q.., p.. planes
   for (int kb = 32 * warp; kb < K; kb += 32 * kWarps) {
     const int k = kb + lane;
     const bool real = k < K;
+    unsigned* col_words = sbits + (kb >> 5);
     // the head copy: the heaviest live w_det, the lowest m among ties
     float best = -INFINITY;
     float uh_r = 0.f, uh_b = 0.f;
-    if (real) {
-      for (int m = 0; m < M; ++m) {
-        if (!(sz[4 * m + 2] > 0.5f)) continue;
+    for (int m = 0; m < M; ++m) {
+      if ((col_words[m * W] >> lane) & 1u) {
         float ir, ib;
         const float v = lane_pdw(sp, K, k, sz[4 * m], sz[4 * m + 1], ir, ib);
-        if (v >= min_fw * snorm[m] && v > 0.f) {
-          const float wd = v / snorm[m];
-          if (wd > best) {
-            best = wd;
-            uh_r = ir;
-            uh_b = ib;
-          }
+        const float wd = v / snorm[m];
+        if (wd > best) {
+          best = wd;
+          uh_r = ir;
+          uh_b = ib;
         }
       }
     }
     const float colmax = fmaxf(best, 0.f);
-    const float wp = real ? sp[6 * K + k] : 0.f;
-    const float q00 = real ? sp[7 * K + k] : 0.f;
-    const float q01 = real ? sp[8 * K + k] : 0.f;
-    const float q11 = real ? sp[9 * K + k] : 0.f;
-    const float p00 = real ? sp[10 * K + k] : 0.f;
-    const float p01 = real ? sp[11 * K + k] : 0.f;
-    const float p11 = real ? sp[12 * K + k] : 0.f;
+    const float wp = real ? gx[k] : 0.f;
+    const float q00 = real ? gx[K + k] : 0.f;
+    const float q01 = real ? gx[2 * K + k] : 0.f;
+    const float q11 = real ? gx[3 * K + k] : 0.f;
+    const float p00 = real ? gx[4 * K + k] : 0.f;
+    const float p01 = real ? gx[5 * K + k] : 0.f;
+    const float p11 = real ? gx[6 * K + k] : 0.f;
     const bool has_copy = colmax > 0.f;
     // the persistent lane heads the column when at least as heavy
     const bool head_p = wp >= colmax && wp > 0.f;
@@ -269,12 +434,14 @@ detect_cons_kernel(const float* __restrict__ planes,
     float s_w = 0.f, s_r = 0.f, s_b = 0.f, s_rr = 0.f, s_rb = 0.f,
           s_bb = 0.f;
     int n_mem = 0;
-    for (int m = 0; m < M; ++m) {
-      bool member = false;
-      if (real && flag && sz[4 * m + 2] > 0.5f) {
-        float ir, ib;
-        const float v = lane_pdw(sp, K, k, sz[4 * m], sz[4 * m + 1], ir, ib);
-        if (v >= min_fw * snorm[m] && v > 0.f) {
+    if (__any_sync(kFull, flag)) {       // else no member in these columns
+      for (int m = 0; m < M; ++m) {
+        const unsigned word = col_words[m * W];
+        bool member = false;
+        if (flag && ((word >> lane) & 1u)) {
+          float ir, ib;
+          const float v = lane_pdw(sp, K, k, sz[4 * m], sz[4 * m + 1], ir,
+                                   ib);
           const float du_r = ir - c_r;
           const float du_b = ib - c_b;
           const float quad = a00 * du_r * du_r + 2.f * a01 * du_r * du_b
@@ -291,9 +458,9 @@ detect_cons_kernel(const float* __restrict__ planes,
             ++n_mem;
           }
         }
+        const unsigned bits = __ballot_sync(kFull, member);
+        if (lane == 0 && bits != 0u) col_words[m * W] = word & ~bits;
       }
-      const unsigned bits = __ballot_sync(0xffffffffu, member);
-      if (lane == 0) sbits[m * W + (kb >> 5)] = bits;
     }
     if (real) {
       cp[k] = s_w;
@@ -310,17 +477,56 @@ detect_cons_kernel(const float* __restrict__ planes,
   }
   __syncthreads();
 
-  // pass 3: the count and the top-T over live non-member lanes, a warp per
-  // row
+  // pass 3: the count and the top-T over the live non-member lanes, a warp
+  // per row; lane j holds the row's word j
   for (int m = warp; m < M; m += kWarps) {
-    float pdw[KPL];
-    row_pdw<KPL>(sp, K, lane, sz[4 * m], sz[4 * m + 1], sz[4 * m + 2] > 0.5f,
-                 pdw);
-    const float nrm = snorm[m];
+    const unsigned word = lane < W ? sbits[m * W + lane] : 0u;
+    const int own = __popc(word);
+    const int cnt = __reduce_add_sync(kFull, own);
     const size_t row = static_cast<size_t>(p) * M + m;
-    if (lane == 0) norm[row] = nrm;
-    row_select<KPL, kAdaptive>(pdw, K, lane, min_fw * nrm, sbits + m * W, T,
-                               vals + row * T, idx + row * T, count + row);
+    if (lane == 0) {
+      norm[row] = snorm[m];
+      count[row] = cnt;
+    }
+    float* vrow = vals + row * T;
+    int* irow = idx + row * T;
+    if (cnt == 0) {
+      write_row(0.f, 0, 0, T, lane, vrow, irow);
+    } else if (cnt <= 32) {
+      // compact the eligible features from the words (an exclusive scan of
+      // the bit counts), then evaluate pdw for those lanes only
+      int off = own;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(kFull, off, d);
+        if (lane >= d) off += o;
+      }
+      off -= own;
+      for (unsigned w = word; w != 0u; w &= w - 1u)
+        slots[warp].i[off++] = 32 * lane + __ffs(w) - 1;
+      __syncwarp();
+      float v = -1.f;
+      int i = INT_MAX;
+      if (lane < cnt) {
+        i = slots[warp].i[lane];
+        float ir, ib;
+        v = lane_pdw(sp, K, i, sz[4 * m], sz[4 * m + 1], ir, ib);
+      }
+      __syncwarp();
+      warp_sort(v, i, lane);
+      write_row(v, i, cnt, T, lane, vrow, irow);
+    } else {
+      float pdw[KPL];
+      row_pdw<KPL>(sp, K, lane, sz[4 * m], sz[4 * m + 1],
+                   sz[4 * m + 2] > 0.5f, pdw);
+      unsigned key[KPL];
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const unsigned wj = __shfl_sync(kFull, word, j);
+        key[j] = ((wj >> lane) & 1u) ? __float_as_uint(pdw[j]) : 0u;
+      }
+      select_keys<KPL>(key, cnt, T, lane, slots[warp], vrow, irow);
+    }
   }
 }
 
@@ -336,40 +542,35 @@ struct Args {
   float min_fw, cb, min_sep;
 };
 
+size_t plain_smem(int K) {
+  return slots_offset(K) + kWarps * sizeof(Slots);
+}
+
 size_t cons_smem(int K, int M) {
-  return sizeof(float) * (kConsPlanes * static_cast<size_t>(K) + 5 * M)
+  return plain_smem(K) + sizeof(float) * 5 * static_cast<size_t>(M)
          + sizeof(unsigned) * static_cast<size_t>(M) * ((K + 31) / 32);
 }
 
-template <int KPL, bool kAdaptive>
+template <int KPL>
 int launch(const Args& a, cudaStream_t stream) {
   if (a.cons == nullptr) {
-    const dim3 grid(a.P, (a.M + kWarps - 1) / kWarps);
-    detect_kernel<KPL, kAdaptive><<<grid, 32 * kWarps,
-                                    sizeof(float) * 6 * a.K, stream>>>(
+    // at most 26.6 KB (K = 1024): under the 48 KB default
+    detect_kernel<KPL><<<a.P, kThreads, plain_smem(a.K), stream>>>(
         a.planes, a.z4, a.vals, a.idx, a.norm, a.count, a.K, a.M, a.T,
         a.min_fw, a.cb);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = cons_smem(a.K, a.M);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto* kernel = detect_cons_kernel<KPL, kAdaptive>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<a.P, 32 * kWarps, smem, stream>>>(
+  static int allowed[phd::kMaxDevices] = {};
+  auto* kernel = detect_cons_kernel<KPL>;
+  const cudaError_t err =
+      phd::allow_smem(kernel, static_cast<int>(smem), allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<a.P, kThreads, smem, stream>>>(
       a.planes, a.z4, a.vals, a.idx, a.norm, a.count, a.cons, a.K, a.M, a.T,
       a.min_fw, a.cb, a.min_sep);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int KPL>
-int dispatch(const Args& a, int adaptive, cudaStream_t stream) {
-  return adaptive ? launch<KPL, true>(a, stream)
-                  : launch<KPL, false>(a, stream);
 }
 
 }  // namespace
@@ -379,15 +580,15 @@ int dispatch(const Args& a, int adaptive, cudaStream_t stream) {
 extern "C" int phd_detect(const float* planes, const float* z4, float* vals,
                           int* idx, float* norm, int* count, float* cons,
                           int P, int K, int M, int T, float min_fw, float cb,
-                          float min_sep, int adaptive, void* stream) {
+                          float min_sep, void* stream) {
   if (P <= 0 || M <= 0) return 0;
   if (T <= 0 || T > K) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{planes, z4, vals, idx, norm, count, cons, P, K, M, T,
                min_fw, cb, min_sep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K <= 128) return dispatch<4>(a, adaptive, s);
-  if (K <= 256) return dispatch<8>(a, adaptive, s);
-  if (K <= 512) return dispatch<16>(a, adaptive, s);
-  if (K <= 1024) return dispatch<32>(a, adaptive, s);
+  if (K <= 128) return launch<4>(a, s);
+  if (K <= 256) return launch<8>(a, s);
+  if (K <= 512) return launch<16>(a, s);
+  if (K <= 1024) return launch<32>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,9 +44,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # planes, z4, vals, idx, norm, count, cons (NULL: plain), P, K, M, T,
-    # min_fw, cb, min_sep, adaptive, stream
+    # min_fw, cb, min_sep, stream
     "phd_detect": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                   _I, _P],
+                   _P],
     # idx, tab, out, P, C, R, cap, staged, vec, stream
     "phd_gather_cols": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # idx, tab, out, P, R, C, cap, staged, vec, stream

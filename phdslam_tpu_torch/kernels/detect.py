@@ -12,8 +12,9 @@ measurement m:
 
 Trips past the live lanes, and rows whose measurement is invalid, give
 vals = idx = 0; an invalid row's norm is cb. ``adaptive`` (detect_adaptive)
-stops the trips once a row's lanes are used up: the same outputs, bit for
-bit. ``min_sep > 0`` (premerge_consolidate) takes planes [P, 13, K] and
+stops the Pallas kernel's trips once a block's lanes are used up: the same
+outputs, bit for bit; here it launches the same kernel, whose selection
+costs the same whatever the trip count. ``min_sep > 0`` (premerge_consolidate) takes planes [P, 13, K] and
 collapses, per feature column, the detection copies within min_sep of the
 column's greedy head (see :func:`_consolidate`): members leave the count
 and the top-T, and a fifth output cons [P, 10, K] carries their moment
@@ -154,33 +155,35 @@ def detect(planes, z4, top_t: int, min_fw: float, cb: float,
            min_sep: float = 0.0, adaptive: bool = False):
     """Batched detection + top-T; same contract as :func:`detect_reference`.
 
-    A CPU tensor runs the twin; a CUDA tensor launches the kernel.
+    A CPU tensor runs the twin; a CUDA tensor launches the kernel, the same
+    one with or without ``adaptive`` (its selection does not depend on the
+    trip count), counted under the variant's name. The argument check
+    formats its message only on a failure, so a passing call costs the
+    host little.
     """
-    if planes.device.type == "cpu":
+    if planes.is_cpu:
         return detect_reference(planes, z4, top_t, min_fw, cb, min_sep,
                                 adaptive)
-    build.require(planes.device.type == "cuda",
-                  f"detect: unsupported device {planes.device}")
     cons_on = min_sep > 0
     P, C, K = planes.shape
     M = z4.shape[0]
-    build.require(C == N_PLANES[cons_on] and z4.shape == (M, 4),
-                  f"detect: planes {tuple(planes.shape)}, z4 "
-                  f"{tuple(z4.shape)}, min_sep {min_sep}")
-    build.require(planes.dtype == torch.float32 and z4.dtype == torch.float32,
-                  "detect: float32 inputs required")
-    build.require(z4.device == planes.device, "detect: z4 on another device")
-    build.require(planes.is_contiguous() and z4.is_contiguous(),
-                  "detect: contiguous inputs required")
-    build.require(0 < K <= MAX_FEATURES and 0 < top_t <= K,
-                  f"detect: K={K} T={top_t} out of range")
-    dev = planes.device
-    vals = torch.empty((P, M, top_t), dtype=torch.float32, device=dev)
-    idx = torch.empty((P, M, top_t), dtype=torch.int32, device=dev)
-    norm = torch.empty((P, M), dtype=torch.float32, device=dev)
-    count = torch.empty((P, M), dtype=torch.int32, device=dev)
-    cons = (torch.empty((P, 10, K), dtype=torch.float32, device=dev)
-            if cons_on else None)
+    if not (planes.is_cuda and C == N_PLANES[cons_on]
+            and z4.shape == (M, 4) and planes.dtype == torch.float32
+            and z4.dtype == torch.float32 and z4.device == planes.device
+            and planes.is_contiguous() and z4.is_contiguous()
+            and 0 < K <= MAX_FEATURES and 0 < top_t <= K):
+        raise ValueError(
+            f"detect: needs contiguous float32 planes [P, "
+            f"{N_PLANES[cons_on]}, K] (K <= {MAX_FEATURES}) and z4 [M, 4] "
+            f"on one CUDA device, 0 < T <= K; got planes "
+            f"{tuple(planes.shape)} {planes.dtype} on {planes.device}, z4 "
+            f"{tuple(z4.shape)} {z4.dtype} on {z4.device}, T={top_t}, "
+            f"min_sep {min_sep}")
+    vals = planes.new_empty((P, M, top_t))
+    idx = planes.new_empty((P, M, top_t), dtype=torch.int32)
+    norm = planes.new_empty((P, M))
+    count = planes.new_empty((P, M), dtype=torch.int32)
+    cons = planes.new_empty((P, 10, K)) if cons_on else None
     outs = (vals, idx, norm, count) + ((cons,) if cons_on else ())
     if P == 0 or M == 0:
         if cons_on:
@@ -190,8 +193,7 @@ def detect(planes, z4, top_t: int, min_fw: float, cb: float,
         planes.data_ptr(), z4.data_ptr(), vals.data_ptr(), idx.data_ptr(),
         norm.data_ptr(), count.data_ptr(),
         cons.data_ptr() if cons_on else None, P, K, M, top_t, float(min_fw),
-        float(cb), float(min_sep), int(bool(adaptive)),
-        build.stream_handle(dev))
+        float(cb), float(min_sep), build.stream_handle(planes.device))
     name = detect_variant(cons_on, adaptive)
     build.check_launch(err, name)
     build.launch_counts[name] += 1

@@ -18,7 +18,9 @@ and the dense configuration's (K=1024, M=72, T=32, cap 1536): the detect
 kernel with adaptive trips and with pre-consolidation, the fused gather +
 merge against the two-kernel route on the card, and the row gather. Both
 gathers run at the paths' shapes and at ragged, unaligned, out-of-range
-and above-budget cases, in both their modes. The resampling's fixed-order
+and above-budget cases, in both their modes. The detect kernel runs at
+the selection's edges (``detect_bench.DETECT_EDGES``) in all four
+variants. The resampling's fixed-order
 cumsum repeats its bits at P=10240.
 """
 
@@ -26,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, compare_detect,
+                          detect_edge_case)
 from gather_bench import GATHER_CASES, gather_case
 from phdslam_tpu_torch import load_config
 from phdslam_tpu_torch.eval.scenes import (detect_planes, map_scene,
@@ -500,6 +504,37 @@ def test_detect_dense_matches_twin(dev):
     args = (planes, z4, T, cfg.min_feature_weight,
             cfg.clutter_density + cfg.birth_weight)
     assert_detect_matches(detect(*args), detect_reference(*args))
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("cons", [False, True])
+@pytest.mark.parametrize("case", list(DETECT_EDGES))
+def test_detect_edges_match_twin(dev, case, cons, adaptive):
+    """The selection's edges (detect_bench.DETECT_EDGES: live count exactly
+    T and T + 1 at T 32 and 16, every lane dead, K 100, T = K, T 1, M 1, a
+    NaN in a plane, duplicated features at T 32, K 1024 at min_fw 0) in
+    each variant: idx and the counts equal to the twin's, vals and norm to
+    rtol 1e-5 (NaN where the twin's is), the cons planes to the gates of
+    detect_bench.compare_detect; adaptive bit-equal to the static
+    launch."""
+    planes, z4, T, min_fw, cb = (
+        torch.from_numpy(x).to(dev) if isinstance(x, np.ndarray) else x
+        for x in detect_edge_case(case, cons))
+    args = (planes, z4, T, min_fw, cb, MIN_SEP_EDGES if cons else 0.0)
+    build.reset_launch_counts()
+    got = detect(*args, adaptive=adaptive)
+    torch.cuda.synchronize()
+    assert dict(build.launch_counts) == {detect_variant(cons, adaptive): 1}
+    compare_detect(got, detect_reference(*args), case, planes, z4, min_fw,
+                   cb)
+    if adaptive:                         # bit for bit, NaN norms too
+        for a, b in zip(got, detect(*args)):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b)
+    opt = DETECT_EDGES[case][5]
+    if "live" in opt and not cons:
+        assert (got[3][:, z4[:, 2] > 0.5] == opt["live"]).all()
 
 
 def test_resampling_cumsum_repeats_on_the_card(dev):

@@ -14,6 +14,7 @@ from phdslam_tpu.ops.pallas_detect import detection_topT_batch
 from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch_packed
 from phdslam_tpu.ops.pallas_select import (onehot_cols_batch,
                                            onehot_rows_batch)
+from detect_bench import DETECT_EDGES, MIN_SEP_EDGES, detect_edge_case
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
@@ -78,14 +79,31 @@ DETECT_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(DETECT_CASES))
+def detect_args(case):
+    """(planes, z4, T, min_fw, cb) of a DETECT_CASES entry (T 4, min_fw
+    1e-4, cb 0.05) or of detect_bench.DETECT_EDGES: the selection's edges
+    (live count exactly T and T + 1 at T 32 and 16, every lane dead, K 100,
+    T = K, T 1, M 1, a NaN in a plane, duplicated features at T 32, K 1024
+    at min_fw 0)."""
+    if case in DETECT_CASES:
+        return (*detect_case(**DETECT_CASES[case]), 4, 1e-4, 0.05)
+    return detect_edge_case(case)
+
+
+def pallas_and_twin(planes, z4, T, min_fw, cb, min_sep=0.0):
+    """The Pallas kernel's outputs (interpret mode) and the twin's, numpy."""
+    want = detection_topT_batch(jnp.asarray(planes), jnp.asarray(z4), T,
+                                min_fw, cb, interpret=True, min_sep=min_sep)
+    got = detect_reference(torch.from_numpy(planes), torch.from_numpy(z4),
+                           T, min_fw, cb, min_sep)
+    return ([np.asarray(x) for x in want], [x.numpy() for x in got])
+
+
+@pytest.mark.parametrize("case", sorted(DETECT_CASES) + list(DETECT_EDGES))
 def test_detect_twin_matches_pallas(case):
-    planes, z4 = detect_case(**DETECT_CASES[case])
-    T, min_fw, cb = 4, 1e-4, 0.05
-    kv, ki, kn, kc = (np.asarray(x) for x in detection_topT_batch(
-        jnp.asarray(planes), jnp.asarray(z4), T, min_fw, cb, interpret=True))
-    tv, ti, tn, tc = (x.numpy() for x in detect_reference(
-        torch.from_numpy(planes), torch.from_numpy(z4), T, min_fw, cb))
+    planes, z4, T, min_fw, cb = detect_args(case)
+    (kv, ki, kn, kc), (tv, ti, tn, tc) = pallas_and_twin(planes, z4, T,
+                                                         min_fw, cb)
     np.testing.assert_allclose(tn, kn, rtol=1e-6, atol=1e-9)
     np.testing.assert_allclose(tv, kv, rtol=1e-6, atol=1e-9)
     np.testing.assert_array_equal(tc, kc)
@@ -94,6 +112,33 @@ def test_detect_twin_matches_pallas(case):
     # exhausted trips and invalid rows emit index 0, like the TPU kernel
     assert (ti[~sel] == 0).all() and (ki[~sel] == 0).all()
     assert ti.dtype == np.int32 and tc.dtype == np.int32
+    opt = DETECT_EDGES.get(case, (0,) * 5 + ({},))[5]
+    if "live" in opt:
+        assert (tc[:, z4[:, 2] > 0.5] == opt["live"]).all()
+    if opt.get("nan"):                   # the NaN particle's valid rows
+        valid = z4[:, 2] > 0.5
+        assert np.isnan(tn[1, valid]).all() and (tc[1] == 0).all()
+        assert np.isfinite(tn[0]).all() and (tn[1, ~valid] == cb).all()
+
+
+@pytest.mark.parametrize("case", list(DETECT_EDGES))
+def test_detect_cons_twin_matches_pallas_edges(case):
+    """The consolidating twin against the Pallas kernel's cons_ref branch at
+    the selection's edges: top-T of the live non-member lanes, counts, and
+    the cons planes (member counts, pers_in and head coordinates exactly,
+    the moment sums to rtol 1e-4 / atol 1e-6)."""
+    planes, z4, T, min_fw, cb = detect_edge_case(case, cons=True)
+    (kv, ki, kn, kc, kcons), (tv, ti, tn, tc, tcons) = pallas_and_twin(
+        planes, z4, T, min_fw, cb, MIN_SEP_EDGES)
+    np.testing.assert_allclose(tn, kn, rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(tv, kv, rtol=1e-6, atol=1e-9)
+    np.testing.assert_array_equal(tc, kc)
+    sel = kv > 0
+    np.testing.assert_array_equal(ti[sel], ki[sel])
+    assert (ti[~sel] == 0).all() and (ki[~sel] == 0).all()
+    np.testing.assert_array_equal(tcons[:, 6:], kcons[:, 6:])
+    np.testing.assert_allclose(tcons[:, :6], kcons[:, :6], rtol=1e-4,
+                               atol=1e-6)
 
 
 def test_detect_ties_go_to_lowest_index():
