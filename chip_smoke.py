@@ -83,13 +83,16 @@ from unittest import mock
 import numpy as np
 import torch
 
-from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, bound, capture_step,
+from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, capture_step,
                           captured_args, check_case, compare_detect,
                           detect_bound, detect_edge_case, live_counts,
-                          max_err, merge_lanes, require)
+                          max_err, require)
 from gather_bench import (GATHER_CASES, GATHER_TIMED, card_name, cycling,
                           gather_bound, gather_case, gather_sets, graph_ms,
                           time_call)
+from merge_bench import (MERGE_EDGES, edge_runs, full_grid_inputs,
+                         merge_bound, merge_inputs, merge_rounds,
+                         round_stats, run_case, tables_bound)
 from phdslam_tpu_torch import load_config
 from phdslam_tpu_torch import SlamConfig
 from phdslam_tpu_torch.eval import simdata
@@ -116,7 +119,7 @@ from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
                                              merge2d_tables_reference,
                                              merge2d_variant, merge3d,
                                              merge3d_reference, merge4d,
-                                             merge4d_reference)
+                                             merge4d_reference, tables_packed)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
 from phdslam_tpu_torch.ops import resample
 from phdslam_tpu_torch.ops.math import logsumexp
@@ -300,47 +303,6 @@ def detect_inputs(dev, P=P_MAIN, K=128, M=48, n_valid=44, seed=0):
                   axis=1)
     return (torch.tensor(planes, dtype=torch.float32, device=dev),
             torch.tensor(z4, dtype=torch.float32, device=dev))
-
-
-def merge_inputs(dev, P=P_MAIN, N=512, seed=0, spread=0.3):
-    """Clustered candidates, active lanes as a weight-descending prefix."""
-    rng = np.random.default_rng(seed)
-    centers = rng.normal(0, 20, (P, 40, 2))
-    mean = centers[np.arange(P)[:, None], rng.integers(0, 40, (P, N))] \
-        + rng.normal(0, spread, (P, N, 2))
-    A = rng.normal(0, 0.5, (P, N, 2, 2))
-    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.3 * np.eye(2)
-    w = rng.uniform(0, 1, (P, N))
-    act = rng.random((P, N)) < 0.6
-    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
-
-    def take(x):
-        return np.take_along_axis(x, order, axis=1)
-    act_s = take(act)
-    planes = np.stack([np.where(act_s, take(w), 0.0), act_s,
-                       take(mean[..., 0]), take(mean[..., 1]),
-                       take(cov[..., 0, 0]), take(cov[..., 0, 1]),
-                       take(cov[..., 1, 1])], axis=1)
-    return torch.tensor(planes, dtype=torch.float32, device=dev)
-
-
-def full_grid_inputs(dev, P=P_MAIN, N=6320, seed=0, frac=0.1, n_centers=40):
-    """The full grid's merge planes (K + M K + M = 6320 lanes at K=128,
-    M=48): ~``frac`` of the lanes active, spread over the lane axis in no
-    weight order, clustered means (spread 0.3 about ``n_centers``
-    centres), covariances 0.3 I + A A'."""
-    rng = np.random.default_rng(seed)
-    centers = rng.normal(0, 20, (P, n_centers, 2))
-    mean = centers[np.arange(P)[:, None],
-                   rng.integers(0, n_centers, (P, N))] \
-        + rng.normal(0, 0.3, (P, N, 2))
-    A = rng.normal(0, 0.5, (P, N, 2, 2))
-    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.3 * np.eye(2)
-    act = rng.random((P, N)) < frac
-    w = np.where(act, rng.uniform(1e-3, 1, (P, N)), 0.0)
-    planes = np.stack([w, act, mean[..., 0], mean[..., 1], cov[..., 0, 0],
-                       cov[..., 0, 1], cov[..., 1, 1]], axis=1)
-    return torch.tensor(planes, dtype=torch.float32, device=dev)
 
 
 def merge4d_inputs(dev, P=P_MAIN, N=128, seed=0):
@@ -765,6 +727,7 @@ def check_variants(dev, errs):
     phase("kernels", "detect_cons far-persistent scene: the copy heads, no "
           "member, pers_in 0, as the twin")
     check_detect_edges(dev, errs)
+    check_merge_edges(dev, errs)
 
 
 def check_detect_edges(dev, errs):
@@ -792,6 +755,22 @@ def check_detect_edges(dev, errs):
     phase("kernels", f"detect edges: {len(DETECT_EDGES)} cases, plain and "
           "consolidating, each static and adaptive (bit-equal), idx and "
           "counts equal to the twin's, values within rtol 1e-5")
+
+
+def check_merge_edges(dev, errs):
+    """Both 2D merge kernels at merge_bench.MERGE_EDGES (no lane entering,
+    one lane, one all-covering cluster, K binding, NaN and w <= 0 weights,
+    equal weights, N 2048 and 2049, N 8192 with every lane entering past
+    the shared-memory slots, P 1): merge2d in its four variants and
+    merge2d_tables in both metrics against their twins, counts equal."""
+    runs = edge_runs(dev)
+    for label, tabs, packed, K, sep, sorted_w, metric in runs:
+        _, name, _, err = run_case(tabs, packed, K, sep, sorted_w, metric,
+                                   label)
+        errs[name] = max(errs.get(name, 0.0), err)
+    phase("kernels", f"merge edges: {len(MERGE_EDGES)} cases, {len(runs)} "
+          "runs (merge2d's four variants, merge2d_tables in both metrics): "
+          "counts equal to the twins', values within rtol 1e-4, atol 1e-5")
 
 
 def copy_state(state, dev):
@@ -1644,27 +1623,6 @@ def mixed_accuracy(dev):
             f"{ATE_LIMIT} m")
 
 
-def merge_bound(packed, K, c_out, flop_per_lane):
-    """A merge's bound on this input: it must read the act plane and, for
-    the lanes that enter (act, and w > 0 in sorted mode; counted as act
-    here), the other planes once, write its [P, c_out, K] planes, and
-    evaluate each entering lane's distance and moments at least once."""
-    P, C, N = packed.shape
-    live = int((packed[:, 1] > 0.5).sum())
-    return bound(4 * (P * N + live * (C - 1) + P * c_out * K),
-                 flop_per_lane * live)
-
-
-def tables_bound(ints, flts, K, flop_per_lane):
-    """The fused merge's bound on this input: it must read the sel_act
-    plane, and for each entering lane (sel_act and w > 0) its weight, its
-    four ints and the 8 table values it combines; write [P, 8, K]; and
-    evaluate each entering lane's distance and moments at least once."""
-    P, _, N = ints.shape
-    live = int(((flts[:, 1] > 0.5) & (flts[:, 0] > 0)).sum())
-    return bound(4 * (P * N + 13 * live + P * 8 * K), flop_per_lane * live)
-
-
 def time_kernels(dev):
     """Kernel against twin at the main path's shapes, in turns
     (twin, kernel, library, kernel, library, twin); CUDA events, ms per
@@ -1784,14 +1742,17 @@ def captured_calls(dev):
     step 60 of real runs (detect_bench.capture_step): detect and merge2d of
     Ackerman P=512 and of dense P=1024, detect_adaptive and merge2d_tables
     of dense fused + adaptive, detect_cons_adaptive of dense consolidating
-    + adaptive. Each is held against its twin on those inputs first, and
-    the live counts of the detect rows with a valid measurement and the
-    entering lanes and trips of each merge particle are printed. Returns
-    name -> (kernel, twin, twin iterations, library call, bound)."""
+    + adaptive, merge2d_argmax of the Ackerman full grid P=512. Each is
+    held against its twin on those inputs first, and the live counts of
+    the detect rows with a valid measurement and the entering lanes,
+    trips and rounds (merge_bench.merge_rounds) of each merge particle are
+    printed. Returns name -> (kernel, twin, twin iterations, library call,
+    bound)."""
     rows = {}
     for run, tag in (("ackerman", ""), ("dense", " dense"),
                      ("dense fused + adaptive", " dense"),
-                     ("dense consolidating + adaptive", " dense")):
+                     ("dense consolidating + adaptive", " dense"),
+                     ("full grid", "")):
         calls, step = capture_step(dev, run)
         for kernel, (args, kw) in calls.items():
             if kernel == "detect":
@@ -1818,21 +1779,24 @@ def captured_calls(dev):
                     f"{kernel} captured {run}: counts differ from the twin")
             for g, w in zip(got[:3], want[:3]):
                 torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
-            K = args[5] if fused else args[2]
+            K, sep = (args[5], args[4]) if fused else (args[2], args[1])
+            sorted_w, metric = kw.get("sorted_w", True), kw.get("metric", 0)
             if fused:
                 ints, flts = args[:2]
-                enter = (flts[:, 1] > 0.5) & (flts[:, 0] > 0)
+                packed = tables_packed(*args[:4])
                 b = tables_bound(ints, flts, K, 27)
             else:
-                enter = (args[0][:, 1] > 0.5) & (args[0][:, 0] > 0)
-                b = merge_bound(args[0], K, 8, 27)
-            name = merge2d_variant(True, kw.get("metric", 0), tables=fused)
+                packed = args[0]
+                b = merge_bound(packed, K, 8, 27)
+            lanes = round_stats(*merge_rounds(packed, sep, K, sorted_w,
+                                              metric))
+            name = merge2d_variant(sorted_w, metric, tables=fused)
             rows[f"{name}{tag} captured"] = (
                 lambda f=fn, a=args, k=kw: f(*a, **k),
                 lambda f=twin, a=args, k=kw: f(*a, **k), 1, None, b)
             phase("captured", f"{run} step {step}: {name} P="
-                  f"{enter.shape[0]} N={enter.shape[1]} K={K}: per particle "
-                  f"{json.dumps(merge_lanes(enter.sum(dim=1), got[3]))}; "
+                  f"{packed.shape[0]} N={packed.shape[2]} K={K}: per "
+                  f"particle {json.dumps(lanes)}; "
                   f"counts equal to the twin's, max |err| "
                   f"{max_err(list(zip(got[:3], want[:3]))):.3g} (rtol "
                   "1e-4, atol 1e-5)")

@@ -26,8 +26,9 @@ checkout's run on the same inputs): the two kernels then agree bit for bit.
 
 This module is also the one home of the detect kernels' edge cases
 (``DETECT_EDGES``, :func:`detect_edge_case`), of the step capture
-(``CAPTURED``, :func:`capture_step`) and of the comparison with the twin;
-``chip_smoke.py`` and the tests import them.
+(``CAPTURED``, :func:`capture_step`; its "full grid" run captures only the
+merge, for ``merge_bench.py``) and of the comparison with the twin;
+``chip_smoke.py``, ``merge_bench.py`` and the tests import them.
 """
 
 from __future__ import annotations
@@ -137,6 +138,8 @@ CAPTURED = {
                                ("detect", "merge2d_tables")),
     "dense consolidating + adaptive": (*DENSE, CONS_ADAPTIVE, ("detect",)),
     "ackerman": (*ACKERMAN, {}, ("detect", "merge2d")),
+    # the uncapped route: every lane of the grid to merge2d's argmax mode
+    "full grid": (*ACKERMAN, {"merge_candidate_cap": 0}, ("merge2d",)),
 }
 
 
@@ -196,16 +199,6 @@ def live_counts(count, z4, T):
     return {"rows": c.numel(), "min": int(c.min()), "median": float(q[0]),
             "p99": float(q[1]), "max": int(c.max()),
             "share_le_T": float((c <= T).double().mean())}
-
-
-def merge_lanes(n_enter, n_merged):
-    """Entering lanes and trips (clusters emitted) per merge particle:
-    mean, min and max of each."""
-    def stats(x):
-        x = x.double()
-        return {"mean": float(x.mean()), "min": int(x.min()),
-                "max": int(x.max())}
-    return {"entering": stats(n_enter), "trips": stats(n_merged)}
 
 
 # ----------------------------------------------------------------------------

@@ -1,0 +1,535 @@
+"""Times the port's 2D merge kernels at every shape the paths launch.
+
+    python3 merge_bench.py [--root DIR] [--label NAME] [--out FILE]
+                           [--expect FILE]
+
+Needs one NVIDIA GPU; imports no jax. ``phdslam_tpu_torch`` is imported
+from DIR (default: the directory of this script), so that two checkouts can
+be held side by side on one card in one call, as with ``gather_bench.py``
+and ``detect_bench.py``: unpack the other into a directory that
+``.gitignore`` lists and run parent, change, change, parent.
+
+The cases (``MERGE_TIMED``) are each merge2d variant on its scene (the
+synthetic candidates of :func:`merge_inputs` and :func:`full_grid_inputs`,
+and ``eval/scenes.py``'s tables at the Ackerman and dense shapes), and the
+exact inputs of step 60 of real runs (``detect_bench.CAPTURED``: Ackerman
+P=512, dense P=1024 plain and fused + adaptive, and the Ackerman full grid
+at P=512, whose merge runs in argmax mode). For each it checks the kernel
+against its twin (:func:`check_merge`: equal cluster and leftover counts,
+rtol 1e-4 / atol 1e-5) and prints one JSON line: the time per eager call,
+host included (``call_ms``), the device time of calls replayed from a CUDA
+graph (``graph_ms``), the bound, the entering lanes, clusters (trips) and
+rounds a particle of the round-based greedy chain (:func:`merge_rounds`,
+``ROUND_PRINCIPALS`` tentative principals a round), the valid principals a
+round, the launch plan where the checkout reports one (threads, shared-
+memory slots, blocks an SM, waves), and a digest of the output
+(``out_sha``). The edge cases (``MERGE_EDGES``) follow, through every
+merge2d variant and both merge2d_tables metrics, checked and digested the
+same way, untimed. ``--out FILE`` keeps the lines; ``--expect FILE``
+requires every case's digest to equal the one in FILE (another checkout's
+run on the same inputs): the two kernels then agree bit for bit.
+
+This module is also the one home of the 2D merges' synthetic inputs, their
+bounds and their edge cases; ``chip_smoke.py`` and the tests import them.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+from detect_bench import (bound, capture_step, digest, max_err, require)
+from gather_bench import bench_parser, graph_ms, open_checkout, time_call
+
+ROUND_PRINCIPALS = 8            # csrc/merge2d.cu::kR
+MIN_SEP = 5.0                   # cfg/ackerman.cfg and cfg/dense.cfg
+HELL_SEP = 0.6                  # the Hellinger runs' min_separation
+
+
+# ----------------------------------------------------------------------------
+# inputs (numpy, from a seed)
+# ----------------------------------------------------------------------------
+
+def merge_inputs(dev, P=512, N=512, seed=0, spread=0.3):
+    """Clustered candidates, active lanes as a weight-descending prefix."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 20, (P, 40, 2))
+    mean = centers[np.arange(P)[:, None], rng.integers(0, 40, (P, N))] \
+        + rng.normal(0, spread, (P, N, 2))
+    A = rng.normal(0, 0.5, (P, N, 2, 2))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.3 * np.eye(2)
+    w = rng.uniform(0, 1, (P, N))
+    act = rng.random((P, N)) < 0.6
+    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
+
+    def take(x):
+        return np.take_along_axis(x, order, axis=1)
+    act_s = take(act)
+    planes = np.stack([np.where(act_s, take(w), 0.0), act_s,
+                       take(mean[..., 0]), take(mean[..., 1]),
+                       take(cov[..., 0, 0]), take(cov[..., 0, 1]),
+                       take(cov[..., 1, 1])], axis=1)
+    return torch.tensor(planes, dtype=torch.float32, device=dev)
+
+
+def full_grid_inputs(dev, P=512, N=6320, seed=0, frac=0.1, n_centers=40):
+    """The full grid's merge planes (K + M K + M = 6320 lanes at K=128,
+    M=48): ~``frac`` of the lanes active, spread over the lane axis in no
+    weight order, clustered means (spread 0.3 about ``n_centers``
+    centres), covariances 0.3 I + A A'."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 20, (P, n_centers, 2))
+    mean = centers[np.arange(P)[:, None],
+                   rng.integers(0, n_centers, (P, N))] \
+        + rng.normal(0, 0.3, (P, N, 2))
+    A = rng.normal(0, 0.5, (P, N, 2, 2))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.3 * np.eye(2)
+    act = rng.random((P, N)) < frac
+    w = np.where(act, rng.uniform(1e-3, 1, (P, N)), 0.0)
+    planes = np.stack([w, act, mean[..., 0], mean[..., 1], cov[..., 0, 0],
+                       cov[..., 0, 1], cov[..., 1, 1]], axis=1)
+    return torch.tensor(planes, dtype=torch.float32, device=dev)
+
+
+# name: (P, N, K, options). Lanes: ~``frac`` active (default 0.6),
+# weights descending along the lanes (the sorted contract; the argmax runs
+# permute the lanes), means about ``centers`` centres (default 40) spread
+# ``spread`` (default 0.3). Options: "one": one active lane a particle;
+# "far": every lane its own centre, 1000 m apart; "nan": a NaN weight in
+# particle 0 and NaN weights on a quarter of particle 1's active lanes
+# (sorted mode: they never enter; argmax: the row stalls); "nonpos":
+# w <= 0 on particle 2's heaviest half and on every lane of particle 3;
+# "equal": every active weight 0.5 (argmax ties: the lowest lane leads)
+MERGE_EDGES = {
+    "no lane entering": (4, 512, 128, {"frac": 0.0}),
+    "one lane": (4, 512, 128, {"one": True}),
+    "all within min_sep of the first": (4, 512, 128,
+                                        {"centers": 1, "spread": 0.01}),
+    "every lane its own cluster, K binding": (4, 512, 16, {"far": True}),
+    "NaN and w <= 0 weights": (8, 512, 128, {"nan": True, "nonpos": True}),
+    "equal weights": (4, 512, 128, {"equal": True}),
+    "N 2048": (64, 2048, 128, {}),
+    "N 2049": (64, 2049, 128, {}),
+    # every lane enters, 528 particles: 4 blocks an SM of 132, so the
+    # shared-memory slots overflow (merge2d: L2; merge2d_tables: scratch)
+    "N 8192 every lane entering": (528, 8192, 128, {"frac": 1.0}),
+    "P 1": (1, 512, 128, {}),
+}
+
+
+def _edge_lanes(name, seed):
+    """(w, act, mean [P, N, 2], cov [P, N, 2, 2], K) of MERGE_EDGES[name],
+    lanes weight-descending."""
+    P, N, K, opt = MERGE_EDGES[name]
+    rng = np.random.default_rng(seed + N + 7 * P)
+    n_c = N if opt.get("far") else opt.get("centers", 40)
+    centers = rng.normal(0, 20, (P, n_c, 2))
+    if opt.get("far"):
+        centers = np.stack(np.meshgrid(np.arange(N) * 1000.0, [0.0]),
+                           axis=-1).reshape(1, N, 2).repeat(P, 0)
+        which = np.broadcast_to(np.arange(N), (P, N))
+    else:
+        which = rng.integers(0, n_c, (P, N))
+    mean = centers[np.arange(P)[:, None], which] \
+        + rng.normal(0, opt.get("spread", 0.3), (P, N, 2))
+    A = rng.normal(0, 0.5, (P, N, 2, 2))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.3 * np.eye(2)
+    w = -np.sort(-rng.uniform(0.01, 1.0, (P, N)), axis=1)
+    act = rng.random((P, N)) < opt.get("frac", 0.6)
+    if opt.get("one"):
+        act = np.zeros((P, N), bool)
+        act[np.arange(P), rng.integers(0, N, P)] = True
+    if opt.get("equal"):
+        w[:] = 0.5
+    if opt.get("nan"):
+        w[0, :] = np.nan
+        w[1, rng.random(N) < 0.25] = np.nan
+    if opt.get("nonpos"):
+        w[2, :N // 2] = -0.5
+        w[2, N // 2: N // 2 + 8] = 0.0
+        w[3, :] = 0.0
+    return w, act, mean, cov, K
+
+
+def merge_edge_case(name, sorted_w=True, seed=0):
+    """(packed [P, 7, N] f32 numpy, K) of MERGE_EDGES[name]: lanes
+    weight-descending for sorted mode, in a fixed random order for argmax
+    mode."""
+    w, act, mean, cov, K = _edge_lanes(name, seed)
+    planes = np.stack([np.where(act, w, 0.0), act, mean[..., 0],
+                       mean[..., 1], cov[..., 0, 0], cov[..., 0, 1],
+                       cov[..., 1, 1]], axis=1)
+    if not sorted_w:
+        perm = np.random.default_rng(seed).permutation(planes.shape[2])
+        planes = planes[:, :, perm]
+    return np.ascontiguousarray(planes, dtype=np.float32), K
+
+
+def tables_edge_case(name, seed=0):
+    """(ints [P, 4, N] int32, flts [P, 2, N], t_k [P, 16, N], t_m [P, 8, 8],
+    K) of MERGE_EDGES[name] as merge2d_tables' operands (numpy): feature
+    column j holds lane j's mean and covariance, with small gains and an
+    updated covariance near it; lanes persistent (1/2), detections (3/10,
+    their measurement column drawn from 8, one in eight out of range: it
+    reads 0) or births (1/5, measurement columns whose birth means sit at
+    the first lanes' means). sel_act is the edge's act; cand_w its
+    weights."""
+    w, act, mean, cov, K = _edge_lanes(name, seed)
+    P, N = w.shape
+    Mt = 8
+    rng = np.random.default_rng(seed + 1)
+    t_k = np.zeros((P, 16, N))
+    t_k[:, 0], t_k[:, 1] = mean[..., 0], mean[..., 1]
+    t_k[:, 2], t_k[:, 3] = cov[..., 0, 0], cov[..., 0, 1]
+    t_k[:, 4], t_k[:, 5] = cov[..., 1, 0], cov[..., 1, 1]
+    t_k[:, 6:10] = 0.9 * t_k[:, 2:6]
+    t_k[:, 10:14] = rng.normal(0, 0.01, (P, 4, N))
+    t_k[:, 14] = rng.uniform(1, 10, (P, N))
+    t_k[:, 15] = rng.uniform(-np.pi, np.pi, (P, N))
+    t_m = np.zeros((P, Mt, Mt))
+    t_m[:, 0] = rng.uniform(1, 10, (P, Mt))
+    t_m[:, 1] = rng.uniform(-np.pi, np.pi, (P, Mt))
+    t_m[:, 2:4] = mean[:, :Mt].transpose(0, 2, 1)
+    t_m[:, 4], t_m[:, 7] = 0.5, 0.5
+    kind = rng.choice(3, (P, N), p=(0.5, 0.3, 0.2))
+    m_eff = rng.integers(0, Mt, (P, N))
+    m_eff[(kind == 1) & (rng.random((P, N)) < 0.125)] = Mt
+    ints = np.stack([np.broadcast_to(np.arange(N), (P, N)), m_eff,
+                     kind == 0, kind == 1], axis=1).astype(np.int32)
+    flts = np.stack([np.nan_to_num(w, nan=0.0), act], axis=1)
+    return (ints, flts.astype(np.float32), t_k.astype(np.float32),
+            t_m.astype(np.float32), K)
+
+
+# ----------------------------------------------------------------------------
+# bounds, the round count and the comparison with the twin
+# ----------------------------------------------------------------------------
+
+def merge_bound(packed, K, c_out, flop_per_lane):
+    """A merge's bound on this input: it must read the act plane and, for
+    the lanes that enter (act, and w > 0 in sorted mode; counted as act
+    here), the other planes once, write its [P, c_out, K] planes, and
+    evaluate each entering lane's distance and moments at least once."""
+    P, C, N = packed.shape
+    live = int((packed[:, 1] > 0.5).sum())
+    return bound(4 * (P * N + live * (C - 1) + P * c_out * K),
+                 flop_per_lane * live)
+
+
+def tables_bound(ints, flts, K, flop_per_lane):
+    """The fused merge's bound on this input: it must read the sel_act
+    plane, and for each entering lane (sel_act and w > 0) its weight, its
+    four ints and the 8 table values it combines; write [P, 8, K]; and
+    evaluate each entering lane's distance and moments at least once."""
+    P, _, N = ints.shape
+    live = int(((flts[:, 1] > 0.5) & (flts[:, 0] > 0)).sum())
+    return bound(4 * (P * N + 13 * live + P * 8 * K), flop_per_lane * live)
+
+
+def merge_rounds(packed, min_sep, K, sorted_w=True, metric=0,
+                 R=ROUND_PRINCIPALS):
+    """Replays the kernel's round-based greedy chain on packed planes
+    [P, 7, N] (any device): each round takes the R lowest unmerged lanes
+    (sorted) or the R heaviest with w > 0, ties to the lowest lane
+    (argmax; a row with an unmerged NaN weight stalls) as tentative
+    principals; principal r is valid when no earlier valid principal
+    covers it; the first K - c valid ones emit their clusters, and a lane
+    joins the first that covers it. Returns per-particle int64 tensors
+    (entering lanes, clusters, rounds that emitted). The clusters equal
+    the sequential merge's (the twin's n_merged)."""
+    from phdslam_tpu_torch.ops.gm_merge import unpack_planes
+    from phdslam_tpu_torch.ops.math import hellinger2, mahalanobis2
+    dist = hellinger2 if metric else mahalanobis2
+    mean, cov, w, act = unpack_planes(packed, 2)
+    P, N = w.shape
+    dev = w.device
+    unmerged = act.clone() if not sorted_w else act & (w > 0)
+    enter = unmerged.sum(dim=1)
+    lanes = torch.arange(N, device=dev)
+    rows = torch.arange(P, device=dev)[:, None]
+    c = torch.zeros(P, dtype=torch.int64, device=dev)
+    rounds = torch.zeros_like(c)
+    while True:
+        if sorted_w:
+            key = torch.where(unmerged, lanes.to(w.dtype), float("inf"))
+            has_key = unmerged
+        else:
+            ok = unmerged & (w > 0)
+            key = torch.where(ok, -w, float("inf"))
+            has_key = ok
+        order = torch.sort(key, dim=1, stable=True).indices[:, :R]
+        has = torch.gather(has_key, 1, order)                    # [P, R]
+        if not sorted_w:
+            stall = (unmerged & torch.isnan(w)).any(dim=1)
+            has &= ~stall[:, None]
+        pm, pc = mean[rows, order], cov[rows, order]             # [P, R, ..]
+        # pair[p, s, r]: lane r of the tentatives against principal s
+        pair = dist(pm[:, :, None], pc[:, :, None], pm[:, None], pc[:, None])
+        valid = torch.zeros_like(has)
+        for r in range(order.shape[1]):
+            covered = (valid[:, :r] & (pair[:, :r, r] < min_sep)).any(dim=1)
+            valid[:, r] = has[:, r] & ~covered
+        budget = (K - c)[:, None]
+        emit = valid & (torch.cumsum(valid.long(), dim=1) <= budget)
+        n_emit = emit.sum(dim=1)
+        if not bool((n_emit > 0).any()):
+            break
+        d = dist(pm[:, :, None], pc[:, :, None], mean[:, None], cov[:, None])
+        cover = ((d < min_sep) | (lanes[None, None] == order[..., None])) \
+            & emit[..., None] & unmerged[:, None]                 # [P, R, N]
+        unmerged &= ~cover.any(dim=1)
+        c += n_emit
+        rounds += n_emit > 0
+    return enter, c, rounds
+
+
+def round_stats(enter, trips, rounds):
+    """Entering lanes, clusters (trips) and rounds a particle (mean, min,
+    max of each) and the valid principals a round."""
+    def stats(x):
+        x = x.double()
+        return {"mean": float(x.mean()), "min": int(x.min()),
+                "max": int(x.max())}
+    n_rounds = int(rounds.sum())
+    return {"entering": stats(enter), "trips": stats(trips),
+            "rounds": stats(rounds),
+            "valid_a_round": float(trips.sum()) / n_rounds if n_rounds
+            else 0.0}
+
+
+def check_merge(got, want, label):
+    """A merge's output planes [P, 8, K] against its twin's: equal cluster
+    and leftover counts, rtol 1e-4 / atol 1e-5 on weights, means and
+    covariances. Returns (max |err|, clusters a particle)."""
+    from phdslam_tpu_torch.ops.gm_merge import merge_out
+    g, w = merge_out(got, 2), merge_out(want, 2)
+    require(torch.equal(g[3], w[3]), f"{label}: n_merged differs")
+    require(torch.equal(g[4], w[4]), f"{label}: n_unmerged differs")
+    for a, b in zip(g[:3], w[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    return max_err(list(zip(g[:3], w[:3]))), g[3]
+
+
+# ----------------------------------------------------------------------------
+# the timed cases
+# ----------------------------------------------------------------------------
+
+# name: (source, sorted_w, metric). source: ("packed", maker) on
+# merge_inputs / full_grid_inputs at their defaults; ("tables", config, P,
+# K, M, valid) on eval/scenes.py::tables_payload (seed 0; the packed
+# variant merges the two-kernel route's planes of the same tables); or
+# ("captured", run) from detect_bench.capture_step
+_ACK_TABLES = ("tables", "cfg/ackerman.cfg", 512, 128, 48, 44)
+_DENSE_TABLES = ("tables", "cfg/dense.cfg", 1024, 1024, 72, 65)
+MERGE_TIMED = {
+    "merge2d": (("packed", "merge"), True, 0),
+    "merge2d_hellinger": (("packed", "merge"), True, 1),
+    "merge2d_argmax": (("packed", "full grid"), False, 0),
+    "merge2d_argmax_hellinger": (("packed", "full grid"), False, 1),
+    "merge2d_tables": (_ACK_TABLES, True, 0),
+    "merge2d_tables_hellinger": (_ACK_TABLES, True, 1),
+    "merge2d dense": (("packed", _DENSE_TABLES), True, 0),
+    "merge2d_tables dense": (_DENSE_TABLES, True, 0),
+    "merge2d captured": (("captured", "ackerman"), True, 0),
+    "merge2d dense captured": (("captured", "dense"), True, 0),
+    "merge2d_tables dense captured": (("captured",
+                                       "dense fused + adaptive"), True, 0),
+    "merge2d_argmax full grid captured": (("captured", "full grid"), False,
+                                          0),
+}
+
+
+def _scene_tables(dev, source):
+    """(gather dict, tables operands, K) of a ("tables", ...) source."""
+    from phdslam_tpu_torch import load_config
+    from phdslam_tpu_torch.eval.scenes import map_scene, tables_payload
+    _, path, P, K, M, n_valid = source
+    cfg = load_config(path)
+    g, ints, flts = tables_payload(cfg, map_scene(cfg, P, K, M, n_valid,
+                                                  seed=0, device=dev))
+    return g, (ints, flts, g["t_k"], g["t_m"]), K
+
+
+def tables_planes(tabs):
+    """The packed planes the two-kernel route merges for merge2d_tables'
+    operands (kernels/merge.py::tables_packed), or None in a checkout
+    that has no tables_packed."""
+    from phdslam_tpu_torch.kernels import merge
+    if not hasattr(merge, "tables_packed"):
+        return None
+    return merge.tables_packed(*tabs)
+
+
+def timed_case(dev, name, captured):
+    """(tables operands or None, packed planes or None, K, min_sep,
+    sorted_w, metric, step) of MERGE_TIMED[name]: a tables case has the
+    operands and no planes."""
+    from phdslam_tpu_torch.filters.phd import _finish_candidates_packed
+    source, sorted_w, metric = MERGE_TIMED[name]
+    sep = HELL_SEP if metric else MIN_SEP
+    if source[0] == "captured":
+        if source[1] not in captured:
+            captured[source[1]] = capture_step(dev, source[1])
+        calls, step = captured[source[1]]
+        if "merge2d_tables" in calls:
+            args, kw = calls["merge2d_tables"]
+            return (tuple(args[:4]), None, args[5], args[4], True,
+                    kw.get("metric", 0), step)
+        args, kw = calls["merge2d"]
+        return (None, args[0], args[2], args[1], kw.get("sorted_w", True),
+                kw.get("metric", 0), step)
+    if source[0] == "tables":
+        _, tabs, K = _scene_tables(dev, source)
+        return tabs, None, K, sep, True, metric, None
+    if source[1] == "merge":
+        return None, merge_inputs(dev), 128, sep, sorted_w, metric, None
+    if source[1] == "full grid":
+        return None, full_grid_inputs(dev), 128, sep, sorted_w, metric, None
+    # the dense scene's candidates through the two-kernel route
+    g, _, K = _scene_tables(dev, source[1])
+    return (None, _finish_candidates_packed(g, 2), K, sep, sorted_w, metric,
+            None)
+
+
+def plan_of(P, N, sorted_w, metric, tables):
+    """The checkout's launch plan (None where it reports none)."""
+    from phdslam_tpu_torch.kernels import merge
+    if not hasattr(merge, "merge2d_plan"):
+        return None
+    return merge.merge2d_plan(P, N, sorted_w, metric, tables)
+
+
+def run_case(tabs, packed, K, sep, sorted_w, metric, label):
+    """One merge call against its twin. Returns (fn, launch name, output,
+    max |err|)."""
+    from phdslam_tpu_torch.kernels import build
+    from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
+                                                 merge2d_tables,
+                                                 merge2d_tables_reference,
+                                                 merge2d_variant)
+    if tabs is not None:
+        def fn():
+            return merge2d_tables(*tabs, sep, K, metric)
+        want = merge2d_tables_reference(*tabs, sep, K, metric)
+        name = merge2d_variant(True, metric, tables=True)
+    else:
+        def fn():
+            return merge2d(packed, sep, K, sorted_w, metric)
+        want = merge2d_reference(packed, sep, K, sorted_w, metric)
+        name = merge2d_variant(sorted_w, metric)
+    build.reset_launch_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    require(dict(build.launch_counts) == {name: 1},
+            f"{label}: launched {dict(build.launch_counts)}, not {name}")
+    err, _ = check_merge(got, want, label)
+    return fn, name, got, err
+
+
+def edge_runs(dev, names=tuple(MERGE_EDGES)):
+    """(label, tables operands or None, packed, K, min_sep, sorted_w,
+    metric) of the MERGE_EDGES cases ``names`` in every merge2d variant
+    and in merge2d_tables at both metrics."""
+    runs = []
+    for name in names:
+        for sorted_w in (True, False):
+            planes, K = merge_edge_case(name, sorted_w)
+            packed = torch.from_numpy(planes).to(dev)
+            for metric in (0, 1):
+                runs.append((f"edge {name} merge2d sorted_w={sorted_w} "
+                             f"metric={metric}", None, packed, K,
+                             HELL_SEP if metric else MIN_SEP, sorted_w,
+                             metric))
+        *tabs, K = tables_edge_case(name)
+        tabs = tuple(torch.from_numpy(x).to(dev) for x in tabs)
+        for metric in (0, 1):
+            runs.append((f"edge {name} merge2d_tables metric={metric}", tabs,
+                         None, K, HELL_SEP if metric else MIN_SEP, True,
+                         metric))
+    return runs
+
+
+def main():
+    ap = bench_parser(__doc__)
+    ap.add_argument("--out", help="also write the JSON lines to this file")
+    ap.add_argument("--expect", help="JSON lines of another run whose "
+                    "output digests every case must repeat")
+    args = ap.parse_args()
+    card = open_checkout("merge_bench.py", args.root)
+    expect = {}
+    if args.expect:
+        with open(args.expect) as f:
+            expect = {d["case"]: d["out_sha"] for d in map(json.loads, f)}
+    dev = torch.device("cuda:0")
+    captured = {}
+    lines = []
+    mismatched = []
+
+    def emit(line):
+        line["matches_expected"] = None
+        if expect:
+            line["matches_expected"] = expect.get(line["case"]) == line[
+                "out_sha"]
+            if not line["matches_expected"]:
+                mismatched.append(line["case"])
+        lines.append(json.dumps(line))
+        print(lines[-1], flush=True)
+
+    for name in MERGE_TIMED:
+        tabs, packed, K, sep, sorted_w, metric, step = timed_case(
+            dev, name, captured)
+        fn, launched, got, err = run_case(tabs, packed, K, sep, sorted_w,
+                                          metric, name)
+        calls_ms = [time_call(fn) for _ in range(2)]
+        if tabs is not None:
+            P, _, N = tabs[0].shape
+            b_ms, b_by = tables_bound(tabs[0], tabs[1], K,
+                                      40 if metric else 27)
+            packed = tables_planes(tabs)
+        else:
+            P, _, N = packed.shape
+            b_ms, b_by = merge_bound(packed, K, 8, 40 if metric else 27)
+        stats = None if packed is None else round_stats(
+            *merge_rounds(packed, sep, K, sorted_w, metric))
+        emit({"label": args.label, "case": name, "launched": launched,
+              "step": step, "P": P, "N": N, "K": K, "min_sep": sep,
+              "call_ms": min(calls_ms), "graph_ms": graph_ms(fn),
+              "bound_ms": b_ms, "bound_by": b_by, "lanes": stats,
+              "plan": plan_of(P, N, sorted_w, metric, tabs is not None),
+              "max_abs_err": err, "out_sha": digest((got,)),
+              "in_sha": digest(tabs if tabs is not None else (packed,)),
+              "card": card})
+    failed = []
+    for label, tabs, packed, K, sep, sorted_w, metric in edge_runs(dev):
+        P, _, N = (packed if tabs is None else tabs[0]).shape
+        try:
+            _, launched, got, err = run_case(tabs, packed, K, sep, sorted_w,
+                                             metric, label)
+        except (AssertionError, RuntimeError, ValueError) as e:
+            # the case is reported and the rest still run
+            failed.append(label)
+            emit({"label": args.label, "case": label, "P": P, "N": N,
+                  "K": K, "error": str(e)[:300], "out_sha": None,
+                  "card": card})
+            continue
+        if tabs is not None:
+            packed = tables_planes(tabs)
+        stats = None if packed is None else round_stats(
+            *merge_rounds(packed, sep, K, sorted_w, metric))
+        emit({"label": args.label, "case": label, "launched": launched,
+              "P": P, "N": N, "K": K, "lanes": stats,
+              "plan": plan_of(P, N, sorted_w, metric, tabs is not None),
+              "max_abs_err": err, "out_sha": digest((got,)), "card": card})
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("".join(f"{line}\n" for line in lines))
+    if failed or mismatched:
+        sys.exit(f"merge_bench.py: failed at {failed}; outputs differ from "
+                 f"{args.expect} at {mismatched}")
+
+
+if __name__ == "__main__":
+    main()

@@ -53,10 +53,12 @@ _SIGNATURES = {
     "phd_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # packed, out, P, N, K, min_separation, argmax, metric, stream
     "phd_merge2d": [_P, _P, _I, _I, _I, _F, _I, _I, _P],
-    # ints, flts, t_k, t_m, out, P, N, K tables, M tables, K out,
-    # min_separation, metric, stream
-    "phd_merge2d_tables": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                           _P],
+    # ints, flts, t_k, t_m, scratch (NULL: no overflow), out, P, N,
+    # K tables, M tables, K out, min_separation, metric, stream
+    "phd_merge2d_tables": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                           _I, _P],
+    # P, N, argmax, metric, tables, out int[7] (the launch plan)
+    "phd_merge2d_plan": [_I, _I, _I, _I, _I, _P],
     # packed, out, P, N, K, min_separation, stream
     "phd_merge3d": [_P, _P, _I, _I, _I, _F, _P],
     # packed, out, P, N, K, min_separation, stream

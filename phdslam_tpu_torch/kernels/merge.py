@@ -32,6 +32,8 @@ route in plain PyTorch (two ``gather_cols_reference``, the combine,
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..ops.ekf import combine_selected_planes
@@ -45,6 +47,33 @@ from .gather_cols import gather_cols_reference
 MAX_CANDIDATES = {2: 8192, 3: 2048, 4: 2048}
 _PLANES = {2: (7, 8), 3: (11, 12), 4: (16, 16)}  # D -> (input, output)
 TABLE_ROWS = (16, 8)     # t_k, t_m rows of the fused route (D = 2, births)
+
+
+PLAN_KEYS = ("threads", "entries", "smem", "blocks_per_sm", "overflow",
+             "registers", "waves")
+_plans: dict = {}
+
+
+def merge2d_plan(P: int, N: int, sorted_w: bool = True, metric: int = 0,
+                 tables: bool = False, device=None) -> dict:
+    """The launch plan of a merge2d variant (``tables``: merge2d_tables)
+    for P particles of N lanes on a CUDA device (csrc/merge2d.cu::
+    make_plan): threads a block, entering lanes a block keeps in shared
+    memory, dynamic shared memory a block (bytes), resident blocks an SM,
+    entries that may lie past the shared ones (N - entries), registers a
+    thread, waves. Cached."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, P, N, bool(sorted_w), int(metric), bool(tables))
+    plan = _plans.get(key)
+    if plan is None:
+        out = (ctypes.c_int * len(PLAN_KEYS))()
+        with torch.cuda.device(index):
+            err = build.library().phd_merge2d_plan(
+                P, N, int(not sorted_w), int(metric), int(tables), out)
+        build.check_launch(err, "merge2d plan")
+        plan = _plans[key] = dict(zip(PLAN_KEYS, out))
+    return plan
 
 
 def merge2d_variant(sorted_w: bool = True, metric: int = 0,
@@ -151,22 +180,29 @@ def merge4d(packed, min_separation: float, out_cap: int):
     return _launch(packed, min_separation, out_cap, 4)
 
 
-def merge2d_tables_reference(ints, flts, t_k, t_m, min_separation: float,
-                             out_cap: int, metric: int = 0):
-    """Plain PyTorch twin of merge2d_tables: the two-kernel route. ints
-    [P, 4, N] int (k_eff, m_eff, is_p, is_d), flts [P, 2, N] f32 (cand_w,
-    sel_act), t_k [P, 16, K], t_m [P, 8, M] -> merge planes [P, 8, out_cap]
-    of the sorted-mode merge of the combined candidates (the Pallas
-    kernel's floor-form bearing wrap; w zeroed off sel_act)."""
+def tables_packed(ints, flts, t_k, t_m):
+    """The packed merge planes [P, 7, N] that the two-kernel route builds
+    from merge2d_tables' operands (ints [P, 4, N] int: k_eff, m_eff, is_p,
+    is_d; flts [P, 2, N] f32: cand_w, sel_act; t_k [P, 16, K], t_m
+    [P, 8, M]): two column gathers and the combine, with the Pallas
+    kernel's floor-form bearing wrap; w zeroed off sel_act."""
     r_k = gather_cols_reference(ints[:, 0], t_k)
     r_m = gather_cols_reference(ints[:, 1], t_m)
     sel = flts[:, 1] > 0.5
     mean_pl, cov_pl = combine_selected_planes(
         r_k, r_m, ints[:, 2] > 0, ints[:, 3] > 0, sel, 2, True,
         wrap=_wrap_angle_floor)
-    packed = torch.stack([torch.where(sel, flts[:, 0], 0.0),
-                          sel.to(flts.dtype)] + mean_pl + cov_pl, dim=1)
-    return merge2d_reference(packed, min_separation, out_cap, True, metric)
+    return torch.stack([torch.where(sel, flts[:, 0], 0.0),
+                        sel.to(flts.dtype)] + mean_pl + cov_pl, dim=1)
+
+
+def merge2d_tables_reference(ints, flts, t_k, t_m, min_separation: float,
+                             out_cap: int, metric: int = 0):
+    """Plain PyTorch twin of merge2d_tables: the two-kernel route, the
+    sorted-mode merge of :func:`tables_packed` -> merge planes
+    [P, 8, out_cap]."""
+    return merge2d_reference(tables_packed(ints, flts, t_k, t_m),
+                             min_separation, out_cap, True, metric)
 
 
 def tables_operands(gather):
@@ -217,10 +253,17 @@ def merge2d_tables(ints, flts, t_k, t_m, min_separation: float,
     out = torch.empty((P, 8, out_cap), dtype=torch.float32, device=dev)
     if P == 0:
         return out
+    # room for the entering lanes past the block's shared-memory entries,
+    # written only where more lanes enter than the plan's entries
+    plan = merge2d_plan(P, N, True, metric, tables=True, device=dev)
+    n_over = 6 * plan["overflow"]
+    scratch = torch.empty((P, n_over), dtype=torch.float32,
+                          device=dev) if n_over else None
     err = build.library().phd_merge2d_tables(
         ints.data_ptr(), flts.data_ptr(), t_k.data_ptr(), t_m.data_ptr(),
-        out.data_ptr(), P, N, t_k.shape[2], t_m.shape[2], out_cap,
-        float(min_separation), int(metric), build.stream_handle(dev))
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), P,
+        N, t_k.shape[2], t_m.shape[2], out_cap, float(min_separation),
+        int(metric), build.stream_handle(dev))
     build.check_launch(err, name)
     build.launch_counts[name] += 1
     return out

@@ -20,7 +20,9 @@ merge against the two-kernel route on the card, and the row gather. Both
 gathers run at the paths' shapes and at ragged, unaligned, out-of-range
 and above-budget cases, in both their modes. The detect kernel runs at
 the selection's edges (``detect_bench.DETECT_EDGES``) in all four
-variants. The resampling's fixed-order
+variants, and both 2D merge kernels at theirs (``merge_bench.MERGE_EDGES``:
+merge2d's four variants, merge2d_tables in both metrics), with the launch
+plan of every path's merge shape one wave. The resampling's fixed-order
 cumsum repeats its bits at P=10240.
 """
 
@@ -42,8 +44,9 @@ from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
                                                    gather_rows_reference)
+from merge_bench import MERGE_EDGES, edge_runs, run_case
 from phdslam_tpu_torch.kernels.merge import (MAX_CANDIDATES, merge2d,
-                                             merge2d_reference,
+                                             merge2d_plan, merge2d_reference,
                                              merge2d_tables,
                                              merge2d_tables_reference,
                                              merge2d_variant, merge3d,
@@ -161,6 +164,36 @@ def test_merge2d_sorted_wide_matches_twin(dev, metric):
     the 256-thread build."""
     assert_merge_matches(merge_inputs(dev, N=4096, seed=3),
                          0.6 if metric else 5.0, 128, metric=metric)
+
+
+@pytest.mark.parametrize("name", list(MERGE_EDGES))
+def test_merge_edges_match_twins(dev, name):
+    """Both 2D merge kernels at merge_bench.MERGE_EDGES[name]: merge2d in
+    its four variants and merge2d_tables in both metrics, one launch each
+    under its variant's name, counts equal to the twin's, rtol 1e-4 /
+    atol 1e-5 (merge_bench.run_case)."""
+    for label, tabs, packed, K, sep, sorted_w, metric in edge_runs(
+            dev, (name,)):
+        run_case(tabs, packed, K, sep, sorted_w, metric, label)
+
+
+# (P, N, sorted_w, tables): the paths' widest merge launches: Ackerman and
+# CPHD P=512 at the cap of 512 lanes, the dense det and fused routes at
+# P=1024 and 1536 lanes, the full grid (argmax) at P=512 and 6320 lanes
+PATH_MERGES = [(512, 512, True, False), (512, 512, True, True),
+               (1024, 1536, True, False), (1024, 1536, True, True),
+               (512, 6320, False, False)]
+
+
+@pytest.mark.parametrize("P,N,sorted_w,tables", PATH_MERGES)
+def test_merge2d_path_shapes_run_in_one_wave(dev, P, N, sorted_w, tables):
+    """The launch plan holds every block of a path's merge resident at
+    once, with shared memory for a few hundred entering lanes a
+    particle."""
+    for metric in (0, 1):
+        plan = merge2d_plan(P, N, sorted_w, metric, tables, dev)
+        assert plan["waves"] == 1, plan
+        assert plan["entries"] >= min(N, 512), plan
 
 
 def test_merge2d_argmax_overflow_and_nan_weights(dev):

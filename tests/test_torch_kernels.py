@@ -15,6 +15,8 @@ from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch_packed
 from phdslam_tpu.ops.pallas_select import (onehot_cols_batch,
                                            onehot_rows_batch)
 from detect_bench import DETECT_EDGES, MIN_SEP_EDGES, detect_edge_case
+from merge_bench import (HELL_SEP, MIN_SEP, ROUND_PRINCIPALS,
+                         merge_edge_case, merge_rounds)
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
@@ -289,3 +291,51 @@ def test_merge_wrapper_runs_twin_on_cpu():
     assert torch.equal(merge2d(planes, 4.0, 16),
                        merge2d_reference(planes, 4.0, 16))
     assert build.launch_counts["merge2d"] == 0
+
+
+# edges of merge_bench.MERGE_EDGES that the cases above do not reach, on
+# their first 128 lanes (sorted_w False: the lanes in a random order): w <= 0
+# lanes (absorbed, never leading) and NaN weights (the row stalls), equal
+# weights (ties to the lowest lane), K binding, one all-covering cluster
+MERGE_EDGE_RUNS = [("NaN and w <= 0 weights", False), ("equal weights", False),
+                   ("every lane its own cluster, K binding", False),
+                   ("every lane its own cluster, K binding", True),
+                   ("all within min_sep of the first", False),
+                   ("all within min_sep of the first", True)]
+
+
+@pytest.mark.parametrize("name,sorted_w", MERGE_EDGE_RUNS)
+def test_merge_twin_matches_pallas_edges(name, sorted_w):
+    planes, K = merge_edge_case(name, sorted_w)
+    planes = planes[:, :, :128]
+    want = tuple(np.asarray(x) for x in gm_merge_pallas_batch_packed(
+        jnp.asarray(planes), MIN_SEP, K, interpret=True, sorted_w=sorted_w))
+    got = merge_out(merge2d_reference(torch.from_numpy(planes), MIN_SEP, K,
+                                      sorted_w), 2)
+    assert_same_merge(tuple(x.numpy() for x in got), want)
+    if "NaN" in name:                 # stalled rows, and a w <= 0 row
+        assert list(want[3][:2]) == [0, 0] and want[3][3] == 0
+        assert want[3][2] > 0 and (want[3][4:] > 0).all()
+    if "K binding" in name:
+        assert (want[3] == K).all() and (want[4] > 0).all()
+    if "all within" in name:
+        assert (want[3] == 1).all() and (want[4] == 0).all()
+
+
+@pytest.mark.parametrize("sorted_w", [True, False])
+@pytest.mark.parametrize("metric", [0, 1])
+def test_merge_round_replay_emits_the_sequential_clusters(sorted_w, metric):
+    """The kernel's round-based chain (merge_bench.merge_rounds: R
+    tentative principals a round, the validity chain) emits the clusters
+    of the sequential twin, in fewer rounds than clusters."""
+    planes = merge_case(5, P=6, N=256)
+    if not sorted_w:
+        planes = planes[:, :, np.random.default_rng(0).permutation(256)]
+    planes = torch.from_numpy(planes)
+    sep = HELL_SEP if metric else 4.0
+    enter, trips, rounds = merge_rounds(planes, sep, 64, sorted_w, metric)
+    want = merge_out(merge2d_reference(planes, sep, 64, sorted_w, metric), 2)
+    assert torch.equal(trips, want[3])
+    assert torch.equal(enter, (planes[:, 1] > 0.5).sum(dim=1))
+    assert (rounds * ROUND_PRINCIPALS >= trips).all()
+    assert (rounds < trips).all()
