@@ -44,10 +44,13 @@ drives both paths:
 then times every kernel against its twin (the knob variants and the
 existing kernels at the dense shapes too, the two gathers at every shape
 the paths launch, each with ``torch.gather`` beside it, and the update's
-kernels on the inputs captured from step 60 of the dense and Ackerman
-runs, ``detect_bench.capture_step``) and profiles a step of each path.
+kernels on the inputs captured from step 60 of the dense, Ackerman and
+mixed runs and frame 20 of the disparity run,
+``detect_bench.capture_step``) and profiles a step of each path.
 The detect kernel is also held against its twin at the selection's
-edges (``detect_bench.DETECT_EDGES``). The gathers are held bit for bit
+edges (``detect_bench.DETECT_EDGES``), and the merges at theirs
+(``merge_bench.MERGE_EDGES``: every merge2d variant, merge2d_tables,
+merge3d and merge4d). The gathers are held bit for bit
 against their twins at those shapes and at unaligned, ragged,
 out-of-range and above-budget cases, each of their two modes (the slab
 staged in shared memory, or read through ``__ldg``) counted under its
@@ -83,18 +86,18 @@ from unittest import mock
 import numpy as np
 import torch
 
-from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, capture_step,
-                          captured_args, check_case, compare_detect,
-                          detect_bound, detect_edge_case, live_counts,
-                          max_err, require)
+from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, MIXED_STEPS,
+                          capture_step, captured_args, check_case,
+                          compare_detect, detect_bound, detect_edge_case,
+                          live_counts, max_err, mixed_runner, require)
 from gather_bench import (GATHER_CASES, GATHER_TIMED, card_name, cycling,
                           gather_bound, gather_case, gather_sets, graph_ms,
                           time_call)
-from merge_bench import (MERGE_EDGES, edge_runs, full_grid_inputs,
+from merge_bench import (MERGE_EDGES, OUT_PLANES, edge_runs,
+                         full_grid_inputs, merge3d_inputs, merge4d_inputs,
                          merge_bound, merge_inputs, merge_rounds,
                          round_stats, run_case, tables_bound)
 from phdslam_tpu_torch import load_config
-from phdslam_tpu_torch import SlamConfig
 from phdslam_tpu_torch.eval import simdata
 from phdslam_tpu_torch.eval.ospa import ospa_distance
 from phdslam_tpu_torch.eval.parity import (disparity_map_estimate,
@@ -119,11 +122,12 @@ from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
                                              merge2d_tables_reference,
                                              merge2d_variant, merge3d,
                                              merge3d_reference, merge4d,
-                                             merge4d_reference, tables_packed)
+                                             merge4d_reference, recip_check,
+                                             tables_packed)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
 from phdslam_tpu_torch.ops import resample
 from phdslam_tpu_torch.ops.math import logsumexp
-from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
+from phdslam_tpu_torch.slam import SynthSLAMRunner
 from phdslam_tpu_torch.slam_disparity import DisparityRunner
 from phdslam_tpu_torch.types import DisparityState, FilterState, GMState
 
@@ -135,7 +139,7 @@ ATE_LIMIT = 1.0                 # m: loose sanity bound (own noise stream)
 ATE_BAND = (0.40, 0.51)         # m: the JAX reference's band at P=512
 
 # the mixed path: tools/bench_mixed.py's configuration and scans
-MIXED_STEPS, MIXED_DT = 100, 0.5
+# (detect_bench.mixed_runner)
 P_MIXED_SCALE, MIXED_SCALE_STEPS = 10240, 30
 MIXED_SEEDS, P_MIXED_ACC = range(5), 256
 # the JAX package's 50-run mixed accuracy, mean and std (BENCH.md,
@@ -247,36 +251,6 @@ HELL_KERNELS = ("detect", "gather_cols", "merge2d_hellinger")
 HELL_FULL_KERNELS = ("merge2d_argmax_hellinger",)
 
 
-def mixed_cfg(P=P_MAIN, K=128, M=32):
-    """tools/bench_mixed.py's mixed configuration (fast route, 4D stage-2
-    cap 128, detection_topk 16 and merge_candidate_cap 512 by default)."""
-    return SlamConfig(
-        n_particles=P, max_features=K, max_measurements=M,
-        motion_type=0, feature_model=2, filter_type=0,
-        vx0=1.5, vyaw0=0.2, ax=0.3, ayaw=0.03,
-        max_range=12.0, std_range=0.5, std_bearing=0.02,
-        clutter_rate=5.0, pd=0.95, birth_weight=0.05, min_separation=2.0,
-        resample_threshold=0.5, particle_weighting=0, tau=0.2,
-        cov_vx_birth=0.25, cov_vy_birth=0.25, std_ax_map=0.05,
-        std_ay_map=0.05, merge_candidate_cap_dynamic=128, seed=0)
-
-
-def mixed_scans(T=MIXED_STEPS, M=32):
-    """tools/bench_mixed.py's synthetic scans: range U(1, 11), bearing
-    U(-1.5, 1.5), the first M - 8 slots valid, numpy seed 0."""
-    rng = np.random.default_rng(0)
-    zr = rng.uniform(1.0, 11.0, (T, M)).astype(np.float32)
-    zb = rng.uniform(-1.5, 1.5, (T, M)).astype(np.float32)
-    mask = np.broadcast_to(np.arange(M)[None, :] < max(4, M - 8),
-                           (T, M)).copy()
-    return np.stack([zr, zb], axis=-1), mask
-
-
-def mixed_runner(dev, P=P_MAIN, T=MIXED_STEPS):
-    z, mask = mixed_scans(T)
-    return ScanRunner(mixed_cfg(P), z, mask, MIXED_DT, device=dev)
-
-
 CARD = ""                       # nvidia-smi's name and power limit
 
 
@@ -303,59 +277,6 @@ def detect_inputs(dev, P=P_MAIN, K=128, M=48, n_valid=44, seed=0):
                   axis=1)
     return (torch.tensor(planes, dtype=torch.float32, device=dev),
             torch.tensor(z4, dtype=torch.float32, device=dev))
-
-
-def merge4d_inputs(dev, P=P_MAIN, N=128, seed=0):
-    """Clustered 4D candidates (positions spread 0.3 m, velocities 0.3 m/s
-    about ~0.5 m/s centres, as the bench's dynamic map holds them), active
-    lanes a weight-descending prefix: planes [P, 16, N]."""
-    rng = np.random.default_rng(seed)
-    centers = np.concatenate([rng.normal(0, 8, (P, 30, 2)),
-                              rng.normal(0, 0.5, (P, 30, 2))], axis=-1)
-    mean = centers[np.arange(P)[:, None], rng.integers(0, 30, (P, N))] \
-        + rng.normal(0, 0.3, (P, N, 4))
-    A = rng.normal(0, 0.4, (P, N, 4, 4))
-    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.2 * np.eye(4)
-    w = rng.uniform(0, 1, (P, N))
-    act = rng.random((P, N)) < 0.6
-    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
-
-    def take(x):
-        return np.take_along_axis(x, order, axis=1)
-    act_s = take(act)
-    planes = [np.where(act_s, take(w), 0.0), act_s]
-    planes += [take(mean[..., i]) for i in range(4)]
-    planes += [take(cov[..., a, b]) for a in range(4) for b in range(a, 4)]
-    return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
-                        device=dev)
-
-
-def merge3d_inputs(dev, P=P_MAIN, N=512, seed=0, n_centers=16, spread=3.0):
-    """Clustered (u, v, d) candidates at the spread of min_separation 20
-    (``n_centers`` clusters per particle in the image and d in 20-300,
-    members ~3 px apart, covariances 16 px^2 + A A'), active lanes a
-    weight-descending prefix: planes [P, 11, N]."""
-    rng = np.random.default_rng(seed)
-    centers = np.stack([rng.uniform(0, 640, (P, n_centers)),
-                        rng.uniform(0, 480, (P, n_centers)),
-                        rng.uniform(20, 300, (P, n_centers))], axis=-1)
-    mean = centers[np.arange(P)[:, None],
-                   rng.integers(0, n_centers, (P, N))] \
-        + rng.normal(0, spread, (P, N, 3))
-    A = rng.normal(0, 1.5, (P, N, 3, 3))
-    cov = np.einsum("pnij,pnkj->pnik", A, A) + 16.0 * np.eye(3)
-    w = rng.uniform(0, 1, (P, N))
-    act = rng.random((P, N)) < 0.6
-    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
-
-    def take(x):
-        return np.take_along_axis(x, order, axis=1)
-    act_s = take(act)
-    planes = [np.where(act_s, take(w), 0.0), act_s]
-    planes += [take(mean[..., i]) for i in range(3)]
-    planes += [take(cov[..., a, b]) for a in range(3) for b in range(a, 3)]
-    return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
-                        device=dev)
 
 
 # ----------------------------------------------------------------------------
@@ -611,6 +532,16 @@ def check_kernels(dev):
     require(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]),
             "merge3d: NaN case counts differ")
     phase("kernels", "merge3d NaN/zero weights: terminated, counts match")
+    # the 3D and 4D distances' quotient (merge_core.cuh::Recip) against
+    # IEEE division: any finite floats, then magnitudes 2^-27 to 2^28
+    for mode in (0, 1):
+        r = recip_check(1 << 30, seed=mode, mode=mode, device=dev)
+        require(r["tested"] > 0 and r["differ"] == 0
+                and (mode == 0 or r["declined"] == 0),
+                f"merge3d/merge4d quotient differs from IEEE division: {r}")
+        phase("kernels", f"merge3d/merge4d quotient, mode {mode}: "
+              f"{r['tested']} pairs, {r['declined']} left to IEEE "
+              f"division, {r['differ']} differing from a / b")
     return errs
 
 
@@ -758,19 +689,22 @@ def check_detect_edges(dev, errs):
 
 
 def check_merge_edges(dev, errs):
-    """Both 2D merge kernels at merge_bench.MERGE_EDGES (no lane entering,
+    """The merge kernels at merge_bench.MERGE_EDGES (no lane entering,
     one lane, one all-covering cluster, K binding, NaN and w <= 0 weights,
     equal weights, N 2048 and 2049, N 8192 with every lane entering past
-    the shared-memory slots, P 1): merge2d in its four variants and
-    merge2d_tables in both metrics against their twins, counts equal."""
+    the shared-memory slots, P 1, degenerate covariances at the 3D and 4D
+    determinant clamps): merge2d in its four variants, merge2d_tables in
+    both metrics, merge3d and merge4d up to their 2048 lanes, against
+    their twins, counts equal."""
     runs = edge_runs(dev)
     for label, tabs, packed, K, sep, sorted_w, metric in runs:
         _, name, _, err = run_case(tabs, packed, K, sep, sorted_w, metric,
                                    label)
         errs[name] = max(errs.get(name, 0.0), err)
     phase("kernels", f"merge edges: {len(MERGE_EDGES)} cases, {len(runs)} "
-          "runs (merge2d's four variants, merge2d_tables in both metrics): "
-          "counts equal to the twins', values within rtol 1e-4, atol 1e-5")
+          "runs (merge2d's four variants, merge2d_tables in both metrics, "
+          "merge3d, merge4d): counts equal to the twins', values within "
+          "rtol 1e-4, atol 1e-5")
 
 
 def copy_state(state, dev):
@@ -1739,22 +1673,50 @@ def gather_calls(dev):
 
 def captured_calls(dev):
     """time_kernels' rows of the update's kernels on the exact inputs of
-    step 60 of real runs (detect_bench.capture_step): detect and merge2d of
-    Ackerman P=512 and of dense P=1024, detect_adaptive and merge2d_tables
-    of dense fused + adaptive, detect_cons_adaptive of dense consolidating
-    + adaptive, merge2d_argmax of the Ackerman full grid P=512. Each is
-    held against its twin on those inputs first, and the live counts of
-    the detect rows with a valid measurement and the entering lanes,
-    trips and rounds (merge_bench.merge_rounds) of each merge particle are
-    printed. Returns name -> (kernel, twin, twin iterations, library call,
-    bound)."""
+    real runs (detect_bench.capture_step): from step 60, detect and merge2d
+    of Ackerman P=512 and of dense P=1024, detect_adaptive and
+    merge2d_tables of dense fused + adaptive, detect_cons_adaptive of dense
+    consolidating + adaptive, merge2d_argmax of the Ackerman full grid
+    P=512, merge4d of the mixed bench P=512 ("merge4d mixed captured");
+    from frame 20, merge3d of data/disparity P=512 ("merge3d disparity
+    captured"). Each is held against its twin on those inputs first, and
+    the live counts of the detect rows with a valid measurement and the
+    entering lanes, trips and rounds (merge_bench.merge_rounds) of each
+    merge particle are printed. Returns name -> (kernel, twin, twin
+    iterations, library call, bound)."""
     rows = {}
     for run, tag in (("ackerman", ""), ("dense", " dense"),
                      ("dense fused + adaptive", " dense"),
                      ("dense consolidating + adaptive", " dense"),
-                     ("full grid", "")):
+                     ("full grid", ""), ("mixed", " mixed"),
+                     ("disparity", " disparity")):
         calls, step = capture_step(dev, run)
         for kernel, (args, kw) in calls.items():
+            if kernel in ("merge3d", "merge4d"):
+                D = 3 if kernel == "merge3d" else 4
+                fn, twin = ((merge3d, merge3d_reference) if D == 3
+                            else (merge4d, merge4d_reference))
+                packed, sep, K = args
+                got = merge_out(fn(*args), D)
+                want = merge_out(twin(*args), D)
+                require(torch.equal(got[3], want[3])
+                        and torch.equal(got[4], want[4]),
+                        f"{kernel} captured {run}: counts differ from the "
+                        "twin")
+                for g, w in zip(got[:3], want[:3]):
+                    torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+                lanes = round_stats(*merge_rounds(packed, sep, K))
+                rows[f"{kernel}{tag} captured"] = (
+                    lambda f=fn, a=args: f(*a), lambda f=twin, a=args: f(*a),
+                    1, None, merge_bound(packed, K, OUT_PLANES[D],
+                                         70 if D == 3 else 120))
+                phase("captured", f"{run} step {step}: {kernel} P="
+                      f"{packed.shape[0]} N={packed.shape[2]} K={K}: per "
+                      f"particle {json.dumps(lanes)}; counts equal to the "
+                      f"twin's, max |err| "
+                      f"{max_err(list(zip(got[:3], want[:3]))):.3g} (rtol "
+                      "1e-4, atol 1e-5)")
+                continue
             if kernel == "detect":
                 a = captured_args((args, kw))
                 planes, z4, T = a[:3]

@@ -26,8 +26,10 @@ checkout's run on the same inputs): the two kernels then agree bit for bit.
 
 This module is also the one home of the detect kernels' edge cases
 (``DETECT_EDGES``, :func:`detect_edge_case`), of the step capture
-(``CAPTURED``, :func:`capture_step`; its "full grid" run captures only the
-merge, for ``merge_bench.py``) and of the comparison with the twin;
+(``CAPTURED``, :func:`capture_step`; its "full grid", "mixed" and
+"disparity" runs capture only the merge, for ``merge_bench.py``), of the
+mixed bench's configuration and scans (:func:`mixed_runner`) and of the
+comparison with the twin;
 ``chip_smoke.py``, ``merge_bench.py`` and the tests import them.
 """
 
@@ -131,16 +133,63 @@ DENSE = ("cfg/dense.cfg", "data/dense", 1024)
 ACKERMAN = ("cfg/ackerman.cfg", "data/ackerman", 512)
 FUSED_ADAPTIVE = {"fused_gather_merge": 1, "detect_adaptive": 1}
 CONS_ADAPTIVE = {"premerge_consolidate": 1, "detect_adaptive": 1}
-# run: (config, data, P, overrides, the wrappers of filters/phd.py captured)
+# run: (runner, config, data, P, overrides, the wrappers captured, step).
+# runner "synth": SynthSLAMRunner over the config and dataset, wrappers of
+# filters/phd.py; "mixed": the mixed bench's ScanRunner (:func:`mixed_runner`,
+# no config file), filters/phd.py's wrappers; "disparity": DisparityRunner,
+# filters/disparity.py's wrappers (its profile window starts at frame 20)
 CAPTURED = {
-    "dense": (*DENSE, {}, ("detect", "merge2d")),
-    "dense fused + adaptive": (*DENSE, FUSED_ADAPTIVE,
-                               ("detect", "merge2d_tables")),
-    "dense consolidating + adaptive": (*DENSE, CONS_ADAPTIVE, ("detect",)),
-    "ackerman": (*ACKERMAN, {}, ("detect", "merge2d")),
+    "dense": ("synth", *DENSE, {}, ("detect", "merge2d"), CAPTURE_STEP),
+    "dense fused + adaptive": ("synth", *DENSE, FUSED_ADAPTIVE,
+                               ("detect", "merge2d_tables"), CAPTURE_STEP),
+    "dense consolidating + adaptive": ("synth", *DENSE, CONS_ADAPTIVE,
+                                       ("detect",), CAPTURE_STEP),
+    "ackerman": ("synth", *ACKERMAN, {}, ("detect", "merge2d"),
+                 CAPTURE_STEP),
     # the uncapped route: every lane of the grid to merge2d's argmax mode
-    "full grid": (*ACKERMAN, {"merge_candidate_cap": 0}, ("merge2d",)),
+    "full grid": ("synth", *ACKERMAN, {"merge_candidate_cap": 0},
+                  ("merge2d",), CAPTURE_STEP),
+    # the mixed path's dynamic 4D map and the disparity path's merge
+    "mixed": ("mixed", None, None, 512, {}, ("merge4d",), CAPTURE_STEP),
+    "disparity": ("disparity", "cfg/disparity.cfg", "data/disparity", 512,
+                  {}, ("merge3d",), 20),
 }
+
+# the mixed path's bench (tools/bench_mixed.py): configuration and scans
+MIXED_STEPS, MIXED_DT = 100, 0.5
+
+
+def mixed_cfg(P=512, K=128, M=32):
+    """tools/bench_mixed.py's mixed configuration (fast route, 4D stage-2
+    cap 128, detection_topk 16 and merge_candidate_cap 512 by default)."""
+    from phdslam_tpu_torch import SlamConfig
+    return SlamConfig(
+        n_particles=P, max_features=K, max_measurements=M,
+        motion_type=0, feature_model=2, filter_type=0,
+        vx0=1.5, vyaw0=0.2, ax=0.3, ayaw=0.03,
+        max_range=12.0, std_range=0.5, std_bearing=0.02,
+        clutter_rate=5.0, pd=0.95, birth_weight=0.05, min_separation=2.0,
+        resample_threshold=0.5, particle_weighting=0, tau=0.2,
+        cov_vx_birth=0.25, cov_vy_birth=0.25, std_ax_map=0.05,
+        std_ay_map=0.05, merge_candidate_cap_dynamic=128, seed=0)
+
+
+def mixed_scans(T=MIXED_STEPS, M=32):
+    """tools/bench_mixed.py's synthetic scans: range U(1, 11), bearing
+    U(-1.5, 1.5), the first M - 8 slots valid, numpy seed 0."""
+    rng = np.random.default_rng(0)
+    zr = rng.uniform(1.0, 11.0, (T, M)).astype(np.float32)
+    zb = rng.uniform(-1.5, 1.5, (T, M)).astype(np.float32)
+    mask = np.broadcast_to(np.arange(M)[None, :] < max(4, M - 8),
+                           (T, M)).copy()
+    return np.stack([zr, zb], axis=-1), mask
+
+
+def mixed_runner(dev, P=512, T=MIXED_STEPS):
+    """The mixed bench's ScanRunner at P particles over T scans."""
+    from phdslam_tpu_torch.slam import ScanRunner
+    z, mask = mixed_scans(T)
+    return ScanRunner(mixed_cfg(P), z, mask, MIXED_DT, device=dev)
 
 
 def _clone(x):
@@ -153,18 +202,31 @@ def _clone(x):
     return x
 
 
-def capture_step(dev, run, step=CAPTURE_STEP):
-    """Runs CAPTURED[run] on ``dev`` from step 0 and returns ({wrapper name:
-    (args, kwargs)} of that wrapper's first call in step ``step``, or in
-    the first later step that calls it, each tensor cloned; the step
-    captured)."""
+def capture_runner(dev, run, P=None):
+    """(runner, the module whose wrappers it calls) of CAPTURED[run], at
+    its own particle count or P."""
     from phdslam_tpu_torch import load_config
-    from phdslam_tpu_torch.filters import phd
+    from phdslam_tpu_torch.filters import disparity, phd
     from phdslam_tpu_torch.slam import SynthSLAMRunner
-    cfg_path, data, P, overrides, names = CAPTURED[run]
-    r = SynthSLAMRunner(load_config(cfg_path, dict(overrides,
-                                                   n_particles=P)),
-                        data, device=dev)
+    from phdslam_tpu_torch.slam_disparity import DisparityRunner
+    kind, cfg_path, data, P0, overrides, _, _ = CAPTURED[run]
+    P = P or P0
+    if kind == "mixed":
+        return mixed_runner(dev, P), phd
+    cfg = load_config(cfg_path, dict(overrides, n_particles=P))
+    if kind == "disparity":
+        return DisparityRunner(cfg, data, device=dev), disparity
+    return SynthSLAMRunner(cfg, data, device=dev), phd
+
+
+def capture_step(dev, run, step=None, P=None):
+    """Runs CAPTURED[run] on ``dev`` from step 0 and returns ({wrapper name:
+    (args, kwargs)} of that wrapper's first call in step ``step`` (default:
+    the run's own), or in the first later step that calls it, each tensor
+    cloned; the step captured). ``P`` overrides the particle count."""
+    *_, names, own_step = CAPTURED[run]
+    step = own_step if step is None else step
+    r, module = capture_runner(dev, run, P)
     got = {}
     armed = False
 
@@ -179,7 +241,7 @@ def capture_step(dev, run, step=CAPTURE_STEP):
     with contextlib.ExitStack() as stack:
         for name in names:
             stack.enter_context(mock.patch.object(
-                phd, name, spy(name, getattr(phd, name))))
+                module, name, spy(name, getattr(module, name))))
         while len(got) < len(names):
             if n >= r.n_steps:
                 raise RuntimeError(f"capture {run}: no call of "

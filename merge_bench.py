@@ -1,4 +1,4 @@
-"""Times the port's 2D merge kernels at every shape the paths launch.
+"""Times the port's merge kernels at every shape the paths launch.
 
     python3 merge_bench.py [--root DIR] [--label NAME] [--out FILE]
                            [--expect FILE]
@@ -11,25 +11,29 @@ and ``detect_bench.py``: unpack the other into a directory that
 
 The cases (``MERGE_TIMED``) are each merge2d variant on its scene (the
 synthetic candidates of :func:`merge_inputs` and :func:`full_grid_inputs`,
-and ``eval/scenes.py``'s tables at the Ackerman and dense shapes), and the
-exact inputs of step 60 of real runs (``detect_bench.CAPTURED``: Ackerman
-P=512, dense P=1024 plain and fused + adaptive, and the Ackerman full grid
-at P=512, whose merge runs in argmax mode). For each it checks the kernel
-against its twin (:func:`check_merge`: equal cluster and leftover counts,
-rtol 1e-4 / atol 1e-5) and prints one JSON line: the time per eager call,
-host included (``call_ms``), the device time of calls replayed from a CUDA
-graph (``graph_ms``), the bound, the entering lanes, clusters (trips) and
-rounds a particle of the round-based greedy chain (:func:`merge_rounds`,
+and ``eval/scenes.py``'s tables at the Ackerman and dense shapes), merge4d
+and merge3d on theirs (:func:`merge4d_inputs`, :func:`merge3d_inputs`),
+and the exact inputs of real runs (``detect_bench.CAPTURED``: step 60 of
+Ackerman P=512, dense P=1024 plain and fused + adaptive, the Ackerman full
+grid at P=512, whose merge runs in argmax mode, and the mixed bench P=512,
+whose dynamic map merges in merge4d; frame 20 of data/disparity P=512,
+merge3d). For each it checks the kernel against its twin
+(:func:`check_merge`: equal cluster and leftover counts, rtol 1e-4 / atol
+1e-5) and prints one JSON line: the time per eager call, host included
+(``call_ms``), the device time of calls replayed from a CUDA graph
+(``graph_ms``), the bound, the entering lanes, clusters (trips) and rounds
+a particle of the round-based greedy chain (:func:`merge_rounds`,
 ``ROUND_PRINCIPALS`` tentative principals a round), the valid principals a
 round, the launch plan where the checkout reports one (threads, shared-
-memory slots, blocks an SM, waves), and a digest of the output
+memory slots, blocks an SM, registers, waves), and a digest of the output
 (``out_sha``). The edge cases (``MERGE_EDGES``) follow, through every
-merge2d variant and both merge2d_tables metrics, checked and digested the
-same way, untimed. ``--out FILE`` keeps the lines; ``--expect FILE``
+merge2d variant and both merge2d_tables metrics, and through merge3d and
+merge4d up to their 2048 lanes, checked and digested the same way,
+untimed. ``--out FILE`` keeps the lines; ``--expect FILE``
 requires every case's digest to equal the one in FILE (another checkout's
 run on the same inputs): the two kernels then agree bit for bit.
 
-This module is also the one home of the 2D merges' synthetic inputs, their
+This module is also the one home of the merges' synthetic inputs, their
 bounds and their edge cases; ``chip_smoke.py`` and the tests import them.
 """
 
@@ -44,9 +48,13 @@ import torch
 from detect_bench import (bound, capture_step, digest, max_err, require)
 from gather_bench import bench_parser, graph_ms, open_checkout, time_call
 
-ROUND_PRINCIPALS = 8            # csrc/merge2d.cu::kR
+ROUND_PRINCIPALS = 8            # csrc/merge2d.cu, merge3d.cu, merge4d.cu::kR
+MERGE_DIMS = {7: 2, 11: 3, 16: 4}  # input planes -> D
+OUT_PLANES = {2: 8, 3: 12, 4: 16}  # D -> output planes
 MIN_SEP = 5.0                   # cfg/ackerman.cfg and cfg/dense.cfg
 HELL_SEP = 0.6                  # the Hellinger runs' min_separation
+MIXED_SEP = 2.0                 # the mixed bench's min_separation (4D)
+DISP_SEP = 20.0                 # cfg/disparity.cfg's min_separation (3D)
 
 
 # ----------------------------------------------------------------------------
@@ -94,6 +102,59 @@ def full_grid_inputs(dev, P=512, N=6320, seed=0, frac=0.1, n_centers=40):
     return torch.tensor(planes, dtype=torch.float32, device=dev)
 
 
+def merge4d_inputs(dev, P=512, N=128, seed=0):
+    """Clustered 4D candidates (positions spread 0.3 m, velocities 0.3 m/s
+    about ~0.5 m/s centres, as the bench's dynamic map holds them), active
+    lanes a weight-descending prefix: planes [P, 16, N]."""
+    rng = np.random.default_rng(seed)
+    centers = np.concatenate([rng.normal(0, 8, (P, 30, 2)),
+                              rng.normal(0, 0.5, (P, 30, 2))], axis=-1)
+    mean = centers[np.arange(P)[:, None], rng.integers(0, 30, (P, N))] \
+        + rng.normal(0, 0.3, (P, N, 4))
+    A = rng.normal(0, 0.4, (P, N, 4, 4))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.2 * np.eye(4)
+    w = rng.uniform(0, 1, (P, N))
+    act = rng.random((P, N)) < 0.6
+    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
+
+    def take(x):
+        return np.take_along_axis(x, order, axis=1)
+    act_s = take(act)
+    planes = [np.where(act_s, take(w), 0.0), act_s]
+    planes += [take(mean[..., i]) for i in range(4)]
+    planes += [take(cov[..., a, b]) for a in range(4) for b in range(a, 4)]
+    return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
+                        device=dev)
+
+
+def merge3d_inputs(dev, P=512, N=512, seed=0, n_centers=16, spread=3.0):
+    """Clustered (u, v, d) candidates at the spread of min_separation 20
+    (``n_centers`` clusters per particle in the image and d in 20-300,
+    members ~3 px apart, covariances 16 px^2 + A A'), active lanes a
+    weight-descending prefix: planes [P, 11, N]."""
+    rng = np.random.default_rng(seed)
+    centers = np.stack([rng.uniform(0, 640, (P, n_centers)),
+                        rng.uniform(0, 480, (P, n_centers)),
+                        rng.uniform(20, 300, (P, n_centers))], axis=-1)
+    mean = centers[np.arange(P)[:, None],
+                   rng.integers(0, n_centers, (P, N))] \
+        + rng.normal(0, spread, (P, N, 3))
+    A = rng.normal(0, 1.5, (P, N, 3, 3))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 16.0 * np.eye(3)
+    w = rng.uniform(0, 1, (P, N))
+    act = rng.random((P, N)) < 0.6
+    order = np.argsort(np.where(act, -w, 1.0), axis=1, kind="stable")
+
+    def take(x):
+        return np.take_along_axis(x, order, axis=1)
+    act_s = take(act)
+    planes = [np.where(act_s, take(w), 0.0), act_s]
+    planes += [take(mean[..., i]) for i in range(3)]
+    planes += [take(cov[..., a, b]) for a in range(3) for b in range(a, 3)]
+    return torch.tensor(np.stack(planes, axis=1), dtype=torch.float32,
+                        device=dev)
+
+
 # name: (P, N, K, options). Lanes: ~``frac`` active (default 0.6),
 # weights descending along the lanes (the sorted contract; the argmax runs
 # permute the lanes), means about ``centers`` centres (default 40) spread
@@ -102,7 +163,13 @@ def full_grid_inputs(dev, P=512, N=6320, seed=0, frac=0.1, n_centers=40):
 # particle 0 and NaN weights on a quarter of particle 1's active lanes
 # (sorted mode: they never enter; argmax: the row stalls); "nonpos":
 # w <= 0 on particle 2's heaviest half and on every lane of particle 3;
-# "equal": every active weight 0.5 (argmax ties: the lowest lane leads)
+# "equal": every active weight 0.5 (argmax ties: the lowest lane leads);
+# "degenerate": half the lanes without variance in their last coordinate
+# (its covariance row and column 0, the mean on its centre there), a
+# quarter without any (covariance 0, the mean on its centre), so that a
+# pair of them hits the |det| > 1e-30 clamp of the 3D and 4D distances;
+# "dims": the dimensions that run the case (default all; merge3d and
+# merge4d only up to their 2048 lanes)
 MERGE_EDGES = {
     "no lane entering": (4, 512, 128, {"frac": 0.0}),
     "one lane": (4, 512, 128, {"one": True}),
@@ -117,26 +184,36 @@ MERGE_EDGES = {
     # shared-memory slots overflow (merge2d: L2; merge2d_tables: scratch)
     "N 8192 every lane entering": (528, 8192, 128, {"frac": 1.0}),
     "P 1": (1, 512, 128, {}),
+    "degenerate covariance": (4, 512, 128, {"degenerate": True,
+                                            "dims": (3, 4)}),
 }
 
 
-def _edge_lanes(name, seed):
-    """(w, act, mean [P, N, 2], cov [P, N, 2, 2], K) of MERGE_EDGES[name],
+def edge_dims(name):
+    """The dimensions D whose kernels run MERGE_EDGES[name]."""
+    from phdslam_tpu_torch.kernels.merge import MAX_CANDIDATES
+    P, N, K, opt = MERGE_EDGES[name]
+    return tuple(D for D in opt.get("dims", (2, 3, 4))
+                 if N <= MAX_CANDIDATES[D])
+
+
+def _edge_lanes(name, seed, D=2):
+    """(w, act, mean [P, N, D], cov [P, N, D, D], K) of MERGE_EDGES[name],
     lanes weight-descending."""
     P, N, K, opt = MERGE_EDGES[name]
     rng = np.random.default_rng(seed + N + 7 * P)
     n_c = N if opt.get("far") else opt.get("centers", 40)
-    centers = rng.normal(0, 20, (P, n_c, 2))
+    centers = rng.normal(0, 20, (P, n_c, D))
     if opt.get("far"):
-        centers = np.stack(np.meshgrid(np.arange(N) * 1000.0, [0.0]),
-                           axis=-1).reshape(1, N, 2).repeat(P, 0)
+        centers = np.zeros((P, N, D))
+        centers[..., 0] = np.arange(N) * 1000.0
         which = np.broadcast_to(np.arange(N), (P, N))
     else:
         which = rng.integers(0, n_c, (P, N))
-    mean = centers[np.arange(P)[:, None], which] \
-        + rng.normal(0, opt.get("spread", 0.3), (P, N, 2))
-    A = rng.normal(0, 0.5, (P, N, 2, 2))
-    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.3 * np.eye(2)
+    on = centers[np.arange(P)[:, None], which]
+    mean = on + rng.normal(0, opt.get("spread", 0.3), (P, N, D))
+    A = rng.normal(0, 0.5, (P, N, D, D))
+    cov = np.einsum("pnij,pnkj->pnik", A, A) + 0.3 * np.eye(D)
     w = -np.sort(-rng.uniform(0.01, 1.0, (P, N)), axis=1)
     act = rng.random((P, N)) < opt.get("frac", 0.6)
     if opt.get("one"):
@@ -151,17 +228,27 @@ def _edge_lanes(name, seed):
         w[2, :N // 2] = -0.5
         w[2, N // 2: N // 2 + 8] = 0.0
         w[3, :] = 0.0
+    if opt.get("degenerate"):
+        flat = rng.random((P, N)) < 0.5
+        cov[flat, -1, :] = 0.0
+        cov[flat, :, -1] = 0.0
+        mean[flat, -1] = on[flat, -1]
+        none = rng.random((P, N)) < 0.25
+        cov[none] = 0.0
+        mean[none] = on[none]
     return w, act, mean, cov, K
 
 
-def merge_edge_case(name, sorted_w=True, seed=0):
-    """(packed [P, 7, N] f32 numpy, K) of MERGE_EDGES[name]: lanes
-    weight-descending for sorted mode, in a fixed random order for argmax
-    mode."""
-    w, act, mean, cov, K = _edge_lanes(name, seed)
-    planes = np.stack([np.where(act, w, 0.0), act, mean[..., 0],
-                       mean[..., 1], cov[..., 0, 0], cov[..., 0, 1],
-                       cov[..., 1, 1]], axis=1)
+def merge_edge_case(name, sorted_w=True, seed=0, D=2):
+    """(packed [P, C, N] f32 numpy, K) of MERGE_EDGES[name] at dimension D
+    (C = 7, 11, 16: w, act, the mean planes, the upper-triangle covariance
+    planes): lanes weight-descending for sorted mode, in a fixed random
+    order for argmax mode (D = 2)."""
+    w, act, mean, cov, K = _edge_lanes(name, seed, D)
+    planes = np.stack([np.where(act, w, 0.0), act]
+                      + [mean[..., i] for i in range(D)]
+                      + [cov[..., a, b] for a in range(D)
+                         for b in range(a, D)], axis=1)
     if not sorted_w:
         perm = np.random.default_rng(seed).permutation(planes.shape[2])
         planes = planes[:, :, perm]
@@ -231,19 +318,26 @@ def tables_bound(ints, flts, K, flop_per_lane):
 
 def merge_rounds(packed, min_sep, K, sorted_w=True, metric=0,
                  R=ROUND_PRINCIPALS):
-    """Replays the kernel's round-based greedy chain on packed planes
-    [P, 7, N] (any device): each round takes the R lowest unmerged lanes
-    (sorted) or the R heaviest with w > 0, ties to the lowest lane
-    (argmax; a row with an unmerged NaN weight stalls) as tentative
-    principals; principal r is valid when no earlier valid principal
-    covers it; the first K - c valid ones emit their clusters, and a lane
-    joins the first that covers it. Returns per-particle int64 tensors
-    (entering lanes, clusters, rounds that emitted). The clusters equal
-    the sequential merge's (the twin's n_merged)."""
+    """Replays the kernels' round-based greedy chain on packed planes
+    [P, C, N] of any dimension D (C = 7, 11, 16 at D = 2, 3, 4; any
+    device): each round takes the R lowest unmerged lanes (sorted) or the
+    R heaviest with w > 0, ties to the lowest lane (argmax, D = 2; a row
+    with an unmerged NaN weight stalls) as tentative principals;
+    principal r is valid when no earlier valid principal covers it; the
+    first K - c valid ones emit their clusters, and a lane joins the first
+    that covers it. The distance is the kernel's: Mahalanobis (2D, or the
+    closed forms of merge3d and merge4d) or Hellinger (``metric`` 1).
+    Returns per-particle int64 tensors (entering lanes, clusters, rounds
+    that emitted). The clusters equal the sequential merge's (the twin's
+    n_merged)."""
     from phdslam_tpu_torch.ops.gm_merge import unpack_planes
-    from phdslam_tpu_torch.ops.math import hellinger2, mahalanobis2
-    dist = hellinger2 if metric else mahalanobis2
-    mean, cov, w, act = unpack_planes(packed, 2)
+    from phdslam_tpu_torch.ops.math import (hellinger2, mahalanobis2,
+                                            mahalanobis2_3d,
+                                            mahalanobis2_4d)
+    D = MERGE_DIMS[packed.shape[1]]
+    dist = hellinger2 if metric else {2: mahalanobis2, 3: mahalanobis2_3d,
+                                      4: mahalanobis2_4d}[D]
+    mean, cov, w, act = unpack_planes(packed, D)
     P, N = w.shape
     dev = w.device
     unmerged = act.clone() if not sorted_w else act & (w > 0)
@@ -300,12 +394,12 @@ def round_stats(enter, trips, rounds):
             else 0.0}
 
 
-def check_merge(got, want, label):
-    """A merge's output planes [P, 8, K] against its twin's: equal cluster
-    and leftover counts, rtol 1e-4 / atol 1e-5 on weights, means and
-    covariances. Returns (max |err|, clusters a particle)."""
+def check_merge(got, want, label, D=2):
+    """A merge's output planes [P, C, K] at dimension D against its twin's:
+    equal cluster and leftover counts, rtol 1e-4 / atol 1e-5 on weights,
+    means and covariances. Returns (max |err|, clusters a particle)."""
     from phdslam_tpu_torch.ops.gm_merge import merge_out
-    g, w = merge_out(got, 2), merge_out(want, 2)
+    g, w = merge_out(got, D), merge_out(want, D)
     require(torch.equal(g[3], w[3]), f"{label}: n_merged differs")
     require(torch.equal(g[4], w[4]), f"{label}: n_unmerged differs")
     for a, b in zip(g[:3], w[:3]):
@@ -318,9 +412,11 @@ def check_merge(got, want, label):
 # ----------------------------------------------------------------------------
 
 # name: (source, sorted_w, metric). source: ("packed", maker) on
-# merge_inputs / full_grid_inputs at their defaults; ("tables", config, P,
-# K, M, valid) on eval/scenes.py::tables_payload (seed 0; the packed
-# variant merges the two-kernel route's planes of the same tables); or
+# merge_inputs / full_grid_inputs at their defaults, merge4d_inputs at
+# N=128 (K=128, min_sep 2) or merge3d_inputs at N=512 (K=24, min_sep 20),
+# the shapes of the mixed and disparity paths; ("tables", config, P, K, M,
+# valid) on eval/scenes.py::tables_payload (seed 0; the packed variant
+# merges the two-kernel route's planes of the same tables); or
 # ("captured", run) from detect_bench.capture_step
 _ACK_TABLES = ("tables", "cfg/ackerman.cfg", 512, 128, 48, 44)
 _DENSE_TABLES = ("tables", "cfg/dense.cfg", 1024, 1024, 72, 65)
@@ -339,6 +435,10 @@ MERGE_TIMED = {
                                        "dense fused + adaptive"), True, 0),
     "merge2d_argmax full grid captured": (("captured", "full grid"), False,
                                           0),
+    "merge4d": (("packed", "merge4d"), True, 0),
+    "merge3d": (("packed", "merge3d"), True, 0),
+    "merge4d mixed captured": (("captured", "mixed"), True, 0),
+    "merge3d disparity captured": (("captured", "disparity"), True, 0),
 }
 
 
@@ -374,6 +474,10 @@ def timed_case(dev, name, captured):
         if source[1] not in captured:
             captured[source[1]] = capture_step(dev, source[1])
         calls, step = captured[source[1]]
+        for name in ("merge3d", "merge4d"):
+            if name in calls:
+                (packed, sep, K), _ = calls[name]
+                return None, packed, K, sep, True, 0, step
         if "merge2d_tables" in calls:
             args, kw = calls["merge2d_tables"]
             return (tuple(args[:4]), None, args[5], args[4], True,
@@ -388,29 +492,57 @@ def timed_case(dev, name, captured):
         return None, merge_inputs(dev), 128, sep, sorted_w, metric, None
     if source[1] == "full grid":
         return None, full_grid_inputs(dev), 128, sep, sorted_w, metric, None
+    if source[1] == "merge4d":
+        return (None, merge4d_inputs(dev, N=128, seed=128), 128, MIXED_SEP,
+                True, 0, None)
+    if source[1] == "merge3d":
+        return None, merge3d_inputs(dev, seed=24), 24, DISP_SEP, True, 0, None
     # the dense scene's candidates through the two-kernel route
     g, _, K = _scene_tables(dev, source[1])
     return (None, _finish_candidates_packed(g, 2), K, sep, sorted_w, metric,
             None)
 
 
-def plan_of(P, N, sorted_w, metric, tables):
+def plan_of(P, N, sorted_w, metric, tables, D=2):
     """The checkout's launch plan (None where it reports none)."""
     from phdslam_tpu_torch.kernels import merge
+    if D != 2:
+        return merge.merge_plan(D, P, N) if hasattr(merge, "merge_plan") \
+            else None
     if not hasattr(merge, "merge2d_plan"):
         return None
     return merge.merge2d_plan(P, N, sorted_w, metric, tables)
+
+
+def case_bound(tabs, packed, K, metric):
+    """(bound ms, what bounds it) of a case: merge_bound at the kernel's
+    output planes and f32 operations per entering lane (2D: 27
+    Mahalanobis, 40 Hellinger; 3D: 70; 4D: 120), or tables_bound."""
+    if tabs is not None:
+        return tables_bound(tabs[0], tabs[1], K, 40 if metric else 27)
+    D = MERGE_DIMS[packed.shape[1]]
+    flops = {2: 40 if metric else 27, 3: 70, 4: 120}[D]
+    return merge_bound(packed, K, OUT_PLANES[D], flops)
 
 
 def run_case(tabs, packed, K, sep, sorted_w, metric, label):
     """One merge call against its twin. Returns (fn, launch name, output,
     max |err|)."""
     from phdslam_tpu_torch.kernels import build
+    from phdslam_tpu_torch.kernels import merge
     from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
                                                  merge2d_tables,
                                                  merge2d_tables_reference,
                                                  merge2d_variant)
-    if tabs is not None:
+    D = 2 if tabs is not None else MERGE_DIMS[packed.shape[1]]
+    if D != 2:
+        kern = getattr(merge, f"merge{D}d")
+
+        def fn():
+            return kern(packed, sep, K)
+        want = getattr(merge, f"merge{D}d_reference")(packed, sep, K)
+        name = f"merge{D}d"
+    elif tabs is not None:
         def fn():
             return merge2d_tables(*tabs, sep, K, metric)
         want = merge2d_tables_reference(*tabs, sep, K, metric)
@@ -425,16 +557,24 @@ def run_case(tabs, packed, K, sep, sorted_w, metric, label):
     torch.cuda.synchronize()
     require(dict(build.launch_counts) == {name: 1},
             f"{label}: launched {dict(build.launch_counts)}, not {name}")
-    err, _ = check_merge(got, want, label)
+    err, _ = check_merge(got, want, label, D)
     return fn, name, got, err
 
 
 def edge_runs(dev, names=tuple(MERGE_EDGES)):
     """(label, tables operands or None, packed, K, min_sep, sorted_w,
-    metric) of the MERGE_EDGES cases ``names`` in every merge2d variant
-    and in merge2d_tables at both metrics."""
+    metric) of the MERGE_EDGES cases ``names`` in every merge2d variant,
+    in merge2d_tables at both metrics, and in merge3d and merge4d (at
+    MIN_SEP), as far as each runs the case (:func:`edge_dims`)."""
     runs = []
     for name in names:
+        for D in (d for d in edge_dims(name) if d != 2):
+            planes, K = merge_edge_case(name, True, D=D)
+            runs.append((f"edge {name} merge{D}d", None,
+                         torch.from_numpy(planes).to(dev), K, MIN_SEP, True,
+                         0))
+        if 2 not in edge_dims(name):
+            continue
         for sorted_w in (True, False):
             planes, K = merge_edge_case(name, sorted_w)
             packed = torch.from_numpy(planes).to(dev)
@@ -484,21 +624,20 @@ def main():
         fn, launched, got, err = run_case(tabs, packed, K, sep, sorted_w,
                                           metric, name)
         calls_ms = [time_call(fn) for _ in range(2)]
+        b_ms, b_by = case_bound(tabs, packed, K, metric)
         if tabs is not None:
             P, _, N = tabs[0].shape
-            b_ms, b_by = tables_bound(tabs[0], tabs[1], K,
-                                      40 if metric else 27)
             packed = tables_planes(tabs)
         else:
             P, _, N = packed.shape
-            b_ms, b_by = merge_bound(packed, K, 8, 40 if metric else 27)
+        D = 2 if packed is None else MERGE_DIMS[packed.shape[1]]
         stats = None if packed is None else round_stats(
             *merge_rounds(packed, sep, K, sorted_w, metric))
         emit({"label": args.label, "case": name, "launched": launched,
               "step": step, "P": P, "N": N, "K": K, "min_sep": sep,
               "call_ms": min(calls_ms), "graph_ms": graph_ms(fn),
               "bound_ms": b_ms, "bound_by": b_by, "lanes": stats,
-              "plan": plan_of(P, N, sorted_w, metric, tabs is not None),
+              "plan": plan_of(P, N, sorted_w, metric, tabs is not None, D),
               "max_abs_err": err, "out_sha": digest((got,)),
               "in_sha": digest(tabs if tabs is not None else (packed,)),
               "card": card})
@@ -517,11 +656,12 @@ def main():
             continue
         if tabs is not None:
             packed = tables_planes(tabs)
+        D = 2 if packed is None else MERGE_DIMS[packed.shape[1]]
         stats = None if packed is None else round_stats(
             *merge_rounds(packed, sep, K, sorted_w, metric))
         emit({"label": args.label, "case": label, "launched": launched,
               "P": P, "N": N, "K": K, "lanes": stats,
-              "plan": plan_of(P, N, sorted_w, metric, tabs is not None),
+              "plan": plan_of(P, N, sorted_w, metric, tabs is not None, D),
               "max_abs_err": err, "out_sha": digest((got,)), "card": card})
     if args.out:
         with open(args.out, "w") as f:

@@ -6,267 +6,74 @@
 // fast path runs it (entry gm_merge_pallas_batch_packed_4d, sorted_w=True,
 // Mahalanobis metric). Input planes [P, 16, N]: w, act, m0..m3, then the 10
 // upper-triangle covariance planes c00 c01 c02 c03 c11 c12 c13 c22 c23 c33;
-// the active lanes are weight-descending (top-cap-compacted), so the greedy
-// principal is always the first unmerged lane. Each trip: every unmerged
-// lane whose squared Mahalanobis distance to the principal (averaged
-// covariance, in the 2x2-block Schur form of the TPU kernel's mahal4, with
-// its |det| > 1e-30 clamps) is below min_sep joins it; the trip emits
-// W = sum w, mu = sum w m / W and the two-pass covariance
+// the active lanes are weight-descending (top-cap-compacted). Each cluster:
+// every unmerged lane whose squared Mahalanobis distance to the principal
+// (averaged covariance, in the 2x2-block Schur form of the TPU kernel's
+// mahal4, with its |det| > 1e-30 clamps) is below min_sep joins it; the
+// cluster emits W = sum w, mu = sum w m / W and the two-pass covariance
 // sum w (c + dd dd') / W with dd = mu - m. Output planes [P, 16, K]: w,
 // m0..m3, the 10 covariance planes, then the count of lanes left unmerged
-// (broadcast). Empty slots hold w 0, mean 0 and identity covariance. Lanes
-// with w <= 0 or NaN never enter; every trip emits its principal, so the
-// loop ends after at most K trips whatever the weights hold.
-//
-// What bounds it on Hopper: as in merge2d.cu, the loop is sequential in the
-// clusters and each trip touches only the particle's unmerged lanes, so it
-// is bound by the latency of two block-wide reductions per trip (5 partial
-// sums, then 10 plus the next principal), not by bytes or FLOPs. Design:
-// merge2d.cu's, widened to 4D. One block of 64 threads (2 warps) per
-// particle; the 16 candidate planes sit in shared memory for the whole loop
-// (16 N 4 bytes: 8 KB at N = 128, 32 KB at N = 512); each thread owns lanes
-// tid + 64 j as a bit mask of still-unmerged lanes, so a trip costs the live
-// count, not N; the next principal falls out of the second reduction. The
-// TPU kernel's R-principals-per-trip validity chain and lane cumsum existed
-// to amortise its per-trip overhead and are not needed here.
+// (broadcast). The greedy rounds, their exactness and what bounds them on
+// Hopper: merge_core.cuh (kR tentative principals a round).
 
 #include <cuda_runtime.h>
 
-#include <climits>
+#include "merge_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCov = 10;   // covariance planes, row-major upper triangle
+constexpr int kR = 8;           // tentative principals a round
 
-// dd_a dd_b for the 10 (a, b) of the covariance planes, in plane order
-__device__ __forceinline__ void outer_upper(const float d[4],
-                                            float out[kCov]) {
-  out[0] = d[0] * d[0];
-  out[1] = d[0] * d[1];
-  out[2] = d[0] * d[2];
-  out[3] = d[0] * d[3];
-  out[4] = d[1] * d[1];
-  out[5] = d[1] * d[2];
-  out[6] = d[1] * d[3];
-  out[7] = d[2] * d[2];
-  out[8] = d[2] * d[3];
-  out[9] = d[3] * d[3];
-}
+struct Gauss4 {
+  static constexpr int kDim = 4;
+  static constexpr int kCov = 10;      // _PAIRS4 order
+  static constexpr int kPlanes = 16;
+  static constexpr int kOutPlanes = 16;
 
-__device__ __forceinline__ bool is_diag(int q) {
-  return q == 0 || q == 4 || q == 7 || q == 9;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ int first_lane(unsigned own, int tid) {
-  return own ? tid + (__ffs(own) - 1) * kThreads : INT_MAX;
-}
-
-__device__ __forceinline__ float clamp_det(float det) {
-  return fabsf(det) > 1e-30f ? det : 1e-30f;
-}
-
-// d' S^-1 d for the averaged covariance S (10 planes, _PAIRS4 order),
-// operation for operation as pallas_merge.py's mahal4
-__device__ __forceinline__ float mahal4(const float d[4], const float s[kCov]) {
-  const float s00 = s[0], s01 = s[1], s02 = s[2], s03 = s[3], s11 = s[4];
-  const float s12 = s[5], s13 = s[6], s22 = s[7], s23 = s[8], s33 = s[9];
-  const float det_a = clamp_det(s00 * s11 - s01 * s01);
-  const float ai00 = s11 / det_a;
-  const float ai01 = -s01 / det_a;
-  const float ai11 = s00 / det_a;
-  const float g00 = ai00 * s02 + ai01 * s12;
-  const float g01 = ai00 * s03 + ai01 * s13;
-  const float g10 = ai01 * s02 + ai11 * s12;
-  const float g11 = ai01 * s03 + ai11 * s13;
-  const float m00 = s22 - (s02 * g00 + s12 * g10);
-  const float m01 = s23 - (s02 * g01 + s12 * g11);
-  const float m11 = s33 - (s03 * g01 + s13 * g11);
-  const float det_m = clamp_det(m00 * m11 - m01 * m01);
-  const float mi00 = m11 / det_m;
-  const float mi01 = -m01 / det_m;
-  const float mi11 = m00 / det_m;
-  const float v0 = ai00 * d[0] + ai01 * d[1];
-  const float v1 = ai01 * d[0] + ai11 * d[1];
-  const float pap = d[0] * v0 + d[1] * v1;
-  const float u0 = s02 * v0 + s12 * v1 - d[2];
-  const float u1 = s03 * v0 + s13 * v1 - d[3];
-  return pap + (u0 * u0 * mi00 + 2.f * u0 * u1 * mi01 + u1 * u1 * mi11);
-}
-
-__global__ void __launch_bounds__(kThreads)
-merge4d_kernel(const float* __restrict__ packed, float* __restrict__ out,
-               int N, int K, float min_sep) {
-  extern __shared__ float s[];                  // [16, N]
-  __shared__ float red_a[kWarps][5];
-  __shared__ float red_b[kWarps][kCov];
-  __shared__ int red_next[kWarps];
-  __shared__ int red_first[kWarps];
-  __shared__ int red_left[kWarps];
-
-  const int p = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float* in = packed + static_cast<size_t>(p) * 16 * N;
-  for (int i = tid; i < 16 * N; i += kThreads) s[i] = in[i];
-  __syncthreads();
-  const float* w = s;
-  const float* act = s + N;
-  const float* m = s + 2 * N;                   // plane i at m + i * N
-  const float* c = s + 6 * N;                   // plane q at c + q * N
-
-  // bit j of own: lane tid + kThreads * j is still unmerged
-  unsigned own = 0;
-  for (int j = 0; tid + kThreads * j < N; ++j) {
-    const int i = tid + kThreads * j;
-    if (act[i] > 0.5f && w[i] > 0.f) own |= 1u << j;
+  // d' S^-1 d for the averaged covariance S, operation for operation as
+  // pallas_merge.py's mahal4 (kFast: Recip's quotients, which clear ok
+  // where they are not the IEEE ones)
+  template <bool kFast>
+  __device__ __forceinline__ static float dist(const float (&d)[4],
+                                               const float (&s)[10],
+                                               bool& ok) {
+    using Div = std::conditional_t<kFast, phd_merge::Recip,
+                                   phd_merge::Divide>;
+    const float s00 = s[0], s01 = s[1], s02 = s[2], s03 = s[3], s11 = s[4];
+    const float s12 = s[5], s13 = s[6], s22 = s[7], s23 = s[8], s33 = s[9];
+    const Div da(phd_merge::clamp_det(s00 * s11 - s01 * s01), ok);
+    const float ai00 = da(s11, ok);
+    const float ai01 = da(-s01, ok);
+    const float ai11 = da(s00, ok);
+    const float g00 = ai00 * s02 + ai01 * s12;
+    const float g01 = ai00 * s03 + ai01 * s13;
+    const float g10 = ai01 * s02 + ai11 * s12;
+    const float g11 = ai01 * s03 + ai11 * s13;
+    const float m00 = s22 - (s02 * g00 + s12 * g10);
+    const float m01 = s23 - (s02 * g01 + s12 * g11);
+    const float m11 = s33 - (s03 * g01 + s13 * g11);
+    const Div dm(phd_merge::clamp_det(m00 * m11 - m01 * m01), ok);
+    const float mi00 = dm(m11, ok);
+    const float mi01 = dm(-m01, ok);
+    const float mi11 = dm(m00, ok);
+    const float v0 = ai00 * d[0] + ai01 * d[1];
+    const float v1 = ai01 * d[0] + ai11 * d[1];
+    const float pap = d[0] * v0 + d[1] * v1;
+    const float u0 = s02 * v0 + s12 * v1 - d[2];
+    const float u1 = s03 * v0 + s13 * v1 - d[3];
+    return pap + (u0 * u0 * mi00 + 2.f * u0 * u1 * mi01 + u1 * u1 * mi11);
   }
-  int head = warp_min(first_lane(own, tid));
-  if (lane == 0) red_first[warp] = head;
-  __syncthreads();
-  head = red_first[0];
-#pragma unroll
-  for (int q = 1; q < kWarps; ++q) head = min(head, red_first[q]);
-
-  float* o = out + static_cast<size_t>(p) * 16 * K;
-  int n_out = 0;
-  while (head != INT_MAX && n_out < K) {
-    float pm[4], pc[kCov];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pm[i] = m[i * N + head];
-#pragma unroll
-    for (int q = 0; q < kCov; ++q) pc[q] = c[q * N + head];
-
-    // membership + zeroth/first moments
-    unsigned sel = 0;
-    float a[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (unsigned b = own; b; b &= b - 1) {
-      const int j = __ffs(b) - 1;
-      const int i = tid + kThreads * j;
-      float d[4], sg[kCov];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) d[k] = pm[k] - m[k * N + i];
-#pragma unroll
-      for (int q = 0; q < kCov; ++q) sg[q] = 0.5f * (c[q * N + i] + pc[q]);
-      if (mahal4(d, sg) < min_sep || i == head) {
-        sel |= 1u << j;
-        const float wi = w[i];
-        a[0] += wi;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) a[1 + k] += wi * m[k * N + i];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) a[k] = warp_sum(a[k]);
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < 5; ++k) red_a[warp][k] = a[k];
-    }
-    __syncthreads();
-    float sum_a[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int q = 0; q < kWarps; ++q) {
-#pragma unroll
-      for (int k = 0; k < 5; ++k) sum_a[k] += red_a[q][k];
-    }
-    own &= ~sel;
-    const float W = sum_a[0];
-    const float w_safe = fmaxf(W, 1e-30f);
-    float mu[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) mu[k] = sum_a[1 + k] / w_safe;
-
-    // second moments about the merged mean + next principal
-    float bsum[kCov];
-#pragma unroll
-    for (int q = 0; q < kCov; ++q) bsum[q] = 0.f;
-    for (unsigned b = sel; b; b &= b - 1) {
-      const int i = tid + kThreads * (__ffs(b) - 1);
-      float dd[4], spread[kCov];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) dd[k] = mu[k] - m[k * N + i];
-      outer_upper(dd, spread);
-      const float wi = w[i];
-#pragma unroll
-      for (int q = 0; q < kCov; ++q)
-        bsum[q] += wi * (c[q * N + i] + spread[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < kCov; ++q) bsum[q] = warp_sum(bsum[q]);
-    const int nxt = warp_min(first_lane(own, tid));
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < kCov; ++q) red_b[warp][q] = bsum[q];
-      red_next[warp] = nxt;
-    }
-    __syncthreads();
-    head = INT_MAX;
-#pragma unroll
-    for (int q = 0; q < kWarps; ++q) head = min(head, red_next[q]);
-    if (tid == 0) {
-      o[n_out] = W;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o[(1 + k) * K + n_out] = mu[k];
-#pragma unroll
-      for (int q = 0; q < kCov; ++q) {
-        float v = 0.f;
-#pragma unroll
-        for (int r = 0; r < kWarps; ++r) v += red_b[r][q];
-        o[(5 + q) * K + n_out] = v / w_safe;
-      }
-    }
-    ++n_out;
-    // no third barrier: red_a is read only between this trip's two
-    // barriers and rewritten after them; red_b / red_next are read here and
-    // rewritten only after the next trip's first barrier
-  }
-
-  const int left = static_cast<int>(warp_sum(static_cast<float>(__popc(own))));
-  if (lane == 0) red_left[warp] = left;
-  __syncthreads();
-  int n_left = 0;
-#pragma unroll
-  for (int q = 0; q < kWarps; ++q) n_left += red_left[q];
-  for (int k = n_out + tid; k < K; k += kThreads) {
-    for (int r = 0; r < 5; ++r) o[r * K + k] = 0.f;
-#pragma unroll
-    for (int q = 0; q < kCov; ++q)
-      o[(5 + q) * K + k] = is_diag(q) ? 1.f : 0.f;
-  }
-  for (int k = tid; k < K; k += kThreads)
-    o[15 * K + k] = static_cast<float>(n_left);
-}
+};
 
 }  // namespace
 
 extern "C" int phd_merge4d(const float* packed, float* out, int P, int N,
                            int K, float min_sep, void* stream) {
-  if (P <= 0 || K <= 0) return 0;
-  if (N < 0 || N > 32 * kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * 16 * static_cast<size_t>(N);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        merge4d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  merge4d_kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      packed, out, N, K, min_sep);
-  return static_cast<int>(cudaGetLastError());
+  return phd_merge::launch<Gauss4, kR>(packed, out, P, N, K, min_sep,
+                                        stream);
+}
+
+// The launch plan for P particles of N lanes, into out[7] (merge_core.cuh)
+extern "C" int phd_merge4d_plan(int P, int N, int* out) {
+  return phd_merge::plan<Gauss4, kR>(P, N, out);
 }

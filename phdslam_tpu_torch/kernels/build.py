@@ -63,6 +63,12 @@ _SIGNATURES = {
     "phd_merge3d": [_P, _P, _I, _I, _I, _F, _P],
     # packed, out, P, N, K, min_separation, stream
     "phd_merge4d": [_P, _P, _I, _I, _I, _F, _P],
+    # P, N, out int[7] (the launch plan)
+    "phd_merge3d_plan": [_I, _I, _P],
+    "phd_merge4d_plan": [_I, _I, _P],
+    # pairs, seed, mode, counts int64[3], stream (merge_core_check.cu)
+    "phd_merge_recip_check": [ctypes.c_ulonglong, ctypes.c_ulonglong, _I,
+                              _P, _P],
 }
 
 # shared memory a gather block may take for its particle's staged table

@@ -18,8 +18,9 @@ active lanes weight-descending. Output planes
 unmerged (broadcast), zero pads ([P, 8, K] at D = 2, [P, 12, K] at D = 3,
 [P, 16, K] at D = 4), clusters in greedy emission order, empty slots as
 weight 0, mean 0, identity covariance. A wrapper launches its CUDA kernel
-(csrc/merge2d.cu, merge3d.cu, merge4d.cu) for CUDA tensors and runs its
-plain twin (``*_reference``) for CPU tensors. Each merge2d variant counts
+(csrc/merge2d.cu; merge3d.cu and merge4d.cu on the round core of
+csrc/merge_core.cuh) for CUDA tensors and runs its plain twin
+(``*_reference``) for CPU tensors. Each merge2d variant counts
 its launches under its own name (:func:`merge2d_variant`).
 
 ``merge2d_tables`` replaces ``_merge_tables_kernel`` (fused_gather_merge,
@@ -74,6 +75,43 @@ def merge2d_plan(P: int, N: int, sorted_w: bool = True, metric: int = 0,
         build.check_launch(err, "merge2d plan")
         plan = _plans[key] = dict(zip(PLAN_KEYS, out))
     return plan
+
+
+def merge_plan(D: int, P: int, N: int, device=None) -> dict:
+    """The launch plan of merge3d (D = 3) or merge4d (D = 4) for P
+    particles of N lanes on a CUDA device (csrc/merge_core.cuh::plan), in
+    merge2d_plan's keys: threads a block, lanes a block keeps in shared
+    memory (N), dynamic shared memory a block (bytes), resident blocks an
+    SM, overflow (0), registers a thread, waves. Cached."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, P, N, D)
+    plan = _plans.get(key)
+    if plan is None:
+        out = (ctypes.c_int * len(PLAN_KEYS))()
+        with torch.cuda.device(index):
+            err = getattr(build.library(), f"phd_merge{D}d_plan")(P, N, out)
+        build.check_launch(err, f"merge{D}d plan")
+        plan = _plans[key] = dict(zip(PLAN_KEYS, out))
+    return plan
+
+
+def recip_check(n: int, seed: int = 0, mode: int = 0, device=None) -> dict:
+    """csrc/merge_core_check.cu on a CUDA device: n pseudo-random operand
+    pairs (mode 0: any finite floats; mode 1: magnitudes 2^-27 to 2^28)
+    through the 3D and 4D merges' quotient (merge_core.cuh::Recip) beside
+    IEEE f32 division. Returns the pairs tested, those Recip declines (the
+    kernels divide those in IEEE f32) and those whose quotients differ in
+    any bit (none, where the quotient is exact)."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    err = build.library().phd_merge_recip_check(
+        n, seed, mode, counts.data_ptr(), build.stream_handle(dev))
+    build.check_launch(err, "merge recip check")
+    tested, declined, differ = counts.tolist()
+    return {"tested": tested, "declined": declined, "differ": differ}
 
 
 def merge2d_variant(sorted_w: bool = True, metric: int = 0,

@@ -20,9 +20,9 @@ merge against the two-kernel route on the card, and the row gather. Both
 gathers run at the paths' shapes and at ragged, unaligned, out-of-range
 and above-budget cases, in both their modes. The detect kernel runs at
 the selection's edges (``detect_bench.DETECT_EDGES``) in all four
-variants, and both 2D merge kernels at theirs (``merge_bench.MERGE_EDGES``:
-merge2d's four variants, merge2d_tables in both metrics), with the launch
-plan of every path's merge shape one wave. The resampling's fixed-order
+variants, and the merge kernels at theirs (``merge_bench.MERGE_EDGES``:
+merge2d's four variants, merge2d_tables in both metrics, merge3d and
+merge4d), with the launch plan of every path's merge shape one wave. The resampling's fixed-order
 cumsum repeats its bits at P=10240.
 """
 
@@ -51,7 +51,8 @@ from phdslam_tpu_torch.kernels.merge import (MAX_CANDIDATES, merge2d,
                                              merge2d_tables_reference,
                                              merge2d_variant, merge3d,
                                              merge3d_reference, merge4d,
-                                             merge4d_reference)
+                                             merge4d_reference, merge_plan,
+                                             recip_check)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
 from phdslam_tpu_torch.ops.resample import cumsum_fixed_order
 
@@ -168,10 +169,11 @@ def test_merge2d_sorted_wide_matches_twin(dev, metric):
 
 @pytest.mark.parametrize("name", list(MERGE_EDGES))
 def test_merge_edges_match_twins(dev, name):
-    """Both 2D merge kernels at merge_bench.MERGE_EDGES[name]: merge2d in
-    its four variants and merge2d_tables in both metrics, one launch each
-    under its variant's name, counts equal to the twin's, rtol 1e-4 /
-    atol 1e-5 (merge_bench.run_case)."""
+    """The merge kernels at merge_bench.MERGE_EDGES[name]: merge2d in its
+    four variants, merge2d_tables in both metrics, merge3d and merge4d
+    where they run the case (merge_bench.edge_dims), one launch each under
+    its name, counts equal to the twin's, rtol 1e-4 / atol 1e-5
+    (merge_bench.run_case)."""
     for label, tabs, packed, K, sep, sorted_w, metric in edge_runs(
             dev, (name,)):
         run_case(tabs, packed, K, sep, sorted_w, metric, label)
@@ -194,6 +196,35 @@ def test_merge2d_path_shapes_run_in_one_wave(dev, P, N, sorted_w, tables):
         plan = merge2d_plan(P, N, sorted_w, metric, tables, dev)
         assert plan["waves"] == 1, plan
         assert plan["entries"] >= min(N, 512), plan
+
+
+# (D, P, N): merge4d on the mixed path's dynamic map (cap 128) at P=512
+# and P=10240, merge3d on the disparity path's 512 lanes at P=200 and 512
+PATH_MERGES_3D4D = [(4, 512, 128), (4, 10240, 128), (3, 200, 512),
+                    (3, 512, 512)]
+
+
+@pytest.mark.parametrize("D,P,N", PATH_MERGES_3D4D)
+def test_merge3d4d_path_shapes_plan(dev, D, P, N):
+    """merge3d's and merge4d's launch plan at the paths' shapes (the
+    captured steps' among them): 64 threads, every lane's values in
+    shared memory, P=512 in one wave (4 blocks an SM fit)."""
+    plan = merge_plan(D, P, N, dev)
+    assert plan["threads"] == 64 and plan["entries"] == N, plan
+    assert plan["smem"] == 4 * (1 + D + D * (D + 1) // 2) * N, plan
+    assert plan["blocks_per_sm"] >= 4, plan
+    assert P > 512 or plan["waves"] == 1, plan
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_merge_recip_quotient_is_ieee(dev, mode):
+    """merge3d's and merge4d's quotient (merge_core.cuh::Recip) equals IEEE
+    f32 division in every bit wherever it does not decline, over 2^28
+    pseudo-random pairs of any finite floats (mode 0) and of magnitudes
+    2^-27 to 2^28 (mode 1, where it never declines)."""
+    r = recip_check(1 << 28, seed=mode, mode=mode, device=dev)
+    assert r["tested"] > 0 and r["differ"] == 0, r
+    assert mode == 0 or r["declined"] == 0, r
 
 
 def test_merge2d_argmax_overflow_and_nan_weights(dev):

@@ -46,6 +46,8 @@ from phdslam_tpu_torch.slam_disparity import (load_image_measurements,
                                               run_disparity)
 from phdslam_tpu_torch.types import (disparity_state_from_jax,
                                      disparity_state_to_numpy)
+from merge_bench import MIN_SEP, merge_edge_case
+from test_torch_kernels import MERGE_EDGES_3D4D, active_first
 
 # tests/test_disparity.py::cam_cfg's camera and noise at a small size:
 # P=6, K=12 slots of N=8 points, M=8, so K + M K + M = 116 candidate lanes.
@@ -321,11 +323,11 @@ def merge3d_case(seed, P=4, N=64, spread=3.0, sort=True):
     return np.stack(planes, axis=1).astype(np.float32)
 
 
-def _pallas_merge3d(planes, min_sep, K, sorted_w=True):
+def _pallas_merge3d(planes, min_sep, K, sorted_w=True, r_par=1):
     mean, cov, w, act = (x.numpy() for x in tgm.unpack_planes(t(planes), 3))
     return tuple(np.asarray(x) for x in gm_merge_pallas_batch_3d(
         jnp.asarray(mean), jnp.asarray(cov), jnp.asarray(w),
-        jnp.asarray(act), min_sep, K, interpret=True, r_par=1,
+        jnp.asarray(act), min_sep, K, interpret=True, r_par=r_par,
         sorted_w=sorted_w))
 
 
@@ -381,6 +383,21 @@ def test_merge3d_sort_route_matches_pallas_argmax_mode():
         cand = tgm.unpack_planes(t(planes), 3)
         planes_s = td.pack_planes(*tgm.sort_candidates(*cand)).numpy()
         assert_same_merge(_twin_merge3d(planes_s, 20.0, K), want)
+
+
+@pytest.mark.parametrize("name", MERGE_EDGES_3D4D)
+def test_merge3d_twin_matches_pallas_edges(name):
+    """merge_bench.MERGE_EDGES at D = 3 (P=4, the active lanes first, 128
+    lanes): the twin against the Pallas kernel at its default r_par=8,
+    with the tolerances above."""
+    planes, K = merge_edge_case(name, D=3)
+    planes = active_first(planes)
+    want = _pallas_merge3d(planes, MIN_SEP, K, r_par=8)
+    assert_same_merge(_twin_merge3d(planes, MIN_SEP, K), want)
+    if "K binding" in name:
+        assert (want[3] == K).all() and (want[4] > 0).all()
+    if "all within" in name:
+        assert (want[3] == 1).all() and (want[4] == 0).all()
 
 
 def test_merge3d_twin_terminates_on_nan_weights():

@@ -15,14 +15,17 @@ from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch_packed
 from phdslam_tpu.ops.pallas_select import (onehot_cols_batch,
                                            onehot_rows_batch)
 from detect_bench import DETECT_EDGES, MIN_SEP_EDGES, detect_edge_case
-from merge_bench import (HELL_SEP, MIN_SEP, ROUND_PRINCIPALS,
+from merge_bench import (DISP_SEP, HELL_SEP, MIN_SEP, MIXED_SEP,
+                         ROUND_PRINCIPALS, merge3d_inputs, merge4d_inputs,
                          merge_edge_case, merge_rounds)
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import detect, detect_reference
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.gather_rows import gather_rows
-from phdslam_tpu_torch.kernels.merge import merge2d, merge2d_reference
+from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
+                                             merge3d_reference,
+                                             merge4d_reference)
 from phdslam_tpu_torch.ops.gm_merge import merge_out
 
 
@@ -339,3 +342,53 @@ def test_merge_round_replay_emits_the_sequential_clusters(sorted_w, metric):
     assert torch.equal(enter, (planes[:, 1] > 0.5).sum(dim=1))
     assert (rounds * ROUND_PRINCIPALS >= trips).all()
     assert (rounds < trips).all()
+
+
+# merge_bench.MERGE_EDGES cases that merge3d and merge4d run, at a size the
+# CPU tests take (:func:`active_first`); N 2048 and P 1 need the card
+MERGE_EDGES_3D4D = ["no lane entering", "one lane",
+                    "all within min_sep of the first",
+                    "every lane its own cluster, K binding",
+                    "NaN and w <= 0 weights", "equal weights",
+                    "degenerate covariance"]
+
+
+def active_first(planes, P=4, n=128):
+    """The first P particles' active lanes moved first (stable, so the
+    sorted contract's weight order holds), then the first n lanes."""
+    order = np.argsort(planes[:P, 1] <= 0.5, axis=1, kind="stable")
+    return np.ascontiguousarray(
+        np.take_along_axis(planes[:P], order[:, None, :], axis=2)[..., :n])
+
+
+def _merge_twin(D):
+    return merge3d_reference if D == 3 else merge4d_reference
+
+
+@pytest.mark.parametrize("D", [3, 4])
+@pytest.mark.parametrize("case", ["clustered", "isolated"])
+def test_merge_round_replay_3d_4d_emits_the_sequential_clusters(D, case):
+    """merge_bench.merge_rounds at D = 3 and 4 (the round chain of
+    csrc/merge_core.cuh, R tentative principals a round) emits the
+    clusters of merge3d's and merge4d's sequential twins: clustered
+    candidates at the disparity and mixed paths' spreads, and isolated
+    ones (every lane its own cluster, K binding)."""
+    if case == "clustered":
+        cpu = torch.device("cpu")
+        planes = (merge3d_inputs(cpu, P=6, N=256, seed=5) if D == 3
+                  else merge4d_inputs(cpu, P=6, N=128, seed=5))
+        sep, K = (DISP_SEP, 24) if D == 3 else (MIXED_SEP, 128)
+    else:
+        planes, K = merge_edge_case("every lane its own cluster, K binding",
+                                    D=D)
+        planes = torch.from_numpy(active_first(planes))
+        sep = MIN_SEP
+    enter, trips, rounds = merge_rounds(planes, sep, K)
+    want = merge_out(_merge_twin(D)(planes, sep, K), D)
+    assert torch.equal(trips, want[3])
+    assert torch.equal(enter, ((planes[:, 1] > 0.5)
+                               & (planes[:, 0] > 0)).sum(dim=1))
+    assert (rounds * ROUND_PRINCIPALS >= trips).all()
+    assert (rounds < trips).all()
+    if case == "isolated":
+        assert (trips == K).all() and (want[4] > 0).all()

@@ -51,7 +51,8 @@ from phdslam_tpu_torch.ops import math as tmath
 from phdslam_tpu_torch.ops.gm_merge import (gm_merge_batch, merge_out,
                                             unpack_planes)
 from phdslam_tpu_torch.types import init_state, state_from_jax, state_to_numpy
-from test_torch_kernels import detect_case
+from merge_bench import MIN_SEP, merge_edge_case
+from test_torch_kernels import MERGE_EDGES_3D4D, active_first, detect_case
 from test_torch_step import jax_state_arrays, replay_noise
 
 # tests/test_mixed_dynamic.py::base_cfg's shape, mixed model, the fast
@@ -281,6 +282,21 @@ def test_merge4d_twin_overflow_counts():
     got = _twin_merge4d(planes, 4.0, 16)
     assert_same_merge(got, _pallas_merge4d(planes, 4.0, 16))
     assert (got[3] == 16).all() and (got[4] > 0).all()
+
+
+@pytest.mark.parametrize("name", MERGE_EDGES_3D4D)
+def test_merge4d_twin_matches_pallas_edges(name):
+    """merge_bench.MERGE_EDGES at D = 4 (P=4, the active lanes first, 128
+    lanes): the twin against the Pallas kernel at its default r_par=8,
+    with the tolerances above."""
+    planes, K = merge_edge_case(name, D=4)
+    planes = active_first(planes)
+    want = _pallas_merge4d(planes, MIN_SEP, K)
+    assert_same_merge(_twin_merge4d(planes, MIN_SEP, K), want)
+    if "K binding" in name:
+        assert (want[3] == K).all() and (want[4] > 0).all()
+    if "all within" in name:
+        assert (want[3] == 1).all() and (want[4] == 0).all()
 
 
 def test_merge4d_twin_terminates_on_nan_weights():
