@@ -40,13 +40,28 @@ drives both paths:
   P=10240 step twice with its peak memory, the P=10240 run twice more with
   the resampling's former 1D scan, and the JAX package's CPU runs'
   particle counts and seeds (P=64 and P=256) beside their results;
+- the remaining estimators and routes of the PHD/CPHD step on
+  ``data/ackerman`` at P=512: one step on the card against the CPU for
+  each of scheme-2 weighting, the MC map variance (det route; the full
+  grid at step 5), shotgunning k=3, detection_topk 128 >= K with cap 512
+  (PHD and CPHD) and EAP extraction (each tree level's merge2d against
+  its twin on its inputs); the EAP runs at eap_every 1 and 5 and on the
+  dense configuration at P=1024 (every pose bit-equal to the plain run,
+  log2 P merge2d launches a step beyond it), one EAP extraction at
+  P=10240 (``tools/bench_eap.py``'s scene), the variance run (bit-equal
+  poses, finite estimates), shotgunning twice (bit-equal) and on the
+  mixed fast route at k=2, both T >= K filters, 100 scheme-2 steps, and
+  the EAP, MAP, shotgun and T >= K accuracy beside the JAX package's
+  CPU runs of the same particle count and seeds;
 
 then times every kernel against its twin (the knob variants and the
 existing kernels at the dense shapes too, the two gathers at every shape
 the paths launch, each with ``torch.gather`` beside it, and the update's
 kernels on the inputs captured from step 60 of the dense, Ackerman and
 mixed runs and frame 20 of the disparity run,
-``detect_bench.capture_step``) and profiles a step of each path.
+``detect_bench.capture_step``; merge2d at the EAP tree's first level on
+step 60's maps of the Ackerman and dense runs) and profiles a step of
+each path (and of the Ackerman and dense runs under EAP).
 The detect kernel is also held against its twin at the selection's
 edges (``detect_bench.DETECT_EDGES``), and the merges at theirs
 (``merge_bench.MERGE_EDGES``: every merge2d variant, merge2d_tables,
@@ -86,10 +101,11 @@ from unittest import mock
 import numpy as np
 import torch
 
-from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, MIXED_STEPS,
-                          capture_step, captured_args, check_case,
-                          compare_detect, detect_bound, detect_edge_case,
-                          live_counts, max_err, mixed_runner, require)
+from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, MIXED_DT,
+                          MIXED_STEPS, capture_step, captured_args,
+                          check_case, compare_detect, detect_bound,
+                          detect_edge_case, live_counts, max_err, mixed_cfg,
+                          mixed_runner, mixed_scans, require)
 from gather_bench import (GATHER_CASES, GATHER_TIMED, card_name, cycling,
                           gather_bound, gather_case, gather_sets, graph_ms,
                           time_call)
@@ -106,10 +122,15 @@ from phdslam_tpu_torch.eval.parity import (disparity_map_estimate,
 from phdslam_tpu_torch.eval.scenes import (Scene, detect_planes, map_scene,
                                            tables_payload)
 from phdslam_tpu_torch.filters import disparity as disp
-from phdslam_tpu_torch.filters.phd import (_finish_candidates_packed,
+from phdslam_tpu_torch.filters import extras
+from phdslam_tpu_torch.filters import phd as phd_filter
+from phdslam_tpu_torch.filters.phd import (StepNoise,
+                                           _finish_candidates_packed,
                                            _post_compact_batched,
-                                           _update_pre, gather_merge,
-                                           maybe_resample, predict, update)
+                                           _update_pre, expand_particles,
+                                           extract, gather_merge,
+                                           maybe_resample, predict,
+                                           resample_particles, update)
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.detect import (detect, detect_reference,
                                               detect_variant)
@@ -124,10 +145,10 @@ from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
                                              merge3d_reference, merge4d,
                                              merge4d_reference, recip_check,
                                              tables_packed)
-from phdslam_tpu_torch.ops.gm_merge import merge_out
+from phdslam_tpu_torch.ops.gm_merge import merge_out, unpack_planes
 from phdslam_tpu_torch.ops import resample
-from phdslam_tpu_torch.ops.math import logsumexp
-from phdslam_tpu_torch.slam import SynthSLAMRunner
+from phdslam_tpu_torch.ops.math import logsumexp, mahalanobis2
+from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
 from phdslam_tpu_torch.slam_disparity import DisparityRunner
 from phdslam_tpu_torch.types import DisparityState, FilterState, GMState
 
@@ -249,6 +270,31 @@ CPHD_KERNELS = ACKERMAN_KERNELS
 FULL_GRID_KERNELS = ("merge2d_argmax",)
 HELL_KERNELS = ("detect", "gather_cols", "merge2d_hellinger")
 HELL_FULL_KERNELS = ("merge2d_argmax_hellinger",)
+TOPK_KERNELS = ("gather_cols", "merge2d")
+
+# the estimators and routes: EAP extraction, scheme-2 weighting, the MC
+# map variance, shotgunning and the top-cap lane route (T >= K)
+EAP = {"map_estimate": 2}
+S2 = {"particle_weighting": 2}
+S2_STEPS = 100
+VAR = {"compute_variance": True}
+VAR_FULL = dict(VAR, merge_candidate_cap=0)
+SHOT = {"n_predict_particles": 3}
+TOPK = {"detection_topk": 128}
+# the JAX package on the CPU over the full data/ackerman sequence
+# (reference_band.py CFG --particles P --seeds ... --set ...): mean ATE
+# (m) and mean every-step OSPA(1, 5), mean and std over the seeds
+# P=128, seeds 0-4: the plain configuration, --set map_estimate=2 (the
+# same states: the EAP map's OSPA) and --set n_predict_particles=3
+P_BAND, BAND_SEEDS = 128, range(5)
+PLAIN_CPU_BAND = {"ate": (0.6997, 0.3167), "ospa": (2.0184, 0.1252)}
+EAP_CPU_BAND = {"ate": (0.6997, 0.3167), "ospa": (1.9818, 0.1340)}
+SHOT_CPU_BAND = {"ate": (0.7631, 0.1901), "ospa": (2.0885, 0.0636)}
+# P=512, seeds 0-2: --set detection_topk=128 on cfg/ackerman.cfg and on
+# cfg/ackerman_cphd.cfg
+TOPK_SEEDS = range(3)
+TOPK_CPU_BAND = {"ate": (0.4039, 0.0661), "ospa": (1.9135, 0.0460)}
+TOPK_CPHD_CPU_BAND = {"ate": (0.3821, 0.1519), "ospa": (1.5291, 0.0885)}
 
 
 CARD = ""                       # nvidia-smi's name and power limit
@@ -718,7 +764,9 @@ def copy_state(state, dev):
         resample_idx=state.resample_idx.to(dev), step=state.step,
         map_dynamic=gm_to(state.map_dynamic),
         cardinality=(None if state.cardinality is None
-                     else state.cardinality.to(dev)))
+                     else state.cardinality.to(dev)),
+        variance=(None if state.variance is None
+                  else state.variance.to(dev)))
 
 
 def step_against_cpu(r, n):
@@ -727,29 +775,47 @@ def step_against_cpu(r, n):
 
     The predicted and updated states (pose, log_weight, each map's weights
     and means, the CPHD cardinality) and the overflow are compared before
-    resampling, where the kernels act. Resampling is compared as nEff, the decision and the
-    ancestors: a stratum may take another ancestor only where its point
-    (j + u_j) / P lies within 1e-4 of a cumulative weight of the CPU state
-    (f32 cumsums of 512 weights differ by ~1e-5 between the two devices).
-    Returns the largest |difference| over the compared values (means in
-    the slots that hold the same component), the CPU's updated state, the
-    count of such boundary strata and the count of weight-tied slots
-    swapped (see :func:`match_slots`).
+    resampling, where the kernels act; under shotgunning
+    (n_predict_particles = k) both devices expand the P particles to P k
+    first. Resampling is compared as nEff, the decision and the ancestors:
+    a stratum may take another ancestor only where its point (j + u_j) / P
+    lies within 1e-4 of a cumulative weight of the CPU state (f32 cumsums
+    of 512 weights differ by ~1e-5 between the two devices). With
+    compute_variance the CPU run draws the card's samples (a copy of the
+    runner's second generator, drawn on the card again), and
+    :func:`check_variance` holds the estimator. Returns the largest
+    |difference| over the compared values (means in the slots that hold
+    the same component), the CPU's updated state, the count of such
+    boundary strata and the count of weight-tied slots swapped (see
+    :func:`match_slots`).
     """
     z, zm, ctl, dt, dp, hz = r.step_args(n)
+    gen = getattr(r, "var_generator", None)
+    var_state = None if gen is None else gen.get_state()
     noise = r.noise()
+    cpu_draw = None
+    if var_state is not None:
+        cpu_draw = replay_draws(var_state, r.device)
     runs = {"gpu": (r.state, z, zm, noise),
             "cpu": (copy_state(r.state, "cpu"), z.cpu(), zm.cpu(),
-                    type(noise)(*(x.cpu() for x in noise)))}
+                    StepNoise(noise.eps_pred.cpu(), noise.u_resample.cpu(),
+                              cpu_draw))}
+    k = max(1, r.cfg.n_predict_particles)
     upd, ovf, res = {}, {}, {}
+    estimators = {}
     for dev_name, (st, zz, mm, nz) in runs.items():
+        P = st.pose.shape[0]
+        if k > 1:
+            st = expand_particles(st, k)
         if dp:
             st = predict(st, ctl, dt, r.cfg, nz.eps_pred)
         ovf[dev_name] = 0
         if hz:
-            st, ovf[dev_name] = update(st, zz, mm, r.cfg)
+            with recording_estimators(estimators.setdefault(dev_name, [])):
+                st, ovf[dev_name] = update(st, zz, mm, r.cfg,
+                                           var_draw=nz.var_draw)
         upd[dev_name] = st
-        res[dev_name] = maybe_resample(st, hz, r.cfg, nz.u_resample)
+        res[dev_name] = resample_particles(st, hz, r.cfg, nz.u_resample, P)
     g, c = upd["gpu"], upd["cpu"]
     pairs = {"pose": (g.pose, c.pose), "log_weight": (g.log_weight,
                                                       c.log_weight)}
@@ -774,8 +840,82 @@ def step_against_cpu(r, n):
 
     n_edge = check_resampling(res["gpu"], res["cpu"], c.log_weight,
                               runs["cpu"][3].u_resample)
+    if r.cfg.compute_variance and hz:
+        check_variance(estimators["gpu"], replay_draws(var_state, r.device),
+                       g.variance, c.variance)
     r.state = res["gpu"][0]
     return err, c, n_edge, n_swapped
+
+
+def replay_draws(gen_state, device):
+    """A variance-sample source that draws again, on the card, what a
+    generator in ``gen_state`` drew, and hands it over on the CPU."""
+    again = torch.Generator(device=device)
+    again.set_state(gen_state)
+
+    def draw(s, shape):
+        return torch.randn(shape, generator=again, device=device).cpu()
+    return draw
+
+
+class recording_estimators:
+    """Within the block, every call of the MC variance estimators
+    (filters/phd.py's mc_variance_packed and mc_variance_candidates) is
+    appended to ``calls`` as (function, arguments, result)."""
+
+    NAMES = ("mc_variance_packed", "mc_variance_candidates")
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        self.real = {n: getattr(phd_filter, n) for n in self.NAMES}
+        for n, fn in self.real.items():
+            def rec(*a, fn=fn):
+                out = fn(*a)
+                self.calls.append((fn, a, out))
+                return out
+            setattr(phd_filter, n, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(phd_filter, n, fn)
+
+
+def check_variance(gpu_calls, cpu_draw, g_var, c_var):
+    """The MC variance of one step: the estimator's call on the card,
+    evaluated again on the CPU on the same inputs (the card's planes) and
+    the same draws, within rtol 1e-4 / atol 1e-5 of the card's result.
+    The two devices' updates differ by f32 reassociation in the planes,
+    which a thin covariance's determinant magnifies by its condition
+    (c00 c11 / det, up to ~3e4 in these steps): the variances of the two
+    updates are reported beside the largest such condition, not held."""
+    require(len(gpu_calls) == 1, f"variance: {len(gpu_calls)} estimator "
+            "calls in the update")
+    fn, args, out = gpu_calls[0]
+    *tensors, n_samples, _ = args
+    want = fn(*(x.cpu() if torch.is_tensor(x) else x for x in tensors),
+              n_samples, cpu_draw)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-5,
+                               msg=lambda m: f"variance estimator: {m}")
+    if fn.__name__ == "mc_variance_packed":
+        planes = tensors[0]
+        w, c00, c01, c11 = planes[:, 0], planes[:, 4], planes[:, 5], \
+            planes[:, 6]
+    else:
+        w, cov = tensors[2], tensors[1]
+        c00, c01, c11 = cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]
+    det = (c00.double() * c11 - c01.double() ** 2).clamp_min(1e-30)
+    cond = float(torch.where(w > 0, c00.double() * c11 / det, 0.0).max())
+    diff = (g_var.cpu().double() - c_var.double()).abs()
+    far = int((diff > 1e-5 + 1e-4 * c_var.double().abs()).sum())
+    phase("step", f"variance: the card's estimator on its planes = the "
+          f"CPU's on them, max |err| {max_err([(out.cpu(), want)]):.3g} "
+          f"(rtol 1e-4, atol 1e-5); the two updates' variances differ by "
+          f"up to {float(diff.max()):.3g} ({far} of {diff.numel()} "
+          f"particles beyond rtol 1e-4), largest live c00 c11 / det "
+          f"{cond:.3g}")
 
 
 def check_log_card(got, want):
@@ -798,13 +938,14 @@ def check_log_card(got, want):
 def check_resampling(gpu, cpu, log_weight, u):
     """nEff, the decision and the ancestors of (state, n_eff, resampled)
     on the card against the CPU: a stratum may take another ancestor only
-    where its point (j + u_j) / P lies within 1e-4 of a cumulative weight
-    of the CPU state ``log_weight``. Returns the count of such strata."""
+    where its point (j + u_j) / P (P the strata, the particles resampled
+    to) lies within 1e-4 of a cumulative weight of the CPU state
+    ``log_weight``. Returns the count of such strata."""
     (g_st, g_neff, g_res), (c_st, c_neff, c_res) = gpu, cpu
     torch.testing.assert_close(g_neff.cpu(), c_neff, rtol=1e-4, atol=0)
     require(bool(g_res) == bool(c_res), "step: resampling decision differs")
     differ = (g_st.resample_idx.cpu() != c_st.resample_idx).nonzero()[:, 0]
-    P = log_weight.shape[0]
+    P = u.shape[0]
     cum = torch.cumsum(torch.exp(log_weight.double()), dim=0)
     for j in differ.tolist():
         point = (j + float(u[j])) / P
@@ -832,21 +973,29 @@ def match_slots(tag, g_w, g_mean, c_w, c_mean):
     return int((~ok).sum()), float(diff.max()) if diff.numel() else 0.0
 
 
-def check_step(dev, n_before=40, overrides=None):
+def check_step(dev, n_before=40, overrides=None, cfg_path=CFG):
     """One Ackerman step on the card against the same step with the twins
     on the CPU, from step 40 and the same noise (:func:`step_against_cpu`),
-    with the config ``overrides`` (a kernel knob)."""
-    cfg = load_config(CFG, dict(overrides or {}, n_particles=P_MAIN))
+    with the config ``overrides`` (a kernel knob, an estimator or a
+    route; ``cfg_path``: the PHD or CPHD configuration). Returns the
+    runner, at the state after the step."""
+    cfg = load_config(cfg_path, dict(overrides or {}, n_particles=P_MAIN))
     r = SynthSLAMRunner(cfg, DATA, device=dev)
     for n in range(n_before):
         r.step(n)
     err, cpu_state, n_edge, n_swap = step_against_cpu(r, n_before)
     live = int((cpu_state.map_static.weight > 0).sum(dim=1).float().mean())
-    phase("step", f"step {n_before} at P={P_MAIN} {overrides or ''} (mean "
-          f"{live} live components): card vs CPU twins max |err| {err:.3g} "
-          f"(rtol 1e-4, atol 1e-5), overflow equal; {n_swap} weight-tied "
-          f"slots swapped, {n_edge} resampling strata at a cumulative-weight "
-          "boundary")
+    var = ""
+    if cfg.compute_variance:
+        v = cpu_state.variance
+        var = (f", variance {float(v.min()):.4g}..{float(v.max()):.4g} "
+               "(card and CPU on the same draws)")
+    phase("step", f"{cfg_path} step {n_before} at P={P_MAIN} "
+          f"{overrides or ''} (mean {live} live components{var}): card vs "
+          f"CPU twins max |err| {err:.3g} (rtol 1e-4, atol 1e-5), overflow "
+          f"equal; {n_swap} weight-tied slots swapped, {n_edge} resampling "
+          "strata at a cumulative-weight boundary")
+    return r
 
 
 def check_dense_steps(dev, n_before=40):
@@ -1557,6 +1706,409 @@ def mixed_accuracy(dev):
             f"{ATE_LIMIT} m")
 
 
+# ----------------------------------------------------------------------------
+# the estimators and routes: EAP, scheme 2, MC variance, shotgunning, T >= K
+# ----------------------------------------------------------------------------
+
+def check_estimator_steps(dev):
+    """Step 40 of data/ackerman at P=512 on the card against the CPU twins
+    (:func:`check_step`) under each estimator and route: scheme-2
+    weighting, the MC variance on the det route and (step 5) on the full
+    grid (the CPU run on the card's draws), shotgunning k=3, and the
+    top-cap lane route T=128 >= K=128 with cap 512 on PHD and CPHD; then
+    the EAP tree on the updated state of an EAP run against the CPU twin
+    (:func:`check_eap_extract`). The full grid merges all 6320 lanes of a
+    particle, and by step 40 a lane of weight ~1e-5 at the merge
+    threshold can join a cluster on one device and not on the other (f32
+    reassociation of its distance), moving the cluster's mean beyond the
+    tolerance: its gate is taken early."""
+    for cfg_path, over, n_before in (
+            (CFG, S2, 40), (CFG, VAR, 40), (CFG, VAR_FULL, 5),
+            (CFG, SHOT, 40), (CFG, TOPK, 40), (CPHD_CFG, TOPK, 40)):
+        check_step(dev, n_before, overrides=over, cfg_path=cfg_path)
+    r = check_step(dev, overrides=EAP)
+    check_eap_extract(r, "ackerman")
+
+
+def boundary_flip(row, sep, got, want):
+    """Whether one particle's merge outputs, the kernel's ``got`` and the
+    twin's ``want`` (merge tuples of that row), part only where a lane
+    lies at the merge threshold: replaying the twin's greedy rounds (its
+    f32 distance) up to the first cluster that differs, the two clusters'
+    weights must differ by the weight of lanes whose float64 distance to
+    that cluster's principal is within 1e-5 of min_sep (an f32 quotient
+    at min_sep decided in another order: the kernel evaluates the Pallas
+    kernel's closed form in strict IEEE f32, the twin inverts the averaged
+    covariance first). Returns (explained, the cluster, those lanes'
+    distances)."""
+    mean, cov, w, act = unpack_planes(row[None], 2)
+    mean, cov, w = mean[0], cov[0], w[0]
+    unmerged = act[0] & (w > 0)
+    off = ((got[0] - want[0]).abs().amax(-1) > 1e-5 + 1e-4 * want[0].abs()
+           .amax(-1)) | ((got[2] - want[2]).abs() > 1e-5 + 1e-4 * want[2])
+    c = int(torch.nonzero(off)[0])
+    for k in range(c + 1):
+        i = int(torch.argmax(torch.where(unmerged, w, -torch.inf)))
+        d = mahalanobis2(mean[i][None], cov[i][None], mean, cov)
+        sel = (unmerged & (d < sep)) | (torch.arange(len(w)) == i)
+        if k < c:
+            unmerged &= ~sel
+    d64 = mahalanobis2(mean[i][None].double(), cov[i][None].double(),
+                       mean.double(), cov.double())
+    edge = unmerged & ((d64 - sep).abs() <= 1e-5 * sep)
+    gap = abs(float(got[2][c]) - float(want[2][c]))
+    explained = bool(edge.any()) and gap <= float(w[edge].sum()) * 1.0001 \
+        + 1e-7
+    return explained, c, [round(float(x), 9) for x in d64[edge]]
+
+
+def check_merge_rows(got, want, packed, sep, label):
+    """merge2d's outputs ``got`` against the twin's ``want`` (merge
+    tuples) on the same planes: equal cluster and leftover counts and
+    rtol 1e-4 / atol 1e-5 in every particle, except a particle whose two
+    merges part at a lane on the merge threshold (:func:`boundary_flip`).
+    Returns the count of such particles and the largest |difference| of
+    the others."""
+    got = [x.cpu() for x in got]
+    close = torch.ones(got[2].shape[0], dtype=torch.bool)
+    for g, w in zip(got[:3], want[:3]):
+        ok = torch.isclose(g, w, rtol=1e-4, atol=1e-5)
+        close &= ok.reshape(ok.shape[0], -1).all(dim=1)
+    close &= (got[3] == want[3]) & (got[4] == want[4])
+    flips = []
+    for p in torch.nonzero(~close)[:, 0].tolist():
+        explained, c, dists = boundary_flip(
+            packed[p].cpu(), sep, [x[p] for x in got], [x[p] for x in want])
+        require(explained, f"{label}: particle {p} parts from the twin at "
+                f"cluster {c} with no lane at the merge threshold")
+        flips.append((p, c, dists))
+    err = max_err([(g[close], w[close]) for g, w in zip(got[:3], want[:3])])
+    return flips, err
+
+
+def check_eap_extract(r, label):
+    """The EAP tree on runner r's state on the card, each level's merge2d
+    launch held against the twin on the same inputs
+    (:func:`check_merge_rows`), and the whole tree on a CPU copy beside
+    it: the final maps' difference is reported, not held (nine levels of
+    f32 sums in another order compound, up to ~3e-4 relative in a
+    covariance term)."""
+    state = r.state
+    levels = []
+
+    def checked(packed, min_sep, cap, sorted_w=True, metric=0):
+        out = merge2d(packed, min_sep, cap, sorted_w=sorted_w, metric=metric)
+        got = merge_out(out, 2)
+        want = merge_out(merge2d_reference(packed.cpu(), min_sep, cap,
+                                           sorted_w, metric), 2)
+        flips, err = check_merge_rows(got, want, packed, min_sep,
+                                      f"EAP {label} level {len(levels)}")
+        levels.append((tuple(packed.shape), int(got[3].sum()), err, flips))
+        return out
+    build.reset_launch_counts()
+    with mock.patch.object(extras, "merge2d", checked):
+        got = extract(state, r.cfg)[1]
+    launches = build.launch_counts["merge2d"]
+    want = extract(copy_state(state, "cpu"), r.cfg)[1]
+    n_got, n_want = int((got[2] > 0).sum()), int((want[2] > 0).sum())
+    flips = [f for lv in levels for f in lv[3]]
+    phase("step", f"EAP tree {label} P={state.pose.shape[0]} at step "
+          f"{state.step}: {launches} merge2d launches, each against the "
+          f"twin on its inputs (B x C x N, clusters out, max |err|): "
+          + "; ".join(f"{s[0]}x{s[1]}x{s[2]} {c} {e:.3g}"
+                      for s, c, e, _ in levels)
+          + f"; {len(flips)} particles part from the twin at a lane on the "
+          f"merge threshold {[(p, c, d) for p, c, d in flips]}; the whole "
+          f"tree on the card {n_got} clusters, weight "
+          f"{float(got[2].sum()):.4f}, on the CPU {n_want}, max |err| "
+          + (f"{max_err([(g.cpu(), w) for g, w in zip(got, want)]):.3g}"
+             if n_got == n_want
+             else "(counts differ)"))
+
+
+def same_run(a, b, keys=("est_poses", "n_eff", "resampled")):
+    """Two runner results equal bit for bit in ``keys``."""
+    return all(np.array_equal(a[k], b[k]) for k in keys)
+
+
+def band_line(label, rows, band, keys=("ate", "ospa")):
+    """The port's mean and std over seeds (rows of (ATE, OSPA)) beside the
+    JAX package's CPU band of the same P and seeds: the difference of the
+    means and its standard error."""
+    rows = np.asarray(rows)
+    out = []
+    for i, key in enumerate(keys):
+        mean, std = rows[:, i].mean(), rows[:, i].std()
+        j_mean, j_std = band[key]
+        se = np.sqrt((std ** 2 + j_std ** 2) / len(rows))
+        out.append(f"{key} {mean:.4f} +- {std:.4f} (JAX {j_mean:.4f} +- "
+                   f"{j_std:.4f}; difference {mean - j_mean:+.4f}, standard "
+                   f"error {se:.4f})")
+    phase("bands", f"{label}: " + ", ".join(out))
+
+
+def seed_band(dev, label, cfg_path, over, band, P=P_BAND, seeds=BAND_SEEDS):
+    """evaluate_dataset over ``seeds`` at P particles: mean ATE and OSPA
+    beside the JAX CPU band (:func:`band_line`); fails on NaN. Returns
+    the rows (ATE, OSPA)."""
+    rows = []
+    for seed in seeds:
+        res = evaluate_dataset(cfg_path, ".", device=dev,
+                               overrides=dict(over, n_particles=P, seed=seed))
+        require(np.isfinite(res["run"]["est_poses"]).all(),
+                f"{label} seed {seed}: NaN")
+        rows.append((res["mean_pose_err"], res["mean_ospa"]))
+    band_line(f"{label} P={P} seeds {list(seeds)}", rows, band)
+    return rows
+
+
+def run_eap(dev, main_res, main_counts):
+    """EAP extraction on data/ackerman at P=512 over the 331 steps with
+    eap_every 1 and 5: every step's pose, nEff and resampling bit-equal to
+    the plain run (extraction never touches the state), log2(512) = 9
+    merge2d launches per extraction beyond the plain run's, and the EAP
+    map's every-step OSPA(1, 5) beside the MAP run's; then dense P=1024
+    with EAP against its plain run, and both packages' bands at P=128 over
+    seeds 0-4 (EAP and MAP). Returns the P=512 EAP run's launch counts."""
+    plain = main_res["run"]
+    levels = int(np.ceil(np.log2(P_MAIN)))
+    for every in (1, 5):
+        counts, res = run_path(dev, "eap", CFG, dict(EAP, eap_every=every),
+                               ACKERMAN_KERNELS)
+        T = len(res["run"]["n_eff"])
+        extra = counts["merge2d"] - main_counts["merge2d"]
+        want = levels * len(range(0, T, every))
+        phase("eap", f"eap_every {every}: OSPA(1, 5) EAP {res['mean_ospa']:.4f}"
+              f" (final {res['final_ospa']:.4f}) beside MAP "
+              f"{main_res['mean_ospa']:.4f} (final "
+              f"{main_res['final_ospa']:.4f}); merge2d launches "
+              f"{counts['merge2d']} = the plain run's "
+              f"{main_counts['merge2d']} + {extra} ({levels} levels x "
+              f"{want // levels} extractions)")
+        require(extra == want, f"EAP eap_every {every}: {extra} merge2d "
+                f"launches beyond the plain run, want {want}")
+        require(same_run(res["run"], plain), f"EAP eap_every {every}: the "
+                "state differs from the plain run's")
+        if every == 1:
+            eap_counts = counts
+    phase("eap", "every pose, nEff and resampling decision bit-equal to the "
+          "plain run at eap_every 1 and 5")
+    _, dense_plain = run_path(dev, "eap", DENSE_CFG, {}, ACKERMAN_KERNELS,
+                              P=P_DENSE)
+    counts, dense = run_path(dev, "eap", DENSE_CFG, EAP, ACKERMAN_KERNELS,
+                             P=P_DENSE)
+    phase("eap", f"dense P={P_DENSE}: OSPA(1, 5) EAP {dense['mean_ospa']:.4f}"
+          f" beside MAP {dense_plain['mean_ospa']:.4f}; state "
+          + ("bit-equal" if same_run(dense["run"], dense_plain["run"])
+             else "differs"))
+    require(same_run(dense["run"], dense_plain["run"]),
+            "EAP dense: the state differs from the plain run's")
+    seed_band(dev, "EAP", CFG, EAP, EAP_CPU_BAND)
+    seed_band(dev, "MAP", CFG, {}, PLAIN_CPU_BAND)
+    return eap_counts
+
+
+def eap_scene(dev, P=10240, K=1024, live=260, sites=300):
+    """tools/bench_eap.py::tree_time's scene (cfg/dense.cfg, seed 0):
+    every particle's K slots hold ``live`` weight-sorted components around
+    ``sites`` shared sites (sd 0.3 m, covariance 0.1 I), uniform particle
+    weights."""
+    rng = np.random.default_rng(0)
+    centers = rng.uniform(-40, 40, (sites, 2)).astype(np.float32)
+    idx = rng.integers(0, sites, (P, K))
+    mean = centers[idx] + rng.normal(0, 0.3, (P, K, 2)).astype(np.float32)
+    w = np.zeros((P, K), np.float32)
+    w[:, :live] = np.sort(rng.uniform(0.1, 1.0, (P, live))
+                          .astype(np.float32), axis=1)[:, ::-1]
+    mean[:, live:] = 0.0
+    t = lambda x: torch.tensor(x, device=dev)
+    gm = GMState(mean=t(mean), cov=(torch.eye(2, device=dev) * 0.1)
+                 .expand(P, K, 2, 2).contiguous(), weight=t(w))
+    return gm, torch.full((P,), -float(np.log(P)), device=dev)
+
+
+def time_eap(dev):
+    """One EAP extraction at P=10240, K=1024, ~260 live components a
+    particle (:func:`eap_scene`): ms per extraction (CUDA events, the
+    smallest of 5 after a warm-up), its merge2d launches, clusters and
+    dropped count."""
+    cfg = load_config(DENSE_CFG)
+    gm, lw = eap_scene(dev)
+    build.reset_launch_counts()
+    m, c, w, dropped = extras.eap_expected_map(gm, lw, cfg,
+                                               return_dropped=True)
+    launches = build.launch_counts["merge2d"]
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        extras.eap_expected_map(gm, lw, cfg)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    require(bool(torch.isfinite(w).all()), "EAP scene: non-finite weights")
+    phase("eap", f"one extraction P=10240 K=1024 ~260 live "
+          f"(tools/bench_eap.py's scene): {min(times):.3f} ms (of "
+          f"{', '.join(f'{x:.3f}' for x in times)}), {launches} merge2d "
+          f"launches, {int((w > 0).sum())} clusters, weight "
+          f"{float(w.sum()):.4f}, {int(dropped)} clusters dropped by the "
+          "levels' caps")
+    return min(times)
+
+
+def run_variance(dev, main_res):
+    """compute_variance on data/ackerman at P=512 over the 331 steps: every
+    pose bit-equal to the plain run (the estimator draws from the runner's
+    second generator), the variance finite after every step with
+    measurements, its range and the share of negative estimates reported
+    (``val (1 - val)`` is negative wherever a component's density at its
+    own sample exceeds 1, in the JAX version as here); then 30 steps of the
+    full grid with it. Returns the det-route run's steps/s."""
+    cfg = load_config(CFG, dict(VAR, n_particles=P_MAIN))
+    r = SynthSLAMRunner(cfg, DATA, device=dev)
+    poses, v_min, v_max, v_neg, v_ok = [], [], [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in range(r.n_steps):
+        out = r.step(n)
+        poses.append(out.expected_pose)
+        plan = r.schedule[n]
+        if plan.z_idx >= 0 and r.z_mask[plan.z_idx].any():
+            v = r.state.variance
+            v_min.append(v.min())
+            v_max.append(v.max())
+            v_neg.append((v < 0).float().mean())
+            v_ok.append(torch.isfinite(v).all())
+    torch.cuda.synchronize()
+    rate = r.n_steps / (time.perf_counter() - t0)
+    poses = torch.stack(poses).cpu().numpy()
+    v_min, v_max, v_neg = (torch.stack(v).cpu().numpy()
+                           for v in (v_min, v_max, v_neg))
+    same = np.array_equal(poses, main_res["run"]["est_poses"])
+    phase("variance", f"data/ackerman P={P_MAIN} compute_variance "
+          f"(n_samples {cfg.n_samples}), {r.n_steps} steps: {rate:.2f} "
+          f"steps/s; per measurement step the particles' variance from "
+          f"{np.median(v_min):.4g} to {np.median(v_max):.4g} (medians; "
+          f"extremes {v_min.min():.4g}, {v_max.max():.4g}), negative in "
+          f"{100 * v_neg.mean():.1f}% of particle-steps, > 0 in every "
+          f"particle on {int((v_min > 0).sum())} of {len(v_min)} steps; poses "
+          + ("bit-equal to the plain run" if same else "differ"))
+    require(same, "variance: the poses differ from the plain run's")
+    require(bool(torch.stack(v_ok).all()),
+            "variance: not finite on every measurement step")
+    _, full = run_path(dev, "variance", CFG, VAR_FULL, ("merge2d_argmax",),
+                       n_steps=30)
+    return rate
+
+
+def run_shotgun(dev):
+    """Shotgunning k=3 on data/ackerman at P=512 over the 331 steps, twice:
+    every pose, nEff, resampling decision and MAP map bit-equal between the
+    two runs; then the JAX CPU band at P=128 over seeds 0-4, and the mixed
+    fast route at k=2 over 30 steps (no NaN). Returns the first run's
+    launch counts."""
+    runs = []
+    for _ in range(2):
+        counts, res = run_path(dev, "shotgun", CFG, SHOT, ACKERMAN_KERNELS)
+        runs.append(res)
+    same = same_run(runs[0]["run"], runs[1]["run"],
+                    ("est_poses", "n_eff", "resampled", "map_means",
+                     "map_weights"))
+    phase("shotgun", f"k=3 P={P_MAIN} twice: "
+          + ("every pose, nEff, decision and MAP map bit-equal" if same
+             else "the runs differ"))
+    require(same, "shotgun: a second run does not repeat the first")
+    seed_band(dev, "shotgun k=3", CFG, SHOT, SHOT_CPU_BAND)
+    z, mask = mixed_scans(30)
+    r = ScanRunner(dataclasses.replace(mixed_cfg(P_MAIN),
+                                       n_predict_particles=2),
+                   z, mask, MIXED_DT, device=dev)
+    build.reset_launch_counts()
+    res = r.run()
+    mixed_counts = dict(build.launch_counts)
+    require(np.isfinite(res["est_poses"]).all()
+            and np.isfinite(res["n_eff"]).all(), "shotgun mixed: NaN")
+    require(all(mixed_counts.get(k, 0) > 0 for k in MIXED_KERNELS),
+            f"shotgun mixed: a kernel never launched: {mixed_counts}")
+    phase("shotgun", f"mixed fast route k=2 P={P_MAIN}, 30 steps: "
+          f"{res['steps_per_s']:.2f} steps/s, no NaN, final nEff "
+          f"{res['n_eff'][-1]:.3f}")
+    return counts
+
+
+def run_topk(dev):
+    """The top-cap lane route (detection_topk 128 = K, cap 512) on
+    data/ackerman, PHD and CPHD at P=512 over the 331 steps (no detect
+    launch: gather_cols and merge2d only; ATE within 1.0 m), then each over
+    seeds 0-2 against the JAX CPU runs of the same P and seeds. Returns
+    the PHD run's launch counts."""
+    out = None
+    for label, cfg_path, band in (("PHD", CFG, TOPK_CPU_BAND),
+                                  ("CPHD", CPHD_CFG, TOPK_CPHD_CPU_BAND)):
+        counts, res = run_path(dev, "topk", cfg_path, TOPK, TOPK_KERNELS)
+        require(counts.get("detect", 0) == 0, f"T >= K {label}: detect "
+                "launched")
+        require(res["mean_pose_err"] <= ATE_LIMIT, f"T >= K {label}: mean "
+                f"ATE {res['mean_pose_err']:.4f} m > {ATE_LIMIT} m")
+        seed_band(dev, f"T=128 {label}", cfg_path, TOPK, band, P=P_MAIN,
+                  seeds=TOPK_SEEDS)
+        out = out or counts
+    return out
+
+
+def run_scheme2(dev):
+    """particle_weighting 2 on data/ackerman at P=512, 100 steps: no NaN,
+    ATE reported (the scheme scores ~50 m on this dataset by design; no
+    band)."""
+    counts, res = run_path(dev, "scheme 2", CFG, S2, ACKERMAN_KERNELS,
+                           n_steps=S2_STEPS)
+    phase("scheme 2", f"{S2_STEPS} steps: mean ATE "
+          f"{res['mean_pose_err']:.4f} m (no band: single-feature weighting "
+          "on a multi-landmark map)")
+    return counts
+
+
+def eap_level1_calls(dev):
+    """time_kernels' rows of merge2d at the EAP tree's first level on the
+    maps of a real run's step 60 (the plain runner, extraction's inputs:
+    each particle's map scaled by its weight, particles paired, each
+    pair's lanes sorted): Ackerman P=512 (B=256, N=256) and dense P=1024
+    (B=512, N=2048), each held against the twin first (counts equal,
+    rtol 1e-4 / atol 1e-5), with the entering lanes, trips and rounds of
+    each pair. Returns name -> (kernel, twin, twin iterations, library
+    call, bound)."""
+    rows = {}
+    for tag, cfg_path, data, P in (("ackerman", CFG, DATA, P_MAIN),
+                                   ("dense", DENSE_CFG, DENSE_DATA, P_DENSE)):
+        cfg = load_config(cfg_path, {"n_particles": P})
+        r = SynthSLAMRunner(cfg, data, device=dev)
+        for n in range(60):
+            r.step(n)
+        planes = extras._scaled_planes(r.state.map_static,
+                                       r.state.log_weight)
+        B, C, L = planes.shape[0] // 2, planes.shape[1], planes.shape[2]
+        packed = extras.sort_lanes_desc(
+            planes.view(B, 2, C, L).transpose(1, 2).reshape(B, C, 2 * L))
+        K, sep = cfg.max_components, float(cfg.min_separation)
+        got = merge_out(merge2d(packed, sep, K), 2)
+        want = merge_out(merge2d_reference(packed.cpu(), sep, K), 2)
+        flips, err = check_merge_rows(got, want, packed, sep,
+                                      f"merge2d EAP {tag}")
+        lanes = round_stats(*merge_rounds(packed, sep, K))
+        phase("captured", f"EAP level 1 {tag} step 60: merge2d B={B} "
+              f"N={2 * L} K={K}: per pair {json.dumps(lanes)}; against the "
+              f"twin max |err| {err:.3g} (rtol 1e-4, atol 1e-5, counts "
+              f"equal), {len(flips)} pairs parting at a lane on the merge "
+              f"threshold {flips}")
+        rows[f"merge2d eap {tag} captured"] = (
+            lambda a=(packed, sep, K): merge2d(*a),
+            lambda a=(packed, sep, K): merge2d_reference(*a), 1, None,
+            merge_bound(packed, K, 8, 27))
+    return rows
+
+
 def time_kernels(dev):
     """Kernel against twin at the main path's shapes, in turns
     (twin, kernel, library, kernel, library, twin); CUDA events, ms per
@@ -1840,6 +2392,7 @@ def knob_calls(dev, cfg):
             tables_bound(dints, dflts, dK, 27)),
     }
     rows.update(captured_calls(dev))
+    rows.update(eap_level1_calls(dev))
     return rows
 
 
@@ -1926,8 +2479,15 @@ def main():
     check_disparity_step(dev)
     check_cphd_step(dev)
     check_dense_steps(dev)
+    check_estimator_steps(dev)
     counts, main_res = run_main(dev)
     knob_counts, cons_counts = run_knobs(dev, main_res)
+    run_eap(dev, main_res, counts)
+    time_eap(dev)
+    run_variance(dev, main_res)
+    run_shotgun(dev)
+    run_topk(dev)
+    run_scheme2(dev)
     run_scale(dev)
     mixed_counts = run_mixed(dev)
     mixed_accuracy(dev)
@@ -1956,6 +2516,10 @@ def main():
     profile_step(SynthSLAMRunner(load_config(DENSE_CFG,
                                              {"n_particles": P_DENSE}),
                                  DENSE_DATA, device=dev), "dense")
+    profile_step(SynthSLAMRunner(load_config(CFG, dict(
+        EAP, n_particles=P_MAIN)), DATA, device=dev), "ackerman EAP")
+    profile_step(SynthSLAMRunner(load_config(DENSE_CFG, dict(
+        EAP, n_particles=P_DENSE)), DENSE_DATA, device=dev), "dense EAP")
     # launches: each kernel's count in the run of the first path that runs
     # it (detect, gather_cols and merge2d: ackerman; detect_adaptive and
     # merge2d_tables: ackerman fused + adaptive; detect_cons: ackerman

@@ -12,13 +12,16 @@ map is merged and compacted as on the PHD path, births from this scan are
 appended, and the cardinality is convolved with the binomial birth
 cardinality for the next step.
 
-Two routes, as in the JAX version: the det route (0 < detection_topk < K,
-0 < merge_candidate_cap < K + M K) runs the detect kernel at min_fw = 0,
+Three routes, as in the JAX version: the det route (0 < detection_topk <
+K, 0 < merge_candidate_cap < K + M K) runs the detect kernel at min_fw = 0,
 cb = 0 (its row sums are the lambda numerators; the uniform CPHD scale
 exp(ip1d - ip0) kr / kd is applied to the top-T values afterwards, then
 thresholded), the two-stage selection, the column gathers and the sorted
-merge; the full-grid route (cap 0 or at least K + M K) forms every
-[K | M K] lane and runs the argmax merge. Everything is batched over the
+merge; the top-cap lane route (the same cap, detection_topk outside
+(0, K)) forms the [P, M, K] grid, ranks every [K | M K] lane by weight
+(``topk_compact_indices``) and takes the same gathers and merge; the
+full-grid route (cap 0 or at least K + M K) forms every [K | M K] lane and
+runs the argmax merge. Everything is batched over the
 particle axis; the ESF recursion is a Python loop of M steps running the
 forward and reverse scans together. Profiler ranges: ``cphd.pre``,
 ``cphd.card`` (ESF and Psi terms), ``phd.gather``, ``phd.merge``,
@@ -36,12 +39,12 @@ from ..config import SlamConfig
 from ..kernels.detect import detect
 from ..models import measurement
 from ..ops import ekf
-from ..ops.gm_merge import topcap_sort
+from ..ops.gm_merge import topcap_sort, topk_compact_indices
 from ..ops.math import LOG0, logsumexp, masked_logsumexp, safe_log, wrap_angle
 from ..types import FilterState, GMState
 from .phd import (_detection_planes, _post_compact_batched, check_supported,
                   deferred_gather, full_grid_planes, gather_merge,
-                  merge_full_grid, uses_full_grid)
+                  merge_full_grid, update_route)
 
 
 class CphdConstants(NamedTuple):
@@ -274,18 +277,18 @@ def _cphd_update_pre(pose, mean, cov, weight, z, z_mask, consts,
     version's ``_cphd_update_single``, batched over P): classes, EKF
     pre-update, lambdas, ESF and Psi terms, the updated cardinality, the
     scaled weights and the merge candidates of the route. Returns a dict:
-    either ``gather`` (det route: deferred-gather dict) or ``packed``
-    (full-grid planes [P, 7, K + M K]), with log_cn [P, C+1], dlog_w [P],
-    out_m [P, K], n_compact [P] and compat [P, M]."""
-    det_route = not uses_full_grid(cfg, mean.shape[1], z.shape[0])
+    either ``gather`` (the capped routes: deferred-gather dict) or
+    ``packed`` (full-grid planes [P, 7, K + M K]), with log_cn [P, C+1],
+    dlog_w [P], out_m [P, K], n_compact [P] and compat [P, M]."""
+    route = update_route(cfg, mean.shape[1], z.shape[0])
     # three spans in a row (the profile gives each device op to one span)
     with record_function("cphd.pre"):
         pre = _pre_lambdas(pose, mean, cov, weight, z, z_mask, cfg,
-                           det_route)
+                           route == "det")
     with record_function("cphd.card"):
         card = _card_terms(pre, z_mask, consts)
     with record_function("cphd.pre"):
-        return _candidates(pre, card, mean, cov, weight, z, cfg, det_route)
+        return _candidates(pre, card, mean, cov, weight, z, cfg, route)
 
 
 def _pre_lambdas(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
@@ -361,9 +364,9 @@ def _card_terms(pre, z_mask, consts: CphdConstants):
     return log_cn - logsumexp(log_cn, dim=-1)[:, None], ip0, ip1, ip1d
 
 
-def _candidates(pre, card, mean, cov, weight, z, cfg: SlamConfig,
-                det_route):
-    """The CPHD-scaled weights and the route's merge candidates."""
+def _candidates(pre, card, mean, cov, weight, z, cfg: SlamConfig, route):
+    """The CPHD-scaled weights and the merge candidates of ``route``
+    (``filters/phd.py::update_route``)."""
     P, K, D = mean.shape
     M = z.shape[0]
     dev = mean.device
@@ -380,7 +383,7 @@ def _candidates(pre, card, mean, cov, weight, z, cfg: SlamConfig,
     out = dict(log_cn=log_cn, dlog_w=ip0, out_m=pre["out_m"],
                compat=pre["compat"])
 
-    if det_route:
+    if route == "det":
         # the scale exp(ip1d - ip0) kr / kd is uniform per measurement, so
         # the kernel's top-T by pdw is the top-T by w_det; threshold after
         # scaling. The kernel counts pdw > 0 lanes, so n_live_d may
@@ -404,12 +407,21 @@ def _candidates(pre, card, mean, cov, weight, z, cfg: SlamConfig,
         out.update(gather=deferred_gather(idx, cand_w, cand_act, mean, cov,
                                           ekf_pre, z, None, None),
                    n_compact=n_drop + n_extra)
+        return out
+    det_valid = pre["det_valid"]
+    w_det = torch.where(det_valid, torch.exp(
+        pre["logw_part"] + ip1d[..., None] - ip0[:, None, None]
+        + pre["log_kr"] - pre["log_kd"]), 0.0)
+    act_b = det_valid & (w_det >= min_fw)
+    if route == "topk":
+        idx, cand_w, cand_act, n_compact = topk_compact_indices(
+            torch.cat([w_a, w_det.reshape(P, M * K)], dim=1),
+            torch.cat([act_a, act_b.reshape(P, M * K)], dim=1),
+            cfg.merge_candidate_cap)
+        out.update(gather=deferred_gather(idx, cand_w, cand_act, mean, cov,
+                                          ekf_pre, z, None, None),
+                   n_compact=n_compact)
     else:
-        det_valid = pre["det_valid"]
-        w_det = torch.where(det_valid, torch.exp(
-            pre["logw_part"] + ip1d[..., None] - ip0[:, None, None]
-            + pre["log_kr"] - pre["log_kd"]), 0.0)
-        act_b = det_valid & (w_det >= min_fw)
         out.update(
             packed=full_grid_planes(
                 [w_a, w_det], [act_a, act_b],

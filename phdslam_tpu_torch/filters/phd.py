@@ -1,28 +1,36 @@
 """Rao-Blackwellized GM-PHD SLAM filter step (port of
-``phdslam_tpu/filters/phd.py``: the det route and the full-grid route).
+``phdslam_tpu/filters/phd.py``: the det route, the top-cap lane route and
+the full-grid route).
 
-One step runs vehicle prediction, the measurement update (GM-PHD here, or
-the CPHD update of ``filters/cphd.py``), MAP extraction and systematic
-resampling on fixed-capacity [P, K, D] state. The JAX version writes the
-update for one particle and vmaps it; here every function carries the
-particle axis explicitly. The update's device work goes through the
-kernels of ``kernels/``: the fused detection + top-T, the column gather
-(candidate tables and post-merge compaction) and the greedy merges (2D
-for the static map, 4D for the dynamic one).
+One step runs particle shotgunning (n_predict_particles > 1: every
+particle repeated k times before prediction), vehicle prediction, the
+measurement update (GM-PHD here, or the CPHD update of
+``filters/cphd.py``), map extraction (MAP, or the EAP tree of
+``filters/extras.py``) and systematic resampling (a forced contraction
+back to P after shotgunning) on fixed-capacity [P, K, D] state. The JAX
+version writes the update for one particle and vmaps it; here every
+function carries the particle axis explicitly. The update's device work
+goes through the kernels of ``kernels/``: the fused detection + top-T, the
+column gather (candidate tables and post-merge compaction) and the greedy
+merges (2D for the static map and the EAP tree, 4D for the dynamic one).
 
-Scope (:func:`check_supported`): MAP extraction and one prediction
-particle per particle, on
+Scope (:func:`check_supported`):
   - the static 2D map (feature_model 0), Ackerman or constant-velocity
-    vehicle, with the PHD update (filter_type 0, cluster-process
-    weighting) or the CPHD update (filter_type 1), Mahalanobis or
-    Hellinger merge distance, on either route: the compacted det route
-    (0 < detection_topk < K, 0 < merge_candidate_cap < the full grid's
-    width) or the full-grid route (merge_candidate_cap 0 or at least the
-    width K + M K + M, K + M K for CPHD, at M = max_measurements: every
-    lane goes to the argmax merge, as the reference does);
+    vehicle, with the PHD update (filter_type 0; cluster-process or
+    single-feature (scheme 2) weighting, the MC map variance) or the CPHD
+    update (filter_type 1), Mahalanobis or Hellinger merge distance, on
+    any route: the compacted det route (0 < detection_topk < K,
+    0 < merge_candidate_cap < the full grid's width), the top-cap lane
+    route (the same cap, detection_topk outside (0, K): every lane ranked
+    by weight, no detect kernel) or the full-grid route
+    (merge_candidate_cap 0 or at least the width K + M K + M, K + M K for
+    CPHD, at M = max_measurements: every lane goes to the argmax merge, as
+    the reference does);
   - the mixed jump-Markov static 2D + dynamic 4D maps (feature_model 2,
     ``filters/mixed.py``'s fast route, PHD, Mahalanobis) with weighting 0
-    or 1.
+    or 1;
+  - MAP or EAP extraction (map_estimate, eap_every, eap_tree_cap) and
+    shotgunning on each of them.
 The JAX version's live-width ``lax.switch`` families are exact prefix
 slices, so this port runs everything at full width instead. Three kernel
 knobs act where they act in the JAX version: ``detect_adaptive`` (every
@@ -30,22 +38,22 @@ detect call: trips stop once a row's lanes are used up, same outputs),
 ``premerge_consolidate`` (the PHD det route with the Mahalanobis metric:
 the detect kernel collapses same-source detection copies onto the
 persistent lane, :func:`consolidates`) and ``fused_gather_merge`` (the
-PHD det route without consolidation: one merge2d_tables kernel reads the
-deferred-gather tables; the CPHD and mixed updates keep the two-kernel
-route).
+PHD det and top-cap routes without consolidation or the variance
+estimator: one merge2d_tables kernel reads the deferred-gather tables;
+the CPHD and mixed updates keep the two-kernel route).
 
 Random draws are inputs (:class:`StepNoise`), so a test can replay the JAX
 version's keys. Profiler ranges (``phd.predict``, ``phd.pre``, ``phd.gather``,
-``phd.merge``, ``phd.post``, ``phd.extract_resample``) mark the layers for
-``torch.profiler``. Which branches run (predict, update) is decided on the
-host; the resampling decision stays on the device, so a step never waits
-for the GPU.
+``phd.merge``, ``phd.variance``, ``phd.post``, ``phd.extract_resample``)
+mark the layers for ``torch.profiler``. Which branches run (predict,
+update, EAP or MAP extraction) is decided on the host; the resampling
+decision stays on the device, so a step never waits for the GPU.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,17 +66,26 @@ from ..kernels.merge import (MAX_CANDIDATES, merge2d, merge2d_tables, merge4d,
                              tables_operands)
 from ..models import feature_motion, measurement, vehicle
 from ..ops import ekf
-from ..ops.gm_merge import merge_out, topcap_sort
+from ..ops.gm_merge import (merge_out, topcap_sort, topk_compact_indices,
+                            unpack_planes)
 from ..ops.math import LOG0, logsumexp, safe_log
 from ..ops.resample import effective_sample_ratio, systematic_ancestors
 from ..types import FilterState, GMState
+from .extras import (eap_expected_map, mc_variance_candidates,
+                     mc_variance_packed, single_feature_argmax,
+                     single_feature_dlogw_point)
 
 
 class StepNoise(NamedTuple):
     """The random draws of one step."""
-    eps_pred: torch.Tensor    # [subdivide_predict, P, 3] standard normal
-                              # for the CV vehicle, [.., P, 2] for Ackerman
+    eps_pred: torch.Tensor    # [subdivide_predict, P k, 3] standard normal
+                              # for the CV vehicle, [.., P k, 2] for
+                              # Ackerman (k = n_predict_particles)
     u_resample: torch.Tensor  # [P] uniform in [0, 1)
+    # compute_variance: draw(s, shape) -> sample s of the MC variance
+    # estimator (standard normal; the estimator asks for each s once, in
+    # order, and holds one sample at a time)
+    var_draw: Optional[Callable[[int, tuple], torch.Tensor]] = None
 
 
 class StepOutputs(NamedTuple):
@@ -99,47 +116,73 @@ def uses_full_grid(cfg: SlamConfig, K: int, M: int) -> bool:
     return not 0 < cfg.merge_candidate_cap < full_grid_width(cfg, K, M)
 
 
+def update_route(cfg: SlamConfig, K: int, M: int) -> str:
+    """The update's route: "full" (the uncapped grid), "det" (a binding
+    cap with 0 < detection_topk < K: the detect kernel's stage 1, then
+    the global top-cap) or "topk" (a binding cap otherwise: the top-cap
+    lane route, every lane ranked by weight over the [P, M, K] grid)."""
+    if uses_full_grid(cfg, K, M):
+        return "full"
+    return "det" if 0 < cfg.detection_topk < K else "topk"
+
+
+def uses_eap(cfg: SlamConfig) -> bool:
+    """EAP extraction: map_estimate bit 1 without bit 0 (bit 0, MAP,
+    wins, as in the JAX version)."""
+    return bool(cfg.map_estimate & 2) and not cfg.map_estimate & 1
+
+
 def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
-    """Raise for a configuration outside the ported path."""
+    """Raise for a configuration outside the ported path, naming each
+    option that is."""
     mixed = cfg.feature_model == 2
     ported = {
         "filter_type": (cfg.filter_type, (0,) if mixed else (0, 1)),
         "feature_model": (cfg.feature_model, (0, 2)),
         "motion_type": (cfg.motion_type, (0, 1)),
         "distance_metric": (cfg.distance_metric, (0,) if mixed else (0, 1)),
-        "n_predict_particles": (max(1, cfg.n_predict_particles), (1,)),
-        "compute_variance": (bool(cfg.compute_variance), (False,)),
         "merge_spatial_tiles": (cfg.merge_spatial_tiles, (0,)),
     }
     if cfg.filter_type == 0:
-        # weighting 2 (and compute_variance) would take the per-particle
-        # slow route of the mixed update, which is not ported; the CPHD
-        # update weights particles by its own Psi terms
+        # weighting 2 and compute_variance on the mixed model take its
+        # per-particle slow route, which is not ported; the CPHD update
+        # weights particles by its own Psi terms and estimates no variance
         ported["particle_weighting"] = (cfg.particle_weighting,
-                                        (0, 1) if mixed else (0,))
+                                        (0, 1) if mixed else (0, 2))
+    if mixed or cfg.filter_type == 1:
+        ported["compute_variance"] = (bool(cfg.compute_variance), (False,))
     if mixed:
         ported["birth_velocity_init"] = (cfg.birth_velocity_init, (0,))
         ported["mixed_fast_path"] = (cfg.mixed_fast_path, (1,))
     bad = [f"{k}={v!r} (ported: {', '.join(map(repr, want))})"
            for k, (v, want) in ported.items() if v not in want]
-    if not cfg.map_estimate & 1:
-        bad.append(f"map_estimate={cfg.map_estimate} (ported: MAP, bit 0)")
+    if uses_eap(cfg):
+        # every tree level merges a pair's lanes in one merge2d row (the
+        # flat form all P k lanes)
+        n_ext = max(1, cfg.n_particles) * max(1, cfg.n_predict_particles)
+        lanes = (n_ext * K if n_ext <= 2
+                 else 2 * max(K, cfg.eap_tree_cap or K))
+        if lanes > MAX_CANDIDATES[2]:
+            bad.append(f"eap_tree_cap={cfg.eap_tree_cap} with max_features="
+                       f"{K}: the EAP merges {lanes} lanes a row (merge2d "
+                       f"is built for <= {MAX_CANDIDATES[2]})")
     T, cap = cfg.detection_topk, cfg.merge_candidate_cap
     n_full = full_grid_width(cfg, K, M)
     # the runners pad M to the longest scan, the JAX version to
     # max_measurements; between the two widths the JAX version would take
-    # the det route
+    # a capped route
     n_jax = full_grid_width(cfg, K, max(M, cfg.max_measurements))
     if n_full <= cap < n_jax:
         bad.append(f"merge_candidate_cap={cap}: the full grid at the padded "
                    f"M={M} ({n_full} lanes) but not at max_measurements="
                    f"{cfg.max_measurements} ({n_jax}), where the JAX version "
-                   "takes the det route")
+                   "takes a capped route")
     elif not uses_full_grid(cfg, K, M):
-        if not 0 < T < K:
-            # the JAX version's top-cap lane route without stage 1
+        if mixed and not 0 < T < K:
+            # the mixed model's top-cap lane route
             bad.append(f"detection_topk={T} with the binding "
-                       f"merge_candidate_cap={cap} (ported: 0 < T < K={K})")
+                       f"merge_candidate_cap={cap} on the mixed model "
+                       f"(ported: 0 < T < K={K})")
     elif mixed:
         bad.append(f"merge_candidate_cap={cap} (the mixed full grid; "
                    f"ported: 0 < cap < {n_full})")
@@ -293,14 +336,20 @@ def _fold_consolidated(cons, in_m, w_a, act_a, mean, cov, pre, min_fw):
 
 
 def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
-    """Pre-merge half of the update for all particles on the det route
+    """Pre-merge half of the update for all particles on a capped route
     (the JAX version's ``_update_single_pre``, batched over P instead of
-    vmapped): in-range classes, EKF pre-update, the detect kernel,
-    normalizers and particle weights, the two-stage candidate selection
-    (top-T per measurement, then the global top-cap) and the
-    deferred-gather tables. With :func:`consolidates`, the detect kernel
-    collapses each column's same-source copies and the persistent lanes
-    become their moment-matched clusters (:func:`_fold_consolidated`).
+    vmapped): in-range classes, EKF pre-update, normalizers and particle
+    weights, the candidate selection and the deferred-gather tables. On
+    the det route (0 < detection_topk < K) the detect kernel gives the
+    normalizers and each measurement's top-T, and a global top-cap sort
+    follows; with :func:`consolidates`, the kernel also collapses each
+    column's same-source copies and the persistent lanes become their
+    moment-matched clusters (:func:`_fold_consolidated`). On the top-cap
+    lane route the [P, M, K] detection grid is formed here and every lane
+    of [K persistent | M K detections | M births] is ranked by weight
+    (``topk_compact_indices``). Under scheme 2 (particle_weighting 2) the
+    argmax of the single-object likelihood over the route's detection
+    lanes is located here (``s2``) for the post half.
     """
     P, K, D = mean.shape
     M = z.shape[0]
@@ -316,15 +365,23 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
 
     T = cfg.detection_topk
     min_fw = cfg.min_feature_weight
-    consolidate = consolidates(cfg)
-    z4 = torch.stack([z[:, 0], z[:, 1], z_mask.to(dtype),
-                      torch.zeros_like(z[:, 0])], dim=1)
-    det = detect(
-        _detection_planes(in_m, pre, weight, consolidate, cov, min_fw), z4,
-        T, float(min_fw), float(cfg.clutter_density + cfg.birth_weight),
-        min_sep=float(cfg.min_separation) if consolidate else 0.0,
-        adaptive=bool(cfg.detect_adaptive))
-    vals_d, idx_d, norm, count_d = det[:4]
+    det_route = 0 < T < K
+    consolidate = det_route and consolidates(cfg)
+    if det_route:
+        z4 = torch.stack([z[:, 0], z[:, 1], z_mask.to(dtype),
+                          torch.zeros_like(z[:, 0])], dim=1)
+        det = detect(
+            _detection_planes(in_m, pre, weight, consolidate, cov, min_fw),
+            z4, T, float(min_fw),
+            float(cfg.clutter_density + cfg.birth_weight),
+            min_sep=float(cfg.min_separation) if consolidate else 0.0,
+            adaptive=bool(cfg.detect_adaptive))
+        vals_d, idx_d, norm, count_d = det[:4]
+    else:
+        det_valid = z_mask[:, None] & in_m[:, None, :]          # [P, M, K]
+        pdw = torch.where(det_valid, ekf.ekf_detection_linear(pre, weight, z),
+                          0.0)
+        norm = pdw.sum(dim=-1) + cfg.clutter_density + cfg.birth_weight
 
     log_norm = torch.log(norm)                                 # [P, M]
     w_birth = torch.where(z_mask, cfg.birth_weight / norm, 0.0)
@@ -347,25 +404,59 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
         w_a, act_a, cons_rows = _fold_consolidated(
             det[4], in_m, w_a, act_a, mean, cov, pre, min_fw)
 
-    # stage 1 (the detect kernel): heaviest T live detection lanes per z;
-    # stage 2: global top-cap by weight over [K persistent | M*T | M births]
-    n_extra = count_d.sum(dim=1) - torch.clamp_max(count_d, T).sum(dim=1)
-    m_ids = torch.arange(M, dtype=torch.int64, device=dev)
-    flat_d = K + m_ids[:, None] * K + idx_d.to(torch.int64)   # [P, M, T]
-    w_sel = torch.where(vals_d > 0, vals_d / norm[..., None], 0.0)
-    red_w = torch.cat([w_a, w_sel.reshape(P, M * T), w_birth], dim=1)
-    red_act = torch.cat([act_a, (vals_d > 0).reshape(P, M * T), act_c],
-                        dim=1)
-    red_flat = torch.cat([
-        torch.arange(K, dtype=torch.int64, device=dev).expand(P, K),
-        flat_d.reshape(P, M * T),
-        (K + M * K + m_ids).expand(P, M)], dim=1)
-    idx, cand_w, sel_act, n_drop = topcap_sort(
-        red_w, red_act, red_flat, cfg.merge_candidate_cap)
+    rows = torch.arange(P, device=dev)
+    if det_route:
+        # stage 1 (the detect kernel): heaviest T live detection lanes per
+        # z; stage 2: global top-cap by weight over [K persistent | M*T |
+        # M births]
+        n_extra = count_d.sum(dim=1) - torch.clamp_max(count_d, T).sum(dim=1)
+        m_ids = torch.arange(M, dtype=torch.int64, device=dev)
+        flat_d = K + m_ids[:, None] * K + idx_d.to(torch.int64)  # [P, M, T]
+        w_sel = torch.where(vals_d > 0, vals_d / norm[..., None], 0.0)
+        red_w = torch.cat([w_a, w_sel.reshape(P, M * T), w_birth], dim=1)
+        red_act = torch.cat([act_a, (vals_d > 0).reshape(P, M * T), act_c],
+                            dim=1)
+        red_flat = torch.cat([
+            torch.arange(K, dtype=torch.int64, device=dev).expand(P, K),
+            flat_d.reshape(P, M * T),
+            (K + M * K + m_ids).expand(P, M)], dim=1)
+        idx, cand_w, sel_act, n_drop = topcap_sort(
+            red_w, red_act, red_flat, cfg.merge_candidate_cap)
+        n_compact = n_drop + n_extra
+        if cfg.particle_weighting == 2:
+            # the argmax over the selected lanes: like = pdw / (pd w), pd
+            # equal to cfg.pd on every live lane
+            idx_f = idx_d.reshape(P, M * T).to(torch.int64)
+            w_k = torch.gather(weight, 1, idx_f)
+            like = torch.where(vals_d.reshape(P, M * T) > 0,
+                               vals_d.reshape(P, M * T)
+                               / torch.clamp_min(cfg.pd * w_k, 1e-30), 0.0)
+            fl = torch.argmax(like, dim=1)
+            m_src, k_src = fl // T, idx_f[rows, fl]
+    else:
+        w_det = pdw / norm[..., None]
+        act_b = det_valid & (w_det >= min_fw)
+        idx, cand_w, sel_act, n_compact = topk_compact_indices(
+            torch.cat([w_a, w_det.reshape(P, M * K), w_birth], dim=1),
+            torch.cat([act_a, act_b.reshape(P, M * K), act_c], dim=1),
+            cfg.merge_candidate_cap)
+        if cfg.particle_weighting == 2:
+            like = torch.where(
+                det_valid & (weight[:, None, :] > 0),
+                pdw / torch.clamp_min(cfg.pd * weight[:, None, :], 1e-30),
+                0.0).reshape(P, M * K)
+            fl = torch.argmax(like, dim=1)
+            m_src, k_src = fl // K, fl % K
+    s2 = None
+    if cfg.particle_weighting == 2:
+        s2 = dict(max_like=like[rows, fl],
+                  x_star=ekf.ekf_detection_means_at(pre, mean, z, m_src,
+                                                    k_src),
+                  m_valid=n_valid_z * in_m.any(dim=1).to(dtype))
     gather = deferred_gather(idx, cand_w, sel_act, mean, cov, pre, z,
                              b_mean, b_cov, cons_rows)
     return dict(gather=gather, dlog_w=dlog_w, out_m=out_m,
-                n_compact=n_drop + n_extra)
+                n_compact=n_compact, s2=s2)
 
 
 def deferred_gather(idx, cand_w, sel_act, mean, cov, pre: ekf.PreUpdate, z,
@@ -404,10 +495,10 @@ def gather_merge(gather, D, cfg: SlamConfig, out_cap, has_birth=True,
                  fused=False):
     """Gather + combine + greedy merge of a deferred-gather dict (the JAX
     version's ``gather_merge_width_switched`` at full width). ``fused``
-    (the PHD det route with fused_gather_merge and no consolidated rows):
-    one merge2d_tables kernel instead of two column gathers, the combine
-    and merge2d. Returns the merge tuple (mean, cov, w, n_merged,
-    n_dropped)."""
+    (the PHD capped routes with fused_gather_merge, no consolidated rows
+    and no variance estimator): one merge2d_tables kernel instead of two
+    column gathers, the combine and merge2d. Returns the merge tuple
+    (mean, cov, w, n_merged, n_dropped)."""
     if fused:
         with record_function("phd.gather"):
             ints, flts = tables_operands(gather)
@@ -417,10 +508,15 @@ def gather_merge(gather, D, cfg: SlamConfig, out_cap, has_birth=True,
                 float(cfg.min_separation), out_cap, cfg.distance_metric), 2)
     with record_function("phd.gather"):
         packed = _finish_candidates_packed(gather, D, has_birth)
+    return merge_packed(packed, D, cfg, out_cap)
+
+
+def merge_packed(packed, D, cfg: SlamConfig, out_cap):
+    """Greedy merge of selected candidate planes [P, C, cap] (the JAX
+    version's merge dispatch: width switch and tiling reduce here to the
+    sorted-mode kernel of the feature dimension, which loops only over
+    live lanes). Returns the merge tuple."""
     with record_function("phd.merge"):
-        # the JAX version's merge dispatch (width switch, tiling) reduces
-        # here to the sorted-mode kernel of the feature dimension, which
-        # loops only over live lanes
         if D == 2:
             out = merge2d(packed, float(cfg.min_separation), out_cap,
                           metric=cfg.distance_metric)
@@ -440,7 +536,8 @@ def merge_full_grid(packed, cfg: SlamConfig, out_cap):
                                  metric=cfg.distance_metric), 2)
 
 
-def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
+def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
+                     var_draw=None):
     """Pre-merge half of the full-grid route for all particles (the JAX
     version's ``_update_single_pre`` with its cap not binding, batched over
     P): the log-domain normalizer over each measurement's detection lanes,
@@ -448,7 +545,9 @@ def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
     M K detections | M births] packed as merge planes [P, 7, N] (w, act,
     mean, upper-triangle cov) with inactive lanes sanitized to (0, 0, I).
     ``compact_candidates`` at such a cap is the identity, so nothing is
-    dropped before the merge."""
+    dropped before the merge. Under scheme 2 the argmax search runs over
+    the whole likelihood grid (``s2``); with compute_variance the MC
+    estimator runs over every lane, its samples from ``var_draw``."""
     P, K, D = mean.shape
     M = z.shape[0]
     dev, dtype = mean.device, mean.dtype
@@ -460,7 +559,8 @@ def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
     out_m = (cls == measurement.OUT_OF_RANGE) & (weight > 0)
     pre = ekf.ekf_preupdate(pose_b, mean, cov, cfg)
     det_valid = z_mask[:, None] & in_m[:, None, :]              # [P, M, K]
-    mean_det, logw_part, _ = ekf.ekf_detection_terms(pre, mean, weight, z)
+    mean_det, logw_part, log_like = ekf.ekf_detection_terms(pre, mean,
+                                                            weight, z)
     logw_part = torch.where(det_valid, logw_part, LOG0)
 
     # per-measurement normalizer: detections + clutter density + birth
@@ -494,7 +594,19 @@ def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
         [w_a, w_det, w_birth], [act_a, act_b, act_c],
         [mean, mean_det, b_mean],
         [cov, pre.cov_upd[:, None].expand(P, M, K, D, D), b_cov])
-    return dict(packed=packed, dlog_w=dlog_w, out_m=out_m,
+    s2 = None
+    if cfg.particle_weighting == 2:
+        max_like, x_star, m_valid = single_feature_argmax(log_like, mean_det,
+                                                          det_valid)
+        s2 = dict(max_like=max_like, x_star=x_star, m_valid=m_valid)
+    variance = None
+    if cfg.compute_variance:
+        with record_function("phd.variance"):
+            c_mean, c_cov, c_w, _ = unpack_planes(packed, D)
+            variance = mc_variance_candidates(c_mean, c_cov, c_w, K,
+                                              cfg.n_samples, var_draw)
+    return dict(packed=packed, dlog_w=dlog_w, out_m=out_m, s2=s2,
+                variance=variance,
                 n_compact=torch.zeros((P,), dtype=torch.int64, device=dev))
 
 
@@ -520,25 +632,39 @@ def full_grid_planes(ws, acts, means, covs):
 
 
 def _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
-                     out_cap):
-    """Detection + pre-half + gather + merge. Returns (mg, bits): the
-    merge tuple and the post-half inputs (out_m, dlog_w, n_compact)."""
+                     out_cap, var_draw=None):
+    """Pre-half + gather + merge of a capped route. Returns (mg, bits,
+    variance): the merge tuple, the post-half inputs (out_m, dlog_w,
+    n_compact, s2) and, with compute_variance, the MC estimate over the
+    selected lanes (else None)."""
     with record_function("phd.pre"):
         pre = _update_pre(pose, mean, cov, weight, z, z_mask, cfg)
-    # the fused route as the JAX version gates it: not over consolidated
-    # rows, which take the two-kernel route
-    fused = bool(cfg.fused_gather_merge) and not pre["gather"]["cons"]
-    mg = gather_merge(pre["gather"], mean.shape[-1], cfg, out_cap,
-                      fused=fused)
+    g = pre["gather"]
     bits = dict(out_m=pre["out_m"], dlog_w=pre["dlog_w"],
-                n_compact=pre["n_compact"])
-    return mg, bits
+                n_compact=pre["n_compact"], s2=pre["s2"])
+    if not cfg.compute_variance:
+        # the fused route as the JAX version gates it: not over
+        # consolidated rows, which take the two-kernel route
+        fused = bool(cfg.fused_gather_merge) and not g["cons"]
+        return gather_merge(g, mean.shape[-1], cfg, out_cap,
+                            fused=fused), bits, None
+    # the estimator reads the selected planes, so the two-kernel route
+    # runs whatever fused_gather_merge says (as in the JAX version)
+    with record_function("phd.gather"):
+        packed = _finish_candidates_packed(g, mean.shape[-1])
+    mg = merge_packed(packed, mean.shape[-1], cfg, out_cap)
+    with record_function("phd.variance"):
+        variance = mc_variance_packed(packed, g["is_p"], cfg.n_samples,
+                                      var_draw)
+    return mg, bits, variance
 
 
 def _post_compact_batched(mg, pre, mean, cov, weight, cfg: SlamConfig):
     """Post-merge half: re-attach out-of-range features and compact to
-    capacity K with one stable [P, 2K] sort and a column gather.
-    Returns (new_mean, new_cov, new_w, dlog_w, overflow)."""
+    capacity K with one stable [P, 2K] sort and a column gather; under
+    scheme 2 (``pre["s2"]``) the single-feature weight increment replaces
+    ``pre["dlog_w"]``. Returns (new_mean, new_cov, new_w, dlog_w,
+    overflow)."""
     P, K, D = mean.shape
     mg_mean, mg_cov, mg_w, _, n_dropped = mg
     out_m = pre["out_m"]
@@ -569,33 +695,53 @@ def _post_compact_batched(mg, pre, mean, cov, weight, cfg: SlamConfig):
 
     overflow = torch.clamp_min(total_live - K, 0) + n_dropped \
         + pre["n_compact"]
-    return new_mean, new_cov, new_w, pre["dlog_w"], overflow
+    dlog_w = pre["dlog_w"]
+    s2 = pre.get("s2")
+    if cfg.particle_weighting == 2 and s2 is not None:
+        # single-feature weighting reads the map as predicted (before the
+        # update) and the compacted updated map
+        dlog_w = single_feature_dlogw_point(
+            s2["max_like"], s2["x_star"], s2["m_valid"], mean, cov, weight,
+            new_mean, new_cov, new_w, cfg)
+    return new_mean, new_cov, new_w, dlog_w, overflow
 
 
-def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
-    """All-particle update: pre-half + merge at full width on the det route
-    or the full-grid route, then the post-half compaction (the JAX
+def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
+                    var_draw=None):
+    """All-particle update: pre-half + merge at full width on a capped
+    route or the full-grid route, then the post-half compaction (the JAX
     version's ``_update_single_post`` has the same arithmetic on the
-    full-grid route: scheme 2 is not ported). Returns (new_mean, new_cov,
-    new_w, dlog_w, overflow [P])."""
+    full-grid route). Returns (new_mean, new_cov, new_w, dlog_w,
+    overflow [P]) and, with compute_variance, the variance [P] as a sixth,
+    as the JAX version does."""
     K, M = mean.shape[-2], z.shape[0]
     check_supported(cfg, K, M)
+    if cfg.compute_variance and var_draw is None:
+        raise ValueError("compute_variance: the step's noise carries no "
+                         "variance draws (StepNoise.var_draw)")
     if uses_full_grid(cfg, K, M):
         with record_function("phd.pre"):
-            bits = _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg)
+            bits = _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg,
+                                    var_draw)
         mg = merge_full_grid(bits["packed"], cfg, K)
+        variance = bits["variance"]
     else:
-        mg, bits = _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg,
-                                    out_cap=K)
+        mg, bits, variance = _pre_merge_phase(
+            pose, mean, cov, weight, z, z_mask, cfg, out_cap=K,
+            var_draw=var_draw)
     with record_function("phd.post"):
-        return _post_compact_batched(mg, bits, mean, cov, weight, cfg)
+        out = _post_compact_batched(mg, bits, mean, cov, weight, cfg)
+    return out if variance is None else out + (variance,)
 
 
-def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None):
+def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None,
+           var_draw=None):
     """Measurement update over all particles; returns (state, overflow).
     The mixed model (feature_model 2) updates both maps jointly; the CPHD
     filter (filter_type 1) runs ``filters/cphd.py::cphd_update`` with
-    ``consts`` (built from cfg when None)."""
+    ``consts`` (built from cfg when None). With compute_variance the
+    static PHD update also estimates each particle's map variance from the
+    samples of ``var_draw`` (:class:`StepNoise`)."""
     if cfg.filter_type == 1:
         from .cphd import cphd_constants, cphd_update
         if consts is None:
@@ -605,13 +751,13 @@ def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None):
         from .mixed import mixed_update
         return mixed_update(state, z, z_mask, cfg)
     gm = state.map_static
-    new_mean, new_cov, new_w, dlog_w, overflow = _batched_update(
-        state.pose, gm.mean, gm.cov, gm.weight, z, z_mask, cfg)
+    new_mean, new_cov, new_w, dlog_w, overflow, *var = _batched_update(
+        state.pose, gm.mean, gm.cov, gm.weight, z, z_mask, cfg, var_draw)
     log_w = state.log_weight + dlog_w
     log_w = log_w - logsumexp(log_w, dim=0)
     state = state.replace(
         map_static=GMState(mean=new_mean, cov=new_cov, weight=new_w),
-        log_weight=log_w)
+        log_weight=log_w, variance=var[0] if var else state.variance)
     return state, torch.amax(overflow)
 
 
@@ -620,14 +766,43 @@ def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None):
 # ----------------------------------------------------------------------------
 
 def extract(state: FilterState, cfg: SlamConfig):
-    """Expected pose + the MAP map (the static map of the heaviest
-    particle, for the mixed model too; argmax ties go to the lowest index,
-    as in the JAX version)."""
+    """Expected pose + the map estimate: the MAP map (the static map of the
+    heaviest particle, for the mixed model too; argmax ties go to the
+    lowest index, as in the JAX version) or, under EAP extraction
+    (:func:`uses_eap`), the EAP tree over every particle's static map
+    (``filters/extras.py::eap_expected_map``) on the steps where
+    ``state.step % eap_every == 0`` and the MAP map in between. The step
+    count lives on the host, so the choice reads nothing from the
+    device."""
     w = torch.exp(state.log_weight)
     expected_pose = w @ state.pose
     gm = state.map_static
+    if uses_eap(cfg) and state.step % max(1, cfg.eap_every) == 0:
+        return expected_pose, eap_expected_map(gm, state.log_weight, cfg)
     i = torch.argmax(state.log_weight)
     return expected_pose, (gm.mean[i], gm.cov[i], gm.weight[i])
+
+
+def take_particles(state: FilterState, idx) -> FilterState:
+    """Every per-particle array gathered along the particle axis at idx
+    (the weights too; the caller sets them)."""
+    def take(x):
+        return None if x is None else x[idx]
+
+    def take_gm(gm):
+        return (None if gm is None else
+                GMState(mean=gm.mean[idx], cov=gm.cov[idx],
+                        weight=gm.weight[idx]))
+    return state.replace(
+        pose=state.pose[idx], log_weight=state.log_weight[idx],
+        map_static=take_gm(state.map_static),
+        map_dynamic=take_gm(state.map_dynamic),
+        cardinality=take(state.cardinality), variance=take(state.variance))
+
+
+def _log_count(n, like):
+    return torch.log(torch.tensor(float(n), dtype=like.dtype,
+                                  device=like.device))
 
 
 def maybe_resample(state: FilterState, has_measurements: bool,
@@ -646,22 +821,51 @@ def maybe_resample(state: FilterState, has_measurements: bool,
     do_resample = n_eff <= cfg.resample_threshold
     ancestors = systematic_ancestors(state.log_weight, u, P)
     idx = torch.where(do_resample, ancestors, identity)
-    log_p = torch.log(torch.tensor(float(P), dtype=state.log_weight.dtype,
-                                   device=dev))
-
-    def take(gm):
-        return (None if gm is None else
-                GMState(mean=gm.mean[idx], cov=gm.cov[idx],
-                        weight=gm.weight[idx]))
-    state = state.replace(
-        pose=state.pose[idx],
-        log_weight=torch.where(do_resample, -log_p, state.log_weight),
-        map_static=take(state.map_static),
-        map_dynamic=take(state.map_dynamic),
-        cardinality=(None if state.cardinality is None
-                     else state.cardinality[idx]),
-        resample_idx=idx.to(torch.int32))
+    log_w = torch.where(do_resample, -_log_count(P, state.log_weight),
+                        state.log_weight)
+    state = take_particles(state, idx).replace(
+        log_weight=log_w, resample_idx=idx.to(torch.int32))
     return state, n_eff, do_resample
+
+
+def expand_particles(state: FilterState, k: int) -> FilterState:
+    """Particle shotgunning: every particle array repeated k times (the
+    copies of a particle adjacent), each copy's log weight minus log k,
+    resample_idx the identity over the P k copies."""
+    def rep(x):
+        return None if x is None else torch.repeat_interleave(x, k, dim=0)
+
+    def rep_gm(gm):
+        return (None if gm is None else
+                GMState(mean=rep(gm.mean), cov=rep(gm.cov),
+                        weight=rep(gm.weight)))
+    n = state.pose.shape[0] * k
+    return state.replace(
+        pose=rep(state.pose),
+        log_weight=rep(state.log_weight) - _log_count(k, state.log_weight),
+        map_static=rep_gm(state.map_static),
+        map_dynamic=rep_gm(state.map_dynamic),
+        cardinality=rep(state.cardinality), variance=rep(state.variance),
+        resample_idx=torch.arange(n, dtype=torch.int32,
+                                  device=state.pose.device))
+
+
+def resample_particles(state: FilterState, has_measurements: bool,
+                       cfg: SlamConfig, u, n_particles: int):
+    """The step's resampling of a state of ``n_particles`` particles (P k
+    of them after :func:`expand_particles`): with shotgunning, the forced
+    systematic contraction back to ``n_particles`` on every step (nEff
+    taken at P k, uniform weights, resampled True); otherwise
+    :func:`maybe_resample`. Returns (state, n_eff, resampled)."""
+    if max(1, cfg.n_predict_particles) == 1:
+        return maybe_resample(state, has_measurements, cfg, u)
+    n_eff = effective_sample_ratio(state.log_weight)
+    ancestors = systematic_ancestors(state.log_weight, u, n_particles)
+    log_w = (-_log_count(n_particles, state.log_weight)).expand(n_particles)
+    state = take_particles(state, ancestors).replace(
+        log_weight=log_w.clone(), resample_idx=ancestors.to(torch.int32))
+    return state, n_eff, torch.ones((), dtype=torch.bool,
+                                    device=state.pose.device)
 
 
 # ----------------------------------------------------------------------------
@@ -670,26 +874,35 @@ def maybe_resample(state: FilterState, has_measurements: bool,
 
 def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
              cfg: SlamConfig, noise: StepNoise, has_z=None, consts=None):
-    """One filter step: predict -> update -> extract -> resample.
+    """One filter step: (shotgun) -> predict -> update -> extract ->
+    resample.
 
     ``z`` [M, 2] padded measurements with ``z_mask`` [M] marking real ones;
     ``control`` = (v_encoder, alpha); ``do_predict`` gates the motion
     model. ``has_z`` (whether z_mask has any True) is read from the device
     when not given; the runner passes it from the host schedule, and the
     CPHD constants (``filters/cphd.py::cphd_constants``) it built once.
+    With n_predict_particles = k > 1, the P particles are repeated k times
+    before prediction (``noise.eps_pred`` holds P k draws), extraction
+    sees all P k, and the step ends with the contraction back to P.
     """
     if has_z is None:
         has_z = bool(z_mask.any())
+    P = state.pose.shape[0]
+    k_shot = max(1, cfg.n_predict_particles)
+    if k_shot > 1:
+        state = expand_particles(state, k_shot)
     if do_predict:
         with record_function("phd.predict"):
             state = predict(state, control, dt, cfg, noise.eps_pred)
     overflow = torch.zeros((), dtype=torch.int64, device=state.pose.device)
     if has_z:
-        state, overflow = update(state, z, z_mask, cfg, consts)
+        state, overflow = update(state, z, z_mask, cfg, consts,
+                                 noise.var_draw)
     with record_function("phd.extract_resample"):
         expected_pose, (mm, mc, mw) = extract(state, cfg)
-        state, n_eff, resampled = maybe_resample(state, has_z, cfg,
-                                                 noise.u_resample)
+        state, n_eff, resampled = resample_particles(
+            state, has_z, cfg, noise.u_resample, P)
         # the MAP particle's cardinality after resampling, argmax ties to
         # the lowest index, as the JAX version extracts it
         cn = (None if state.cardinality is None

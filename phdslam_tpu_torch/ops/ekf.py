@@ -16,10 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.measurement import detection_probability, predict_measurement
-from .math import safe_log, wrap_angle
-
-# log(2 pi) as the JAX version evaluates it: the f32 log of f32(2 pi)
-_LOG_2PI = float(torch.log(torch.tensor(2.0 * math.pi, dtype=torch.float32)))
+from .math import LOG_2PI, safe_log, wrap_angle
 
 
 class PreUpdate(NamedTuple):
@@ -115,7 +112,7 @@ def ekf_detection_logw(pre: PreUpdate, weight, z):
     dist = (pre.si00[..., None, :] * innov_r * innov_r
             + 2.0 * pre.si01[..., None, :] * innov_r * innov_b
             + pre.si11[..., None, :] * innov_b * innov_b)
-    log_like = -0.5 * dist - _LOG_2PI \
+    log_like = -0.5 * dist - LOG_2PI \
         - 0.5 * safe_log(pre.det_S)[..., None, :]
     log_w_partial = safe_log(pre.pd)[..., None, :] \
         + safe_log(weight)[..., None, :] + log_like
@@ -141,18 +138,33 @@ def ekf_detection_terms(pre: PreUpdate, mean, weight, z):
 def ekf_detection_linear(pre: PreUpdate, weight, z):
     """Linear-domain detection terms pd * w * N(z; h(x), S) per lane.
 
-    pre/weight [K] for one particle, z [M, 2]; returns [M, K]. This is the
-    grid the detect kernel evaluates (kernels/detect.py, which folds pd, w
-    and the normalizer into its ``pref`` plane).
+    pre / weight [..., K], z [M, 2] -> [..., M, K]. This is the grid the
+    detect kernel evaluates (kernels/detect.py, which folds pd, w and the
+    normalizer into its ``pref`` plane); the top-cap lane route
+    (detection_topk >= K) forms it whole.
     """
-    innov_r = z[:, None, 0] - pre.r[None, :]
-    innov_b = wrap_angle(z[:, None, 1] - pre.bearing[None, :])
-    dist = (pre.si00[None, :] * innov_r * innov_r
-            + 2.0 * pre.si01[None, :] * innov_r * innov_b
-            + pre.si11[None, :] * innov_b * innov_b)
+    innov_r, innov_b = _innovations(pre, z)
+    dist = (pre.si00[..., None, :] * innov_r * innov_r
+            + 2.0 * pre.si01[..., None, :] * innov_r * innov_b
+            + pre.si11[..., None, :] * innov_b * innov_b)
     pref = pre.pd * weight / (2.0 * math.pi
                               * torch.sqrt(torch.clamp_min(pre.det_S, 1e-30)))
-    return pref[None, :] * torch.exp(-0.5 * dist)
+    return pref[..., None, :] * torch.exp(-0.5 * dist)
+
+
+def ekf_detection_means_at(pre: PreUpdate, mean, z, m_src, k_src):
+    """EKF-updated means of one (measurement, feature) lane per particle:
+    pre [P, K], mean [P, K, D], z [M, 2], m_src / k_src [P] int ->
+    [P, D]. The selected routes' scheme-2 weighting reads its argmax lane
+    here, so the [P, M, K, D] mean grid is never formed."""
+    rows = torch.arange(mean.shape[0], device=mean.device)
+    k_src = k_src.to(torch.int64)
+    m_src = m_src.to(torch.int64)
+    innov_r = z[m_src, 0] - pre.r[rows, k_src]
+    innov_b = wrap_angle(z[m_src, 1] - pre.bearing[rows, k_src])
+    gain = pre.gain[rows, k_src]                            # [P, D, 2]
+    return mean[rows, k_src] + gain[..., 0] * innov_r[:, None] \
+        + gain[..., 1] * innov_b[:, None]
 
 
 def candidate_gather_indices(idx, K, M, has_birth):

@@ -229,3 +229,23 @@ def topcap_sort(red_w, red_act, red_flat, cap):
     sel_act = neg_s[..., :cap] < 0
     n_live = live.sum(dim=-1)
     return idx, cand_w, sel_act, torch.clamp_min(n_live - cap, 0)
+
+
+def topk_compact_indices(weight, active, cap):
+    """Top-``cap``-by-weight lane selection over weights alone, batched
+    over leading axes (the top-cap lane route, detection_topk >= K): live
+    lanes (active, w > 0) weight-descending, as ``lax.top_k`` orders them
+    (ties to the lowest lane, dead lanes keyed -1, so last) - one stable
+    sort, never ``torch.topk``, whose tie order is unspecified on CUDA.
+
+    Returns (idx [..., cap], values [..., cap] (0 off sel_act),
+    sel_act [..., cap] bool, n_dropped_live [...]).
+    """
+    live = active & (weight > 0)
+    w_act = torch.where(live, weight, -1.0)
+    neg_s, idx = torch.sort(-w_act, dim=-1, stable=True)
+    vals = -neg_s[..., :cap]
+    sel_act = vals > 0
+    n_live = live.sum(dim=-1)
+    return (idx[..., :cap], torch.where(sel_act, vals, 0.0), sel_act,
+            torch.clamp_min(n_live - cap, 0))

@@ -61,6 +61,31 @@ def inv2(A: torch.Tensor) -> torch.Tensor:
     return inv / d[..., None, None]
 
 
+def det_nd(A: torch.Tensor) -> torch.Tensor:
+    """Determinant of batched DxD matrices; closed form for D = 2."""
+    return det2(A) if A.shape[-1] == 2 else torch.linalg.det(A)
+
+
+def inv_nd(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of batched DxD matrices; closed form for D = 2."""
+    return inv2(A) if A.shape[-1] == 2 else torch.linalg.inv(A)
+
+
+# log(2 pi) as the JAX version evaluates it: the f32 log of f32(2 pi)
+LOG_2PI = float(torch.log(torch.tensor(TWO_PI, dtype=torch.float32)))
+
+
+def gaussian_logpdf(x, mean, cov) -> torch.Tensor:
+    """log N(x; mean, cov) for batched inputs x, mean [..., D], cov
+    [..., D, D]. The quadratic form is d' S^-1 d summed as the JAX
+    version's contraction orders it, (d' S^-1) first, then with d."""
+    d = x - mean
+    t = (d[..., :, None] * inv_nd(cov)).sum(dim=-2)
+    maha = (t * d).sum(dim=-1)
+    return -0.5 * maha - 0.5 * safe_log(det_nd(cov)) \
+        - 0.5 * x.shape[-1] * LOG_2PI
+
+
 def sym(A: torch.Tensor) -> torch.Tensor:
     """Force symmetry: (A + A^T) / 2."""
     return 0.5 * (A + A.transpose(-1, -2))

@@ -7,7 +7,9 @@ The scans and the particle state live on the device for the whole run.
 The host holds the schedule (which steps predict, which carry
 measurements, the controls and dt), so it branches in Python without
 reading the device; the noise comes from a ``torch.Generator`` on the
-device seeded from ``cfg.seed``. The only host reads in the loop are the
+device seeded from ``cfg.seed``, and the MC variance estimator's samples
+(compute_variance) from a second one seeded alike, so the estimator
+leaves the trajectory's draws untouched. The only host reads in the loop are the
 NaN checks, one per chunk of steps.
 """
 
@@ -87,6 +89,10 @@ class _Runner:
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
+        self.var_generator = None
+        if cfg.compute_variance:
+            self.var_generator = torch.Generator(device=self.device)
+            self.var_generator.manual_seed(cfg.seed)
         # the CPHD update's constant tables, built once per run
         self.consts = (cphd_constants(cfg, device=self.device)
                        if cfg.filter_type == 1 else None)
@@ -98,16 +104,27 @@ class _Runner:
 
     def noise(self) -> StepNoise:
         """The next step's draws from the runner's generator: one
-        prediction draw per sub-step, 3 accelerations for the CV vehicle
-        (motion_type 0), 2 control perturbations for Ackerman."""
+        prediction draw per sub-step for each of the P k predicted
+        particles (k = n_predict_particles), 3 accelerations for the CV
+        vehicle (motion_type 0), 2 control perturbations for Ackerman, and
+        P resampling uniforms; with compute_variance, a source of the
+        estimator's samples, drawn from the second generator when the
+        estimator asks for them."""
         P = self.state.pose.shape[0]
+        k = max(1, self.cfg.n_predict_particles)
         sub = max(1, self.cfg.subdivide_predict)
         width = 3 if self.cfg.motion_type == 0 else 2
+        var_draw = None
+        if self.var_generator is not None:
+            def var_draw(s, shape, g=self.var_generator):
+                return torch.randn(shape, generator=g, device=self.device)
         return StepNoise(
-            eps_pred=torch.randn((sub, P, width), generator=self.generator,
+            eps_pred=torch.randn((sub, P * k, width),
+                                 generator=self.generator,
                                  device=self.device),
             u_resample=torch.rand((P,), generator=self.generator,
-                                  device=self.device))
+                                  device=self.device),
+            var_draw=var_draw)
 
     def step(self, n: int):
         """Run step n on the runner's state; returns the step's outputs."""

@@ -6,8 +6,9 @@ with weight 0 is empty and holds mean 0 and identity covariance. The 4D
 dynamic map exists only for the mixed model (feature_model 2) and the
 log cardinality distribution only for the CPHD filter (filter_type 1);
 each is None otherwise, so the static PHD path gathers nothing extra. The
-variance estimate and the two-scan birth memory of the JAX state are
-absent. The random stream lives in the runner's ``torch.Generator``, not
+per-particle MC map variance (compute_variance) is zeros until an update
+estimates it. The two-scan birth memory of the JAX state is absent. The
+random stream lives in the runner's ``torch.Generator``, not
 in the state. :class:`DisparityState` is the monocular SC-PHD (disparity)
 filter's particle set: camera poses and per-feature clouds of world
 points.
@@ -59,6 +60,8 @@ class FilterState:
                   only (None otherwise)
     cardinality:  [P, C+1] log cardinality distribution per particle,
                   filter_type 1 (CPHD) only (None otherwise)
+    variance:     [P] MC map-variance estimates (compute_variance; zeros
+                  otherwise)
     """
     pose: torch.Tensor
     log_weight: torch.Tensor
@@ -67,6 +70,7 @@ class FilterState:
     step: int = 0
     map_dynamic: Optional[GMState] = None
     cardinality: Optional[torch.Tensor] = None
+    variance: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "FilterState":
         return dataclasses.replace(self, **changes)
@@ -96,7 +100,8 @@ def init_state(cfg, n_particles: Optional[int] = None, device="cpu",
         step=0,
         map_dynamic=(GMState.empty(P, K, 4, device, dtype)
                      if cfg.feature_model == 2 else None),
-        cardinality=cardinality)
+        cardinality=cardinality,
+        variance=torch.zeros((P,), dtype=dtype, device=device))
 
 
 def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
@@ -108,7 +113,8 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
     ``log_weight``, ``map_static.*``, ``resample_idx`` and ``step``) — the
     keys :func:`state_to_numpy` writes — and, for a state with a dynamic
     map, "dyn_mean", "dyn_cov" and "dyn_weight" (``map_dynamic.*``), for a
-    CPHD state "cardinality".
+    CPHD state "cardinality"; "variance" (the JAX state's ``variance``)
+    when given, else zeros.
     """
     def t(name, dtype):
         return torch.tensor(np.asarray(arrays[name]), dtype=dtype,
@@ -128,7 +134,10 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
         step=int(np.asarray(arrays["step"])),
         map_dynamic=dyn,
         cardinality=(t("cardinality", torch.float32)
-                     if "cardinality" in arrays else None))
+                     if "cardinality" in arrays else None),
+        variance=(t("variance", torch.float32) if "variance" in arrays
+                  else torch.zeros(np.asarray(arrays["log_weight"]).shape,
+                                   dtype=torch.float32, device=device)))
 
 
 def state_to_numpy(state: FilterState) -> dict:
@@ -137,6 +146,8 @@ def state_to_numpy(state: FilterState) -> dict:
     out = {"pose": state.pose, "log_weight": state.log_weight,
            "map_mean": gm.mean, "map_cov": gm.cov, "map_weight": gm.weight,
            "resample_idx": state.resample_idx}
+    if state.variance is not None:
+        out["variance"] = state.variance
     if state.map_dynamic is not None:
         dyn = state.map_dynamic
         out.update(dyn_mean=dyn.mean, dyn_cov=dyn.cov, dyn_weight=dyn.weight)

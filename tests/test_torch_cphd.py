@@ -445,11 +445,13 @@ def test_check_supported_routes():
                dict(merge_candidate_cap=K + M * K),
                dict(filter_type=0, particle_weighting=0,
                     merge_candidate_cap=0),
-               dict(filter_type=0, particle_weighting=0, distance_metric=1)):
+               dict(filter_type=0, particle_weighting=0, distance_metric=1),
+               # a binding cap without stage 1: the top-cap lane route
+               dict(detection_topk=K)):
         check_supported(dataclasses.replace(base, **kw), K, M)
     refused = {
-        # a binding cap without stage 1: the top-cap lane route
-        "detection_topk": dict(detection_topk=K),
+        # the JAX CPHD update estimates no map variance
+        "compute_variance": dict(compute_variance=True),
         "distance_metric": dict(distance_metric=2),
         "filter_type": dict(feature_model=2, filter_type=1),
         "lanes": dict(merge_candidate_cap=0, max_features=128),

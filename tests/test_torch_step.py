@@ -6,8 +6,9 @@ pallas_detect=2, pallas_merge=2) and ``phdslam_tpu_torch``'s ``phd_step``
 (its kernels' plain twins, since the tensors lie on the CPU). The torch
 step takes its noise as an input; the test replays JAX's key schedule to
 produce it: fold_in(rng, step) -> split(3) -> (k_pred, k_res, k_var), the
-prediction draw from fold_in(k_pred, i) and the resampling uniforms from
-k_res.
+prediction draw from fold_in(k_pred, i) (P k rows under shotgunning), the
+resampling uniforms from k_res and the MC variance samples from
+split(k_var, P k).
 """
 
 import os
@@ -22,7 +23,7 @@ from phdslam_tpu.config import load_config as jax_load_config
 from phdslam_tpu.filters.phd import make_step_fn
 from phdslam_tpu.types import init_state as jax_init_state
 from phdslam_tpu_torch import load_config
-from phdslam_tpu_torch.filters.phd import StepNoise, phd_step
+from phdslam_tpu_torch.filters.phd import StepNoise, phd_step, uses_full_grid
 from phdslam_tpu_torch.runtime import io
 from phdslam_tpu_torch.slam import SynthSLAMRunner, build_schedule
 from phdslam_tpu_torch.types import state_from_jax, state_to_numpy
@@ -47,6 +48,7 @@ def jax_state_arrays(s, dynamic=False):
            "map_cov": np.asarray(s.map_static.cov),
            "map_weight": np.asarray(s.map_static.weight),
            "resample_idx": np.asarray(s.resample_idx),
+           "variance": np.asarray(s.variance),
            "step": np.asarray(s.step)}
     if dynamic:
         out.update(dyn_mean=np.asarray(s.map_dynamic.mean),
@@ -74,21 +76,42 @@ def assert_log_card_close(got, want, msg=""):
     assert ((got - peak)[~near] < -50.0).all(), msg
 
 
-def replay_noise(state, cfg):
+def replay_noise(state, cfg, full_grid=False):
     """The draws JAX's phd_step makes from this state's key: per sub-step
-    a [P, 3] draw for the CV vehicle (motion_type 0), [P, 2] for
-    Ackerman."""
+    a [P k, 3] draw for the CV vehicle (motion_type 0), [P k, 2] for
+    Ackerman (k = n_predict_particles), [P] resampling uniforms and, with
+    compute_variance, the MC variance samples: sample s is
+    normal(fold_in(keys[0], s), (2, P k, N)) on a capped route (the
+    estimator over the selected lanes), normal(fold_in(keys[p], s),
+    (N, D)) for each particle p on the full grid (``full_grid``), with
+    keys = split(k_var, P k) (the source's ``keys``)."""
     P = state.pose.shape[0]
+    n_ext = P * max(1, cfg.n_predict_particles)
     key = jax.random.fold_in(state.rng, state.step)
-    k_pred, k_res, _ = jax.random.split(key, 3)
+    k_pred, k_res, k_var = jax.random.split(key, 3)
     sub = max(1, cfg.subdivide_predict)
     width = 3 if cfg.motion_type == 0 else 2
     eps = np.stack([np.array(jax.random.normal(
-        jax.random.fold_in(k_pred, i), (P, width), dtype=jnp.float32))
+        jax.random.fold_in(k_pred, i), (n_ext, width), dtype=jnp.float32))
         for i in range(sub)])
     u = np.array(jax.random.uniform(k_res, (P,), dtype=jnp.float32))
+    var_draw = None
+    if cfg.compute_variance:
+        keys = jax.random.split(k_var, n_ext)
+
+        def var_draw(s, shape):
+            if full_grid:
+                x = np.stack([np.array(jax.random.normal(
+                    jax.random.fold_in(keys[p], s), tuple(shape[1:]),
+                    dtype=jnp.float32)) for p in range(shape[0])])
+            else:
+                x = np.array(jax.random.normal(
+                    jax.random.fold_in(keys[0], s), tuple(shape),
+                    dtype=jnp.float32))
+            return torch.from_numpy(x)
+        var_draw.keys = keys
     return StepNoise(eps_pred=torch.from_numpy(eps),
-                     u_resample=torch.from_numpy(u))
+                     u_resample=torch.from_numpy(u), var_draw=var_draw)
 
 
 def dataset(m_max, data=DATA, dt=1.0):
@@ -104,12 +127,14 @@ def dataset(m_max, data=DATA, dt=1.0):
     return z, mask, controls, sched
 
 
-def replay_dataset(cfg_path, data, small, n_steps):
+def replay_dataset(cfg_path, data, small, n_steps, resync=False):
     """Run the JAX step and the torch step side by side over the first
     ``n_steps`` of a dataset with JAX's replayed draws, holding poses,
     weights, the static map, the CPHD cardinality (log domain, atol 1e-4)
-    and the step outputs equal; returns the final torch state and whether
-    any step resampled."""
+    and the step outputs equal; returns the final torch state and whether any
+    step resampled. With ``resync`` every torch step starts from the JAX
+    state, so each step is held from the same inputs (for weightings
+    that amplify the earlier steps' f32 reassociation)."""
     jcfg = jax_load_config(cfg_path, small)
     tcfg = load_config(cfg_path, small)
     z_all, mask_all, controls, sched = dataset(tcfg.max_measurements, data,
@@ -123,7 +148,10 @@ def replay_dataset(cfg_path, data, small, n_steps):
         if plan.c_idx >= 0:
             control = controls[plan.c_idx]
         z, zm = z_all[plan.z_idx], mask_all[plan.z_idx]
-        noise = replay_noise(js, jcfg)
+        if resync:
+            ts = state_from_jax(jax_state_arrays(js))
+        noise = replay_noise(js, jcfg, uses_full_grid(
+            tcfg, tcfg.max_components, tcfg.max_measurements))
         js, jout = step(js, jnp.asarray(z), jnp.asarray(zm),
                         jnp.asarray(control), jnp.float32(plan.dt),
                         jnp.asarray(plan.do_predict))
@@ -211,9 +239,9 @@ def test_runner_on_cpu_tracks_the_start():
 
 
 def test_runner_rejects_unported_config():
-    # a binding cap without stage-1 top-T: the JAX top-cap lane route
-    cfg = load_config(CFG, dict(SMALL, detection_topk=32))
-    with pytest.raises(NotImplementedError, match="detection_topk"):
+    # the JAX package's approximate spatially tiled merge
+    cfg = load_config(CFG, dict(SMALL, merge_spatial_tiles=4))
+    with pytest.raises(NotImplementedError, match="merge_spatial_tiles"):
         SynthSLAMRunner(cfg, DATA, device="cpu")
 
 
