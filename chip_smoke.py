@@ -54,6 +54,16 @@ drives both paths:
   the EAP, MAP, shotgun and T >= K accuracy beside the JAX package's
   CPU runs of the same particle count and seeds;
 
+- the runtime around the runner: ``python -m phdslam_tpu_torch``'s
+  ``main`` on the full ``data/ackerman`` sequence at P=512 (331 state
+  logs scored by ``eval/batch.py::analyze_log_dir``, checkpoints every 160
+  steps, the resume from step 160 byte-equal), 60 steps ``--timing``
+  (poses bit-equal), 20 steps ``--trace`` (the kernels' device events),
+  ``--profile``'s single update, the ``disparity`` run type, a four-run
+  Monte-Carlo batch (``tools/mc_scale.py``'s PHD P=1024) and a run with
+  NaN weights injected at step 20 (reported, not raised; raised under
+  ``debug``);
+
 then times every kernel against its twin (the knob variants and the
 existing kernels at the dense shapes too, the two gathers at every shape
 the paths launch, each with ``torch.gather`` beside it, and the update's
@@ -91,8 +101,11 @@ from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import sys
 import tempfile
 import time
@@ -113,8 +126,11 @@ from merge_bench import (MERGE_EDGES, OUT_PLANES, edge_runs,
                          full_grid_inputs, merge3d_inputs, merge4d_inputs,
                          merge_bound, merge_inputs, merge_rounds,
                          round_stats, run_case, tables_bound)
-from phdslam_tpu_torch import load_config
+from phdslam_tpu_torch import SlamConfig, load_config
+from phdslam_tpu_torch.__main__ import main as cli_main
 from phdslam_tpu_torch.eval import simdata
+from phdslam_tpu_torch.eval.batch import (analyze_log_dir,
+                                          generate_batch_datasets, run_batch)
 from phdslam_tpu_torch.eval.ospa import ospa_distance
 from phdslam_tpu_torch.eval.parity import (disparity_map_estimate,
                                            evaluate_dataset,
@@ -148,6 +164,7 @@ from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
 from phdslam_tpu_torch.ops.gm_merge import merge_out, unpack_planes
 from phdslam_tpu_torch.ops import resample
 from phdslam_tpu_torch.ops.math import logsumexp, mahalanobis2
+from phdslam_tpu_torch.runtime.checkpoint import profile_single_update
 from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
 from phdslam_tpu_torch.slam_disparity import DisparityRunner
 from phdslam_tpu_torch.types import DisparityState, FilterState, GMState
@@ -303,6 +320,14 @@ CARD = ""                       # nvidia-smi's name and power limit
 def phase(name, msg):
     """One result line, tagged with the card's name and power limit."""
     print(f"[{name}] {msg}" + (f" [{CARD}]" if CARD else ""), flush=True)
+
+
+def clean(res, label):
+    """A runner's result with no NaN weights: the runners report the first
+    NaN step after the run (res["nan_step"]) and return; fail on one."""
+    require(res["nan_step"] is None,
+            f"{label}: NaN weights from step {res['nan_step']}")
+    return res
 
 
 
@@ -1147,7 +1172,7 @@ def run_disparity_data(dev):
     r = disparity_runner(dev)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
-    res = r.run()
+    res = clean(r.run(), "disparity")
     counts = dict(build.launch_counts)
     gt = np.load(f"{DISP_DATA}/groundtruth.npz")
     est = res["est_poses"]
@@ -1184,11 +1209,14 @@ def disparity_bench(dev):
     with tempfile.TemporaryDirectory(prefix="disparity_bench_") as tmp:
         simdata.write_disparity_run_dir(tmp, ms)
         for P in DISP_BENCH_P:
-            disparity_runner(dev, P, tmp, n_steps=DISP_BENCH_STEPS).run()
+            clean(disparity_runner(dev, P, tmp,
+                                   n_steps=DISP_BENCH_STEPS).run(),
+                  f"disparity bench P={P}")
             rates = []
             for rep in range(2):
-                res = disparity_runner(dev, P, tmp, n_steps=DISP_BENCH_STEPS,
-                                       seed=1000 + rep).run()
+                res = clean(disparity_runner(
+                    dev, P, tmp, n_steps=DISP_BENCH_STEPS,
+                    seed=1000 + rep).run(), f"disparity bench P={P}")
                 require(np.isfinite(res["est_poses"]).all(),
                         f"disparity bench: NaN at P={P}")
                 rates.append(res["steps_per_s"])
@@ -1206,6 +1234,7 @@ def disparity_accuracy(dev):
         r = evaluate_disparity(seed=seed, follow_trajectory=False,
                                cfg_overrides={"n_particles": P_DISP_ACC},
                                device=dev)
+        clean(r["run"], f"disparity accuracy seed {seed}")
         require(np.isfinite(r["pose_err"]).all() and np.isfinite(r["ospa"]),
                 f"disparity accuracy: NaN in seed {seed}")
         rows.append([r[k] for k in DISP_BANDS])
@@ -1225,6 +1254,7 @@ def disparity_accuracy(dev):
     require(pose <= ATE_LIMIT, f"disparity mean pose error {pose:.4f} m > "
             f"{ATE_LIMIT} m")
     r = evaluate_disparity(seed=0, device=dev)
+    clean(r["run"], "disparity known-pose seed 0")
     phase("accuracy", f"disparity known-pose seed 0: OSPA(1, 1 m) "
           f"{r['ospa']:.4f} (JAX {DISP_KNOWN_POSE_OSPA}), {r['n_est']} of "
           f"{r['n_true']} landmarks")
@@ -1238,7 +1268,7 @@ def run_main(dev):
     res = evaluate_dataset(CFG, ".", overrides={"n_particles": P_MAIN},
                            device=dev)
     counts = dict(build.launch_counts)
-    run = res["run"]
+    run = clean(res["run"], "run")
     ate = res["mean_pose_err"]
     phase("run", f"data/ackerman P={P_MAIN}, {len(run['n_eff'])} steps: "
           f"{res['steps_per_s']:.2f} steps/s ({run['wall_s']:.3f} s), "
@@ -1262,8 +1292,8 @@ def run_path(dev, label, cfg_path, overrides, kernels, n_steps=None,
     """``evaluate_dataset`` at P particles (512 by default) with the launch
     counts set to 0 just before and read just after: steps/s, peak memory,
     mean ATE, mean every-step OSPA(1, 5), overflow and launches. Requires
-    finite poses and weights (the runner raises at the first chunk of steps
-    with a NaN) and every kernel variant in ``kernels`` launched. Returns
+    finite poses and weights (the runner reports the first NaN step after
+    the run) and every kernel variant in ``kernels`` launched. Returns
     (counts, res)."""
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
@@ -1306,7 +1336,8 @@ def run_cphd(dev):
     cfg = load_config(CPHD_CFG, {"n_particles": P_SCALE,
                                  "n_steps": SCALE_STEPS})
     torch.cuda.reset_peak_memory_stats()
-    scale = SynthSLAMRunner(cfg, DATA, device=dev).run()
+    scale = clean(SynthSLAMRunner(cfg, DATA, device=dev).run(),
+                  f"CPHD P={P_SCALE}")
     require(np.isfinite(scale["est_poses"]).all(), f"CPHD NaN at P={P_SCALE}")
     phase("cphd", f"P={P_SCALE}, first {SCALE_STEPS} steps: "
           f"{scale['steps_per_s']:.2f} steps/s ({scale['wall_s']:.3f} s), "
@@ -1588,6 +1619,7 @@ def audit_dense_scale(dev, n_before=40):
         for _ in range(2):
             runs.append(evaluate_dataset(DENSE_CFG, ".", overrides=dict(
                 FUSED_ADAPTIVE, n_particles=P_DENSE_SCALE), device=dev))
+            clean(runs[-1]["run"], f"dense P={P_DENSE_SCALE} 1D scan")
     differ = np.nonzero((runs[0]["est_poses"] != runs[1]["est_poses"])
                         .any(axis=1))[0]
     phase("dense", f"P={P_DENSE_SCALE} twice with a 1D torch.cumsum in the "
@@ -1612,6 +1644,7 @@ def dense_seeds(dev):
                 "n_particles": P, "seed": seed}, device=dev)
             require(np.isfinite(res["run"]["est_poses"]).all(),
                     f"dense P={P} seed {seed}: NaN")
+            clean(res["run"], f"dense P={P} seed {seed}")
             rows.append((res["mean_pose_err"], res["mean_ospa"]))
             phase("dense", f"P={P} seed {seed}: mean ATE "
                   f"{res['mean_pose_err']:.4f} m, OSPA "
@@ -1632,7 +1665,7 @@ def dense_seeds(dev):
 def run_scale(dev):
     cfg = load_config(CFG, {"n_particles": P_SCALE, "n_steps": SCALE_STEPS})
     r = SynthSLAMRunner(cfg, DATA, device=dev)
-    res = r.run()
+    res = clean(r.run(), f"scale P={P_SCALE}")
     require(np.isfinite(res["est_poses"]).all(), f"NaN at P={P_SCALE}")
     phase("scale", f"P={P_SCALE}, first {SCALE_STEPS} steps: "
           f"{res['steps_per_s']:.2f} steps/s ({res['wall_s']:.3f} s), "
@@ -1645,7 +1678,7 @@ def run_mixed(dev):
     r = mixed_runner(dev)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
-    res = r.run()
+    res = clean(r.run(), "mixed")
     counts = dict(build.launch_counts)
     require(np.isfinite(res["est_poses"]).all(), "mixed: NaN in the poses")
     phase("mixed", f"P={P_MAIN} K=128+128 M=32, {MIXED_STEPS} steps: "
@@ -1660,7 +1693,7 @@ def run_mixed(dev):
 
     r = mixed_runner(dev, P=P_MIXED_SCALE, T=MIXED_SCALE_STEPS)
     torch.cuda.reset_peak_memory_stats()
-    scale = r.run()
+    scale = clean(r.run(), f"mixed P={P_MIXED_SCALE}")
     require(np.isfinite(scale["est_poses"]).all(),
             f"mixed: NaN at P={P_MIXED_SCALE}")
     phase("mixed", f"P={P_MIXED_SCALE}, {MIXED_SCALE_STEPS} steps: "
@@ -1679,6 +1712,7 @@ def mixed_accuracy(dev):
     rows = []
     for seed in MIXED_SEEDS:
         r = evaluate_mixed(seed=seed, n_particles=P_MIXED_ACC, device=dev)
+        clean(r["run"], f"mixed accuracy seed {seed}")
         rows.append([r[k] for k in keys])
         require(np.isfinite(r["run"]["est_poses"]).all()
                 and np.isfinite([r["mean_pose_err"], r["static_ospa"]]).all()
@@ -1857,6 +1891,7 @@ def seed_band(dev, label, cfg_path, over, band, P=P_BAND, seeds=BAND_SEEDS):
                                overrides=dict(over, n_particles=P, seed=seed))
         require(np.isfinite(res["run"]["est_poses"]).all(),
                 f"{label} seed {seed}: NaN")
+        clean(res["run"], f"{label} seed {seed}")
         rows.append((res["mean_pose_err"], res["mean_ospa"]))
     band_line(f"{label} P={P} seeds {list(seeds)}", rows, band)
     return rows
@@ -2467,7 +2502,279 @@ def profile_step(r, label, host=(40, 60), prof=(60, 80), prefix="phd."):
               f"{cnt / steps:5.1f}/step  {name[:60]}")
 
 
+# ----------------------------------------------------------------------------
+# the runtime around the runner: the command line, logs, checkpoints, the
+# Monte-Carlo batch and the NaN policy
+# ----------------------------------------------------------------------------
+
+JAX_MC_PHD_1024 = 1.97          # m: the JAX package's 50-run mean, P=1024
+NAN_STEP = 20
+
+
+def cli(argv):
+    """``python -m phdslam_tpu_torch`` in this process on the card: its
+    output, and its result line's steps/s (the runner's loop) beside the
+    host clock around the whole command (set-up and log writing too)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    require(rc == 0, f"{argv}: exit code {rc}")
+    done = [ln for ln in out.splitlines() if ln.startswith("done: ")]
+    require(len(done) == 1, f"{argv}: no result line in {out!r}")
+    return out, float(done[0].split()[3]), wall
+
+
+def state_logs(out_dir):
+    return sorted(f for f in os.listdir(out_dir)
+                  if f.startswith("state_estimate"))
+
+
+def read_bytes(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def run_cli(dev, tmp, main_res):
+    """``python -m phdslam_tpu_torch cfg/ackerman.cfg synth`` at P=512 over
+    all 331 steps with a checkpoint every 160 steps (chunk 32): 331 state
+    logs and loopTime.log lines, detect, gather_cols and merge2d launched,
+    analyze_log_dir's mean ATE within ATE_LIMIT (beside the JAX band), the
+    command's steps/s beside run_main's (no logs, same call) and the time
+    write_logs takes; then resumed from step 160: every later log equal
+    to the uninterrupted run's, byte for byte. Returns the output dir."""
+    out = os.path.join(tmp, "cli")
+    argv = [CFG, "synth", "--out-dir", out, "--particles", str(P_MAIN),
+            "--chunk", "32", "--checkpoint-every", "160"]
+    write_s = []
+    write_logs = SynthSLAMRunner.write_logs
+
+    def timed_write_logs(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        write_logs(self, *args, **kwargs)
+        write_s.append(time.perf_counter() - t0)
+    build.reset_launch_counts()
+    with mock.patch.object(SynthSLAMRunner, "write_logs", timed_write_logs):
+        _, loop_rate, wall = cli(argv)
+    counts = dict(build.launch_counts)
+    names = state_logs(out)
+    T = len(names)
+    lt = np.loadtxt(os.path.join(out, "loopTime.log"))
+    require(T == 331 and len(lt) == 331 and (lt > 0).all(),
+            f"cli: {T} state logs, {len(lt)} loopTime.log lines")
+    require(all(counts.get(k, 0) > 0 for k in ACKERMAN_KERNELS),
+            f"cli: a kernel of the path never launched: {counts}")
+    require(sorted(os.listdir(os.path.join(out, "checkpoints")))
+            == ["step00160", "step00320"], "cli: checkpoints")
+    gt = np.load(f"{DATA}/groundtruth.npz")
+    score = analyze_log_dir(out, gt["traj"], gt["landmarks"])
+    ate = score["mean_pose_err"]
+    lo, hi = ATE_BAND
+    phase("cli", f"{' '.join(argv[:2])} P={P_MAIN}: {T} state logs, "
+          f"loop {loop_rate:.2f} steps/s, whole command "
+          f"{T / wall:.2f} steps/s ({wall:.3f} s; run_main without logs "
+          f"{main_res['steps_per_s']:.2f}), write_logs "
+          f"{write_s[0] * 1000.0 / T:.3f} ms/step ({write_s[0]:.3f} s)")
+    phase("cli", f"analyze_log_dir: mean ATE {ate:.4f} m "
+          f"({'inside' if lo <= ate <= hi else 'outside'} the JAX band "
+          f"{lo}-{hi} m), OSPA(1, 5) every 10th log against every landmark "
+          f"{score['mean_ospa']:.4f}, mean nEff "
+          f"{float(np.mean(score['n_eff'])):.4f}")
+    phase("cli", "launches: " + ", ".join(f"{k}={counts.get(k, 0)}"
+                                          for k in ACKERMAN_KERNELS))
+    require(ate <= ATE_LIMIT, f"cli: mean ATE {ate:.4f} m > {ATE_LIMIT} m")
+
+    res_dir = os.path.join(tmp, "cli_resumed")
+    text, _, _ = cli(argv[:3] + [res_dir] + argv[4:6] + [
+        "--chunk", "32", "--resume",
+        os.path.join(out, "checkpoints", "step00160")])
+    later = state_logs(res_dir)
+    require(later == names[160:], f"cli resume: {len(later)} logs")
+    differ = [n for n in later if read_bytes(os.path.join(out, n))
+              != read_bytes(os.path.join(res_dir, n))]
+    require(not differ, f"cli resume: {len(differ)} logs differ, first "
+            f"{differ[:1]}")
+    phase("cli", f"resumed at step 160 ({text.splitlines()[0]}): all "
+          f"{len(later)} later logs byte-equal to the uninterrupted run's")
+    return out
+
+
+def run_cli_timing(dev, tmp, full):
+    """``--timing`` over the first 60 steps: predicttime.log positive on
+    every step that predicts, and every pose bit-equal to the untimed
+    run's (the timed prediction reuses the step's own draws)."""
+    out = os.path.join(tmp, "cli_timing")
+    _, rate, _ = cli([CFG, "synth", "--out-dir", out, "--particles",
+                      str(P_MAIN), "--steps", "60", "--timing"])
+    r = SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN,
+                                          "n_steps": 60}), DATA, device=dev)
+    predicts = np.asarray([p.do_predict for p in r.schedule])
+    pt = np.loadtxt(os.path.join(out, "predicttime.log"))
+    lt = np.loadtxt(os.path.join(out, "loopTime.log"))
+    require(len(pt) == len(lt) == 60 and (pt[predicts] > 0).all()
+            and (pt[~predicts] == 0).all(), "cli timing: predicttime.log")
+    names = state_logs(out)
+    require(names == state_logs(full)[:60], "cli timing: logs")
+    same = 0
+    for n in names:
+        a = read_bytes(os.path.join(out, n)).split(b"\n")
+        b = read_bytes(os.path.join(full, n)).split(b"\n")
+        require(a[0] == b[0] and a[4] == b[4],
+                f"cli timing: {n} poses differ from the untimed run")
+        same += a == b
+    phase("cli timing", f"60 steps --timing: {rate:.2f} steps/s, step "
+          f"{float(np.median(lt)):.3f} ms median, prediction "
+          f"{float(np.median(pt[predicts])):.3f} ms median on "
+          f"{int(predicts.sum())} predicting steps; expected and particle "
+          f"poses bit-equal to the untimed run, {same}/60 logs byte-equal")
+
+
+def run_cli_trace(dev, tmp):
+    """``--trace`` over 20 steps: the exported Chrome trace holds the
+    merge2d and detect kernels' device events."""
+    out, tdir = os.path.join(tmp, "cli_trace"), os.path.join(tmp, "trace")
+    cli([CFG, "synth", "--out-dir", out, "--particles", str(P_MAIN),
+         "--steps", "20", "--trace", tdir])
+    with open(os.path.join(tdir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = collections.Counter(
+        e["name"] for e in events if e.get("cat") == "kernel")
+    found = {k: sum(c for name, c in kernels.items() if k in name)
+             for k in ("merge2d", "detect")}
+    require(all(found.values()), f"cli trace: kernel events {found}; "
+            f"{len(kernels)} kernel names")
+    phase("cli trace", f"20 steps: {sum(kernels.values())} kernel events "
+          f"({len(kernels)} names), merge2d {found['merge2d']}, detect "
+          f"{found['detect']}")
+
+
+def run_profile_update(dev, full):
+    """profile_single_update on the CLI run's step-160 checkpoint with step
+    160's scan: one timed update (CUDA events)."""
+    cfg = load_config(CFG, {"n_particles": P_MAIN})
+    r = SynthSLAMRunner(cfg, DATA, device=dev)
+    plan = r.schedule[160]
+    res = profile_single_update(
+        cfg, os.path.join(full, "checkpoints", "step00160"),
+        r.z[plan.z_idx], r.z_mask[plan.z_idx], device=dev)
+    require(np.isfinite(res["est_poses"]).all(), "profile: NaN pose")
+    n_z = int(r.z_mask[plan.z_idx].sum())
+    phase("profile", f"single update at step 160 ({n_z} measurements, "
+          f"P={P_MAIN}): update_ms {res['update_ms']:.4f} (CUDA events, no "
+          "prediction)")
+
+
+def run_disparity_cli(dev, tmp):
+    """``python -m phdslam_tpu_torch cfg/disparity.cfg disparity`` at
+    P=512: trajectory.txt over the 80 frames, merge3d launched."""
+    out = os.path.join(tmp, "cli_disparity")
+    build.reset_launch_counts()
+    _, rate, _ = cli([DISP_CFG, "disparity", "--out-dir", out,
+                      "--particles", str(P_MAIN)])
+    counts = dict(build.launch_counts)
+    est = np.loadtxt(os.path.join(out, "trajectory.txt"))
+    lt = np.loadtxt(os.path.join(out, "loopTime.log"))
+    require(est.shape == (80, 12) and np.isfinite(est).all()
+            and len(lt) == 80, f"disparity cli: trajectory {est.shape}")
+    require(counts.get("merge3d", 0) > 0, f"disparity cli: {counts}")
+    phase("disparity cli", f"80 frames P={P_MAIN}: {rate:.2f} steps/s, "
+          f"merge3d={counts.get('merge3d', 0)}")
+
+
+def run_batch_phase(dev, tmp):
+    """The Monte-Carlo batch on ``tools/mc_scale.py``'s worlds (40
+    landmarks, 150 steps, dt 0.1, seed 11), four runs of its PHD
+    configuration at P=1024: every run finite, the summary beside the JAX
+    package's 50-run mean (four runs hold no 50-run band)."""
+    root = os.path.join(tmp, "mc")
+    generate_batch_datasets(root, n_runs=4, n_landmarks=40, n_steps=150,
+                            dt=0.1, seed=11)
+    gt = np.load(os.path.join(root, "groundtruth.npz"))
+    # tools/mc_scale.py::base_cfg, PHD, at P=1024
+    cfg = SlamConfig(
+        n_particles=1024, max_features=64, max_measurements=64,
+        motion_type=1, feature_model=0, filter_type=0, max_cardinality=64,
+        l=2.83, h=0.76, a=3.78, b=0.5, std_encoder=2.0, std_alpha=0.0873,
+        max_range=10.0, std_range=1.0, std_bearing=0.0349,
+        clutter_rate=5.0, pd=0.95, birth_weight=0.05, min_separation=5.0,
+        particle_weighting=0, resample_threshold=0.15, dt=0.1, seed=9,
+        x0=float(gt["traj"][0, 0]), y0=float(gt["traj"][0, 1]))
+    build.reset_launch_counts()
+    res = run_batch(cfg, root, ospa_every=1, device=dev)
+    counts = dict(build.launch_counts)
+    require(np.isfinite(res.pose_err).all() and np.isfinite(res.ospa).all()
+            and np.isfinite(res.n_eff).all(), "batch: a run is not finite")
+    s = res.summary()
+    phase("batch", f"PHD P=1024, {s['n_runs']} runs x 150 steps: pose "
+          f"{s['mean_pose_err']:.4f} +- {s['std_pose_err']:.4f} m (JAX 50 "
+          f"runs {JAX_MC_PHD_1024} m), OSPA {s['mean_ospa']:.4f} +- "
+          f"{s['std_ospa']:.4f}, final pose {s['final_pose_err']:.4f} m, "
+          f"{s['mean_steps_per_s']:.2f} steps/s; per run pose "
+          + ", ".join(f"{v:.4f}" for v in res.pose_err.mean(axis=1))
+          + "; launches " + ", ".join(f"{k}={counts.get(k, 0)}"
+                                      for k in ACKERMAN_KERNELS))
+
+
+def run_nan(dev):
+    """NaN log weights injected before step 20 of a 40-step Ackerman run
+    at P=512: the run completes on the card, prints the first NaN step and
+    returns nan_step = 20; with debug=True it raises FloatingPointError."""
+    def runner():
+        r = SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN,
+                                              "n_steps": 40}), DATA,
+                            device=dev)
+        step = r.step
+
+        def poisoned(n, noise=None):
+            if n == NAN_STEP:
+                r.state = r.state.replace(
+                    log_weight=r.state.log_weight * float("nan"))
+            return step(n, noise)
+        r.step = poisoned
+        return r
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = runner().run()
+    torch.cuda.synchronize()
+    said = buf.getvalue()
+    require(res["nan_step"] == NAN_STEP
+            and said == f"nan weights detected at step {NAN_STEP}!\n"
+            and np.isfinite(res["n_eff"][:NAN_STEP]).all(),
+            f"nan: nan_step {res['nan_step']}, printed {said!r}")
+    try:
+        runner().run(debug=True)
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raised = None
+    torch.cuda.synchronize()
+    require(raised == f"nan weights detected at step {NAN_STEP}",
+            f"nan: debug run raised {raised!r}")
+    phase("nan", f"NaN log weights at step {NAN_STEP} of 40: printed "
+          f"{said.strip()!r}, nan_step {res['nan_step']}, "
+          f"{int(np.isnan(res['n_eff']).sum())} NaN nEff steps, no CUDA "
+          f"error; debug=True raised FloatingPointError({raised!r})")
+
+
+def run_runtime(dev, main_res):
+    """The runtime phases in one scratch directory, removed after."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        full = run_cli(dev, tmp, main_res)
+        run_cli_timing(dev, tmp, full)
+        run_cli_trace(dev, tmp)
+        run_profile_update(dev, full)
+        run_disparity_cli(dev, tmp)
+        run_batch_phase(dev, tmp)
+        run_nan(dev)
+    phase("runtime", f"cli, timing, trace, profile, disparity cli, batch "
+          f"and nan phases: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
+    t_start = time.perf_counter()
     smi = check_device()
     dev = torch.device("cuda:0")
     build_kernels()
@@ -2481,6 +2788,7 @@ def main():
     check_dense_steps(dev)
     check_estimator_steps(dev)
     counts, main_res = run_main(dev)
+    run_runtime(dev, main_res)
     knob_counts, cons_counts = run_knobs(dev, main_res)
     run_eap(dev, main_res, counts)
     time_eap(dev)
@@ -2553,6 +2861,7 @@ def main():
          "library_ms": times[name][2], "device_ms": times[name][5],
          "library_device_ms": times[name][6]}
         for name, (src, rep) in KERNELS.items()]}
+    phase("total", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,23 @@
 """Synthetic ground truth and noisy scans (a copy of the parts of
 ``phdslam_tpu/eval/simdata.py`` that the port's evaluations use: for the
-mixed world ``wrap_angle``, ``SensorParams``, ``true_measurements``,
+Monte-Carlo batch ``AckermanParams``, ``ackerman_motion``,
+``generate_world``, ``generate_run`` and ``write_run_dir``; for the mixed
+world ``wrap_angle``, ``SensorParams``, ``true_measurements``,
 ``noisy_measurements`` and ``generate_world_cv``; for the monocular camera
 world ``camera_rotation_np``, ``generate_disparity_world`` and
 ``write_disparity_run_dir``).
 
 The port keeps its own copy because ``phdslam_tpu/__init__.py`` imports jax;
-``tests/test_torch_mixed.py`` and ``tests/test_torch_disparity.py`` hold it
-equal to the original from the same seed. Pure numpy.
+``tests/test_torch_mixed.py``, ``tests/test_torch_disparity.py`` and
+``tests/test_torch_batch.py`` hold it equal to the original from the same
+seed. Pure numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -33,6 +37,30 @@ class SensorParams:
     std_bearing: float = 0.0349
     pd: float = 0.95
     clutter_rate: float = 20.0
+
+
+@dataclasses.dataclass
+class AckermanParams:
+    std_encoder: float = 2.0
+    std_alpha: float = 0.0873
+    l: float = 2.83
+    h: float = 0.76
+    a: float = 3.78
+    b: float = 0.50
+
+
+def ackerman_motion(pose, v_encoder, alpha, p: AckermanParams, dt):
+    """One noiseless Ackerman step of (x, y, heading) (the filter's
+    ``models/vehicle.py::ackerman_predict`` in numpy)."""
+    x, y, th = pose
+    vc = v_encoder / (1.0 - np.tan(alpha) * p.h / p.l)
+    xc_dot = vc * np.cos(th)
+    yc_dot = vc * np.sin(th)
+    thc_dot = vc * np.tan(alpha) / p.l
+    x2 = x + dt * (xc_dot - thc_dot * (p.a * np.sin(th) + p.b * np.cos(th)))
+    y2 = y + dt * (yc_dot + thc_dot * (p.a * np.cos(th) - p.b * np.sin(th)))
+    th2 = float(wrap_angle(th + dt * thc_dot))
+    return np.array([x2, y2, th2])
 
 
 def true_measurements(pose, landmarks, sp: SensorParams):
@@ -60,6 +88,61 @@ def noisy_measurements(pose, landmarks, sp: SensorParams, rng):
         rng.random(n_clutter) * sp.max_range,
         rng.random(n_clutter) * 2 * sp.max_bearing - sp.max_bearing])
     return np.vstack([z, clutter]).astype(np.float32)
+
+
+def generate_world(n_landmarks=80, extent=20.0, n_steps=300, dt=0.1,
+                   seed=0, mp: Optional[AckermanParams] = None,
+                   control_profile="loop"):
+    """Random landmark map and a driven Ackerman trajectory: speed 3 m/s,
+    steering 0.15 sin over two periods ("loop"; straight otherwise).
+
+    Returns (landmarks [L,2], trajectory [T,3], controls [T-1,2]).
+    """
+    rng = np.random.default_rng(seed)
+    mp = mp or AckermanParams()
+    landmarks = rng.uniform(-extent, extent, size=(n_landmarks, 2))
+
+    controls = np.zeros((n_steps - 1, 2))
+    if control_profile == "loop":
+        controls[:, 0] = 3.0                       # constant speed
+        controls[:, 1] = 0.15 * np.sin(
+            np.linspace(0, 4 * np.pi, n_steps - 1))  # weaving steer
+    else:
+        controls[:, 0] = 3.0
+
+    traj = np.zeros((n_steps, 3))
+    for t in range(1, n_steps):
+        traj[t] = ackerman_motion(traj[t - 1], controls[t - 1, 0],
+                                  controls[t - 1, 1], mp, dt)
+    return landmarks, traj, controls
+
+
+def generate_run(landmarks, traj, controls, sp: SensorParams,
+                 mp: AckermanParams, seed: int):
+    """One Monte-Carlo input set: noisy controls + measurements."""
+    rng = np.random.default_rng(seed)
+    noisy_controls = controls + np.column_stack([
+        rng.normal(0, mp.std_encoder, len(controls)),
+        rng.normal(0, mp.std_alpha, len(controls))])
+    noisy_controls[:, 1] = wrap_angle(noisy_controls[:, 1])
+    measurements = [noisy_measurements(traj[t], landmarks, sp, rng)
+                    for t in range(len(traj))]
+    return noisy_controls.astype(np.float32), measurements
+
+
+def write_run_dir(outdir, controls, measurements):
+    """controls.txt and measurements.txt in the reference's text format."""
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "controls.txt"), "w") as fh:
+        fh.write("% velocity\tsteering angle\n")
+        for u in controls:
+            fh.write("%g %g\n" % (u[0], u[1]))
+    with open(os.path.join(outdir, "measurements.txt"), "w") as fh:
+        fh.write("% measurements from simulation data. One time step per "
+                 "line, each pair of of numbers is a range/bearing "
+                 "measurement.\n")
+        for Z in measurements:
+            fh.write(" ".join("%g %g" % (z[0], z[1]) for z in Z) + " \n")
 
 
 def generate_world_cv(n_landmarks=40, extent=20.0, n_steps=150, dt=0.1,

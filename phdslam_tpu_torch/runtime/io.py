@@ -1,10 +1,11 @@
-"""Dataset loaders (copies of ``phdslam_tpu/runtime/io.py``'s numpy loaders)
-and the disparity filter's particle dump.
+"""Dataset loaders, the state-log writer and the particle dumps (copies of
+``phdslam_tpu/runtime/io.py``'s numpy code).
 
 The port keeps its own copies because importing ``phdslam_tpu`` imports jax.
 These are the portable pure-Python paths of the originals (the JAX package
-prefers its C++ text parser when built); ``tests/test_torch_ops.py`` holds
-them equal to the originals on the shipped datasets.
+prefers its C++ text parser and writer when built);
+``tests/test_torch_ops.py`` holds the loaders equal to the originals on the
+shipped datasets, ``tests/test_torch_runtime.py`` the writers.
 
 Format notes:
 * measurements files: one time step per line, header line first; each
@@ -72,6 +73,19 @@ def load_timestamps(path: str) -> np.ndarray:
     return np.asarray(vals, dtype=np.float32)
 
 
+def load_trajectory(path: str) -> np.ndarray:
+    """[N, 6] CV states; '%'-prefixed header lines skipped."""
+    rows = []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("%") or not line.strip():
+                continue
+            vals = np.fromstring(line, sep=" ")
+            if len(vals) >= 6:
+                rows.append(vals[:6])
+    return np.asarray(rows, dtype=np.float32)
+
+
 def pad_measurements(measurements: List[np.ndarray], m_max: int
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """Pack ragged per-step measurements into fixed [T, M_max, 2] + mask.
@@ -87,6 +101,98 @@ def pad_measurements(measurements: List[np.ndarray], m_max: int
             z[t, :n] = zt[:n, :2]
             mask[t, :n] = True
     return z, mask
+
+
+def write_state_log(outdir: str, t: int, expected_pose, static_map,
+                    dynamic_map, particle_log_weights, particle_poses,
+                    resample_idx, cardinality, max_cardinality: int,
+                    filter_type: int = 0):
+    """Append step t's ``state_estimateXXXXX.log`` (the reference's 6-line
+    text format, ``%g`` numbers, each line ending in a space):
+    the expected pose; the static map and the dynamic map, each as
+    (w, mean, flattened cov) of every component with w > 0; the particle
+    log weights; the particle poses; the resampling ancestors; and the
+    MAP particle's log cardinality (CPHD) or max_cardinality + 1 zeros.
+
+    static_map / dynamic_map: (weights[K], means[K,D], covs[K,D,D]) or
+    None.
+    """
+    path = os.path.join(outdir, "state_estimate%05d.log" % t)
+    with open(path, "a") as fh:
+        fh.write(" ".join("%g" % v for v in np.asarray(expected_pose))
+                 + " \n")
+        for gm, D in ((static_map, 2), (dynamic_map, 4)):
+            if gm is not None:
+                w, m, c = (np.asarray(x) for x in gm)
+                parts = []
+                for i in range(len(w)):
+                    if w[i] <= 0:
+                        continue
+                    parts.append("%g" % w[i])
+                    parts.extend("%g" % v for v in m[i, :D])
+                    parts.extend("%g" % v for v in c[i, :D, :D].reshape(-1))
+                if parts:
+                    fh.write(" ".join(parts) + " ")
+            fh.write("\n")
+        fh.write(" ".join("%g" % v for v in np.asarray(particle_log_weights))
+                 + " \n")
+        poses = np.asarray(particle_poses)
+        fh.write(" ".join("%g" % v for v in poses.reshape(-1)) + " \n")
+        fh.write(" ".join("%d" % v for v in np.asarray(resample_idx)) + " \n")
+        if filter_type == 1 and cardinality is not None:
+            fh.write(" ".join("%g" % v for v in np.asarray(cardinality)
+                              [: max_cardinality + 1]) + " \n")
+        else:
+            fh.write(" ".join(["0"] * (max_cardinality + 1)) + " \n")
+
+
+def _numpy(x):
+    return x.detach().cpu().numpy()
+
+
+def write_particles_mat(path: str, state, cfg, map_estimate=None,
+                        variances=None):
+    """Full particle dump as a .mat file, with the JAX version's keys and
+    shapes: particle poses, weights, ancestors, the per-particle static
+    and dynamic maps (an empty [P, K, 4] dynamic map where the state has
+    none, as the JAX state always holds one), the variance estimates
+    (zeros where the state has none), the cardinalities (CPHD) and the
+    extracted map estimate (w, m, c) when given."""
+    import scipy.io as sio
+    P, K = state.map_static.weight.shape
+    dyn = state.map_dynamic
+    if dyn is None:
+        dyn_mean = np.zeros((P, K, 4), np.float32)
+        dyn_cov = np.broadcast_to(np.eye(4, dtype=np.float32),
+                                  (P, K, 4, 4)).copy()
+        dyn_weight = np.zeros((P, K), np.float32)
+    else:
+        dyn_mean, dyn_cov, dyn_weight = (_numpy(dyn.mean), _numpy(dyn.cov),
+                                         _numpy(dyn.weight))
+    if variances is None:
+        variances = (np.zeros((P,), np.float32) if state.variance is None
+                     else _numpy(state.variance))
+    data = {
+        "weights": state.log_weight.cpu().numpy(),
+        "particles": _numpy(state.pose),
+        "resample_idx": state.resample_idx.cpu().numpy(),
+        "maps_mean": _numpy(state.map_static.mean),
+        "maps_cov": _numpy(state.map_static.cov),
+        "maps_weight": _numpy(state.map_static.weight),
+        "maps_dynamic_mean": dyn_mean,
+        "maps_dynamic_cov": dyn_cov,
+        "maps_dynamic_weight": dyn_weight,
+        "vars": np.asarray(variances),
+    }
+    if state.cardinality is not None:
+        data["cardinalities"] = _numpy(state.cardinality)
+    if map_estimate is not None:
+        w, m, c = (x if isinstance(x, np.ndarray) else _numpy(x)
+                   for x in map_estimate)
+        data["map_estimate_weight"] = w
+        data["map_estimate_mean"] = m
+        data["map_estimate_cov"] = c
+    sio.savemat(path, data)
 
 
 def write_disparity_particles_mat(path: str, state):

@@ -9,8 +9,11 @@ measurements, the controls and dt), so it branches in Python without
 reading the device; the noise comes from a ``torch.Generator`` on the
 device seeded from ``cfg.seed``, and the MC variance estimator's samples
 (compute_variance) from a second one seeded alike, so the estimator
-leaves the trajectory's draws untouched. The only host reads in the loop are the
-NaN checks, one per chunk of steps.
+leaves the trajectory's draws untouched. A checkpoint carries both
+generators' states, so a resumed run draws what the uninterrupted one
+does. The loop reads nothing from the card unless asked to check every
+step for NaN (``debug``); it writes the reference's state logs after the
+run.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 
 from .config import SlamConfig
 from .filters.cphd import cphd_constants
-from .filters.phd import StepNoise, check_supported, phd_step
-from .runtime import io
+from .filters.phd import (StepNoise, check_supported, expand_particles,
+                          phd_step, predict)
+from .runtime import io, profiling
+from .runtime.checkpoint import load_checkpoint, save_checkpoint
 from .types import init_state
 
 
@@ -80,6 +85,11 @@ def build_schedule(n_measure_steps: int, n_controls: int,
     return plans
 
 
+# step outputs that may be views into the whole particle state
+_VIEWS = ("map_mean", "map_weight", "log_weight", "poses", "resample_idx",
+          "map_cov", "cardinality")
+
+
 class _Runner:
     """The step loop shared by the runners: a subclass sets ``state`` and
     ``n_steps`` and provides :meth:`step_args`."""
@@ -126,13 +136,30 @@ class _Runner:
                                   device=self.device),
             var_draw=var_draw)
 
-    def step(self, n: int):
-        """Run step n on the runner's state; returns the step's outputs."""
+    def step(self, n: int, noise=None):
+        """Run step n on the runner's state (on ``noise``, else the next
+        draws of the generator); returns the step's outputs."""
         z, zm, control, dt, do_predict, has_z = self.step_args(n)
+        if noise is None:
+            noise = self.noise()
         self.state, out = phd_step(self.state, z, zm, control, dt,
-                                   do_predict, self.cfg, self.noise(),
+                                   do_predict, self.cfg, noise,
                                    has_z=has_z, consts=self.consts)
         return out
+
+    def predict_only(self, n: int, noise):
+        """Step n's prediction alone, on the step's own draws and the
+        runner's state (shotgunned first, as the step does), leaving both
+        untouched: what ``run(timing=True)`` times for predicttime.log.
+        None when step n does not predict."""
+        _, _, control, dt, do_predict, _ = self.step_args(n)
+        if not do_predict:
+            return None
+        state = self.state
+        k = max(1, self.cfg.n_predict_particles)
+        if k > 1:
+            state = expand_particles(state, k)
+        return predict(state, control, dt, self.cfg, noise.eps_pred)
 
     def _after_step(self, n: int, out) -> None:
         """Called after step n (and after its timing, with ``timing``)."""
@@ -141,61 +168,226 @@ class _Runner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run(self, check_every: int = 32, timing: bool = False,
-            collect_maps: bool = False):
-        """Run every step. Raises FloatingPointError at the first chunk of
-        ``check_every`` steps whose weights or poses hold a NaN.
+    def save(self, path: str, steps_done: int) -> None:
+        """Checkpoint the state after ``steps_done`` steps, with the
+        generators' states (the draws of every later step depend on them)
+        and the control carried into the next step."""
+        last = self.last_control(steps_done)
+        extra = {"step": steps_done,
+                 "last_ctrl": torch.tensor(last, dtype=torch.float32),
+                 "generator": self.generator.get_state(),
+                 "generator_device": self.device.type}
+        if self.var_generator is not None:
+            extra["var_generator"] = self.var_generator.get_state()
+        save_checkpoint(path, self.state, extra)
+
+    def restore(self, path: str) -> int:
+        """Load a checkpoint written by :meth:`save` into this runner (state
+        and generators); returns the step to resume at."""
+        state, extra = load_checkpoint(path, self.state, extra_like={})
+        kind = (extra or {}).get("generator_device")
+        if kind != self.device.type:
+            raise ValueError(
+                f"checkpoint {path} holds a {kind} generator state, and "
+                f"this runner draws on {self.device.type}: resume on the "
+                "device type that saved it (a generator cannot be carried "
+                "across, and reseeding would change every later draw)")
+        self.generator.set_state(extra["generator"].cpu())
+        if self.var_generator is not None:
+            if "var_generator" not in extra:
+                raise ValueError(
+                    f"checkpoint {path} holds no variance generator state: "
+                    "it was saved without compute_variance")
+            self.var_generator.set_state(extra["var_generator"].cpu())
+        self.state = state
+        return int(extra["step"])
+
+    def last_control(self, n: int):
+        """The control carried into step n (after step n - 1)."""
+        return (0.0, 0.0)
+
+    def run(self, out_dir: Optional[str] = None, log_every: int = 1,
+            chunk: int = 64, timing: bool = False,
+            collect_maps: bool = False, collect_particles: bool = False,
+            checkpoint_every: int = 0, checkpoint_dir: Optional[str] = None,
+            start_step: int = 0, debug: Optional[bool] = None):
+        """Run steps ``start_step`` .. T - 1 in chunks of ``chunk`` steps
+        (0: the whole run as one chunk).
+
+        The loop reads nothing from the card. It waits for the card at the
+        end of each chunk, to record the chunk's wall time (chunk_ms), and,
+        with ``timing``, after every step (step_ms, each step's own time,
+        and predict_ms, the prediction alone run beforehand on the step's
+        own draws; 0 on steps that do not predict). With
+        ``checkpoint_every`` and ``checkpoint_dir``, a chunk boundary
+        that reaches the next multiple of ``checkpoint_every`` steps saves
+        ``checkpoint_dir/stepNNNNN`` (:meth:`save`); ``start_step`` resumes
+        after :meth:`restore` and must be a chunk boundary.
+
+        NaN weights: after the loop the first step whose nEff is NaN is
+        printed as ``nan weights detected at step N!`` and returned as
+        nan_step (None when every step is clean); the results come back
+        all the same. With ``debug`` (default: inside
+        ``runtime.profiling.debug_mode``) every step is checked and the
+        first NaN raises FloatingPointError.
 
         Returns est_poses [T, D] (the step's expected pose), n_eff [T],
         resampled [T], the largest overflow count, wall_s and steps_per_s
-        (host clock around the whole loop, ending in a device synchronize),
-        and step_ms: with ``timing``, each step's own time (host clock,
-        synchronized after every step), else None. With ``collect_maps``,
-        also each step's MAP map (map_means [T, K, 2], map_weights [T, K]),
-        kept on the device until the end.
+        (host clock around the loop, ending in a device synchronize),
+        chunk, chunk_ms, step_ms and predict_ms (None without ``timing``),
+        start_step and nan_step; steps before ``start_step`` are zeros.
+        With ``collect_maps``, each step's MAP map (map_means [T, K, 2],
+        map_weights [T, K]); with ``collect_particles``, log_weights
+        [T, P], poses [T, P, 6], resample_idx [T, P], map_covs
+        [T, K, 2, 2] and cardinalities [T, C + 1] (CPHD; [T, 1] zeros
+        otherwise), all kept on the card until the end. ``out_dir`` collects
+        both and writes the logs (:meth:`write_logs`).
         """
-        poses, n_effs, resampled, overflows, step_ms = [], [], [], [], []
-        maps = []
-        self._sync()
-        t0 = time.perf_counter()
         T = self.n_steps
-        for n in range(T):
+        chunk = chunk if chunk > 0 else T
+        if start_step % chunk:
+            raise ValueError(
+                f"start_step ({start_step}) must be a multiple of the chunk "
+                f"size ({chunk}) — checkpoints are saved at chunk boundaries")
+        if start_step >= T:
+            raise ValueError(
+                f"start_step ({start_step}) is at or past the end of the "
+                f"{T}-step schedule — nothing to resume")
+        if debug is None:
+            debug = profiling.nan_checks()
+        if out_dir:
+            collect_maps = collect_particles = True
+        next_ckpt = None
+        if checkpoint_every > 0 and checkpoint_dir:
+            next_ckpt = (start_step // checkpoint_every + 1) * checkpoint_every
+        keys = ["expected_pose", "n_eff", "resampled", "overflow"]
+        if collect_maps:
+            keys += ["map_mean", "map_weight"]
+        if collect_particles:
+            keys += ["log_weight", "poses", "resample_idx", "map_cov",
+                     "cardinality"]
+        ys = {k: [] for k in keys}
+        step_ms, predict_ms, chunk_ms = [], [], []
+        self._sync()
+        t0 = t_chunk = time.perf_counter()
+        for n in range(start_step, T):
             t_step = time.perf_counter()
-            out = self.step(n)
+            noise = self.noise()
+            if timing:
+                pred, p_ms = profiling.timed_call(self.predict_only, n, noise)
+                predict_ms.append(p_ms if pred is not None else 0.0)
+            out = self.step(n, noise)
             if timing:
                 self._sync()
                 step_ms.append((time.perf_counter() - t_step) * 1000.0)
+            if debug and bool(torch.isnan(out.n_eff)
+                              | torch.isnan(out.expected_pose).any()):
+                raise FloatingPointError(f"nan weights detected at step {n}")
             self._after_step(n, out)
-            if collect_maps:
-                # copies: the MAP map is a view into the whole [P, K] map,
-                # which the list would otherwise keep alive every step
-                maps.append((out.map_mean.clone(), out.map_weight.clone()))
-            poses.append(out.expected_pose)
-            n_effs.append(out.n_eff)
-            resampled.append(out.resampled)
-            overflows.append(out.overflow)
-            if (n + 1) % check_every == 0 or n + 1 == T:
-                lo = n - n % check_every
-                bad = torch.isnan(torch.stack(n_effs[lo:])).any() \
-                    | torch.isnan(torch.stack(poses[lo:])).any()
-                if bool(bad):
-                    raise FloatingPointError(
-                        f"nan weights or poses in steps {lo}..{n}")
-        self._sync()
+            for k in keys:
+                v = getattr(out, k)
+                # copies of the maps and particles: each may be a view into
+                # the whole state, which the list would otherwise keep alive
+                ys[k].append(v.clone() if k in _VIEWS and v is not None
+                             else v)
+            if (n + 1) % chunk == 0 or n + 1 == T:
+                self._sync()
+                now = time.perf_counter()
+                chunk_ms.append((now - t_chunk) * 1000.0)
+                t_chunk = now
+                if next_ckpt is not None and n + 1 >= next_ckpt:
+                    self.save(os.path.join(checkpoint_dir,
+                                           f"step{n + 1:05d}"), n + 1)
+                    next_ckpt = ((n + 1) // checkpoint_every + 1) \
+                        * checkpoint_every
         wall = time.perf_counter() - t0
+
+        def stacked(k):
+            if ys[k][0] is None:        # the PHD filter's cardinality
+                x = np.zeros((T - start_step, 1), np.float32)
+            else:
+                x = torch.stack(ys[k]).cpu().numpy()
+            if start_step:              # zero-fill the resumed-over steps
+                x = np.concatenate([np.zeros((start_step,) + x.shape[1:],
+                                             x.dtype), x])
+            return x
+        n_eff = stacked("n_eff")
+        bad = np.flatnonzero(np.isnan(n_eff[start_step:]))
+        nan_step = int(bad[0]) + start_step if bad.size else None
+        if nan_step is not None:
+            print(f"nan weights detected at step {nan_step}!")
         res = {
-            "est_poses": torch.stack(poses).cpu().numpy(),
-            "n_eff": torch.stack(n_effs).cpu().numpy(),
-            "resampled": torch.stack(resampled).cpu().numpy(),
-            "overflow": int(torch.stack(overflows).max()),
+            "est_poses": stacked("expected_pose"),
+            "n_eff": n_eff,
+            "resampled": stacked("resampled"),
+            "overflow": int(torch.stack(ys["overflow"]).max()),
             "wall_s": wall,
-            "steps_per_s": T / wall,
+            "steps_per_s": (T - start_step) / wall,
+            "chunk": chunk,
+            "chunk_ms": np.asarray(chunk_ms),
             "step_ms": np.asarray(step_ms) if timing else None,
+            "predict_ms": np.asarray(predict_ms) if timing else None,
+            "start_step": start_step,
+            "nan_step": nan_step,
         }
         if collect_maps:
-            for i, key in enumerate(("map_means", "map_weights")):
-                res[key] = torch.stack([m[i] for m in maps]).cpu().numpy()
+            res["map_means"] = stacked("map_mean")
+            res["map_weights"] = stacked("map_weight")
+        if collect_particles:
+            for key, k in (("log_weights", "log_weight"), ("poses", "poses"),
+                           ("resample_idx", "resample_idx"),
+                           ("map_covs", "map_cov"),
+                           ("cardinalities", "cardinality")):
+                res[key] = stacked(k)
+        if out_dir:
+            self.write_logs(out_dir, res, log_every)
         return res
+
+    def write_logs(self, out_dir: str, res: dict, log_every: int = 1):
+        """Write the state logs of a :meth:`run` result collected with
+        ``collect_maps`` and ``collect_particles`` (one
+        ``state_estimateXXXXX.log`` every ``log_every`` steps from
+        start_step), ``loopTime.log`` (each step's time with ``timing``,
+        else its chunk's time divided over the chunk's steps; zeros before
+        start_step) and, with ``timing``, ``predicttime.log``."""
+        cfg = self.cfg
+        os.makedirs(out_dir, exist_ok=True)
+        T = len(res["est_poses"])
+        start = res["start_step"]
+        cns = res["cardinalities"]
+        for n in range(start, T, log_every):
+            gm = (res["map_weights"][n], res["map_means"][n],
+                  res["map_covs"][n])
+            io.write_state_log(
+                out_dir, n, res["est_poses"][n],
+                gm if cfg.feature_model == 0 else None,
+                gm if cfg.feature_model == 1 else None,
+                res["log_weights"][n], res["poses"][n],
+                res["resample_idx"][n], cns[n], cfg.max_cardinality,
+                cfg.filter_type)
+        step_ms = res["step_ms"]
+        if step_ms is None:
+            step_ms = chunk_step_ms(res["chunk_ms"], res["chunk"], start, T)
+        else:
+            step_ms = np.concatenate([np.zeros(start), step_ms])
+        write_times(os.path.join(out_dir, "loopTime.log"), step_ms)
+        if res["predict_ms"] is not None:
+            write_times(os.path.join(out_dir, "predicttime.log"),
+                        np.concatenate([np.zeros(start), res["predict_ms"]]))
+
+
+def chunk_step_ms(chunk_ms, chunk: int, start: int, T: int) -> np.ndarray:
+    """Per-step times from per-chunk ones: each chunk's time divided over
+    its steps (the last chunk may be short), zeros before ``start``."""
+    sizes = [min(chunk, T - lo) for lo in range(start, T, chunk)]
+    return np.concatenate([np.zeros(start)] + [
+        np.full((n,), ms / n) for ms, n in zip(chunk_ms, sizes)])
+
+
+def write_times(path: str, times_ms) -> None:
+    """One ``%g`` time in ms per line (loopTime.log, predicttime.log)."""
+    with open(path, "w") as fh:
+        fh.write("\n".join("%g" % t for t in times_ms) + "\n")
 
 
 class SynthSLAMRunner(_Runner):
@@ -204,7 +396,7 @@ class SynthSLAMRunner(_Runner):
     def __init__(self, cfg: SlamConfig, data_dir: Optional[str] = None,
                  device="cuda"):
         super().__init__(cfg, device)
-        data_dir = data_dir or cfg.data_directory
+        self.data_dir = data_dir = data_dir or cfg.data_directory
         measurements = io.load_measurements(
             os.path.join(data_dir, "measurements.txt"),
             labeled=cfg.labeled_measurements)
@@ -254,9 +446,11 @@ class SynthSLAMRunner(_Runner):
         return (z, zm, self.step_controls[n], plan.dt, plan.do_predict,
                 has_z)
 
-    def run(self, check_every: int = 32, timing: bool = False,
-            collect_maps: bool = False):
-        res = super().run(check_every, timing, collect_maps)
+    def last_control(self, n: int):
+        return self.step_controls[n - 1] if n > 0 else (0.0, 0.0)
+
+    def run(self, *args, **kwargs):
+        res = super().run(*args, **kwargs)
         res["truncated_measurements"] = self.n_truncated
         res["m_max"] = self.m_max
         return res

@@ -230,7 +230,7 @@ def test_runner_on_cpu_tracks_the_start():
     close to the true track over the first steps."""
     cfg = load_config(CFG, dict(SMALL, n_steps=6))
     r = SynthSLAMRunner(cfg, DATA, device="cpu")
-    res = r.run(check_every=4)
+    res = r.run(chunk=4)
     assert res["est_poses"].shape == (6, 6)
     assert np.isfinite(res["est_poses"]).all()
     traj = np.load(f"{DATA}/groundtruth.npz")["traj"]
