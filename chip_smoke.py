@@ -54,6 +54,18 @@ drives both paths:
   the EAP, MAP, shotgun and T >= K accuracy beside the JAX package's
   CPU runs of the same particle count and seeds;
 
+- the options the filters once refused: the mixed model's
+  per-particle route (``mixed_fast_path = 0``) at the mixed bench's width
+  (P=512, K=128, M=32) over its 100 scans, merge2d's and merge4d's argmax
+  modes required, then weighting 2 and compute_variance 30 steps each,
+  one of its steps against the CPU and against the fast route on the
+  card, and ``evaluate_mixed`` over seeds 0-4 at P=256 with each of
+  mixed_fast_path=0, birth_velocity_init=1, distance_metric=1 and
+  feature_model=1 beside the JAX package's CPU runs; static Vo weighting
+  (particle_weighting 1) on data/ackerman's three routes, CPHD with
+  compute_variance (poses bit-equal to plain CPHD), and data/disparity at
+  weighting 2 and with the Hellinger merge (merge3d_hellinger);
+
 - the runtime around the runner: ``python -m phdslam_tpu_torch``'s
   ``main`` on the full ``data/ackerman`` sequence at P=512 (331 state
   logs scored by ``eval/batch.py::analyze_log_dir``, checkpoints every 160
@@ -75,7 +87,10 @@ each path (and of the Ackerman and dense runs under EAP).
 The detect kernel is also held against its twin at the selection's
 edges (``detect_bench.DETECT_EDGES``), and the merges at theirs
 (``merge_bench.MERGE_EDGES``: every merge2d variant, merge2d_tables,
-merge3d and merge4d). The gathers are held bit for bit
+merge3d and merge4d in each of their variants). merge4d's argmax mode is
+timed on the dynamic merge's inputs at step 60 of the per-particle route,
+and the 3D / 4D Hellinger variants on the mixed and disparity steps'
+captured inputs. The gathers are held bit for bit
 against their twins at those shapes and at unaligned, ragged,
 out-of-range and above-budget cases, each of their two modes (the slab
 staged in shared memory, or read through ``__ldg``) counted under its
@@ -161,9 +176,11 @@ from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
                                              merge3d_reference, merge4d,
                                              merge4d_reference, recip_check,
                                              tables_packed)
-from phdslam_tpu_torch.ops.gm_merge import merge_out, unpack_planes
+from phdslam_tpu_torch.filters import mixed as mixed_filter
+from phdslam_tpu_torch.ops.gm_merge import MERGE_DIMS, merge_out, unpack_planes
 from phdslam_tpu_torch.ops import resample
-from phdslam_tpu_torch.ops.math import logsumexp, mahalanobis2
+from phdslam_tpu_torch.ops.math import (hellinger2, logsumexp, mahalanobis2,
+                                        mahalanobis2_3d, mahalanobis2_4d)
 from phdslam_tpu_torch.runtime.checkpoint import profile_single_update
 from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
 from phdslam_tpu_torch.slam_disparity import DisparityRunner
@@ -273,6 +290,16 @@ KERNELS = {
                 "phdslam_tpu/ops/pallas_merge.py:785"),
     "merge3d": ("phdslam_tpu_torch/csrc/merge3d.cu",
                 "phdslam_tpu/ops/pallas_merge.py:576"),
+    # the argmax mode of _merge_kernel_4d (sorted_w=False, :845-858), the
+    # mode gm_merge_pallas_one_4d runs on the mixed per-particle route
+    "merge4d_argmax": ("phdslam_tpu_torch/csrc/merge4d.cu",
+                       "phdslam_tpu/ops/pallas_merge.py:845"),
+    # the JAX package merges 3D / 4D mixtures under the Hellinger distance
+    # in XLA's gm_merge (no Pallas kernel there): the function replaced
+    "merge4d_hellinger": ("phdslam_tpu_torch/csrc/merge4d.cu",
+                          "phdslam_tpu/ops/gm_merge.py:35"),
+    "merge3d_hellinger": ("phdslam_tpu_torch/csrc/merge3d.cu",
+                          "phdslam_tpu/ops/gm_merge.py:35"),
 }
 ACKERMAN_KERNELS = ("detect", "gather_cols", "merge2d")
 KNOB_KERNELS = ("detect_adaptive", "gather_cols", "merge2d_tables")
@@ -288,6 +315,45 @@ FULL_GRID_KERNELS = ("merge2d_argmax",)
 HELL_KERNELS = ("detect", "gather_cols", "merge2d_hellinger")
 HELL_FULL_KERNELS = ("merge2d_argmax_hellinger",)
 TOPK_KERNELS = ("gather_cols", "merge2d")
+MIXED_SLOW_KERNELS = ("merge2d_argmax", "merge4d_argmax")
+MIXED_HELL_KERNELS = ("merge2d_argmax_hellinger", "merge4d_hellinger")
+DISP_HELL_KERNELS = ("merge3d_hellinger",)
+
+# the mixed model's per-particle route (mixed_fast_path 0) on the mixed
+# bench's scans, then weighting 2 and compute_variance, which take it too
+SLOW = {"mixed_fast_path": 0}
+SLOW_STEPS, SLOW_OPTION_STEPS = 100, 30
+# evaluate_mixed with these overrides over MIXED_SEEDS at P_MIXED_ACC,
+# beside the JAX package's CPU runs of the same seeds and overrides
+# (reference_band.py mixed --particles 256 --seeds 0 1 2 3 4 --set ...):
+# per override, (pose error, static OSPA, dynamic OSPA) per seed (NaN: no
+# mover in range at the last step)
+MIXED_OPTIONS = {"mixed_fast_path=0": {"mixed_fast_path": 0},
+                 "birth_velocity_init=1": {"birth_velocity_init": 1},
+                 "distance_metric=1": dict(HELL),
+                 "feature_model=1": {"feature_model": 1}}
+NAN = float("nan")
+MIXED_OPTION_CPU = {
+    "mixed_fast_path=0": [(0.0454, 1.7478, 0.2486), (0.0724, 1.6750, 2.6065),
+                          (0.0952, 2.0222, NAN), (0.1432, 2.1254, NAN),
+                          (0.0922, 1.8256, NAN)],
+    "birth_velocity_init=1": [(0.0463, 1.6099, 0.0870),
+                              (0.1072, 1.4607, 3.4523),
+                              (0.1170, 2.0100, NAN), (0.0851, 1.9249, NAN),
+                              (0.1197, 1.8387, NAN)],
+    "distance_metric=1": [(0.0508, 1.9956, 0.2296), (0.0863, 1.6464, 2.8142),
+                          (0.0521, 1.3993, NAN), (0.0824, 1.9917, NAN),
+                          (0.1159, 1.8424, NAN)],
+    "feature_model=1": [(0.5131, 5.0, 4.8193), (0.4424, 5.0, 4.7211),
+                        (0.6106, 5.0, NAN), (0.8003, 5.0, NAN),
+                        (0.5524, 5.0, NAN)]}
+# static Vo weighting (particle_weighting 1) on data/ackerman: the det
+# route, the top-cap lane route and the full grid, beside the JAX CPU band
+# of reference_band.py cfg/ackerman.cfg --particles 512 --seeds 0 1 2
+# --steps 100 --set particle_weighting=1
+W1 = {"particle_weighting": 1}
+W1_STEPS, W1_FULL_STEPS = 100, 30
+W1_CPU_BAND = {"ate": (1.7567, 0.3736), "ospa": (2.5092, 0.1767)}
 
 # the estimators and routes: EAP extraction, scheme-2 weighting, the MC
 # map variance, shotgunning and the top-cap lane route (T >= K)
@@ -791,7 +857,8 @@ def copy_state(state, dev):
         cardinality=(None if state.cardinality is None
                      else state.cardinality.to(dev)),
         variance=(None if state.variance is None
-                  else state.variance.to(dev)))
+                  else state.variance.to(dev)),
+        prev_z=None if state.prev_z is None else state.prev_z.to(dev))
 
 
 def step_against_cpu(r, n):
@@ -1674,7 +1741,8 @@ def run_scale(dev):
 
 def run_mixed(dev):
     """The mixed path at full width: P=512 over 100 steps (steps/s on the
-    host clock, peak memory, launch counts), then P=10240 over 30 steps."""
+    host clock, peak memory, launch counts), then P=10240 over 30 steps.
+    Returns the P=512 run's (counts, res)."""
     r = mixed_runner(dev)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
@@ -1699,7 +1767,7 @@ def run_mixed(dev):
     phase("mixed", f"P={P_MIXED_SCALE}, {MIXED_SCALE_STEPS} steps: "
           f"{scale['steps_per_s']:.2f} steps/s ({scale['wall_s']:.3f} s), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    return counts
+    return counts, res
 
 
 def mixed_accuracy(dev):
@@ -1764,7 +1832,7 @@ def check_estimator_steps(dev):
     check_eap_extract(r, "ackerman")
 
 
-def boundary_flip(row, sep, got, want):
+def boundary_flip(row, sep, got, want, metric=0):
     """Whether one particle's merge outputs, the kernel's ``got`` and the
     twin's ``want`` (merge tuples of that row), part only where a lane
     lies at the merge threshold: replaying the twin's greedy rounds (its
@@ -1774,8 +1842,12 @@ def boundary_flip(row, sep, got, want):
     at min_sep decided in another order: the kernel evaluates the Pallas
     kernel's closed form in strict IEEE f32, the twin inverts the averaged
     covariance first). Returns (explained, the cluster, those lanes'
-    distances)."""
-    mean, cov, w, act = unpack_planes(row[None], 2)
+    distances). Any dimension (the planes' count says which) and either
+    metric (``metric`` 1: Hellinger)."""
+    D = MERGE_DIMS[row.shape[0]]
+    dist = hellinger2 if metric else {2: mahalanobis2, 3: mahalanobis2_3d,
+                                      4: mahalanobis2_4d}[D]
+    mean, cov, w, act = unpack_planes(row[None], D)
     mean, cov, w = mean[0], cov[0], w[0]
     unmerged = act[0] & (w > 0)
     off = ((got[0] - want[0]).abs().amax(-1) > 1e-5 + 1e-4 * want[0].abs()
@@ -1783,12 +1855,12 @@ def boundary_flip(row, sep, got, want):
     c = int(torch.nonzero(off)[0])
     for k in range(c + 1):
         i = int(torch.argmax(torch.where(unmerged, w, -torch.inf)))
-        d = mahalanobis2(mean[i][None], cov[i][None], mean, cov)
+        d = dist(mean[i][None], cov[i][None], mean, cov)
         sel = (unmerged & (d < sep)) | (torch.arange(len(w)) == i)
         if k < c:
             unmerged &= ~sel
-    d64 = mahalanobis2(mean[i][None].double(), cov[i][None].double(),
-                       mean.double(), cov.double())
+    d64 = dist(mean[i][None].double(), cov[i][None].double(), mean.double(),
+               cov.double())
     edge = unmerged & ((d64 - sep).abs() <= 1e-5 * sep)
     gap = abs(float(got[2][c]) - float(want[2][c]))
     explained = bool(edge.any()) and gap <= float(w[edge].sum()) * 1.0001 \
@@ -1796,7 +1868,7 @@ def boundary_flip(row, sep, got, want):
     return explained, c, [round(float(x), 9) for x in d64[edge]]
 
 
-def check_merge_rows(got, want, packed, sep, label):
+def check_merge_rows(got, want, packed, sep, label, metric=0):
     """merge2d's outputs ``got`` against the twin's ``want`` (merge
     tuples) on the same planes: equal cluster and leftover counts and
     rtol 1e-4 / atol 1e-5 in every particle, except a particle whose two
@@ -1812,7 +1884,8 @@ def check_merge_rows(got, want, packed, sep, label):
     flips = []
     for p in torch.nonzero(~close)[:, 0].tolist():
         explained, c, dists = boundary_flip(
-            packed[p].cpu(), sep, [x[p] for x in got], [x[p] for x in want])
+            packed[p].cpu(), sep, [x[p] for x in got], [x[p] for x in want],
+            metric)
         require(explained, f"{label}: particle {p} parts from the twin at "
                 f"cluster {c} with no lane at the merge threshold")
         flips.append((p, c, dists))
@@ -2144,7 +2217,7 @@ def eap_level1_calls(dev):
     return rows
 
 
-def time_kernels(dev):
+def time_kernels(dev, errs):
     """Kernel against twin at the main path's shapes, in turns
     (twin, kernel, library, kernel, library, twin); CUDA events, ms per
     eager call, host included (gather_bench.time_call: 50 calls after 5);
@@ -2160,7 +2233,9 @@ def time_kernels(dev):
     printed only, as are the two-kernel route's rows, which time the
     gather + combine + merge2d that merge2d_tables replaces on its
     inputs), and so do the update's kernels on the inputs captured from
-    step 60 of real runs (rows "... captured", :func:`captured_calls`).
+    step 60 of real runs (rows "... captured", :func:`captured_calls`),
+    and the argmax and Hellinger 3D/4D variants on captured inputs
+    (:func:`variant_calls`).
     Returns {name: (ms, plain_ms, library_ms, bound_ms, bound_by,
     device_ms, library_device_ms)}, the bound computed from these
     inputs."""
@@ -2202,6 +2277,7 @@ def time_kernels(dev):
     }
     calls.update(gather_calls(dev))
     calls.update(knob_calls(dev, cfg))
+    calls.update(variant_calls(dev, errs))
     times = {}
     for name, (kern, plain, iters, lib, (b_ms, b_by)) in calls.items():
         # kernel and library call in turns: the host's share of an eager
@@ -2773,6 +2849,291 @@ def run_runtime(dev, main_res):
           f"and nan phases: {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------------
+# the mixed model's per-particle route and the options once refused
+# ----------------------------------------------------------------------------
+
+def slow_runner(dev, P=P_MAIN, T=MIXED_STEPS, **overrides):
+    """The mixed bench's ScanRunner on the per-particle route (plus
+    ``overrides``) at P particles over T scans."""
+    z, mask = mixed_scans(T)
+    cfg = dataclasses.replace(mixed_cfg(P), **dict(SLOW, **overrides))
+    return ScanRunner(cfg, z, mask, MIXED_DT, device=dev)
+
+
+def run_mixed_slow(dev, fast_res):
+    """The per-particle route at full width: the mixed bench's
+    configuration (P=512, K=128, M=32, cap 512, merge_candidate_cap_dynamic
+    128) over its 100 scans, with merge2d's and merge4d's
+    argmax modes required and no NaN; then weighting 2 and
+    compute_variance (which take the route too) over 30 scans each, the
+    variance required zero (the route estimates none). Steps/s beside the
+    fast route's run in this call. Returns the 100-step run's launch
+    counts."""
+    r = slow_runner(dev)
+    require(not mixed_filter.uses_fast_route(r.cfg, 128, 32),
+            "mixed slow: the configuration takes the fast route")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = clean(r.run(), "mixed slow")
+    counts = dict(build.launch_counts)
+    require(np.isfinite(res["est_poses"]).all()
+            and np.isfinite(res["n_eff"]).all(), "mixed slow: NaN")
+    require(all(counts.get(k, 0) > 0 for k in MIXED_SLOW_KERNELS),
+            f"a kernel of the per-particle route never launched: {counts}")
+    dyn = r.state.map_dynamic.weight
+    phase("mixed slow", f"per-particle route P={P_MAIN} K=128+128 M=32, "
+          f"{SLOW_STEPS} steps: {res['steps_per_s']:.2f} steps/s "
+          f"({res['wall_s']:.3f} s; the fast route in this call "
+          f"{fast_res['steps_per_s']:.2f}, ratio "
+          f"{fast_res['steps_per_s'] / res['steps_per_s']:.2f}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, overflow "
+          f"{res['overflow']}, final nEff {res['n_eff'][-1]:.3f}, mean live "
+          f"dynamic components {float((dyn > 0).sum(1).float().mean()):.1f}")
+    phase("mixed slow", "launches: " + ", ".join(
+        f"{k}={counts.get(k, 0)}" for k in KERNELS))
+    for label, over in (("weighting 2", {"particle_weighting": 2}),
+                        ("compute_variance", {"compute_variance": True})):
+        r2 = slow_runner(dev, T=SLOW_OPTION_STEPS, mixed_fast_path=1, **over)
+        require(not mixed_filter.uses_fast_route(r2.cfg, 128, 32),
+                f"mixed {label}: the configuration takes the fast route")
+        build.reset_launch_counts()
+        res2 = clean(r2.run(), f"mixed {label}")
+        c2 = dict(build.launch_counts)
+        require(np.isfinite(res2["est_poses"]).all(), f"mixed {label}: NaN")
+        require(all(c2.get(k, 0) > 0 for k in MIXED_SLOW_KERNELS),
+                f"mixed {label}: argmax merges not launched: {c2}")
+        if "variance" in label:
+            require(bool((r2.state.variance == 0).all()),
+                    "mixed compute_variance: a variance was estimated")
+        phase("mixed slow", f"{label}, {SLOW_OPTION_STEPS} steps: "
+              f"{res2['steps_per_s']:.2f} steps/s, overflow "
+              f"{res2['overflow']}, final nEff {res2['n_eff'][-1]:.3f}"
+              + (", variance all zero" if "variance" in label else ""))
+    return counts
+
+
+def check_mixed_slow_step(dev, n_before=40):
+    """From step 40 of the per-particle route at full width: one step on
+    the card against the CPU twins (:func:`step_against_cpu`, the
+    tolerances of :func:`check_mixed_step`), then the card's per-particle
+    route against its fast route on one state (step 40's, predicted
+    without noise, its scan; the fast route at detection_topk = K, so that
+    both merge the same top-cap lanes): log weights within 2e-5, map
+    weights rtol 2e-4 / atol 2e-5, live means rtol 2e-4 / atol 2e-4 (the
+    JAX package's test_mixed_fast_path_matches_slow)."""
+    r = slow_runner(dev)
+    for n in range(n_before):
+        r.step(n)
+    state0 = copy_state(r.state, dev)
+    err, cpu_state, n_edge, n_swap = step_against_cpu(r, n_before)
+    phase("step", f"mixed per-particle step {n_before} at P={P_MAIN}: card "
+          f"vs CPU twins max |err| {err:.3g} (rtol 1e-4, atol 1e-5), "
+          f"overflow equal; {n_swap} weight-tied slots swapped, {n_edge} "
+          "resampling strata at a cumulative-weight boundary")
+    z, zm = r.step_args(n_before)[:2]
+    st = predict(state0, (0.0, 0.0), MIXED_DT, r.cfg,
+                 torch.zeros((1, P_MAIN, 3), device=dev))
+    slow, _ = mixed_filter.mixed_update(st, z, zm, r.cfg)
+    fast, _ = mixed_filter.mixed_update(
+        st, z, zm, dataclasses.replace(r.cfg, mixed_fast_path=1,
+                                       detection_topk=128))
+    worst = 0.0
+    torch.testing.assert_close(fast.log_weight, slow.log_weight, rtol=2e-5,
+                               atol=2e-5)
+    for name in ("map_static", "map_dynamic"):
+        gf, gs = getattr(fast, name), getattr(slow, name)
+        torch.testing.assert_close(gf.weight, gs.weight, rtol=2e-4,
+                                   atol=2e-5)
+        live = gs.weight > 1e-6
+        torch.testing.assert_close(gf.mean[live], gs.mean[live], rtol=2e-4,
+                                   atol=2e-4)
+        worst = max(worst, max_err([(gf.weight, gs.weight),
+                                    (gf.mean[live], gs.mean[live])]))
+    phase("step", f"mixed per-particle vs fast route on the card, scan "
+          f"{n_before} from step {n_before}'s state: max |err| "
+          f"{worst:.3g} (log weights 2e-5, rtol 2e-4)")
+
+
+def mixed_option_accuracy(dev):
+    """evaluate_mixed over MIXED_SEEDS at P=256 with each of the options
+    once refused (MIXED_OPTIONS), beside the JAX package's CPU runs of
+    the same seeds and overrides (MIXED_OPTION_CPU): both means, their
+    difference and its standard error. Fails on NaN other than the
+    dynamic OSPA of a run with no mover in range, and on a mean pose error
+    above 1.0 m. Returns the launch counts of the distance_metric=1 runs
+    (the fast route's merge2d_hellinger and merge4d_hellinger required)."""
+    keys = ("mean_pose_err", "static_ospa", "dynamic_ospa")
+    hell_counts = None
+    for label, over in MIXED_OPTIONS.items():
+        rows = []
+        build.reset_launch_counts()
+        for seed in MIXED_SEEDS:
+            r = evaluate_mixed(seed=seed, n_particles=P_MIXED_ACC,
+                               cfg_overrides=over, device=dev)
+            clean(r["run"], f"mixed {label} seed {seed}")
+            require(np.isfinite(r["run"]["est_poses"]).all()
+                    and np.isfinite([r["mean_pose_err"],
+                                     r["static_ospa"]]).all()
+                    and (np.isfinite(r["dynamic_ospa"])
+                         == (r["n_dyn_visible"] > 0)),
+                    f"mixed {label}: NaN in seed {seed}")
+            rows.append([float(r[k]) for k in keys])
+        rows = np.asarray(rows)
+        ref = np.asarray(MIXED_OPTION_CPU.get(label, []), float)
+        out = []
+        for i, k in enumerate(keys):
+            v = rows[:, i][np.isfinite(rows[:, i])]
+            if not len(v):
+                out.append(f"{k}: no run has a value")
+                continue
+            m, sd = float(v.mean()), float(v.std(ddof=1)) if len(v) > 1 \
+                else 0.0
+            text = f"{k} {m:.4f} +- {sd:.4f} (n={len(v)})"
+            if ref.size:
+                j = ref[:, i][np.isfinite(ref[:, i])]
+                jm, jsd = float(j.mean()), float(j.std(ddof=1)) if \
+                    len(j) > 1 else 0.0
+                se = float(np.sqrt(sd ** 2 / len(v) + jsd ** 2 / len(j)))
+                text += (f" vs JAX CPU {jm:.4f} +- {jsd:.4f} (n={len(j)}): "
+                         f"difference {m - jm:+.4f}, standard error "
+                         f"{se:.4f}")
+            out.append(text)
+        phase("accuracy", f"mixed {label} P={P_MIXED_ACC} seeds "
+              f"{list(MIXED_SEEDS)}: " + "; ".join(out))
+        pose = float(rows[:, 0].mean())
+        require(pose <= ATE_LIMIT, f"mixed {label}: mean pose error "
+                f"{pose:.4f} m > {ATE_LIMIT} m")
+        if over.get("distance_metric") == 1:
+            hell_counts = dict(build.launch_counts)
+            require(all(hell_counts.get(k, 0) > 0
+                        for k in ("merge2d_hellinger", "merge4d_hellinger")),
+                    f"mixed Hellinger: launches {hell_counts}")
+    return hell_counts
+
+
+def run_options(dev, cphd_res):
+    """The options the filters once refused, on the paths' data: static
+    Vo weighting (particle_weighting 1) on data/ackerman at P=512 on the
+    det route (the whole sequence and its first 100 steps, beside the JAX
+    CPU band of 100 steps), the top-cap lane route (detection_topk 128)
+    and the full grid (30 steps); CPHD with compute_variance (poses
+    bit-equal to the plain CPHD run of this call, the variance all zero);
+    data/disparity (80 frames) at weighting 2 and with the Hellinger merge
+    (merge3d_hellinger launched). Returns the disparity Hellinger run's
+    launch counts."""
+    for label, over, n in (("det", {}, None), ("det", {}, W1_STEPS),
+                           ("top-cap lanes", TOPK, None),
+                           ("full grid", {"merge_candidate_cap": 0},
+                            W1_FULL_STEPS)):
+        kernels = (ACKERMAN_KERNELS if label == "det" else TOPK_KERNELS
+                   if label == "top-cap lanes" else FULL_GRID_KERNELS)
+        # no ATE bound: Vo's weighting tracks data/ackerman worse than the
+        # cluster process in both packages (W1_CPU_BAND); NaN fails
+        _, res = run_path(dev, f"weighting 1 {label}", CFG, dict(W1, **over),
+                          kernels, n_steps=n)
+        if label == "det" and n == W1_STEPS and W1_CPU_BAND:
+            for key, val in (("ate", res["mean_pose_err"]),
+                             ("ospa", res["mean_ospa"])):
+                ref, std = W1_CPU_BAND[key]
+                phase("weighting 1", f"first {n} steps mean {key} {val:.4f} "
+                      f"beside the JAX CPU band {ref} +- {std} (seeds 0-2 at "
+                      f"P={P_MAIN}, {n} steps)")
+    cfg = load_config(CPHD_CFG, {"n_particles": P_MAIN, **VAR})
+    r = SynthSLAMRunner(cfg, DATA, device=dev)
+    res = clean(r.run(), "CPHD compute_variance")
+    same = np.array_equal(res["est_poses"], cphd_res["run"]["est_poses"])
+    zero = bool((r.state.variance == 0).all())
+    phase("options", f"CPHD + compute_variance P={P_MAIN}, "
+          f"{len(res['est_poses'])} steps: {res['steps_per_s']:.2f} steps/s, "
+          f"poses bit-equal to the plain CPHD run: {same}, variance all "
+          f"zero: {zero}")
+    require(same and zero, "CPHD compute_variance changed the run")
+    counts = None
+    for label, over, kernels in (
+            ("weighting 2", {"particle_weighting": 2}, DISP_KERNELS),
+            ("hellinger", {"distance_metric": 1, "min_separation": 0.6},
+             DISP_HELL_KERNELS)):
+        r = disparity_runner(dev, **over)
+        build.reset_launch_counts()
+        res = clean(r.run(), f"disparity {label}")
+        c = dict(build.launch_counts)
+        gt = np.load(f"{DISP_DATA}/groundtruth.npz")
+        est = res["est_poses"]
+        require(np.isfinite(est).all(), f"disparity {label}: NaN")
+        err = np.linalg.norm(est[:, :3] - gt["traj"][:len(est), :3], axis=1)
+        est_map = disparity_map_estimate(r.state)
+        o, _, _ = ospa_distance(gt["landmarks"], est_map, p=1, c=1.0)
+        n_z = int(r.has_z.sum())
+        require(all(c.get(k, 0) == n_z > 0 for k in kernels),
+                f"disparity {label}: launches {c}, frames with "
+                f"measurements {n_z}")
+        phase("options", f"data/disparity {label} P={P_MAIN}, {len(est)} "
+              f"frames: {res['steps_per_s']:.2f} steps/s, mean pose error "
+              f"{err.mean():.4f} m, OSPA(1, 1 m) {o:.4f}; launches "
+              + ", ".join(f"{k}={c.get(k, 0)}" for k in kernels))
+        counts = c
+    return counts
+
+
+def variant_calls(dev, errs):
+    """time_kernels' rows of the newer merge variants on captured inputs:
+    merge4d's argmax mode on the dynamic map's merge at step 60 of the
+    per-particle route (mixed bench P=512), and the Hellinger variants on
+    the inputs captured from step 60 of the mixed bench (merge4d) and
+    frame 20 of data/disparity (merge3d) at HELL's min_separation. Each is
+    held against its twin first (the largest |difference| into ``errs``);
+    a particle that parts from the twin at a lane within 1e-5 of
+    min_separation (float64) is counted, not failed. Returns name ->
+    (kernel, twin, twin iterations, library call, bound), the rows named
+    by their kernel variant."""
+    rows = {}
+    r = slow_runner(dev, T=61)
+    calls = {}
+
+    def spy(*args, **kw):
+        if r.state.step == 60 and "merge4d" not in calls:
+            calls["merge4d"] = tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args), kw
+        return merge4d(*args, **kw)
+    with mock.patch.object(phd_filter, "merge4d", spy):
+        for n in range(61):
+            r.step(n)
+    (packed, sep, K), kw = calls["merge4d"]
+    require(kw.get("sorted_w", True) is False,
+            "mixed slow: the dynamic merge is not the argmax mode")
+    sources = [("merge4d_argmax", "mixed slow", packed, sep, K, False, 0)]
+    for run, kernel in (("mixed", "merge4d"), ("disparity", "merge3d")):
+        got_calls, _ = capture_step(dev, run)
+        (pk, _, Kc), _ = got_calls[kernel]
+        sources.append((f"{kernel}_hellinger", run, pk,
+                        HELL["min_separation"], Kc, True, 1))
+    for name, run, pk, sep, K, sorted_w, metric in sources:
+        D = MERGE_DIMS[pk.shape[1]]
+        fn, twin = (merge3d, merge3d_reference) if D == 3 else (
+            merge4d, merge4d_reference)
+        kw = dict(metric=metric) if D == 3 else dict(sorted_w=sorted_w,
+                                                     metric=metric)
+        got = merge_out(fn(pk, sep, K, **kw), D)
+        want = merge_out(twin(pk.cpu(), sep, K, **kw), D)
+        flips, err = check_merge_rows(got, want, pk, sep, f"{name} {run}",
+                                      metric)
+        lanes = round_stats(*merge_rounds(pk, sep, K, sorted_w, metric))
+        errs[name] = err
+        rows[name] = (
+            lambda f=fn, a=(pk, sep, K), k=kw: f(*a, **k),
+            lambda f=twin, a=(pk, sep, K), k=kw: f(*a, **k), 1, None,
+            merge_bound(pk, K, OUT_PLANES[D],
+                        {3: 70, 4: 120}[D] * (2 if metric else 1)))
+        phase("captured", f"{run} step 60 (disparity: frame 20): {name} P="
+              f"{pk.shape[0]} N={pk.shape[2]} K={K} min_sep {sep}: per "
+              f"particle {json.dumps(lanes)}; against the twin max |err| "
+              f"{err:.3g} (rtol 1e-4, atol 1e-5), {len(flips)} particles "
+              f"parting at a lane within 1e-5 of min_sep (float64) "
+              f"{[(p, c, d) for p, c, d in flips]}")
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     smi = check_device()
@@ -2783,6 +3144,7 @@ def main():
     check_step(dev)
     check_step(dev, overrides=CONS)
     check_mixed_step(dev)
+    check_mixed_slow_step(dev)
     check_disparity_step(dev)
     check_cphd_step(dev)
     check_dense_steps(dev)
@@ -2797,8 +3159,10 @@ def main():
     run_topk(dev)
     run_scheme2(dev)
     run_scale(dev)
-    mixed_counts = run_mixed(dev)
+    mixed_counts, mixed_res = run_mixed(dev)
+    slow_counts = run_mixed_slow(dev, mixed_res)
     mixed_accuracy(dev)
+    mixed_hell_counts = mixed_option_accuracy(dev)
     disp_counts = run_disparity_data(dev)
     disparity_bench(dev)
     disparity_accuracy(dev)
@@ -2807,11 +3171,12 @@ def main():
         dev, {CFG: main_res["mean_pose_err"],
               CPHD_CFG: cphd_res["mean_pose_err"]})
     cphd_route_seeds(dev, {"det": cphd_res, "full grid": cphd_full_res})
+    disp_hell_counts = run_options(dev, cphd_res)
     hell_counts, hell_full_counts, hell_fused_counts = run_hellinger(dev)
     dense_counts = run_dense(dev)
     audit_dense_scale(dev)
     dense_seeds(dev)
-    times = time_kernels(dev)
+    times = time_kernels(dev, errs)
     profile_step(SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN}),
                                  DATA, device=dev), "ackerman")
     profile_step(mixed_runner(dev), "mixed")
@@ -2834,7 +3199,10 @@ def main():
     # consolidating; detect_cons_adaptive: dense consolidating + adaptive;
     # merge4d: mixed; merge3d: disparity; merge2d_argmax: the full-grid PHD
     # run; merge2d_hellinger, merge2d_argmax_hellinger and
-    # merge2d_tables_hellinger: the Hellinger runs); every path's kernels
+    # merge2d_tables_hellinger: the Hellinger runs; merge4d_argmax: the
+    # mixed per-particle run; merge4d_hellinger: the mixed
+    # distance_metric=1 accuracy runs; merge3d_hellinger: data/disparity
+    # with the Hellinger merge); every path's kernels
     # were required > 0 there, the CPHD and dense runs' too. gather_rows is
     # on no path (the JAX package's paths never call it), and no path's
     # slab exceeds the gathers' shared-memory budget (gather_cols_ldg,
@@ -2849,6 +3217,9 @@ def main():
                    (HELL_KERNELS, hell_counts),
                    (HELL_FULL_KERNELS, hell_full_counts),
                    (HELL_FUSED_KERNELS, hell_fused_counts),
+                   (MIXED_SLOW_KERNELS, slow_counts),
+                   (MIXED_HELL_KERNELS, mixed_hell_counts),
+                   (DISP_HELL_KERNELS, disp_hell_counts),
                    (("gather_rows", "gather_cols_ldg", "gather_rows_ldg"),
                     {})]
     report = {"kernels": [

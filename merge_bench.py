@@ -243,7 +243,7 @@ def merge_edge_case(name, sorted_w=True, seed=0, D=2):
     """(packed [P, C, N] f32 numpy, K) of MERGE_EDGES[name] at dimension D
     (C = 7, 11, 16: w, act, the mean planes, the upper-triangle covariance
     planes): lanes weight-descending for sorted mode, in a fixed random
-    order for argmax mode (D = 2)."""
+    order for argmax mode."""
     w, act, mean, cov, K = _edge_lanes(name, seed, D)
     planes = np.stack([np.where(act, w, 0.0), act]
                       + [mean[..., i] for i in range(D)]
@@ -507,8 +507,11 @@ def plan_of(P, N, sorted_w, metric, tables, D=2):
     """The checkout's launch plan (None where it reports none)."""
     from phdslam_tpu_torch.kernels import merge
     if D != 2:
-        return merge.merge_plan(D, P, N) if hasattr(merge, "merge_plan") \
-            else None
+        if not hasattr(merge, "merge_plan"):
+            return None
+        if sorted_w and metric == 0:
+            return merge.merge_plan(D, P, N)
+        return merge.merge_plan(D, P, N, sorted_w=sorted_w, metric=metric)
     if not hasattr(merge, "merge2d_plan"):
         return None
     return merge.merge2d_plan(P, N, sorted_w, metric, tables)
@@ -535,13 +538,24 @@ def run_case(tabs, packed, K, sep, sorted_w, metric, label):
                                                  merge2d_tables_reference,
                                                  merge2d_variant)
     D = 2 if tabs is not None else MERGE_DIMS[packed.shape[1]]
-    if D != 2:
+    if D != 2 and sorted_w and metric == 0:
         kern = getattr(merge, f"merge{D}d")
 
         def fn():
             return kern(packed, sep, K)
         want = getattr(merge, f"merge{D}d_reference")(packed, sep, K)
         name = f"merge{D}d"
+    elif D != 2:
+        # the variants of merge.VARIANTS_3D4D (argmax 4D, Hellinger 3D/4D)
+        kern = getattr(merge, f"merge{D}d")
+        ref = getattr(merge, f"merge{D}d_reference")
+        kw = dict(metric=metric) if D == 3 else dict(sorted_w=sorted_w,
+                                                     metric=metric)
+
+        def fn():
+            return kern(packed, sep, K, **kw)
+        want = ref(packed, sep, K, **kw)
+        name = merge2d_variant(sorted_w, metric, D=D)
     elif tabs is not None:
         def fn():
             return merge2d_tables(*tabs, sep, K, metric)
@@ -565,7 +579,11 @@ def edge_runs(dev, names=tuple(MERGE_EDGES)):
     """(label, tables operands or None, packed, K, min_sep, sorted_w,
     metric) of the MERGE_EDGES cases ``names`` in every merge2d variant,
     in merge2d_tables at both metrics, and in merge3d and merge4d (at
-    MIN_SEP), as far as each runs the case (:func:`edge_dims`)."""
+    MIN_SEP; where the checkout builds them, also merge4d's argmax mode on
+    the lanes in a random order and both Hellinger variants at HELL_SEP),
+    as far as each runs the case (:func:`edge_dims`)."""
+    from phdslam_tpu_torch.kernels import merge
+    variants = getattr(merge, "VARIANTS_3D4D", {})
     runs = []
     for name in names:
         for D in (d for d in edge_dims(name) if d != 2):
@@ -573,6 +591,15 @@ def edge_runs(dev, names=tuple(MERGE_EDGES)):
             runs.append((f"edge {name} merge{D}d", None,
                          torch.from_numpy(planes).to(dev), K, MIN_SEP, True,
                          0))
+            for sorted_w, metric in variants.get(D, ()):
+                if sorted_w and metric == 0:
+                    continue
+                lanes, K = merge_edge_case(name, sorted_w, D=D)
+                runs.append((f"edge {name} "
+                             f"{merge.merge2d_variant(sorted_w, metric, D=D)}",
+                             None, torch.from_numpy(lanes).to(dev), K,
+                             HELL_SEP if metric else MIN_SEP, sorted_w,
+                             metric))
         if 2 not in edge_dims(name):
             continue
         for sorted_w in (True, False):
@@ -610,7 +637,9 @@ def main():
 
     def emit(line):
         line["matches_expected"] = None
-        if expect:
+        # a case the other run has no line for (a variant its checkout
+        # does not build) is not compared
+        if expect and line["case"] in expect:
             line["matches_expected"] = expect.get(line["case"]) == line[
                 "out_sha"]
             if not line["matches_expected"]:

@@ -32,6 +32,7 @@ struct Gauss3 {
   static constexpr int kCov = 6;       // c00 c01 c02 c11 c12 c22
   static constexpr int kPlanes = 11;
   static constexpr int kOutPlanes = 12;
+  static constexpr bool kHellinger = false;
 
   // d' S^-1 d for the averaged covariance S, operation for operation as
   // pallas_merge.py's mahal3 (kFast: Recip's quotients, which clear ok
@@ -60,15 +61,65 @@ struct Gauss3 {
   }
 };
 
+// The determinant of the symmetric 3x3 matrix of upper triangle s, by
+// cofactors along the first row
+__device__ __forceinline__ float det3(const float (&s)[6]) {
+  return s[0] * (s[3] * s[5] - s[4] * s[4]) - s[1] * (s[1] * s[5] - s[4] * s[2])
+         + s[2] * (s[1] * s[4] - s[3] * s[2]);
+}
+
+// The Hellinger distance (merge_core.cuh::hell_tail), the quadratic form
+// through the adjugate of A + B, as ops/math.py::hellinger2 at D = 3
+struct Hell3 : Gauss3 {
+  static constexpr bool kHellinger = true;
+
+  __device__ __forceinline__ static float hell(const float (&d)[3],
+                                               const float (&a)[6],
+                                               const float (&b)[6]) {
+    float s[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) s[q] = a[q] + b[q];
+    const float s00 = s[0], s01 = s[1], s02 = s[2];
+    const float s11 = s[3], s12 = s[4], s22 = s[5];
+    const float det_s = det3(s);
+    const float j00 = s11 * s22 - s12 * s12;
+    const float j01 = s02 * s12 - s01 * s22;
+    const float j02 = s01 * s12 - s02 * s11;
+    const float j11 = s00 * s22 - s02 * s02;
+    const float j12 = s01 * s02 - s00 * s12;
+    const float j22 = s00 * s11 - s01 * s01;
+    const float q = d[0] * d[0] * j00 + d[1] * d[1] * j11 + d[2] * d[2] * j22
+                    + 2.f * (d[0] * d[1] * j01 + d[0] * d[2] * j02
+                             + d[1] * d[2] * j12);
+    const float quad_eye = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+    return phd_merge::hell_tail<3>(det_s, det3(a) * det3(b),
+                                   q / phd_merge::hell_det_safe(det_s),
+                                   quad_eye);
+  }
+};
+
 }  // namespace
 
+// metric 0: Mahalanobis, 1: Hellinger, on sorted lanes. The argmax mode
+// (argmax 1) is merge_core.cuh's template argument, not instantiated here:
+// the disparity path hands merge3d sorted lanes (filters/disparity.py).
 extern "C" int phd_merge3d(const float* packed, float* out, int P, int N,
-                           int K, float min_sep, void* stream) {
+                           int K, float min_sep, int argmax, int metric,
+                           void* stream) {
+  if (argmax || (metric != 0 && metric != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (metric == 1)
+    return phd_merge::launch<Hell3, kR>(packed, out, P, N, K, min_sep,
+                                         stream);
   return phd_merge::launch<Gauss3, kR>(packed, out, P, N, K, min_sep,
                                         stream);
 }
 
 // The launch plan for P particles of N lanes, into out[7] (merge_core.cuh)
-extern "C" int phd_merge3d_plan(int P, int N, int* out) {
+extern "C" int phd_merge3d_plan(int P, int N, int argmax, int metric,
+                                int* out) {
+  if (argmax || (metric != 0 && metric != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (metric == 1) return phd_merge::plan<Hell3, kR>(P, N, out);
   return phd_merge::plan<Gauss3, kR>(P, N, out);
 }

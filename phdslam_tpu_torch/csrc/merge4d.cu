@@ -29,6 +29,7 @@ struct Gauss4 {
   static constexpr int kCov = 10;      // _PAIRS4 order
   static constexpr int kPlanes = 16;
   static constexpr int kOutPlanes = 16;
+  static constexpr bool kHellinger = false;
 
   // d' S^-1 d for the averaged covariance S, operation for operation as
   // pallas_merge.py's mahal4 (kFast: Recip's quotients, which clear ok
@@ -65,15 +66,72 @@ struct Gauss4 {
   }
 };
 
+// The determinant of the symmetric 4x4 matrix of upper triangle s
+// (_PAIRS4 order), by the 2x2 minors of rows 0-1 and rows 2-3 (Laplace)
+__device__ __forceinline__ float det4(const float (&s)[10]) {
+  const float r0[4] = {s[0], s[1], s[2], s[3]};
+  const float r1[4] = {s[1], s[4], s[5], s[6]};
+  const float r2[4] = {s[2], s[5], s[7], s[8]};
+  const float r3[4] = {s[3], s[6], s[8], s[9]};
+  const float a01 = r0[0] * r1[1] - r0[1] * r1[0];
+  const float a02 = r0[0] * r1[2] - r0[2] * r1[0];
+  const float a03 = r0[0] * r1[3] - r0[3] * r1[0];
+  const float a12 = r0[1] * r1[2] - r0[2] * r1[1];
+  const float a13 = r0[1] * r1[3] - r0[3] * r1[1];
+  const float a23 = r0[2] * r1[3] - r0[3] * r1[2];
+  const float b01 = r2[0] * r3[1] - r2[1] * r3[0];
+  const float b02 = r2[0] * r3[2] - r2[2] * r3[0];
+  const float b03 = r2[0] * r3[3] - r2[3] * r3[0];
+  const float b12 = r2[1] * r3[2] - r2[2] * r3[1];
+  const float b13 = r2[1] * r3[3] - r2[3] * r3[1];
+  const float b23 = r2[2] * r3[3] - r2[3] * r3[2];
+  return a01 * b23 - a02 * b13 + a03 * b12 + a12 * b03 - a13 * b02
+         + a23 * b01;
+}
+
+// The Hellinger distance (merge_core.cuh::hell_tail), as
+// ops/math.py::hellinger2 at D = 4: the determinants by 2x2 minors, the
+// quadratic form in mahal4's Schur form of A + B (its 1e-30 clamps)
+struct Hell4 : Gauss4 {
+  static constexpr bool kHellinger = true;
+
+  __device__ __forceinline__ static float hell(const float (&d)[4],
+                                               const float (&a)[10],
+                                               const float (&b)[10]) {
+    float s[10];
+#pragma unroll
+    for (int q = 0; q < 10; ++q) s[q] = a[q] + b[q];
+    const float det_s = det4(s);
+    bool ok = true;
+    const float quad_inv = Gauss4::dist<false>(d, s, ok);
+    const float quad_eye = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + d[3] * d[3];
+    return phd_merge::hell_tail<4>(det_s, det4(a) * det4(b), quad_inv,
+                                   quad_eye);
+  }
+};
+
 }  // namespace
 
+// metric 0: Mahalanobis, 1: Hellinger; argmax 1: argmax mode (Mahalanobis)
 extern "C" int phd_merge4d(const float* packed, float* out, int P, int N,
-                           int K, float min_sep, void* stream) {
+                           int K, float min_sep, int argmax, int metric,
+                           void* stream) {
+  if (metric == 1 && !argmax)
+    return phd_merge::launch<Hell4, kR>(packed, out, P, N, K, min_sep,
+                                         stream);
+  if (metric != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (argmax)
+    return phd_merge::launch<Gauss4, kR, true>(packed, out, P, N, K,
+                                                min_sep, stream);
   return phd_merge::launch<Gauss4, kR>(packed, out, P, N, K, min_sep,
                                         stream);
 }
 
 // The launch plan for P particles of N lanes, into out[7] (merge_core.cuh)
-extern "C" int phd_merge4d_plan(int P, int N, int* out) {
+extern "C" int phd_merge4d_plan(int P, int N, int argmax, int metric,
+                                int* out) {
+  if (metric == 1 && !argmax) return phd_merge::plan<Hell4, kR>(P, N, out);
+  if (metric != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (argmax) return phd_merge::plan<Gauss4, kR, true>(P, N, out);
   return phd_merge::plan<Gauss4, kR>(P, N, out);
 }

@@ -1,9 +1,11 @@
 // The greedy round core of merge3d.cu and merge4d.cu: the exact
 // sequential greedy moment-matched merge of D-dimensional Gaussian
-// candidates (D = 3, 4) in sorted mode with a Mahalanobis distance, R
-// tentative principals a round. Each source supplies its distance (a
-// struct G: kDim, kCov, kPlanes, kOutPlanes and dist<kFast>()) and
-// instantiates merge_kernel<G, kR>.
+// candidates (D = 3, 4), R tentative principals a round. Each source
+// supplies its distance (a struct G: kDim, kCov, kPlanes, kOutPlanes,
+// kHellinger and dist<kFast>(), or hell() for the Hellinger form) and
+// instantiates merge_kernel<G, kR, kArgmax>: sorted mode (kArgmax false,
+// below) or argmax mode (the principals are the heaviest unmerged lanes,
+// see "Argmax mode" at the end of this header).
 //
 // Input planes [P, kPlanes, N]: w, act, the D mean planes, the kCov
 // upper-triangle covariance planes (row-major); active lanes are
@@ -71,12 +73,30 @@
 // indexed by constants only (selects go through pick()).
 //
 // merge2d.cu keeps its own copy of this structure: its core also carries
-// the argmax mode (the candidates dealt over the threads), the Hellinger
-// distance with its exact screens, the entering lanes staged as one
+// the Hellinger distance's exact screens, the entering lanes staged as one
 // block-wide list spilling to L2 or a scratch buffer, and the fused
 // tables route, none of which merge3d or merge4d run; sharing the header
 // would have to hold its 12 timed cases bit-equal and within 3% of their
 // device times, for no change in what it computes.
+//
+// Argmax mode (pallas_merge.py's _merge_kernel_4d at sorted_w=False, the
+// mode gm_merge_pallas_one_4d runs): every lane with act > 0.5 enters,
+// whatever its weight (the kernel's unmasked act0). Each warp's list holds
+// its kR heaviest unmerged lanes with w > 0, ties to the lowest lane
+// (each thread's heaviest own lane, then REDUX max of the weight's bits
+// and REDUX min of the lane among the tied, the winner offering its next),
+// and the block takes the kR heaviest of the lists the same way. So a
+// w <= 0 lane can be absorbed but never leads; a round with no principal
+// (no unmerged lane with w > 0) or with any unmerged NaN weight stalls the
+// row, which then drops its remaining lanes (the count left is 0), as the
+// twin (ops/gm_merge.py::gm_merge_batch, argmax=True) and merge2d's argmax
+// mode do. With out_cap binding, the lanes left include the w <= 0 ones.
+//
+// The Hellinger distance (G::kHellinger; no Pallas kernel has it at D = 3
+// or 4, the JAX package runs XLA's gm_merge there):
+// 1 - sqrt(sqrt(det A det B) / det((A + B) / 2)) exp(-d' (A + B)^-1 d / 4)
+// with ops/math.py::hellinger2's clamps, in IEEE quotients (its tests take
+// no Recip path).
 
 #pragma once
 
@@ -167,6 +187,25 @@ __device__ __forceinline__ float clamp_det(float det) {
   return fabsf(det) > 1e-30f ? det : 1e-30f;
 }
 
+// The Hellinger distance's last steps (ops/math.py::hellinger2 at any D):
+// det_s = det(A + B), det_prod = det A det B, quad_inv = d' (A + B)^-1 d
+// (evaluated with det(A + B) replaced by 1 where it is not above the
+// smallest normal float, and then not used), quad_eye = d' d
+template <int D>
+__device__ __forceinline__ float hell_tail(float det_s, float det_prod,
+                                           float quad_inv, float quad_eye) {
+  const bool ok = det_s > 1.1754944e-38f;
+  const float eps = -0.25f * (ok ? quad_inv : quad_eye);
+  const float det_half = det_s / static_cast<float>(1 << D);
+  const float ratio = sqrtf(fmaxf(det_prod, 0.f)) / fmaxf(det_half, 1e-30f);
+  return 1.f - sqrtf(fmaxf(ratio, 0.f)) * expf(eps);
+}
+
+// det(A + B) where it is above the smallest normal float, else 1
+__device__ __forceinline__ float hell_det_safe(float det_s) {
+  return det_s > 1.1754944e-38f ? det_s : 1.f;
+}
+
 // The block's shared scratch for the rounds
 template <class G, int kR>
 struct Shared {
@@ -179,6 +218,70 @@ struct Shared {
   float mu[kWarps][G::kDim][kR];  // warp q's copy of the round's means
   int red_left[kWarps];
 };
+
+// Argmax mode's scratch: each listed lane's weight bits, and whether the
+// warp holds an unmerged NaN weight
+template <class G, int kR>
+struct SharedArgmax : Shared<G, kR> {
+  unsigned cand_w[kWarps][kR];
+  int cand_nan[kWarps];
+};
+
+// Argmax mode: the heaviest of the lanes ``left`` (bit j: lane
+// tid + kThreads j) with w > 0, ties to the lowest lane: its weight's bits
+// (0: none) and its j
+__device__ __forceinline__ unsigned own_heaviest(unsigned left,
+                                                 const float* s, int& jb) {
+  unsigned key = 0;
+  jb = -1;
+  for (unsigned b = left; b; b &= b - 1) {
+    const int j = __ffs(b) - 1;
+    const float w = s[threadIdx.x + kThreads * j];
+    const unsigned k = __float_as_uint(w);
+    if (w > 0.f && k > key) {     // lanes ascending: ties keep the lowest
+      key = k;
+      jb = j;
+    }
+  }
+  return key;
+}
+
+// Argmax mode's warp_candidates: this warp's kR heaviest unmerged lanes
+// with w > 0, heaviest first, ties to the lowest lane, and whether any of
+// its unmerged lanes has a NaN weight
+template <class G, int kR>
+__device__ __forceinline__ void warp_candidates_argmax(
+    unsigned own, const float* s, SharedArgmax<G, kR>& sh) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  bool nan_seen = false;
+  for (unsigned b = own; b; b &= b - 1)
+    nan_seen |= isnan(s[tid + kThreads * (__ffs(b) - 1)]);
+  nan_seen = __any_sync(kFull, nan_seen);
+  unsigned left = own;
+  int jb;
+  unsigned key = own_heaviest(left, s, jb);
+  int n = 0;
+#pragma unroll 1
+  for (; n < kR; ++n) {
+    const unsigned top = __reduce_max_sync(kFull, key);
+    if (top == 0) break;
+    const unsigned mine =
+        key == top ? static_cast<unsigned>(tid + kThreads * jb) : UINT_MAX;
+    const unsigned best = __reduce_min_sync(kFull, mine);
+    if (mine == best) {           // the winning thread
+      sh.cand[warp][n] = static_cast<int>(best);
+      sh.cand_w[warp][n] = top;
+      left &= ~(1u << jb);
+      key = own_heaviest(left, s, jb);
+    }
+  }
+  if (lane == 0) {
+    sh.cand_n[warp] = n;
+    sh.cand_nan[warp] = nan_seen;
+  }
+}
 
 // Writes this warp's kR lowest unmerged lanes, ascending, into the shared
 // candidate list: the warp's lanes ascending are its rows j ascending,
@@ -213,10 +316,17 @@ __device__ __forceinline__ float dist_to(const float* s, int N, int p,
   float d[G::kDim], sg[G::kCov];
 #pragma unroll
   for (int k = 0; k < G::kDim; ++k) d[k] = s[(1 + k) * N + p] - m[k];
+  if constexpr (G::kHellinger) {
+    // the candidate's covariance, the principal's
 #pragma unroll
-  for (int q = 0; q < G::kCov; ++q)
-    sg[q] = 0.5f * (c[q] + s[(1 + G::kDim + q) * N + p]);
-  return G::template dist<kFast>(d, sg, ok);
+    for (int q = 0; q < G::kCov; ++q) sg[q] = s[(1 + G::kDim + q) * N + p];
+    return G::hell(d, c, sg);
+  } else {
+#pragma unroll
+    for (int q = 0; q < G::kCov; ++q)
+      sg[q] = 0.5f * (c[q] + s[(1 + G::kDim + q) * N + p]);
+    return G::template dist<kFast>(d, sg, ok);
+  }
 }
 
 // The candidate's mean and covariance at lane i
@@ -264,7 +374,7 @@ __device__ __forceinline__ unsigned round_hits(const float* s, int N, int i,
 
 // The greedy rounds of one particle: packed planes in [G::kPlanes, N],
 // output planes o [G::kOutPlanes, K]
-template <class G, int kR>
+template <class G, int kR, bool kArgmax>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const float* __restrict__ packed, float* __restrict__ out,
              int N, int K, float min_sep) {
@@ -279,7 +389,8 @@ merge_kernel(const float* __restrict__ packed, float* __restrict__ out,
   static_assert(kWarps * kR <= 32, "the warps' lists: one lane each");
   static_assert(kR * (kR - 1) / 2 <= 32, "principal pairs: one ballot");
   extern __shared__ float s[];    // [1 + D + kCov][N]: w, mean, cov
-  __shared__ Shared<G, kR> sh;
+  __shared__ std::conditional_t<kArgmax, SharedArgmax<G, kR>, Shared<G, kR>>
+      sh;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -288,19 +399,22 @@ merge_kernel(const float* __restrict__ packed, float* __restrict__ out,
   float* o = out + static_cast<size_t>(blockIdx.x) * G::kOutPlanes * K;
 
   // bit j of own: lane tid + kThreads j entered and is unmerged; only
-  // the entering lanes' values are loaded
+  // the entering lanes' values are loaded (argmax mode: every act lane)
   unsigned own = 0;
   for (int j = 0; tid + kThreads * j < N; ++j) {
     const int i = tid + kThreads * j;
     const float w = in[i];
-    if (in[N + i] > 0.5f && w > 0.f) {
+    if (in[N + i] > 0.5f && (kArgmax || w > 0.f)) {
       own |= 1u << j;
       s[i] = w;
 #pragma unroll
       for (int v = 1; v < 1 + D + kCov; ++v) s[v * N + i] = in[(v + 1) * N + i];
     }
   }
-  warp_candidates<G, kR>(own, sh);
+  if constexpr (kArgmax)
+    warp_candidates_argmax<G, kR>(own, s, sh);
+  else
+    warp_candidates<G, kR>(own, sh);
   __syncthreads();
 
   int c = 0;
@@ -310,7 +424,31 @@ merge_kernel(const float* __restrict__ packed, float* __restrict__ out,
     // the flat [kWarps][kR] lists; REDUX picks one a step) ----
     int pq[kR];                   // principal lanes (-1: none)
     int n_tent = 0;
-    {
+    if constexpr (kArgmax) {
+      // the heaviest first, ties to the lowest lane; a listed NaN weight
+      // anywhere stalls the row
+      unsigned ci = UINT_MAX, cw = 0;
+      if (lane < kWarps * kR && lane % kR < sh.cand_n[lane / kR]) {
+        ci = static_cast<unsigned>(sh.cand[lane / kR][lane % kR]);
+        cw = sh.cand_w[lane / kR][lane % kR];
+      }
+      bool stall = false;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) stall |= sh.cand_nan[q] != 0;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const unsigned top = __reduce_max_sync(kFull, cw);
+        const unsigned best =
+            __reduce_min_sync(kFull, cw == top ? ci : UINT_MAX);
+        if (ci == best) {
+          ci = UINT_MAX;
+          cw = 0;
+        }
+        pq[r] = best == UINT_MAX ? -1 : static_cast<int>(best);
+        if (best != UINT_MAX && top > 0u) n_tent = r + 1;
+      }
+      if (stall) n_tent = 0;
+    } else {
       unsigned ci = UINT_MAX;
       if (lane < kWarps * kR && lane % kR < sh.cand_n[lane / kR])
         ci = static_cast<unsigned>(sh.cand[lane / kR][lane % kR]);
@@ -503,7 +641,10 @@ merge_kernel(const float* __restrict__ packed, float* __restrict__ out,
 #pragma unroll
     for (int u = 0; u < kPassB; ++u) part_b[u] = warp_transpose_sum(vb[u], lane);
     // (barrier A ended every read of the candidate lists)
-    warp_candidates<G, kR>(own, sh);
+    if constexpr (kArgmax)
+      warp_candidates_argmax<G, kR>(own, s, sh);
+    else
+      warp_candidates<G, kR>(own, sh);
 #pragma unroll
     for (int u = 0; u < kPassB; ++u) sh.red_b[warp][32 * u + lane] = part_b[u];
     __syncthreads();                                 // barrier B
@@ -532,6 +673,11 @@ merge_kernel(const float* __restrict__ packed, float* __restrict__ out,
       }
     }
     c += __popc(emit);
+  }
+  // argmax mode: a row that stalled with budget left drops its remaining
+  // lanes (in sorted mode nothing is left then)
+  if constexpr (kArgmax) {
+    if (c < K) own = 0;
   }
 
   const int left = __reduce_add_sync(kFull, __popc(own));
@@ -563,14 +709,15 @@ size_t smem_bytes(int N) {
   return sizeof(float) * (1 + G::kDim + G::kCov) * static_cast<size_t>(N);
 }
 
-// Launches merge_kernel<G, kR> over P particles of N lanes (N <= 2048)
-template <class G, int kR>
+// Launches merge_kernel<G, kR, kArgmax> over P particles of N lanes
+// (N <= 2048)
+template <class G, int kR, bool kArgmax = false>
 int launch(const float* packed, float* out, int P, int N, int K,
            float min_sep, void* stream) {
   if (P <= 0 || K <= 0) return 0;
   if (N < 0 || N > 32 * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr auto kernel = merge_kernel<G, kR>;
+  constexpr auto kernel = merge_kernel<G, kR, kArgmax>;
   const size_t smem = smem_bytes<G>(N);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -583,16 +730,16 @@ int launch(const float* packed, float* out, int P, int N, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch plan of merge_kernel<G, kR> for P particles of N lanes on
-// the current device, into out[7] (the layout of merge2d's plan): threads
-// a block, lanes a block keeps in shared memory (N), dynamic shared
-// memory a block (bytes), resident blocks an SM, overflow (0), registers
-// a thread, waves
-template <class G, int kR>
+// The launch plan of merge_kernel<G, kR, kArgmax> for P particles of N
+// lanes on the current device, into out[7] (the layout of merge2d's plan):
+// threads a block, lanes a block keeps in shared memory (N), dynamic
+// shared memory a block (bytes), resident blocks an SM, overflow (0),
+// registers a thread, waves
+template <class G, int kR, bool kArgmax = false>
 int plan(int P, int N, int* out) {
   if (N < 0 || N > 32 * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr auto kernel = merge_kernel<G, kR>;
+  constexpr auto kernel = merge_kernel<G, kR, kArgmax>;
   const size_t smem = smem_bytes<G>(N);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)

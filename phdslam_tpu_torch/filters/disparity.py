@@ -23,7 +23,12 @@ JAX version compacts the candidates to the top cap by weight and runs its
 3D kernel on weight-sorted lanes; otherwise it runs the kernel's argmax
 mode over every lane. Both are the same exact greedy (heaviest first, ties
 to the lowest lane), so the port always hands merge3d weight-sorted lanes:
-it compacts when the cap binds and only sorts when it does not.
+it compacts when the cap binds and only sorts when it does not. With the
+Hellinger distance (distance_metric 1) the JAX version runs XLA's
+``gm_merge`` (no Pallas kernel has that metric at D = 3); the port runs
+merge3d's Hellinger variant on the same sorted lanes, which is XLA's
+contract (``ops/gm_merge.py``). Every particle_weighting but 0 is Vo's
+empty-map weighting, as in the JAX version.
 
 Profiler ranges (``disp.predict``, ``disp.pre``, ``disp.compact``,
 ``disp.merge``, ``disp.post``, ``disp.resample_extract``) mark the layers
@@ -43,7 +48,8 @@ from torch.profiler import record_function
 
 from ..config import SlamConfig
 from ..kernels.merge import MAX_CANDIDATES, merge3d
-from ..ops.gm_merge import compact_candidates, merge_out, sort_candidates
+from ..ops.gm_merge import (compact_candidates, merge_out, pack_planes,
+                            sort_candidates)
 from ..ops.math import LOG0, chol3, logsumexp, safe_log, sym, wrap_angle
 from ..ops.resample import effective_sample_ratio, systematic_ancestors
 from ..types import DisparityState
@@ -66,13 +72,11 @@ class DisparityOutputs(NamedTuple):
 
 
 def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
-    """Raise for a configuration outside the ported disparity path."""
+    """Raise for a configuration outside the ported disparity path: a
+    merge wider than merge3d's 2048 lanes (naming the width), and clouds
+    of fewer than 2 points, whose sample covariance the JAX version
+    divides by N - 1 = 0."""
     bad = []
-    if cfg.particle_weighting not in (0, 1):
-        bad.append(f"particle_weighting={cfg.particle_weighting!r} "
-                   "(ported: 0, 1)")
-    if cfg.distance_metric != 0:
-        bad.append(f"distance_metric={cfg.distance_metric!r} (ported: 0)")
     if cfg.particles_per_feature < 2:
         bad.append(f"particles_per_feature={cfg.particles_per_feature} "
                    "(ported: >= 2)")
@@ -80,8 +84,9 @@ def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
     cap = cfg.merge_candidate_cap
     width = cap if 0 < cap < n_full else n_full
     if width > MAX_CANDIDATES[3]:
-        bad.append(f"merge_candidate_cap={cap}: {width} merge lanes "
-                   f"(ported: <= {MAX_CANDIDATES[3]})")
+        bad.append(f"merge_candidate_cap={cap}: {width} merge lanes a "
+                   f"particle (merge3d is built for <= {MAX_CANDIDATES[3]}; "
+                   "the staged wide-lane variant is not built)")
     if bad:
         raise NotImplementedError(
             "configuration outside the ported disparity path: "
@@ -339,15 +344,6 @@ def order_candidates(cand, cap):
     return (*sort_candidates(mean, cov, w, act), n_compact)
 
 
-def pack_planes(mean, cov, w, act):
-    """Candidates -> merge3d input planes [P, 11, L]: w, act, m0..m2,
-    c00 c01 c02 c11 c12 c22."""
-    return torch.stack([
-        w, act.to(w.dtype), mean[..., 0], mean[..., 1], mean[..., 2],
-        cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2], cov[..., 1, 1],
-        cov[..., 1, 2], cov[..., 2, 2]], dim=1).contiguous()
-
-
 def _disparity_update_post(mg, pre, cam_pose, cloud, feat_w, eps_sample,
                            cfg: SlamConfig):
     """Post-merge half for all particles: draw fresh clouds from the merged
@@ -396,7 +392,8 @@ def disparity_update(state: DisparityState, z, z_mask, cfg: SlamConfig,
                                             cfg.merge_candidate_cap)
         planes = pack_planes(*cand)
     with record_function("disp.merge"):
-        mg = merge_out(merge3d(planes, float(cfg.min_separation), K), 3)
+        mg = merge_out(merge3d(planes, float(cfg.min_separation), K,
+                               metric=cfg.distance_metric), 3)
     with record_function("disp.post"):
         new_cloud, new_w, dlog_w, overflow = _disparity_update_post(
             mg, dict(pre, n_compact=n_compact), state.cam_pose, state.cloud,

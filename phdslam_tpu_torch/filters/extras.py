@@ -5,9 +5,10 @@ the EAP expected map, the Monte-Carlo map variance and single-feature
 - EAP expected map (map_estimate bit 1): the particle-weight-scaled maps
   of all particles reduced by greedy merges, either flat (one merge over
   all P K lanes, for P <= 2) or as a log2(P)-level pairwise tree whose
-  every level is one sorted-mode merge2d launch over P/2 particle pairs.
-  The lanes stay as merge planes [B, 7, N] (w, act, mean x, y, cov 00,
-  01, 11) from start to finish.
+  every level is one sorted-mode merge launch over P/2 particle pairs
+  (merge2d; merge4d for the dynamic-only 4D map). The lanes stay as merge
+  planes [B, 7, N] (w, act, mean x, y, cov 00, 01, 11; [B, 16, N] at
+  D = 4) from start to finish.
 - MC map variance (compute_variance): draw one sample from each
   component, evaluate the component at it, sum ``val`` over non-detection
   lanes and ``val (1 - val)`` over detection and birth lanes, averaged
@@ -30,24 +31,37 @@ import math
 import torch
 
 from ..config import SlamConfig
-from ..kernels.merge import merge2d
-from ..ops.gm_merge import merge_out
+from ..kernels.merge import merge2d, merge4d
+from ..ops.gm_merge import MERGE_DIMS, merge_out, pack_planes
 from ..ops.math import det_nd, gaussian_logpdf, safe_log
 from ..types import GMState
 
 
 def merge_planes(w, mean, cov):
-    """2D merge planes [B, 7, N] of weights [B, N], means [B, N, 2] and
-    covariances [B, N, 2, 2]: lanes with w > 0 are active, the others
-    sanitized to (w 0, mean 0, identity covariance)."""
+    """Merge planes [B, 2 + D + D(D+1)/2, N] of weights [B, N], means
+    [B, N, D] and covariances [B, N, D, D] (D = 2: [B, 7, N]; 4: the
+    dynamic-only map's [B, 16, N]): lanes with w > 0 are active, the
+    others sanitized to (w 0, mean 0, identity covariance)."""
     act = w > 0
-    return torch.stack([
-        torch.where(act, w, 0.0), act.to(w.dtype),
-        torch.where(act, mean[..., 0], 0.0),
-        torch.where(act, mean[..., 1], 0.0),
-        torch.where(act, cov[..., 0, 0], 1.0),
-        torch.where(act, cov[..., 0, 1], 0.0),
-        torch.where(act, cov[..., 1, 1], 1.0)], dim=1)
+    eye = torch.eye(mean.shape[-1], dtype=mean.dtype, device=mean.device)
+    return pack_planes(torch.where(act[..., None], mean, 0.0),
+                       torch.where(act[..., None, None], cov, eye),
+                       torch.where(act, w, 0.0), act)
+
+
+def _merge(planes, cfg: SlamConfig, cap, sorted_w=True):
+    """One merge launch over EAP planes: merge2d in either mode at D = 2;
+    at D = 4 merge4d on weight-sorted lanes (the lanes sorted first where
+    they are not), which picks the principals an argmax merge picks.
+    Returns the merge tuple."""
+    D = MERGE_DIMS[planes.shape[1]]
+    sep, metric = float(cfg.min_separation), cfg.distance_metric
+    if D == 2:
+        return merge_out(merge2d(planes, sep, cap, sorted_w=sorted_w,
+                                 metric=metric), 2)
+    if not sorted_w:
+        planes = sort_lanes_desc(planes)
+    return merge_out(merge4d(planes, sep, cap, metric=metric), D)
 
 
 def _scaled_planes(gm: GMState, log_weight):
@@ -60,14 +74,13 @@ def eap_expected_map_flat(gm: GMState, log_weight, cfg: SlamConfig,
                           out_cap=None):
     """Expected a-posteriori map, flat form: one greedy merge (argmax
     principal, as the JAX version's XLA ``gm_merge``) over the particle-
-    weight-scaled concatenation of all P K lanes, as one row of merge2d.
-    Returns (mean [out_cap, 2], cov, weight)."""
+    weight-scaled concatenation of all P K lanes, as one merge row.
+    Returns (mean [out_cap, D], cov, weight)."""
     P, K, _ = gm.mean.shape
     planes = _scaled_planes(gm, log_weight)
-    flat = planes.transpose(0, 1).reshape(1, 7, P * K)
-    mean, cov, w, _, _ = merge_out(merge2d(
-        flat, float(cfg.min_separation), out_cap or K, sorted_w=False,
-        metric=cfg.distance_metric), 2)
+    C = planes.shape[1]
+    flat = planes.transpose(0, 1).reshape(1, C, P * K)
+    mean, cov, w, _, _ = _merge(flat, cfg, out_cap or K, sorted_w=False)
     return mean[0], cov[0], w[0]
 
 
@@ -101,7 +114,7 @@ def eap_expected_map(gm: GMState, log_weight, cfg: SlamConfig,
     form. Fixed-capacity levels can drop the lightest clusters of a pair;
     ``return_dropped`` adds their count over all levels as a 4th output.
 
-    Returns (mean [out_cap, 2], cov, weight[, n_dropped]).
+    Returns (mean [out_cap, D], cov, weight[, n_dropped]).
     """
     P, K, _ = gm.mean.shape
     out_cap = out_cap or K
@@ -117,15 +130,17 @@ def eap_expected_map(gm: GMState, log_weight, cfg: SlamConfig,
     while planes.shape[0] > 1:
         Pl, C, L = planes.shape
         if Pl % 2:
-            empty = planes.new_tensor([0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 1.0])
-            planes = torch.cat([planes, empty[None, :, None].expand(1, C, L)])
+            D = MERGE_DIMS[C]
+            empty = merge_planes(
+                planes.new_zeros((1, 1)), planes.new_zeros((1, 1, D)),
+                torch.eye(D, dtype=planes.dtype,
+                          device=planes.device).expand(1, 1, D, D))
+            planes = torch.cat([planes, empty.expand(1, C, L)])
             Pl += 1
         planes = planes.view(Pl // 2, 2, C, L).transpose(1, 2) \
             .reshape(Pl // 2, C, 2 * L)
         cap = out_cap if Pl == 2 else mid_cap
-        mean, cov, w, _, drop = merge_out(merge2d(
-            sort_lanes_desc(planes), float(cfg.min_separation), cap,
-            metric=cfg.distance_metric), 2)
+        mean, cov, w, _, drop = _merge(sort_lanes_desc(planes), cfg, cap)
         n_dropped = n_dropped + drop.sum()
         planes = merge_planes(w, mean, cov)
     out = (mean[0], cov[0], w[0])

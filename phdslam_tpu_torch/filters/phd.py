@@ -14,21 +14,27 @@ goes through the kernels of ``kernels/``: the fused detection + top-T, the
 column gather (candidate tables and post-merge compaction) and the greedy
 merges (2D for the static map and the EAP tree, 4D for the dynamic one).
 
-Scope (:func:`check_supported`):
-  - the static 2D map (feature_model 0), Ackerman or constant-velocity
-    vehicle, with the PHD update (filter_type 0; cluster-process or
-    single-feature (scheme 2) weighting, the MC map variance) or the CPHD
-    update (filter_type 1), Mahalanobis or Hellinger merge distance, on
-    any route: the compacted det route (0 < detection_topk < K,
-    0 < merge_candidate_cap < the full grid's width), the top-cap lane
+Scope (:func:`check_supported`): every option of the JAX package's PHD,
+CPHD and mixed updates but the approximate ``merge_spatial_tiles``, within
+the kernels' lane widths:
+  - the static 2D map (feature_model 0) or the dynamic-only 4D map
+    (feature_model 1: the same pipeline on ``map_dynamic``, its births from
+    ``birth_mean_cov_4d``, the 4D merge), Ackerman or constant-velocity
+    vehicle, with the PHD update (filter_type 0; cluster-process (0), Vo's
+    empty-map (1) or single-feature (2) weighting, the MC map variance) or
+    the CPHD update (filter_type 1; compute_variance estimates nothing
+    there, as in the JAX version), Mahalanobis or Hellinger merge
+    distance, on any route: the compacted det route (0 < detection_topk <
+    K, 0 < merge_candidate_cap < the full grid's width), the top-cap lane
     route (the same cap, detection_topk outside (0, K): every lane ranked
     by weight, no detect kernel) or the full-grid route
     (merge_candidate_cap 0 or at least the width K + M K + M, K + M K for
     CPHD, at M = max_measurements: every lane goes to the argmax merge, as
     the reference does);
   - the mixed jump-Markov static 2D + dynamic 4D maps (feature_model 2,
-    ``filters/mixed.py``'s fast route, PHD, Mahalanobis) with weighting 0
-    or 1;
+    ``filters/mixed.py``: the batched fast route, or the per-particle
+    route batched over P where the JAX version takes it), with the
+    two-scan velocity births (birth_velocity_init);
   - MAP or EAP extraction (map_estimate, eap_every, eap_tree_cap) and
     shotgunning on each of them.
 The JAX version's live-width ``lax.switch`` families are exact prefix
@@ -66,8 +72,9 @@ from ..kernels.merge import (MAX_CANDIDATES, merge2d, merge2d_tables, merge4d,
                              tables_operands)
 from ..models import feature_motion, measurement, vehicle
 from ..ops import ekf
-from ..ops.gm_merge import (merge_out, topcap_sort, topk_compact_indices,
-                            unpack_planes)
+from ..ops.gm_merge import (MERGE_DIMS, compact_candidates, merge_out,
+                            pack_planes, sort_planes, topcap_sort,
+                            topk_compact_indices, unpack_planes)
 from ..ops.math import LOG0, logsumexp, safe_log
 from ..ops.resample import effective_sample_ratio, systematic_ancestors
 from ..types import FilterState, GMState
@@ -112,8 +119,12 @@ def full_grid_width(cfg: SlamConfig, K: int, M: int) -> int:
 
 def uses_full_grid(cfg: SlamConfig, K: int, M: int) -> bool:
     """True when the candidate cap does not bind (0, or at least the full
-    grid's width): the JAX version's slow route, every lane merged."""
-    return not 0 < cfg.merge_candidate_cap < full_grid_width(cfg, K, M)
+    grid's width): the JAX version's slow route, every lane merged. The
+    width is taken at max_measurements, as the JAX version pads M, when
+    the runner's padded M is smaller (a cap between the two widths takes
+    the capped route there, so it does here)."""
+    return not 0 < cfg.merge_candidate_cap < full_grid_width(
+        cfg, K, max(M, cfg.max_measurements))
 
 
 def update_route(cfg: SlamConfig, K: int, M: int) -> str:
@@ -133,62 +144,52 @@ def uses_eap(cfg: SlamConfig) -> bool:
 
 
 def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
-    """Raise for a configuration outside the ported path, naming each
-    option that is."""
-    mixed = cfg.feature_model == 2
-    ported = {
-        "filter_type": (cfg.filter_type, (0,) if mixed else (0, 1)),
-        "feature_model": (cfg.feature_model, (0, 2)),
-        "motion_type": (cfg.motion_type, (0, 1)),
-        "distance_metric": (cfg.distance_metric, (0,) if mixed else (0, 1)),
-        "merge_spatial_tiles": (cfg.merge_spatial_tiles, (0,)),
-    }
-    if cfg.filter_type == 0:
-        # weighting 2 and compute_variance on the mixed model take its
-        # per-particle slow route, which is not ported; the CPHD update
-        # weights particles by its own Psi terms and estimates no variance
-        ported["particle_weighting"] = (cfg.particle_weighting,
-                                        (0, 1) if mixed else (0, 2))
-    if mixed or cfg.filter_type == 1:
-        ported["compute_variance"] = (bool(cfg.compute_variance), (False,))
-    if mixed:
-        ported["birth_velocity_init"] = (cfg.birth_velocity_init, (0,))
-        ported["mixed_fast_path"] = (cfg.mixed_fast_path, (1,))
-    bad = [f"{k}={v!r} (ported: {', '.join(map(repr, want))})"
-           for k, (v, want) in ported.items() if v not in want]
+    """Raise for a configuration outside the ported path: a value the JAX
+    package does not define, the approximate ``merge_spatial_tiles`` by
+    name, and every merge whose lanes exceed its kernel's width (merge2d
+    N <= 8192, merge3d / merge4d N <= 2048, kernels/merge.py::
+    MAX_CANDIDATES; the staged wide-lane variants are not built), naming
+    the width."""
+    bad = [f"{name}={getattr(cfg, name)!r} (the JAX package defines "
+           f"{', '.join(map(str, values))})"
+           for name, values in (("filter_type", (0, 1)),
+                                ("feature_model", (0, 1, 2)),
+                                ("motion_type", (0, 1)),
+                                ("distance_metric", (0, 1)))
+           if getattr(cfg, name) not in values]
+    if cfg.merge_spatial_tiles not in (0,):
+        bad.append(f"merge_spatial_tiles={cfg.merge_spatial_tiles!r} "
+                   "(ported: 0; the tiled merge is approximate)")
+
+    def width(D, lanes, what):
+        if lanes > MAX_CANDIDATES[D]:
+            bad.append(f"{what}: {lanes} merge lanes a particle "
+                       f"(merge{D}d is built for <= {MAX_CANDIDATES[D]}; the "
+                       "staged wide-lane variant is not built)")
+    # extraction reads the dynamic-only map (feature_model 1); the CPHD
+    # update, as the JAX version's, runs on the static map whatever the
+    # feature model
+    D = 4 if cfg.feature_model == 1 else 2
     if uses_eap(cfg):
-        # every tree level merges a pair's lanes in one merge2d row (the
-        # flat form all P k lanes)
+        # every tree level merges a pair's lanes in one merge row (the flat
+        # form all P k lanes)
         n_ext = max(1, cfg.n_particles) * max(1, cfg.n_predict_particles)
         lanes = (n_ext * K if n_ext <= 2
                  else 2 * max(K, cfg.eap_tree_cap or K))
-        if lanes > MAX_CANDIDATES[2]:
-            bad.append(f"eap_tree_cap={cfg.eap_tree_cap} with max_features="
-                       f"{K}: the EAP merges {lanes} lanes a row (merge2d "
-                       f"is built for <= {MAX_CANDIDATES[2]})")
-    T, cap = cfg.detection_topk, cfg.merge_candidate_cap
-    n_full = full_grid_width(cfg, K, M)
-    # the runners pad M to the longest scan, the JAX version to
-    # max_measurements; between the two widths the JAX version would take
-    # a capped route
-    n_jax = full_grid_width(cfg, K, max(M, cfg.max_measurements))
-    if n_full <= cap < n_jax:
-        bad.append(f"merge_candidate_cap={cap}: the full grid at the padded "
-                   f"M={M} ({n_full} lanes) but not at max_measurements="
-                   f"{cfg.max_measurements} ({n_jax}), where the JAX version "
-                   "takes a capped route")
-    elif not uses_full_grid(cfg, K, M):
-        if mixed and not 0 < T < K:
-            # the mixed model's top-cap lane route
-            bad.append(f"detection_topk={T} with the binding "
-                       f"merge_candidate_cap={cap} on the mixed model "
-                       f"(ported: 0 < T < K={K})")
-    elif mixed:
-        bad.append(f"merge_candidate_cap={cap} (the mixed full grid; "
-                   f"ported: 0 < cap < {n_full})")
-    elif n_full > MAX_CANDIDATES[2]:
-        bad.append(f"merge_candidate_cap={cap}: the full grid's {n_full} "
-                   f"lanes (merge2d is built for <= {MAX_CANDIDATES[2]})")
+        width(D, lanes, f"eap_tree_cap={cfg.eap_tree_cap} with "
+              f"max_features={K}: the EAP tree")
+    cap = cfg.merge_candidate_cap
+    if cfg.filter_type == 1:
+        D = 2
+    if cfg.feature_model == 2 and cfg.filter_type == 0:
+        from .mixed import mixed_widths
+        for D_m, lanes, what in mixed_widths(cfg, K, M):
+            width(D_m, lanes, what)
+    else:
+        lanes = full_grid_width(cfg, K, M) if uses_full_grid(cfg, K, M) \
+            else cap
+        width(D, lanes, f"merge_candidate_cap={cap} with max_features={K}, "
+              f"M={M}")
     if bad:
         raise NotImplementedError(
             "configuration outside the ported path: " + "; ".join(bad))
@@ -203,8 +204,9 @@ def predict(state: FilterState, control, dt, cfg: SlamConfig,
     """Vehicle prediction in ``subdivide_predict`` sub-steps of dt / sub,
     sub-step i drawing eps_pred[i]: constant velocity (motion_type 0, the
     noise at 3x the configured accelerations, as the reference's host code
-    draws it) or Ackerman (1). The mixed model then predicts its dynamic
-    map over the whole dt; the static map is never predicted."""
+    draws it) or Ackerman (1). The dynamic-only and mixed models
+    (feature_model 1, 2) then predict the dynamic map over the whole dt;
+    the static map is never predicted."""
     pose = state.pose
     sub = max(1, cfg.subdivide_predict)
     dt32 = np.float32(dt)
@@ -219,7 +221,7 @@ def predict(state: FilterState, control, dt, cfg: SlamConfig,
             pose = vehicle.ackerman_predict(pose, control, geom, noise_std,
                                             dt_sub, eps_pred[i])
     state = state.replace(pose=pose)
-    if cfg.feature_model == 2:
+    if cfg.feature_model in (1, 2):
         dyn = state.map_dynamic
         (mean, cov, weight), _jump = feature_motion.mixed_model_predict(
             dyn.mean, dyn.cov, dyn.weight, cfg, float(dt32))
@@ -335,6 +337,37 @@ def _fold_consolidated(cons, in_m, w_a, act_a, mean, cov, pre, min_fw):
     return torch.where(cons_on, W, w_a), act_a | cons_on, cons_rows
 
 
+def birth_mean_cov(pose_b, z, cfg: SlamConfig, D: int):
+    """The births of a D-dimensional map: 2D, or 4D (zero velocity) for
+    the dynamic-only map."""
+    if D == 4:
+        return measurement.birth_mean_cov_4d(pose_b, z, cfg)
+    return measurement.birth_mean_cov(pose_b, z, cfg)
+
+
+def particle_dlogw(cfg: SlamConfig, in_m, pd, weight, z_mask, log_norm,
+                   w_nd, cn_det, w_birth):
+    """The PHD update's particle log-weight increment [P]: the cluster
+    process (particle_weighting 0: sum of the log normalizers minus the
+    predicted cardinality, the pd-scaled persistent weights and one birth
+    weight per measurement) or Vo's empty-map weighting (any other scheme;
+    scheme 2 replaces it after the merge): clutter density times the
+    measurement count plus the updated cardinality (non-detections
+    ``w_nd``, the normalized detection terms' sum ``cn_det``, births)
+    minus the predicted one and the clutter rate. ``cn_det`` is read only
+    by the latter (None under the cluster process)."""
+    dtype = log_norm.dtype
+    n_valid_z = z_mask.to(dtype).sum()
+    if cfg.particle_weighting == 0:
+        card_pred = torch.where(in_m, pd * weight, 0.0).sum(dim=1) \
+            + n_valid_z * cfg.birth_weight
+        return torch.where(z_mask, log_norm, 0.0).sum(dim=1) - card_pred
+    cn_predict = torch.where(in_m, weight, 0.0).sum(dim=1)
+    cn_update = w_nd.sum(dim=1) + cn_det + w_birth.sum(dim=1)
+    return n_valid_z * cfg.clutter_density + cn_update - cn_predict \
+        - cfg.clutter_rate
+
+
 def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
     """Pre-merge half of the update for all particles on a capped route
     (the JAX version's ``_update_single_pre``, batched over P instead of
@@ -366,7 +399,7 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
     T = cfg.detection_topk
     min_fw = cfg.min_feature_weight
     det_route = 0 < T < K
-    consolidate = det_route and consolidates(cfg)
+    consolidate = det_route and consolidates(cfg) and D == 2
     if det_route:
         z4 = torch.stack([z[:, 0], z[:, 1], z_mask.to(dtype),
                           torch.zeros_like(z[:, 0])], dim=1)
@@ -386,14 +419,18 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
     log_norm = torch.log(norm)                                 # [P, M]
     w_birth = torch.where(z_mask, cfg.birth_weight / norm, 0.0)
     w_nd = torch.where(in_m, weight * (1.0 - pre.pd), 0.0)
-    b_mean, b_cov = measurement.birth_mean_cov(pose_b, z, cfg)
+    b_mean, b_cov = birth_mean_cov(pose_b, z, cfg, D)
 
-    # cluster-process weighting: sum of log normalizers minus the predicted
-    # cardinality (pd-scaled persistent weights + one birth weight per z)
-    n_valid_z = z_mask.to(dtype).sum()
-    card_pred = torch.where(in_m, pre.pd * weight, 0.0).sum(dim=1) \
-        + n_valid_z * cfg.birth_weight
-    dlog_w = torch.where(z_mask, log_norm, 0.0).sum(dim=1) - card_pred
+    # Vo's empty-map weighting sums the normalized detection terms: from
+    # the detect kernel's row sums (sum_k pdw = norm - clutter - birth) on
+    # the det route, from the pdw grid on the top-cap lane route
+    cn_det = None
+    if cfg.particle_weighting != 0:
+        cn_det = (((norm - cfg.clutter_density - cfg.birth_weight) / norm)
+                  .sum(dim=1) if det_route
+                  else (pdw.sum(dim=-1) / norm).sum(dim=1))
+    dlog_w = particle_dlogw(cfg, in_m, pre.pd, weight, z_mask, log_norm,
+                            w_nd, cn_det, w_birth)
 
     # nearly-in-range features are never pruned
     act_a = (in_m & (w_nd >= min_fw)) | near_m
@@ -449,6 +486,7 @@ def _update_pre(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig):
             m_src, k_src = fl // K, fl % K
     s2 = None
     if cfg.particle_weighting == 2:
+        n_valid_z = z_mask.to(dtype).sum()
         s2 = dict(max_like=like[rows, fl],
                   x_star=ekf.ekf_detection_means_at(pre, mean, z, m_src,
                                                     k_src),
@@ -521,19 +559,31 @@ def merge_packed(packed, D, cfg: SlamConfig, out_cap):
             out = merge2d(packed, float(cfg.min_separation), out_cap,
                           metric=cfg.distance_metric)
         else:
-            out = merge4d(packed, float(cfg.min_separation), out_cap)
+            out = merge4d(packed, float(cfg.min_separation), out_cap,
+                          metric=cfg.distance_metric)
         return merge_out(out, D)
 
 
 def merge_full_grid(packed, cfg: SlamConfig, out_cap):
-    """Greedy merge of full-grid candidate planes [P, 7, N] in any lane
-    order: the argmax-mode 2D kernel, as the JAX version's
-    ``merge_batch_dispatch(sorted_prefix=False)`` runs it. Returns the
-    merge tuple."""
+    """Greedy merge of candidate planes [P, C, N] in any lane order (the
+    full grid; the mixed per-particle route's maps), as the JAX version's
+    ``merge_batch_dispatch(sorted_prefix=False)`` and ``merge_dispatch``
+    run it: the argmax-mode 2D or 4D kernel (Mahalanobis; 2D
+    Hellinger too), or, for the 4D Hellinger merge that the JAX version
+    runs in XLA's gm_merge, the lanes sorted weight-descending first and
+    the sorted-mode kernel (the same principals, XLA's contract). Returns
+    the merge tuple."""
+    D = MERGE_DIMS[packed.shape[1]]
+    sep, metric = float(cfg.min_separation), cfg.distance_metric
     with record_function("phd.merge"):
-        return merge_out(merge2d(packed, float(cfg.min_separation), out_cap,
-                                 sorted_w=False,
-                                 metric=cfg.distance_metric), 2)
+        if D == 2:
+            return merge_out(merge2d(packed, sep, out_cap, sorted_w=False,
+                                     metric=metric), 2)
+        if metric == 0:
+            return merge_out(merge4d(packed, sep, out_cap, sorted_w=False),
+                             4)
+        return merge_out(merge4d(sort_planes(packed, D), sep, out_cap,
+                                 metric=1), 4)
 
 
 def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
@@ -577,13 +627,14 @@ def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
                         0.0)
     w_birth = torch.where(z_mask, torch.exp(log_bw - log_norm), 0.0)
     w_nd = torch.where(in_m, weight * (1.0 - pre.pd), 0.0)
-    b_mean, b_cov = measurement.birth_mean_cov(pose_b, z, cfg)
+    b_mean, b_cov = birth_mean_cov(pose_b, z, cfg, D)
 
-    # cluster-process weighting, as on the det route
-    n_valid_z = z_mask.to(dtype).sum()
-    card_pred = torch.where(in_m, pre.pd * weight, 0.0).sum(dim=1) \
-        + n_valid_z * cfg.birth_weight
-    dlog_w = torch.where(z_mask, log_norm, 0.0).sum(dim=1) - card_pred
+    # the particle weighting, as on the det route (Vo's sums the
+    # normalized grid)
+    dlog_w = particle_dlogw(
+        cfg, in_m, pre.pd, weight, z_mask, log_norm, w_nd,
+        None if cfg.particle_weighting == 0 else w_det.sum(dim=(1, 2)),
+        w_birth)
 
     min_fw = cfg.min_feature_weight
     act_a = (in_m & (w_nd >= min_fw)) | near_m
@@ -611,23 +662,24 @@ def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
 
 
 def full_grid_planes(ws, acts, means, covs):
-    """Merge planes [P, 7, N] of lane blocks concatenated in order (each
-    block's weights / actives [P, ...], means [P, ..., 2], covariances
-    [P, ..., 2, 2], flattened to [P, n_b]): w, act, mean x, mean y,
-    cov 00, 01, 11, inactive lanes sanitized to w 0, mean 0, identity
-    covariance (masked lanes can hold non-finite values, such as births
-    from padded zero measurements)."""
+    """Merge planes [P, 2 + D + D(D+1)/2, N] of lane blocks concatenated
+    in order (each block's weights / actives [P, ...], means [P, ..., D],
+    covariances [P, ..., D, D], flattened to [P, n_b]): w, act, the means,
+    the upper-triangle covariances, inactive lanes sanitized to w 0,
+    mean 0, identity covariance (masked lanes can hold non-finite values,
+    such as births from padded zero measurements)."""
     P = ws[0].shape[0]
+    D = means[0].shape[-1]
 
     def cat(blocks):
         return torch.cat([b.reshape(P, -1) for b in blocks], dim=1)
     act = cat(acts)
     planes = [torch.where(act, cat(ws), 0.0), act.to(ws[0].dtype)]
     planes += [torch.where(act, cat([m[..., i] for m in means]), 0.0)
-               for i in range(2)]
+               for i in range(D)]
     planes += [torch.where(act, cat([c[..., a, b] for c in covs]),
                            1.0 if a == b else 0.0)
-               for a, b in ((0, 0), (0, 1), (1, 1))]
+               for a in range(D) for b in range(a, D)]
     return torch.stack(planes, dim=1)
 
 
@@ -643,9 +695,10 @@ def _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
     bits = dict(out_m=pre["out_m"], dlog_w=pre["dlog_w"],
                 n_compact=pre["n_compact"], s2=pre["s2"])
     if not cfg.compute_variance:
-        # the fused route as the JAX version gates it: not over
-        # consolidated rows, which take the two-kernel route
-        fused = bool(cfg.fused_gather_merge) and not g["cons"]
+        # the fused route as the JAX version gates it: the 2D map only,
+        # not over consolidated rows, which take the two-kernel route
+        fused = bool(cfg.fused_gather_merge) and not g["cons"] \
+            and mean.shape[-1] == 2
         return gather_merge(g, mean.shape[-1], cfg, out_cap,
                             fused=fused), bits, None
     # the estimator reads the selected planes, so the two-kernel route
@@ -714,16 +767,25 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
     full-grid route). Returns (new_mean, new_cov, new_w, dlog_w,
     overflow [P]) and, with compute_variance, the variance [P] as a sixth,
     as the JAX version does."""
-    K, M = mean.shape[-2], z.shape[0]
+    K, M, D = mean.shape[-2], z.shape[0], mean.shape[-1]
     check_supported(cfg, K, M)
     if cfg.compute_variance and var_draw is None:
         raise ValueError("compute_variance: the step's noise carries no "
                          "variance draws (StepNoise.var_draw)")
-    if uses_full_grid(cfg, K, M):
+    full = uses_full_grid(cfg, K, M)
+    if full or (cfg.compute_variance and D != 2):
+        # the full grid; or, for the 4D map's variance, the JAX version's
+        # per-particle route: the estimator over the full grid, then the
+        # top-cap compaction and the sorted-mode merge
         with record_function("phd.pre"):
             bits = _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg,
                                     var_draw)
-        mg = merge_full_grid(bits["packed"], cfg, K)
+        if full:
+            mg = merge_full_grid(bits["packed"], cfg, K)
+        else:
+            *cand, bits["n_compact"] = compact_candidates(
+                *unpack_planes(bits["packed"], D), cfg.merge_candidate_cap)
+            mg = merge_packed(pack_planes(*cand), D, cfg, K)
         variance = bits["variance"]
     else:
         mg, bits, variance = _pre_merge_phase(
@@ -737,7 +799,9 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
 def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None,
            var_draw=None):
     """Measurement update over all particles; returns (state, overflow).
-    The mixed model (feature_model 2) updates both maps jointly; the CPHD
+    The static pipeline updates the static map (feature_model 0) or the
+    dynamic-only 4D map (1); the mixed model (2) updates both jointly; the
+    CPHD
     filter (filter_type 1) runs ``filters/cphd.py::cphd_update`` with
     ``consts`` (built from cfg when None). With compute_variance the
     static PHD update also estimates each particle's map variance from the
@@ -750,14 +814,16 @@ def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None,
     if cfg.feature_model == 2:
         from .mixed import mixed_update
         return mixed_update(state, z, z_mask, cfg)
-    gm = state.map_static
+    gm = state.map_dynamic if cfg.feature_model == 1 else state.map_static
     new_mean, new_cov, new_w, dlog_w, overflow, *var = _batched_update(
         state.pose, gm.mean, gm.cov, gm.weight, z, z_mask, cfg, var_draw)
     log_w = state.log_weight + dlog_w
     log_w = log_w - logsumexp(log_w, dim=0)
+    new_gm = GMState(mean=new_mean, cov=new_cov, weight=new_w)
     state = state.replace(
-        map_static=GMState(mean=new_mean, cov=new_cov, weight=new_w),
-        log_weight=log_w, variance=var[0] if var else state.variance)
+        log_weight=log_w, variance=var[0] if var else state.variance,
+        **{"map_dynamic" if cfg.feature_model == 1 else "map_static":
+           new_gm})
     return state, torch.amax(overflow)
 
 
@@ -767,16 +833,17 @@ def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None,
 
 def extract(state: FilterState, cfg: SlamConfig):
     """Expected pose + the map estimate: the MAP map (the static map of the
-    heaviest particle, for the mixed model too; argmax ties go to the
+    heaviest particle, for the mixed model too, its dynamic map for the
+    dynamic-only model (feature_model 1); argmax ties go to the
     lowest index, as in the JAX version) or, under EAP extraction
-    (:func:`uses_eap`), the EAP tree over every particle's static map
+    (:func:`uses_eap`), the EAP tree over every particle's map
     (``filters/extras.py::eap_expected_map``) on the steps where
     ``state.step % eap_every == 0`` and the MAP map in between. The step
     count lives on the host, so the choice reads nothing from the
     device."""
     w = torch.exp(state.log_weight)
     expected_pose = w @ state.pose
-    gm = state.map_static
+    gm = state.map_dynamic if cfg.feature_model == 1 else state.map_static
     if uses_eap(cfg) and state.step % max(1, cfg.eap_every) == 0:
         return expected_pose, eap_expected_map(gm, state.log_weight, cfg)
     i = torch.argmax(state.log_weight)
@@ -797,7 +864,8 @@ def take_particles(state: FilterState, idx) -> FilterState:
         pose=state.pose[idx], log_weight=state.log_weight[idx],
         map_static=take_gm(state.map_static),
         map_dynamic=take_gm(state.map_dynamic),
-        cardinality=take(state.cardinality), variance=take(state.variance))
+        cardinality=take(state.cardinality), variance=take(state.variance),
+        prev_z=take(state.prev_z))
 
 
 def _log_count(n, like):
@@ -846,6 +914,7 @@ def expand_particles(state: FilterState, k: int) -> FilterState:
         map_static=rep_gm(state.map_static),
         map_dynamic=rep_gm(state.map_dynamic),
         cardinality=rep(state.cardinality), variance=rep(state.variance),
+        prev_z=rep(state.prev_z),
         resample_idx=torch.arange(n, dtype=torch.int32,
                                   device=state.pose.device))
 

@@ -59,13 +59,12 @@ _SIGNATURES = {
                            _I, _P],
     # P, N, argmax, metric, tables, out int[7] (the launch plan)
     "phd_merge2d_plan": [_I, _I, _I, _I, _I, _P],
-    # packed, out, P, N, K, min_separation, stream
-    "phd_merge3d": [_P, _P, _I, _I, _I, _F, _P],
-    # packed, out, P, N, K, min_separation, stream
-    "phd_merge4d": [_P, _P, _I, _I, _I, _F, _P],
-    # P, N, out int[7] (the launch plan)
-    "phd_merge3d_plan": [_I, _I, _P],
-    "phd_merge4d_plan": [_I, _I, _P],
+    # packed, out, P, N, K, min_separation, argmax, metric, stream
+    "phd_merge3d": [_P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "phd_merge4d": [_P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # P, N, argmax, metric, out int[7] (the launch plan)
+    "phd_merge3d_plan": [_I, _I, _I, _I, _P],
+    "phd_merge4d_plan": [_I, _I, _I, _I, _P],
     # pairs, seed, mode, counts int64[3], stream (merge_core_check.cu)
     "phd_merge_recip_check": [ctypes.c_ulonglong, ctypes.c_ulonglong, _I,
                               _P, _P],

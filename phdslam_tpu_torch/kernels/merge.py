@@ -7,9 +7,14 @@ paths' top-cap-compacted, weight-descending lanes) or False (argmax
 principal over any lane order: the full candidate grid), Mahalanobis or
 Hellinger metric. ``merge3d`` replaces ``_merge_kernel_3d`` (entry
 ``gm_merge_pallas_batch_3d``) and ``merge4d`` replaces ``_merge_kernel_4d``
-(entry ``gm_merge_pallas_batch_packed_4d``), both as the fast paths call
-them: sorted_w=True, Mahalanobis metric (in the closed forms of
-``ops/math.py::mahalanobis2_3d`` and ``mahalanobis2_4d``).
+(entries ``gm_merge_pallas_batch_packed_4d`` and, in argmax mode,
+``gm_merge_pallas_one_4d``), in the closed forms of
+``ops/math.py::mahalanobis2_3d`` and ``mahalanobis2_4d``: sorted_w=True
+as the fast paths call them, and for merge4d also sorted_w=False (the
+argmax mode of the mixed model's per-particle route, "merge4d_argmax").
+Both also take the Hellinger metric on sorted lanes ("merge3d_hellinger",
+"merge4d_hellinger"), which the JAX package runs in XLA's gm_merge at
+D = 3 and 4 (``ops/gm_merge.py`` says which contract holds).
 
 Input planes [P, C, N]: w, act, the D mean planes, the D(D+1)/2 upper-
 triangle covariance planes (C = 7 at D = 2, 11 at D = 3, 16 at D = 4),
@@ -77,20 +82,22 @@ def merge2d_plan(P: int, N: int, sorted_w: bool = True, metric: int = 0,
     return plan
 
 
-def merge_plan(D: int, P: int, N: int, device=None) -> dict:
-    """The launch plan of merge3d (D = 3) or merge4d (D = 4) for P
-    particles of N lanes on a CUDA device (csrc/merge_core.cuh::plan), in
-    merge2d_plan's keys: threads a block, lanes a block keeps in shared
+def merge_plan(D: int, P: int, N: int, device=None, sorted_w: bool = True,
+               metric: int = 0) -> dict:
+    """The launch plan of a merge3d (D = 3) or merge4d (D = 4) variant for
+    P particles of N lanes on a CUDA device (csrc/merge_core.cuh::plan),
+    in merge2d_plan's keys: threads a block, lanes a block keeps in shared
     memory (N), dynamic shared memory a block (bytes), resident blocks an
     SM, overflow (0), registers a thread, waves. Cached."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    key = (index, P, N, D)
+    key = (index, P, N, D, bool(sorted_w), int(metric))
     plan = _plans.get(key)
     if plan is None:
         out = (ctypes.c_int * len(PLAN_KEYS))()
         with torch.cuda.device(index):
-            err = getattr(build.library(), f"phd_merge{D}d_plan")(P, N, out)
+            err = getattr(build.library(), f"phd_merge{D}d_plan")(
+                P, N, int(not sorted_w), int(metric), out)
         build.check_launch(err, f"merge{D}d plan")
         plan = _plans[key] = dict(zip(PLAN_KEYS, out))
     return plan
@@ -115,14 +122,21 @@ def recip_check(n: int, seed: int = 0, mode: int = 0, device=None) -> dict:
 
 
 def merge2d_variant(sorted_w: bool = True, metric: int = 0,
-                    tables: bool = False) -> str:
-    """The launch-count name of a merge2d variant: "merge2d" (sorted,
+                    tables: bool = False, D: int = 2) -> str:
+    """The launch-count name of a merge variant: "merge2d" (sorted,
     Mahalanobis), "merge2d_argmax", "merge2d_hellinger",
-    "merge2d_argmax_hellinger", and the fused route's "merge2d_tables",
-    "merge2d_tables_hellinger"."""
-    return "merge2d" + ("_tables" if tables else "") \
+    "merge2d_argmax_hellinger", the fused route's "merge2d_tables",
+    "merge2d_tables_hellinger", and at D = 3 and 4 "merge3d",
+    "merge3d_hellinger", "merge4d", "merge4d_argmax", "merge4d_hellinger"
+    (the variants built, :data:`VARIANTS_3D4D`)."""
+    return f"merge{D}d" + ("_tables" if tables else "") \
         + ("" if sorted_w else "_argmax") \
         + ("_hellinger" if metric == 1 else "")
+
+
+# the merge3d and merge4d variants built: D -> ((sorted_w, metric), ...)
+VARIANTS_3D4D = {3: ((True, 0), (True, 1)),
+                 4: ((True, 0), (False, 0), (True, 1))}
 
 
 def _reference(packed, min_separation, out_cap, D, sorted_w=True, metric=0):
@@ -141,16 +155,19 @@ def merge2d_reference(packed, min_separation: float, out_cap: int,
     return _reference(packed, min_separation, out_cap, 2, sorted_w, metric)
 
 
-def merge3d_reference(packed, min_separation: float, out_cap: int):
+def merge3d_reference(packed, min_separation: float, out_cap: int,
+                      metric: int = 0):
     """Plain PyTorch twin of merge3d: ``ops/gm_merge.py::gm_merge_batch``
-    on [P, 11, N] planes."""
-    return _reference(packed, min_separation, out_cap, 3)
+    on [P, 11, N] planes, Mahalanobis (``metric`` 0) or Hellinger (1)."""
+    return _reference(packed, min_separation, out_cap, 3, True, metric)
 
 
-def merge4d_reference(packed, min_separation: float, out_cap: int):
+def merge4d_reference(packed, min_separation: float, out_cap: int,
+                      sorted_w: bool = True, metric: int = 0):
     """Plain PyTorch twin of merge4d: ``ops/gm_merge.py::gm_merge_batch``
-    on [P, 16, N] planes."""
-    return _reference(packed, min_separation, out_cap, 4)
+    on [P, 16, N] planes, in sorted (``sorted_w``) or argmax mode
+    (Mahalanobis), or sorted with the Hellinger distance (``metric`` 1)."""
+    return _reference(packed, min_separation, out_cap, 4, sorted_w, metric)
 
 
 def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0):
@@ -167,21 +184,19 @@ def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0):
     build.require(N <= MAX_CANDIDATES[D] and out_cap > 0,
                   f"{name}: N={N} (max {MAX_CANDIDATES[D]}), "
                   f"out_cap={out_cap}")
-    build.require(metric in (0, 1) and (D == 2 or (sorted_w and metric == 0)),
-                  f"{name}: sorted_w={sorted_w}, metric={metric} not built")
+    build.require(metric in (0, 1) and (
+        D == 2 or (bool(sorted_w), metric) in VARIANTS_3D4D[D]),
+        f"{name}: sorted_w={sorted_w}, metric={metric} not built")
     out = torch.empty((P, c_out, out_cap), dtype=torch.float32,
                       device=packed.device)
     if P == 0:
         return out
-    args = [packed.data_ptr(), out.data_ptr(), P, N, out_cap,
-            float(min_separation)]
-    if D == 2:
-        args += [int(not sorted_w), int(metric)]
     fn = getattr(build.library(), f"phd_{name}")
-    err = fn(*args, build.stream_handle(packed.device))
+    err = fn(packed.data_ptr(), out.data_ptr(), P, N, out_cap,
+             float(min_separation), int(not sorted_w), int(metric),
+             build.stream_handle(packed.device))
     build.check_launch(err, name)
-    build.launch_counts[merge2d_variant(sorted_w, metric) if D == 2
-                        else name] += 1
+    build.launch_counts[merge2d_variant(sorted_w, metric, D=D)] += 1
     return out
 
 
@@ -197,25 +212,27 @@ def merge2d(packed, min_separation: float, out_cap: int,
     return _launch(packed, min_separation, out_cap, 2, sorted_w, metric)
 
 
-def merge3d(packed, min_separation: float, out_cap: int):
+def merge3d(packed, min_separation: float, out_cap: int, metric: int = 0):
     """Greedy 3D (u, v, d) merge; same contract as
     :func:`merge3d_reference`.
 
     A CPU tensor runs the twin; a CUDA tensor launches the kernel.
     """
     if packed.device.type == "cpu":
-        return merge3d_reference(packed, min_separation, out_cap)
-    return _launch(packed, min_separation, out_cap, 3)
+        return merge3d_reference(packed, min_separation, out_cap, metric)
+    return _launch(packed, min_separation, out_cap, 3, True, metric)
 
 
-def merge4d(packed, min_separation: float, out_cap: int):
+def merge4d(packed, min_separation: float, out_cap: int,
+            sorted_w: bool = True, metric: int = 0):
     """Greedy 4D merge; same contract as :func:`merge4d_reference`.
 
     A CPU tensor runs the twin; a CUDA tensor launches the kernel.
     """
     if packed.device.type == "cpu":
-        return merge4d_reference(packed, min_separation, out_cap)
-    return _launch(packed, min_separation, out_cap, 4)
+        return merge4d_reference(packed, min_separation, out_cap, sorted_w,
+                                 metric)
+    return _launch(packed, min_separation, out_cap, 4, sorted_w, metric)
 
 
 def tables_packed(ints, flts, t_k, t_m):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.math import logistic
+
 
 def constant_velocity_predict(mean, cov, std_ax, std_ay, dt, scale_x,
                               scale_y):
@@ -42,10 +44,14 @@ def constant_velocity_predict(mean, cov, std_ax, std_ay, dt, scale_x,
 
 
 def mixed_model_predict(mean, cov, weight, cfg, dt):
-    """Jump-Markov mixed static/dynamic prediction of the 4D dynamic map
-    (feature_model 2): the probability of staying dynamic is the speed
-    sigmoid p_jmm = 1 / (1 + exp(beta (tau - |v|))), survival is cfg.ps,
-    and the CV model runs unscaled.
+    """Jump-Markov prediction of the 4D dynamic map.
+
+    Mixed model (feature_model 2): the probability of staying dynamic is
+    the speed sigmoid p_jmm = 1 / (1 + exp(beta (tau - |v|))), survival
+    is cfg.ps, and the CV model runs unscaled. Dynamic-only model
+    (feature_model 1): p_jmm = 1, survival 1 - logistic(|v|, 0, 1 - ps,
+    beta, tau), and the CV process noise scaled per axis by
+    logistic(v_x), logistic(v_y) (0 to 1).
 
     Returns the predicted dynamic map (weights p_jmm ps w) and the 2D jump
     copies (weights (1 - p_jmm) w), which the filter computes and drops
@@ -54,11 +60,17 @@ def mixed_model_predict(mean, cov, weight, cfg, dt):
     vx = mean[..., 2]
     vy = mean[..., 3]
     v_mag = torch.sqrt(vx * vx + vy * vy)
-    p_jmm = 1.0 / (1.0 + torch.exp(cfg.beta * (cfg.tau - v_mag)))
-    ps = torch.full_like(v_mag, cfg.ps)
-    ones = torch.ones_like(v_mag)
+    if cfg.feature_model == 1:
+        p_jmm = torch.ones_like(v_mag)
+        ps = 1.0 - logistic(v_mag, 0.0, 1.0 - cfg.ps, cfg.beta, cfg.tau)
+        scale_x = logistic(vx, 0.0, 1.0, cfg.beta, cfg.tau)
+        scale_y = logistic(vy, 0.0, 1.0, cfg.beta, cfg.tau)
+    else:
+        p_jmm = 1.0 / (1.0 + torch.exp(cfg.beta * (cfg.tau - v_mag)))
+        ps = torch.full_like(v_mag, cfg.ps)
+        scale_x = scale_y = torch.ones_like(v_mag)
     mean_new, cov_new = constant_velocity_predict(
-        mean, cov, cfg.std_ax_map, cfg.std_ay_map, dt, ones, ones)
+        mean, cov, cfg.std_ax_map, cfg.std_ay_map, dt, scale_x, scale_y)
     weight_new = p_jmm * ps * weight
     jump = (mean[..., :2], cov[..., :2, :2], (1.0 - p_jmm) * weight)
     return (mean_new, cov_new, weight_new), jump

@@ -107,3 +107,25 @@ def birth_mean_cov_4d(pose, z, cfg):
     cov[..., 2, 2] = cfg.cov_vx_birth
     cov[..., 3, 3] = cfg.cov_vy_birth
     return mean, cov
+
+
+def seed_birth_velocity(b_mean_d, prev_z, z_mask, cfg):
+    """Two-scan velocity initialization of the 4D dynamic births
+    (birth_velocity_init): ``b_mean_d`` [..., M, 4] (world x, y, 0, 0),
+    ``prev_z`` [..., Mp, 3] the previous scan's world positions (x, y,
+    valid) of the same particles. A birth's velocity becomes (p - q) / dt
+    for the nearest valid previous point q (argmin ties to the lowest
+    index) within birth_velocity_max * dt, dt the nominal scan interval
+    cfg.dt; it stays zero otherwise and on padded measurements."""
+    dt = max(float(cfg.dt), 1e-6)
+    p = b_mean_d[..., :2]                                  # [..., M, 2]
+    q = prev_z[..., :2]                                    # [..., Mp, 2]
+    valid = prev_z[..., 2] > 0.5
+    d2 = ((p[..., :, None, :] - q[..., None, :, :]) ** 2).sum(dim=-1)
+    d2 = torch.where(valid[..., None, :], d2, torch.inf)
+    dmin2, j = torch.min(d2, dim=-1)                       # first minimum
+    gate = cfg.birth_velocity_max * dt
+    ok = z_mask & (dmin2 <= gate * gate)
+    qj = torch.gather(q, -2, j[..., None].expand(j.shape + (2,)))
+    v = torch.where(ok[..., None], (p - qj) / dt, 0.0)
+    return torch.cat([b_mean_d[..., :2], v], dim=-1)

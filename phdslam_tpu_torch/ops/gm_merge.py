@@ -8,8 +8,20 @@ with averaged covariance, or the 2D Hellinger distance), emit their
 moment-matched merge and mark them merged. :func:`gm_merge_batch` is the plain PyTorch form, batched over
 particles, for 2D static, 3D disparity (u, v, d) and 4D constant-velocity
 features; it is the twin of the CUDA merge kernels (kernels/merge.py).
-The 3D and 4D distances are the JAX merge kernels' closed forms
-(``ops/math.py::mahalanobis2_3d``, ``mahalanobis2_4d``).
+The 3D and 4D Mahalanobis distances are the JAX merge kernels' closed forms
+(``ops/math.py::mahalanobis2_3d``, ``mahalanobis2_4d``); the Hellinger
+distance (``ops/math.py::hellinger2``) holds at D = 2, 3 and 4.
+
+Which contract holds where: the JAX package merges 3D and 4D mixtures with
+the Hellinger distance in XLA (its ``gm_merge``; no Pallas kernel has that
+metric there), and the port's default (sorted) contract is XLA's: only
+active lanes with w > 0 enter, the heaviest unmerged lane leads (ties to
+the lowest lane), and the lanes left when ``out_cap`` clusters are out are
+counted. The port runs those paths (the mixed model's dynamic map, the
+dynamic-only 4D map and the disparity map at distance_metric 1) on
+weight-sorted lanes through the sorted-mode kernels, so it follows XLA
+there, not the Pallas argmax mode, where the two differ in the leftover
+count (w <= 0 lanes) and in rows holding NaN weights.
 
 Sorts are stable with the JAX version's key order (``lax.sort`` is stable),
 so ties resolve to the lowest lane index exactly as there.
@@ -32,7 +44,7 @@ def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap,
     out_weight [P, out_cap], n_merged [P], n_dropped [P]). Empty slots have
     weight 0, mean 0 and identity covariance; ``n_dropped`` counts the
     candidates left unmerged when ``out_cap`` clusters were out.
-    ``distance_metric`` 1 selects the Hellinger distance (D = 2).
+    ``distance_metric`` 1 selects the Hellinger distance (any D).
 
     The default is the contract of the sorted-mode merge kernels: NaN and
     w <= 0 lanes never enter. ``argmax=True`` is the contract of the 2D
@@ -46,7 +58,6 @@ def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap,
     P, N, D = mean.shape
     dev, dtype = mean.device, mean.dtype
     if distance_metric == 1:
-        assert D == 2, "the Hellinger distance is 2D"
         distance = hellinger2
     else:
         distance = {2: mahalanobis2, 3: mahalanobis2_3d,
@@ -99,6 +110,9 @@ def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap,
     return out_mean, out_cov, out_w, count, n_dropped
 
 
+MERGE_DIMS = {7: 2, 11: 3, 16: 4}      # input planes -> D
+
+
 def _cov_from_planes(planes, D):
     """Upper-triangle planes (row-major order) -> symmetric [..., D, D]."""
     full = [[None] * D for _ in range(D)]
@@ -120,6 +134,26 @@ def unpack_planes(packed, D):
     cov = _cov_from_planes([packed[:, 2 + D + i]
                             for i in range(D * (D + 1) // 2)], D)
     return mean, cov, weight, active
+
+
+def pack_planes(mean, cov, weight, active):
+    """(mean [P, N, D], cov [P, N, D, D], weight [P, N], active [P, N])
+    -> candidate planes [P, 2 + D + D(D+1)/2, N], the inverse of
+    :func:`unpack_planes`."""
+    D = mean.shape[-1]
+    planes = [weight, active.to(weight.dtype)]
+    planes += [mean[..., i] for i in range(D)]
+    planes += [cov[..., a, b] for a in range(D) for b in range(a, D)]
+    return torch.stack(planes, dim=1)
+
+
+def sort_planes(packed, D):
+    """Candidate planes with every particle's lanes in
+    :func:`sort_candidates`' order (heaviest active first, ties to the
+    lowest lane; lanes past the live ones as w 0, mean 0, identity
+    covariance): the input of a sorted-mode kernel that picks the
+    principals an argmax merge would."""
+    return pack_planes(*sort_candidates(*unpack_planes(packed, D)))
 
 
 def pack_merge_out(om, oc, ow, n_dropped):

@@ -154,8 +154,12 @@ def mahalanobis2_4d(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
     replaced by 1e-30 where its magnitude is not above 1e-30. Only 2x2
     closed-form inverses appear, in the kernel's operation order.
     """
-    s = 0.5 * (cov_a + cov_b)
-    d = mean_a - mean_b
+    return _schur4_quad(0.5 * (cov_a + cov_b), mean_a - mean_b)
+
+
+def _schur4_quad(s, d) -> torch.Tensor:
+    """d' s^-1 d of 4x4 matrices s in :func:`mahalanobis2_4d`'s Schur
+    form."""
     s00, s01, s02, s03 = s[..., 0, 0], s[..., 0, 1], s[..., 0, 2], s[..., 0, 3]
     s11, s12, s13 = s[..., 1, 1], s[..., 1, 2], s[..., 1, 3]
     s22, s23, s33 = s[..., 2, 2], s[..., 2, 3], s[..., 3, 3]
@@ -187,16 +191,60 @@ def mahalanobis2_4d(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
     return pap + (u0 * u0 * mi00 + 2.0 * u0 * u1 * mi01 + u1 * u1 * mi11)
 
 
+def _det3(s00, s01, s02, s11, s12, s22):
+    """Determinant of symmetric 3x3 matrices (cofactors along row 0)."""
+    return (s00 * (s11 * s22 - s12 * s12) - s01 * (s01 * s22 - s12 * s02)
+            + s02 * (s01 * s12 - s11 * s02))
+
+
+def _det4(s):
+    """Determinant of symmetric 4x4 matrices s [..., 4, 4] by the 2x2
+    minors of rows 0-1 and rows 2-3 (Laplace), as csrc/merge4d.cu::det4."""
+    r = [[s[..., i, j] for j in range(4)] for i in range(4)]
+
+    def minors(u, v):
+        return {(a, b): u[a] * v[b] - u[b] * v[a]
+                for a in range(4) for b in range(a + 1, 4)}
+    a, b = minors(r[0], r[1]), minors(r[2], r[3])
+    return (a[0, 1] * b[2, 3] - a[0, 2] * b[1, 3] + a[0, 3] * b[1, 2]
+            + a[1, 2] * b[0, 3] - a[1, 3] * b[0, 2] + a[2, 3] * b[0, 1])
+
+
+def _hell_tail(det_s, det_prod, quad_inv, quad_eye, D):
+    """The Hellinger distance's last steps (csrc/merge_core.cuh::
+    hell_tail): ``quad_inv`` is used where det(A + B) is above the
+    smallest normal f32, the identity's ``quad_eye`` elsewhere."""
+    ok = det_s > 1.1754944e-38
+    eps = -0.25 * torch.where(ok, quad_inv, quad_eye)
+    det_half = det_s / float(2 ** D)
+    ratio = torch.sqrt(torch.clamp_min(det_prod, 0.0)) \
+        / torch.clamp_min(det_half, 1e-30)
+    return 1.0 - torch.sqrt(torch.clamp_min(ratio, 0.0)) * torch.exp(eps)
+
+
 def hellinger2(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
-    """Hellinger-style distance of 2D Gaussians (the JAX package's
-    ``ops/math.py::hellinger2``):
+    """Hellinger-style distance of D-dimensional Gaussians, D = 2, 3 or 4
+    (the JAX package's dimension-generic ``ops/math.py::hellinger2``):
 
       1 - sqrt( sqrt(det A det B) / det((A + B) / 2) ) exp(-d'(A + B)^-1 d / 4)
 
-    in the closed form of its 2D merge kernel (``ops/pallas_merge.py::
-    _merge_core_2d``, ``pair_dist`` at metric 1), operation for operation,
     with the identity in place of (A + B)^-1 where det(A + B) is not above
-    the smallest normal f32."""
+    the smallest normal f32, sqrt(max(., 0)) and det((A + B) / 2) floored
+    at 1e-30. D = 2: the closed form of the 2D merge kernel
+    (``ops/pallas_merge.py::_merge_core_2d``, ``pair_dist`` at metric 1),
+    operation for operation. D = 3 and 4: the closed forms of
+    csrc/merge3d.cu and merge4d.cu (``Hell3``, ``Hell4``), operation for
+    operation, where the JAX version takes LU determinants and inverses
+    (``det_nd``, ``inv_nd``) and det(A B) of the product: det A det B by
+    cofactors (3D) or 2x2 minors (4D), the quadratic form through the
+    adjugate of A + B (3D) or in :func:`mahalanobis2_4d`'s Schur form of
+    A + B with its 1e-30 clamps (4D). The two agree to f32 rounding
+    away from singular covariances."""
+    D = mean_a.shape[-1]
+    if D == 3:
+        return _hellinger2_3d(mean_a, cov_a, mean_b, cov_b)
+    if D == 4:
+        return _hellinger2_4d(mean_a, cov_a, mean_b, cov_b)
     d = mean_a - mean_b
     dx, dy = d[..., 0], d[..., 1]
     a00, a01, a11 = cov_a[..., 0, 0], cov_a[..., 0, 1], cov_a[..., 1, 1]
@@ -216,6 +264,40 @@ def hellinger2(mean_a, cov_a, mean_b, cov_b) -> torch.Tensor:
     ratio = torch.sqrt(torch.clamp_min(det_prod, 0.0)) \
         / torch.clamp_min(det_half, 1e-30)
     return 1.0 - torch.sqrt(torch.clamp_min(ratio, 0.0)) * torch.exp(eps)
+
+
+def _upper3(c):
+    return (c[..., 0, 0], c[..., 0, 1], c[..., 0, 2], c[..., 1, 1],
+            c[..., 1, 2], c[..., 2, 2])
+
+
+def _hellinger2_3d(mean_a, cov_a, mean_b, cov_b):
+    d = mean_a - mean_b
+    d0, d1, d2 = d[..., 0], d[..., 1], d[..., 2]
+    # A + B in the kernel's order: candidate + principal, equal bits
+    s00, s01, s02, s11, s12, s22 = _upper3(cov_b + cov_a)
+    det_s = _det3(s00, s01, s02, s11, s12, s22)
+    j00 = s11 * s22 - s12 * s12
+    j01 = s02 * s12 - s01 * s22
+    j02 = s01 * s12 - s02 * s11
+    j11 = s00 * s22 - s02 * s02
+    j12 = s01 * s02 - s00 * s12
+    j22 = s00 * s11 - s01 * s01
+    q = (d0 * d0 * j00 + d1 * d1 * j11 + d2 * d2 * j22
+         + 2.0 * (d0 * d1 * j01 + d0 * d2 * j02 + d1 * d2 * j12))
+    quad_eye = d0 * d0 + d1 * d1 + d2 * d2
+    det_safe = torch.where(det_s > 1.1754944e-38, det_s, 1.0)
+    det_prod = _det3(*_upper3(cov_b)) * _det3(*_upper3(cov_a))
+    return _hell_tail(det_s, det_prod, q / det_safe, quad_eye, 3)
+
+
+def _hellinger2_4d(mean_a, cov_a, mean_b, cov_b):
+    d = mean_a - mean_b
+    s = cov_b + cov_a
+    quad_eye = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+        + d[..., 2] * d[..., 2] + d[..., 3] * d[..., 3]
+    return _hell_tail(_det4(s), _det4(cov_b) * _det4(cov_a),
+                      _schur4_quad(s, d), quad_eye, 4)
 
 
 def masked_logsumexp(logw: torch.Tensor, mask: torch.Tensor,

@@ -7,7 +7,8 @@ dynamic map exists only for the mixed model (feature_model 2) and the
 log cardinality distribution only for the CPHD filter (filter_type 1);
 each is None otherwise, so the static PHD path gathers nothing extra. The
 per-particle MC map variance (compute_variance) is zeros until an update
-estimates it. The two-scan birth memory of the JAX state is absent. The
+estimates it. The two-scan birth memory (``prev_z``) exists only for the
+mixed model with birth_velocity_init, as in the JAX state. The
 random stream lives in the runner's ``torch.Generator``, not
 in the state. :class:`DisparityState` is the monocular SC-PHD (disparity)
 filter's particle set: camera poses and per-feature clouds of world
@@ -56,12 +57,16 @@ class FilterState:
     map_static:   2D GM map per particle
     resample_idx: [P] ancestor indices of the last step
     step:         steps taken so far
-    map_dynamic:  4D (x, y, vx, vy) GM map per particle, feature_model 2
-                  only (None otherwise)
+    map_dynamic:  4D (x, y, vx, vy) GM map per particle, feature_model 1
+                  (the dynamic-only map) or 2 (None otherwise)
     cardinality:  [P, C+1] log cardinality distribution per particle,
                   filter_type 1 (CPHD) only (None otherwise)
     variance:     [P] MC map-variance estimates (compute_variance; zeros
                   otherwise)
+    prev_z:       [P, max_measurements, 3] the previous scan's measurement
+                  positions in world coordinates per particle (x, y,
+                  valid), for the mixed model's two-scan velocity births
+                  (birth_velocity_init; None otherwise)
     """
     pose: torch.Tensor
     log_weight: torch.Tensor
@@ -71,6 +76,7 @@ class FilterState:
     map_dynamic: Optional[GMState] = None
     cardinality: Optional[torch.Tensor] = None
     variance: Optional[torch.Tensor] = None
+    prev_z: Optional[torch.Tensor] = None
 
     def replace(self, **changes) -> "FilterState":
         return dataclasses.replace(self, **changes)
@@ -79,8 +85,9 @@ class FilterState:
 def init_state(cfg, n_particles: Optional[int] = None, device="cpu",
                dtype=torch.float32) -> FilterState:
     """All particles at the configured prior pose with empty maps (the
-    [P, K, 4] dynamic map only for feature_model 2) and, for the CPHD
-    filter, a uniform cardinality over 0..max_cardinality."""
+    [P, K, 4] dynamic map only for feature_model 1 and 2), for the CPHD
+    filter a uniform cardinality over 0..max_cardinality and, for the
+    mixed model with birth_velocity_init, an empty previous scan."""
     P = n_particles if n_particles is not None else cfg.n_particles
     K = cfg.max_components
     pose0 = torch.tensor(
@@ -99,9 +106,13 @@ def init_state(cfg, n_particles: Optional[int] = None, device="cpu",
         resample_idx=torch.arange(P, dtype=torch.int32, device=device),
         step=0,
         map_dynamic=(GMState.empty(P, K, 4, device, dtype)
-                     if cfg.feature_model == 2 else None),
+                     if cfg.feature_model in (1, 2) else None),
         cardinality=cardinality,
-        variance=torch.zeros((P,), dtype=dtype, device=device))
+        variance=torch.zeros((P,), dtype=dtype, device=device),
+        prev_z=(torch.zeros((P, cfg.max_measurements, 3), dtype=dtype,
+                            device=device)
+                if cfg.feature_model == 2 and cfg.birth_velocity_init
+                else None))
 
 
 def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
@@ -114,7 +125,8 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
     keys :func:`state_to_numpy` writes — and, for a state with a dynamic
     map, "dyn_mean", "dyn_cov" and "dyn_weight" (``map_dynamic.*``), for a
     CPHD state "cardinality"; "variance" (the JAX state's ``variance``)
-    when given, else zeros.
+    when given, else zeros; "prev_z" (the JAX state's ``prev_z``) for a
+    state that carries the two-scan birth memory.
     """
     def t(name, dtype):
         return torch.tensor(np.asarray(arrays[name]), dtype=dtype,
@@ -137,7 +149,8 @@ def state_from_jax(arrays: Mapping[str, np.ndarray], device="cpu"
                      if "cardinality" in arrays else None),
         variance=(t("variance", torch.float32) if "variance" in arrays
                   else torch.zeros(np.asarray(arrays["log_weight"]).shape,
-                                   dtype=torch.float32, device=device)))
+                                   dtype=torch.float32, device=device)),
+        prev_z=t("prev_z", torch.float32) if "prev_z" in arrays else None)
 
 
 def state_to_numpy(state: FilterState) -> dict:
@@ -153,6 +166,8 @@ def state_to_numpy(state: FilterState) -> dict:
         out.update(dyn_mean=dyn.mean, dyn_cov=dyn.cov, dyn_weight=dyn.weight)
     if state.cardinality is not None:
         out["cardinality"] = state.cardinality
+    if state.prev_z is not None:
+        out["prev_z"] = state.prev_z
     out = {k: v.detach().cpu().numpy() for k, v in out.items()}
     out["step"] = np.asarray(state.step, np.int32)
     return out

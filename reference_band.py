@@ -15,6 +15,15 @@ noise, so only the band, not a bitwise match, applies.
     JAX_PLATFORMS=cpu python reference_band.py cfg/dense.cfg \
         --particles 64 --seeds 0 --replay [--steps N]
 
+    JAX_PLATFORMS=cpu python reference_band.py mixed --particles 256 \
+        --seeds 0 1 2 3 4 --set mixed_fast_path=0
+
+``mixed`` in place of a config file runs the JAX package's mixed-world
+protocol instead (``phdslam_tpu.eval.parity.evaluate_mixed`` with the
+``--set`` values as its cfg_overrides: pose error, static and dynamic
+OSPA per seed), the runs ``chip_smoke.py`` sets the port's mixed option
+runs beside.
+
 ``--replay`` runs the JAX package's step and the port's (its kernels'
 plain twins, on the CPU) side by side over the dataset from the same
 initial state with JAX's draws, each carrying its own state, and prints
@@ -111,19 +120,44 @@ def replay(cfg_path, P, seed, n_steps, extra):
              else f"first differ at step {split}"), flush=True)
 
 
+def mixed_band(P, seeds, extra):
+    """The JAX package's evaluate_mixed over the seeds with the overrides
+    ``extra``: one line per seed, then each metric's mean and standard
+    deviation over the seeds that have it (a run whose movers all left
+    the sensor's range has no dynamic OSPA)."""
+    from phdslam_tpu.eval.parity import evaluate_mixed
+    keys = ("mean_pose_err", "static_ospa", "dynamic_ospa")
+    rows = []
+    for seed in seeds:
+        t0 = time.perf_counter()
+        r = evaluate_mixed(seed=seed, n_particles=P, cfg_overrides=extra)
+        rows.append([float(r[k]) for k in keys])
+        print(f"mixed {extra} P={P} seed {seed}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in zip(keys, rows[-1]))
+            + f", {time.perf_counter() - t0:.0f} s", flush=True)
+    rows = np.asarray(rows)
+    print(f"mixed band over seeds {list(seeds)}: " + ", ".join(
+        f"{k} {np.nanmean(rows[:, i]):.4f} +- {np.nanstd(rows[:, i]):.4f}"
+        for i, k in enumerate(keys)), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("cfg")
     ap.add_argument("--particles", type=int, default=512)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--steps", type=int, default=0)
-    ap.add_argument("--set", nargs="*", default=[], metavar="KEY=INT",
-                    help="integer config overrides, e.g. "
-                         "merge_candidate_cap=0")
+    ap.add_argument("--set", nargs="*", default=[], metavar="KEY=NUM",
+                    help="config overrides, e.g. merge_candidate_cap=0 or "
+                         "min_separation=0.6")
     ap.add_argument("--replay", action="store_true",
                     help="the port beside JAX on JAX's draws")
     args = ap.parse_args()
-    extra = {k: int(v) for k, v in (kv.split("=", 1) for kv in args.set)}
+    extra = {k: float(v) if "." in v else int(v)
+             for k, v in (kv.split("=", 1) for kv in args.set)}
+    if args.cfg == "mixed":
+        mixed_band(args.particles, args.seeds, extra)
+        return
     if args.replay:
         for seed in args.seeds:
             replay(args.cfg, args.particles, seed, args.steps, extra)

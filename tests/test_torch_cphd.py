@@ -41,7 +41,8 @@ from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch
 from phdslam_tpu.types import init_state as jax_init_state
 from phdslam_tpu_torch.config import SlamConfig
 from phdslam_tpu_torch.filters import cphd as tcphd
-from phdslam_tpu_torch.filters.phd import check_supported, update
+from phdslam_tpu_torch.filters.phd import (check_supported, update,
+                                           update_route)
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
                                              merge2d_variant)
@@ -447,18 +448,22 @@ def test_check_supported_routes():
                     merge_candidate_cap=0),
                dict(filter_type=0, particle_weighting=0, distance_metric=1),
                # a binding cap without stage 1: the top-cap lane route
-               dict(detection_topk=K)):
+               dict(detection_topk=K),
+               # the JAX CPHD update estimates no map variance: accepted,
+               # the variance stays zero
+               dict(compute_variance=True),
+               # the mixed model's CPHD update runs on its static map, as
+               # the JAX version's does
+               dict(feature_model=2, filter_type=1)):
         check_supported(dataclasses.replace(base, **kw), K, M)
+    # the full grid at M=64 but not at max_measurements=80: JAX's det
+    # route, which the port then takes too
+    kw = dict(merge_candidate_cap=K + 64 * K, max_measurements=80)
+    check_supported(dataclasses.replace(base, **kw), K, 64)
+    assert update_route(dataclasses.replace(base, **kw), K, 64) == "det"
     refused = {
-        # the JAX CPHD update estimates no map variance
-        "compute_variance": dict(compute_variance=True),
         "distance_metric": dict(distance_metric=2),
-        "filter_type": dict(feature_model=2, filter_type=1),
         "lanes": dict(merge_candidate_cap=0, max_features=128),
-        # the full grid at M=64 but not at max_measurements=80: JAX's det
-        # route
-        "max_measurements": dict(merge_candidate_cap=K + 64 * K,
-                                 max_measurements=80),
     }
     for match, kw in refused.items():
         with pytest.raises(NotImplementedError, match=match):

@@ -22,7 +22,11 @@ and above-budget cases, in both their modes. The detect kernel runs at
 the selection's edges (``detect_bench.DETECT_EDGES``) in all four
 variants, and the merge kernels at theirs (``merge_bench.MERGE_EDGES``:
 merge2d's four variants, merge2d_tables in both metrics, merge3d and
-merge4d), with the launch plan of every path's merge shape one wave. The resampling's fixed-order
+merge4d, merge4d's argmax mode and both Hellinger variants), with the
+launch plan of every path's merge shape one wave. merge4d's argmax mode
+runs on lanes in a random order with w <= 0 lanes, a NaN row and a
+binding out_cap, and the 3D / 4D Hellinger variants on sorted lanes, each
+against its twin. The resampling's fixed-order
 cumsum repeats its bits at P=10240.
 """
 
@@ -373,6 +377,92 @@ def test_merge4d_overflow_and_nan_weights(dev):
     assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
     assert int(got[3][0]) == 0 and int(got[4][0]) == 0
     assert (got[4][2:] > 0).all()          # ~20 clusters into 8 slots
+
+
+def _shuffled(planes, seed=0):
+    """The planes' lanes in a fixed random order (argmax mode's input)."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        planes.shape[2])).to(planes.device)
+    return planes[:, :, perm].contiguous()
+
+
+def _near_threshold(planes, D, sep, metric):
+    """Per particle: whether any pair of its entering lanes lies within
+    1e-5 (relative) of ``sep`` (a f32 decision there may go either way)."""
+    from phdslam_tpu_torch.ops.gm_merge import unpack_planes
+    from phdslam_tpu_torch.ops.math import (hellinger2, mahalanobis2_3d,
+                                            mahalanobis2_4d)
+    mean, cov, w, act = unpack_planes(planes.double(), D)
+    dist = hellinger2 if metric else {3: mahalanobis2_3d,
+                                      4: mahalanobis2_4d}[D]
+    d = dist(mean[:, :, None], cov[:, :, None], mean[:, None], cov[:, None])
+    both = act[:, :, None] & act[:, None]
+    return ((d - sep).abs() <= 1e-5 * sep).logical_and(both).flatten(1) \
+        .any(dim=1)
+
+
+@pytest.mark.parametrize("N", [128, 512])
+def test_merge4d_argmax_matches_twin(dev, N):
+    """merge4d's argmax mode (the mixed model's per-particle route) on
+    lanes in a random order, with w <= 0 active lanes, a NaN row and
+    out_cap binding, against the twin: equal counts, weights and means
+    rtol 1e-4 / atol 1e-5, covariances rtol 1e-3 / atol 1e-5 (a cluster
+    that absorbs negative weights divides a cancelling sum, whose
+    reassociation moves a term by ~3e-4 of it)."""
+    planes = _shuffled(merge4d_inputs(dev, P=64, N=N, seed=3))
+    planes[0, 0] = float("nan")                 # the row stalls
+    planes[1, 1] = 1.0                          # every lane active,
+    planes[1, 0, : N // 2] = -0.5               # half of them w < 0
+    planes[2, 1] = 1.0
+    planes[2, 0] = 0.0                          # nothing can lead
+    for K in (128, 8):
+        build.reset_launch_counts()
+        got = merge_out(merge4d(planes, 2.0, K, sorted_w=False), 4)
+        assert dict(build.launch_counts) == {"merge4d_argmax": 1}
+        want = merge_out(merge4d_reference(planes.cpu(), 2.0, K,
+                                           sorted_w=False), 4)
+        assert torch.equal(got[3].cpu(), want[3])
+        assert torch.equal(got[4].cpu(), want[4])
+        for g, w, rtol in zip(got[:3], want[:3], (1e-4, 1e-3, 1e-4)):
+            torch.testing.assert_close(g.cpu(), w, rtol=rtol, atol=1e-5)
+        assert int(got[3][0]) == 0 and int(got[4][0]) == 0
+        assert int(got[3][2]) == 0 and int(got[4][2]) == 0
+    assert (got[4][3:] > 0).any()               # K = 8 binds
+
+
+@pytest.mark.parametrize("D,N,K,sep", [(3, 512, 24, 0.6), (4, 128, 128, 0.6),
+                                       (4, 512, 16, 0.6)])
+def test_merge_hellinger_3d4d_matches_twin(dev, D, N, K, sep):
+    """merge3d's and merge4d's Hellinger variants on sorted lanes against
+    the twin (ops/math.py::hellinger2 at D = 3, 4): rtol 1e-4 / atol 1e-5
+    and equal counts in every particle with no pair of lanes within 1e-5
+    of min_separation (a few particles at these seeds have one; they are
+    left out, not failed)."""
+    planes = (merge3d_inputs(dev, P=256, N=N, seed=7) if D == 3
+              else merge4d_inputs(dev, P=256, N=N, seed=7))
+    kern, ref = (merge3d, merge3d_reference) if D == 3 else (merge4d,
+                                                              merge4d_reference)
+    build.reset_launch_counts()
+    got = merge_out(kern(planes, sep, K, metric=1), D)
+    assert dict(build.launch_counts) == {f"merge{D}d_hellinger": 1}
+    want = merge_out(ref(planes.cpu(), sep, K, metric=1), D)
+    ok = ~_near_threshold(planes.cpu(), D, sep, 1)
+    assert ok.sum() >= 240
+    assert torch.equal(got[3].cpu()[ok], want[3][ok])
+    assert torch.equal(got[4].cpu()[ok], want[4][ok])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g.cpu()[ok], w[ok], rtol=1e-4, atol=1e-5)
+    assert (want[3] > 1).all()                  # clusters formed
+
+
+@pytest.mark.parametrize("D,sorted_w,metric", [(4, False, 0), (4, True, 1),
+                                               (3, True, 1)])
+def test_merge3d4d_variant_plans(dev, D, sorted_w, metric):
+    """The new variants' launch plans at the paths' shapes: 64 threads,
+    every lane in shared memory, at least 4 blocks an SM."""
+    plan = merge_plan(D, 512, 512, dev, sorted_w=sorted_w, metric=metric)
+    assert plan["threads"] == 64 and plan["entries"] == 512, plan
+    assert plan["blocks_per_sm"] >= 4, plan
 
 
 @pytest.mark.parametrize("N", [512, 624])

@@ -510,9 +510,15 @@ def test_init_state_mixed_matches_jax():
     (dict(mixed_fast_path=0), "mixed_fast_path"),
 ])
 def test_check_supported_rejects_unported_mixed_options(override, name):
+    """The options this path once refused are ported now: check_supported
+    accepts each; all but the dynamic-only map (its own pipeline) and the
+    two-scan births (either route) take the per-particle route."""
+    from phdslam_tpu_torch.filters.mixed import uses_fast_route
     cfg = SlamConfig(**dict(MIXED, **override))
-    with pytest.raises(NotImplementedError, match=name):
-        check_supported(cfg, cfg.max_features, cfg.max_measurements)
+    check_supported(cfg, cfg.max_features, cfg.max_measurements)
+    assert getattr(cfg, name) == override[name]
+    assert uses_fast_route(cfg, cfg.max_features, cfg.max_measurements) \
+        == (name in ("feature_model", "birth_velocity_init"))
 
 
 # ----------------------------------------------------------------------------
