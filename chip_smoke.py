@@ -137,10 +137,12 @@ from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, MIXED_DT,
 from gather_bench import (GATHER_CASES, GATHER_TIMED, card_name, cycling,
                           gather_bound, gather_case, gather_sets, graph_ms,
                           time_call)
-from merge_bench import (MERGE_EDGES, OUT_PLANES, edge_runs,
+from merge_bench import (DISP_SEP, HELL_SEP, MERGE_EDGES, MIN_SEP,
+                         MIXED_SEP, OUT_PLANES, edge_runs,
                          full_grid_inputs, merge3d_inputs, merge4d_inputs,
                          merge_bound, merge_inputs, merge_rounds,
-                         round_stats, run_case, tables_bound)
+                         round_stats, run_case, tables_bound,
+                         tables_edge_case)
 from phdslam_tpu_torch import SlamConfig, load_config
 from phdslam_tpu_torch.__main__ import main as cli_main
 from phdslam_tpu_torch.eval import simdata
@@ -163,13 +165,15 @@ from phdslam_tpu_torch.filters.phd import (StepNoise,
                                            maybe_resample, predict,
                                            resample_particles, update)
 from phdslam_tpu_torch.kernels import build
-from phdslam_tpu_torch.kernels.detect import (detect, detect_reference,
+from phdslam_tpu_torch.kernels.detect import (NARROW_FEATURES, detect,
+                                              detect_reference,
                                               detect_variant)
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
                                                    gather_rows_reference)
-from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
+from phdslam_tpu_torch.kernels.merge import (NARROW_LANES, merge2d,
+                                             merge2d_reference,
                                              merge2d_tables,
                                              merge2d_tables_reference,
                                              merge2d_variant, merge3d,
@@ -177,7 +181,8 @@ from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
                                              merge4d_reference, recip_check,
                                              tables_packed)
 from phdslam_tpu_torch.filters import mixed as mixed_filter
-from phdslam_tpu_torch.ops.gm_merge import MERGE_DIMS, merge_out, unpack_planes
+from phdslam_tpu_torch.ops.gm_merge import (MERGE_DIMS, merge_out,
+                                            sort_planes, unpack_planes)
 from phdslam_tpu_torch.ops import resample
 from phdslam_tpu_torch.ops.math import (hellinger2, logsumexp, mahalanobis2,
                                         mahalanobis2_3d, mahalanobis2_4d)
@@ -301,6 +306,14 @@ KERNELS = {
     "merge3d_hellinger": ("phdslam_tpu_torch/csrc/merge3d.cu",
                           "phdslam_tpu/ops/gm_merge.py:35"),
 }
+# the staged wide-lane variants: each merge and detect variant's, counted
+# under its name with "_wide" appended (the merges' round core in
+# merge_wide.cuh, instantiated in merge2d.cu, merge3d.cu and merge4d.cu)
+_WIDE = "phdslam_tpu_torch/csrc/merge_wide.cuh"
+KERNELS.update({f"{name}_wide": (_DETECT if name.startswith("detect")
+                                 else _WIDE, rep)
+                for name, (_, rep) in list(KERNELS.items())
+                if name.startswith(("detect", "merge"))})
 ACKERMAN_KERNELS = ("detect", "gather_cols", "merge2d")
 KNOB_KERNELS = ("detect_adaptive", "gather_cols", "merge2d_tables")
 CONS_KERNELS = ("detect_cons", "gather_cols", "merge2d")
@@ -2217,7 +2230,7 @@ def eap_level1_calls(dev):
     return rows
 
 
-def time_kernels(dev, errs):
+def time_kernels(dev, errs, extra=None):
     """Kernel against twin at the main path's shapes, in turns
     (twin, kernel, library, kernel, library, twin); CUDA events, ms per
     eager call, host included (gather_bench.time_call: 50 calls after 5);
@@ -2236,6 +2249,8 @@ def time_kernels(dev, errs):
     step 60 of real runs (rows "... captured", :func:`captured_calls`),
     and the argmax and Hellinger 3D/4D variants on captured inputs
     (:func:`variant_calls`).
+    ``extra``: more rows in the same form (the staged wide-lane variants,
+    :func:`run_wide`).
     Returns {name: (ms, plain_ms, library_ms, bound_ms, bound_by,
     device_ms, library_device_ms)}, the bound computed from these
     inputs."""
@@ -2278,6 +2293,7 @@ def time_kernels(dev, errs):
     calls.update(gather_calls(dev))
     calls.update(knob_calls(dev, cfg))
     calls.update(variant_calls(dev, errs))
+    calls.update(extra or {})
     times = {}
     for name, (kern, plain, iters, lib, (b_ms, b_by)) in calls.items():
         # kernel and library call in turns: the host's share of an eager
@@ -2869,7 +2885,7 @@ def run_mixed_slow(dev, fast_res):
     compute_variance (which take the route too) over 30 scans each, the
     variance required zero (the route estimates none). Steps/s beside the
     fast route's run in this call. Returns the 100-step run's launch
-    counts."""
+    counts and result."""
     r = slow_runner(dev)
     require(not mixed_filter.uses_fast_route(r.cfg, 128, 32),
             "mixed slow: the configuration takes the fast route")
@@ -2910,7 +2926,7 @@ def run_mixed_slow(dev, fast_res):
               f"{res2['steps_per_s']:.2f} steps/s, overflow "
               f"{res2['overflow']}, final nEff {res2['n_eff'][-1]:.3f}"
               + (", variance all zero" if "variance" in label else ""))
-    return counts
+    return counts, res
 
 
 def check_mixed_slow_step(dev, n_before=40):
@@ -3133,6 +3149,382 @@ def variant_calls(dev, errs):
               f"{[(p, c, d) for p, c, d in flips]}")
     return rows
 
+# ----------------------------------------------------------------------------
+# the staged wide-lane kernels (phase "wide")
+# ----------------------------------------------------------------------------
+
+P_WIDE = 64                     # particles of the random wide merge cases
+WIDE_STEPS = 30                 # steps of the dynamic-only and dense runs
+WIDE_CAPTURE = 20               # the dense full grid's merge call captured
+P_DENSE_CAPTURED = 8            # its particles held against the twin
+MIXED_CAPTURE = 40              # the mixed full grid's step against the CPU
+# the mixed bench with both caps off: the per-particle route over the full
+# grid, 128 + 32 * 128 + 32 = 4256 lanes a map
+MIXED_FULL = {"merge_candidate_cap": 0, "merge_candidate_cap_dynamic": 0}
+DYN_FULL = {"feature_model": 1, "merge_candidate_cap": 0}
+DENSE_FULL = {"merge_candidate_cap": 0}
+DENSE_K2048 = {"max_features": 2048}    # tools/dense_k_sweep.py's override
+MIXED_FULL_KERNELS = ("merge2d_argmax", "merge4d_argmax_wide")
+DYN_FULL_KERNELS = ("merge4d_argmax_wide",)
+DENSE_FULL_KERNELS = ("merge2d_argmax_wide",)
+# t_k at K = 2048 (128 KB a particle) exceeds the gathers' shared budget
+DENSE_K2048_KERNELS = ("detect_wide", "gather_cols", "gather_cols_ldg",
+                       "merge2d")
+
+
+def wide_merge_case(errs, label, name, fn, twin, packed, sep, metric):
+    """One staged merge launch, counted under ``name``, against its twin
+    with check_kernels' gates (:func:`check_merge_rows`: equal counts,
+    rtol 1e-4 / atol 1e-5, a row parting only at a lane on the merge
+    threshold). ``packed``: the planes the twin merges."""
+    D = MERGE_DIMS[packed.shape[1]]
+    build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launched = dict(build.launch_counts)
+    require(launched == {name: 1}, f"{label}: launched {launched}, not "
+            f"{name}")
+    got = merge_out(out, D)
+    want = [x.cpu() for x in merge_out(twin(), D)]
+    flips, err = check_merge_rows(got, want, packed, sep, label, metric)
+    errs[name] = max(errs.get(name, 0.0), err)
+    phase("wide", f"{label}: {name} clusters/particle "
+          f"{float(got[3].float().mean()):.1f}, left "
+          f"{float(got[4].float().mean()):.1f}, max |err| {err:.3g} (rtol "
+          f"1e-4, atol 1e-5), {len(flips)} of {packed.shape[0]} rows part at "
+          "a lane on the merge threshold")
+
+
+def staged_beside_narrow(label, narrow, staged, D):
+    """The staged variant forced at the narrow kernel's limit beside the
+    narrow kernel: the same clusters and counts required, the sums to rtol
+    1e-4 / atol 1e-5 (another order); whether the bits are equal is
+    reported."""
+    a, b = merge_out(narrow(), D), merge_out(staged(), D)
+    require(torch.equal(a[3], b[3]) and torch.equal(a[4], b[4]),
+            f"{label}: the staged variant's clusters differ from the narrow "
+            "kernel's")
+    for x, y in zip(a[:3], b[:3]):
+        torch.testing.assert_close(y, x, rtol=1e-4, atol=1e-5)
+    phase("wide", f"{label}: staged beside narrow, counts equal, max |diff| "
+          f"{max_err(list(zip(b[:3], a[:3]))):.3g}, bits "
+          f"{'equal' if same_bits(a[:3], b[:3]) else 'differ'}")
+
+
+def wide_merges(dev, errs, mixed_planes, dense_planes):
+    """Every staged merge variant against its twin at widths its narrow
+    kernel cannot hold, and forced at the narrow limit beside the narrow
+    kernel: merge2d in its four variants at N = 8448 (sorted on weight-
+    sorted clustered lanes, argmax on full-grid lanes), merge2d's argmax
+    mode on P_DENSE_CAPTURED particles of the captured dense full-grid
+    step, merge2d_tables at N = 8448 (merge_bench.WIDE_EDGES), merge3d
+    at N = 2400 and merge4d (sorted, argmax, Hellinger) on the captured
+    mixed full-grid step (N = 4256). Returns time_kernels' rows."""
+    rows = {}
+    N2 = NARROW_LANES[2] + 256
+    for sorted_w in (True, False):
+        packed = (merge_inputs if sorted_w else full_grid_inputs)(
+            dev, P=P_WIDE, N=N2, seed=N2)
+        limit = packed[:, :, :NARROW_LANES[2]].contiguous()
+        for metric in (0, 1):
+            name = merge2d_variant(sorted_w, metric, wide=True)
+            sep = HELL_SEP if metric else MIN_SEP
+            call = (lambda p, s=sep, sw=sorted_w, m=metric, **kw:
+                    merge2d(p, s, 128, sw, m, **kw))
+            wide_merge_case(errs, f"merge2d P={P_WIDE} N={N2}", name,
+                            lambda c=call, p=packed: c(p),
+                            lambda p=packed, s=sep, sw=sorted_w, m=metric:
+                            merge2d_reference(p, s, 128, sw, m), packed, sep,
+                            metric)
+            staged_beside_narrow(f"{name} at N={NARROW_LANES[2]}",
+                                 lambda c=call: c(limit),
+                                 lambda c=call: c(limit, wide=True), 2)
+            if name != "merge2d_argmax_wide":
+                rows[name] = (lambda c=call, p=packed: c(p),
+                              lambda p=packed, s=sep, sw=sorted_w, m=metric:
+                              merge2d_reference(p, s, 128, sw, m), 1, None,
+                              merge_bound(packed, 128, 8,
+                                          40 if metric else 27))
+    # the dense full grid's own lanes: P_DENSE_CAPTURED of its particles
+    packed, sep, K = dense_planes
+    sub = packed[:P_DENSE_CAPTURED].contiguous()
+    name = merge2d_variant(False, 0, wide=True)
+    wide_merge_case(errs, f"merge2d dense full grid captured P="
+                    f"{sub.shape[0]} N={sub.shape[2]} K={K}", name,
+                    lambda: merge2d(sub, sep, K, False),
+                    lambda: merge2d_reference(sub, sep, K, False), sub, sep,
+                    0)
+    enter = int((sub[:, 1] > 0.5).sum()) / sub.shape[0]
+    phase("wide", f"dense full grid captured: {enter:.0f} entering lanes a "
+          f"particle of {sub.shape[2]}")
+    rows[name] = (lambda: merge2d(sub, sep, K, False),
+                  lambda: merge2d_reference(sub, sep, K, False), 1, None,
+                  merge_bound(sub, K, 8, 27))
+    full_ms = graph_ms(lambda: merge2d(packed, sep, K, False))
+    phase("wide", f"merge2d_argmax_wide on the whole captured step P="
+          f"{packed.shape[0]} N={packed.shape[2]}: {full_ms:.4f} ms on the "
+          "device")
+    for metric in (0, 1):
+        sep = HELL_SEP if metric else MIN_SEP
+        name = merge2d_variant(True, metric, tables=True, wide=True)
+        for case, wide in (("N 8448", None), ("N 8192", True)):
+            *tabs, K = tables_edge_case(case)
+            tabs = tuple(torch.from_numpy(x).to(dev) for x in tabs)
+            call = (lambda t=tabs, s=sep, k=K, m=metric, **kw:
+                    merge2d_tables(*t, s, k, m, **kw))
+            twin = (lambda t=tabs, s=sep, k=K, m=metric:
+                    merge2d_tables_reference(*t, s, k, m))
+            if wide:
+                staged_beside_narrow(f"{name} at {case}", call,
+                                     lambda c=call: c(wide=True), 2)
+                continue
+            wide_merge_case(errs, f"merge2d_tables {case} P="
+                            f"{tabs[0].shape[0]}", name, call, twin,
+                            tables_packed(*tabs), sep, metric)
+            rows[name] = (call, twin, 1, None,
+                          tables_bound(tabs[0], tabs[1], K,
+                                       40 if metric else 27))
+    N3 = 2400
+    packed3 = merge3d_inputs(dev, P=P_WIDE, N=N3, seed=N3)
+    for metric in (0, 1):
+        sep = HELL_SEP if metric else DISP_SEP
+        name = merge2d_variant(True, metric, D=3, wide=True)
+        call = (lambda p, s=sep, m=metric, **kw: merge3d(p, s, 64, m, **kw))
+        twin = (lambda p=packed3, s=sep, m=metric:
+                merge3d_reference(p, s, 64, m))
+        wide_merge_case(errs, f"merge3d P={P_WIDE} N={N3}", name,
+                        lambda c=call: c(packed3), twin, packed3, sep, metric)
+        limit = packed3[:, :, :NARROW_LANES[3]].contiguous()
+        staged_beside_narrow(f"{name} at N={NARROW_LANES[3]}",
+                             lambda c=call: c(limit),
+                             lambda c=call: c(limit, wide=True), 3)
+        rows[name] = (lambda c=call: c(packed3), twin, 1, None,
+                      merge_bound(packed3, 64, 12, 70))
+    # the mixed full grid's dynamic map, in its lane order (argmax) and
+    # weight-sorted (sorted mode, Hellinger)
+    packed4, _, K4 = mixed_planes
+    sorted4 = sort_planes(packed4, 4).contiguous()
+    for sorted_w, metric in ((True, 0), (False, 0), (True, 1)):
+        planes = sorted4 if sorted_w else packed4
+        sep = HELL_SEP if metric else MIXED_SEP
+        name = merge2d_variant(sorted_w, metric, D=4, wide=True)
+        call = (lambda p, s=sep, sw=sorted_w, m=metric, **kw:
+                merge4d(p, s, K4, sw, m, **kw))
+        twin = (lambda p=planes, s=sep, sw=sorted_w, m=metric:
+                merge4d_reference(p, s, K4, sw, m))
+        wide_merge_case(errs, f"merge4d mixed full grid captured P="
+                        f"{planes.shape[0]} N={planes.shape[2]}", name,
+                        lambda c=call, p=planes: c(p), twin, planes, sep,
+                        metric)
+        limit = planes[:, :, :NARROW_LANES[4]].contiguous()
+        staged_beside_narrow(f"{name} at N={NARROW_LANES[4]}",
+                             lambda c=call: c(limit),
+                             lambda c=call: c(limit, wide=True), 4)
+        rows[name] = (lambda c=call, p=planes: c(p), twin, 1, None,
+                      merge_bound(planes, K4, 16, 120))
+    return rows
+
+
+def wide_detects(dev, errs):
+    """The detect variants above 1024 features: all four modes at the dense
+    shape with K = 2048 (P = 1024, M = 72, T = 32) against the twin, the
+    wide variant forced at detect_bench.DETECT_EDGES, and forced at
+    K = 1024 beside the narrow kernel (the same bits expected: the same
+    pdw, normalizer order and selection). Returns time_kernels' rows."""
+    rows = {}
+    cfg = load_config(DENSE_CFG)
+    min_fw, cb = cfg.min_feature_weight, cfg.clutter_density + cfg.birth_weight
+    scenes = {K: map_scene(cfg, P_DENSE, K, 72, 65, 0, dev)
+              for K in (NARROW_FEATURES, 2 * NARROW_FEATURES)}
+    for cons in (False, True):
+        planes = {K: detect_planes(cfg, s, consolidate=cons)
+                  for K, s in scenes.items()}
+        for adaptive in (False, True):
+            sep = cfg.min_separation if cons else 0.0
+            a = (*planes[2 * NARROW_FEATURES], 32, min_fw, cb, sep, adaptive)
+            got, name, err, flips = check_case(
+                f"dense K={2 * NARROW_FEATURES}", a)
+            errs[name] = max(errs.get(name, 0.0), err)
+            stats = live_counts(got[3], a[1], 32)
+            phase("wide", f"{name} P={P_DENSE} K={2 * NARROW_FEATURES} M=72 "
+                  f"T=32: live lanes per valid row {json.dumps(stats)}; "
+                  f"against the twin max |err| {err:.3g}, {flips} member "
+                  "flips at an f32 boundary")
+            rows[name] = (lambda a=a: detect(*a),
+                          lambda a=a: detect_reference(*a), 1, None,
+                          detect_bound(*a[:6]))
+            b = (*planes[NARROW_FEATURES], 32, min_fw, cb, sep, adaptive)
+            narrow, staged = detect(*b), detect(*b, wide=True)
+            require(all(torch.equal(x, y) for x, y in
+                        zip(narrow[1:4:2], staged[1:4:2])),
+                    f"{name} at K={NARROW_FEATURES}: idx or counts differ "
+                    "from the narrow kernel's")
+            for x, y in zip(narrow, staged):
+                if x.dtype == torch.float32:
+                    torch.testing.assert_close(y, x, rtol=1e-5, atol=0)
+            phase("wide", f"{name} at K={NARROW_FEATURES} beside the narrow "
+                  f"kernel: idx and counts equal, bits "
+                  f"{'equal' if same_bits(narrow, staged) else 'differ'}")
+    n = 0
+    for case in DETECT_EDGES:
+        for cons in (False, True):
+            planes, z4, T, min_fw, cb = (
+                torch.from_numpy(x).to(dev) if isinstance(x, np.ndarray)
+                else x for x in detect_edge_case(case, cons))
+            for adaptive in (False, True):
+                a = (planes, z4, T, min_fw, cb,
+                     MIN_SEP_EDGES if cons else 0.0, adaptive)
+                _, name, err, _ = check_case(f"edge {case}", a, wide=True)
+                errs[name] = max(errs.get(name, 0.0), err)
+                n += 1
+    phase("wide", f"detect edges: {len(DETECT_EDGES)} cases, {n} wide "
+          "launches against the twin")
+    return rows
+
+
+def spy_on(module, name, keep):
+    """A mock.patch of module.name that hands each call's arguments to
+    ``keep`` (call number, args, kwargs) before calling the wrapper."""
+    real = getattr(module, name)
+    calls = [0]
+
+    def call(*args, **kwargs):
+        keep(calls[0], args, kwargs)
+        calls[0] += 1
+        return real(*args, **kwargs)
+    return mock.patch.object(module, name, call)
+
+
+def run_mixed_full(dev, capped):
+    """The mixed full grid: the mixed bench (P=512, K=128, M=32) with both
+    candidate caps off (the per-particle route, 4256 lanes a map; the
+    dynamic map through merge4d_argmax_wide). Step MIXED_CAPTURE against
+    the CPU twins (:func:`step_against_cpu`), its merge4d input captured;
+    then the 100 scans, finite, beside the capped per-particle route's
+    steps/s in this call (``capped``). Returns (counts, captured planes,
+    sep, K)."""
+    r = slow_runner(dev, **MIXED_FULL)
+    require(not mixed_filter.uses_fast_route(r.cfg, 128, 32),
+            "mixed full grid: the configuration takes the fast route")
+    for n in range(MIXED_CAPTURE):
+        r.step(n)
+    got = []
+
+    def keep(i, args, kw):
+        if not got and args[0].is_cuda:
+            got.append((args[0].clone(), *args[1:3]))
+    with spy_on(phd_filter, "merge4d", keep):
+        err, _, n_edge, n_swap = step_against_cpu(r, MIXED_CAPTURE)
+    require(bool(got), "mixed full grid: no merge4d call captured")
+    phase("wide", f"mixed full grid step {MIXED_CAPTURE} at P={P_MAIN}: card "
+          f"vs CPU twins max |err| {err:.3g} (rtol 1e-4, atol 1e-5), "
+          f"overflow equal; {n_swap} weight-tied slots swapped, {n_edge} "
+          "resampling strata at a cumulative-weight boundary")
+    r = slow_runner(dev, **MIXED_FULL)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = clean(r.run(), "mixed full grid")
+    counts = dict(build.launch_counts)
+    require(np.isfinite(res["est_poses"]).all()
+            and np.isfinite(res["n_eff"]).all(), "mixed full grid: NaN")
+    require(all(counts.get(k, 0) > 0 for k in MIXED_FULL_KERNELS),
+            f"mixed full grid: a kernel of the path never launched: {counts}")
+    phase("wide", f"mixed full grid P={P_MAIN} K=128 M=32 (4256 lanes a "
+          f"map), {SLOW_STEPS} steps: {res['steps_per_s']:.2f} steps/s "
+          f"({res['wall_s']:.3f} s; the capped per-particle route in this "
+          f"call {capped['steps_per_s']:.2f}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, overflow "
+          f"{res['overflow']}, final nEff {res['n_eff'][-1]:.3f}")
+    phase("wide", "launches: " + ", ".join(
+        f"{k}={counts.get(k, 0)}" for k in KERNELS if counts.get(k, 0)))
+    return counts, got[0]
+
+
+def run_dynamic_full(dev):
+    """The dynamic-only map's full grid (cfg/ackerman.cfg, feature_model 1,
+    cap 0: 128 + 48 * 128 + 48 = 6320 4D lanes a particle, through
+    merge4d_argmax_wide) over WIDE_STEPS steps of data/ackerman at P=512:
+    finite, its kernels launched, steps/s and peak memory (the static
+    scorer of evaluate_dataset has no 4D map to score). Returns the launch
+    counts."""
+    cfg = load_config(CFG, dict(DYN_FULL, n_particles=P_MAIN,
+                                n_steps=WIDE_STEPS))
+    r = SynthSLAMRunner(cfg, DATA, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    res = clean(r.run(), "dynamic-only full grid")
+    counts = dict(build.launch_counts)
+    require(np.isfinite(res["est_poses"]).all()
+            and np.isfinite(res["n_eff"]).all(), "dynamic-only full grid: NaN")
+    require(all(counts.get(k, 0) > 0 for k in DYN_FULL_KERNELS),
+            f"dynamic-only full grid: a kernel never launched: {counts}")
+    live = float((r.state.map_dynamic.weight > 0).sum(1).float().mean())
+    phase("wide", f"dynamic-only full grid {CFG} P={P_MAIN} (6320 4D lanes), "
+          f"{WIDE_STEPS} steps: {res['steps_per_s']:.2f} steps/s "
+          f"({res['wall_s']:.3f} s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, overflow "
+          f"{res['overflow']}, final nEff {res['n_eff'][-1]:.3f}, mean live "
+          f"dynamic components {live:.1f}")
+    phase("wide", "launches: " + ", ".join(
+        f"{k}={counts.get(k, 0)}" for k in KERNELS if counts.get(k, 0)))
+    return counts
+
+
+def run_dense_wide(dev):
+    """The dense configuration's wide paths over WIDE_STEPS steps at
+    P=1024: the full grid (cap 0: 1024 + 72 * 1024 + 72 = 74 824 lanes a
+    particle, merge2d_argmax_wide; its merge input captured at call
+    WIDE_CAPTURE) beside the capped run's ATE and OSPA over the same
+    steps, and K = 2048 (detect_wide) beside K = 1024. Returns (full-grid
+    counts, K = 2048 counts, captured (planes, sep, K))."""
+    got = []
+
+    def keep(i, args, kw):
+        if i == WIDE_CAPTURE:
+            got.append((args[0].clone(), *args[1:3]))
+    with spy_on(phd_filter, "merge2d", keep):
+        full_counts, full = run_path(dev, "wide", DENSE_CFG, DENSE_FULL,
+                                     DENSE_FULL_KERNELS, n_steps=WIDE_STEPS,
+                                     P=P_DENSE)
+    require(bool(got), "dense full grid: no merge2d call captured")
+    _, capped = run_path(dev, "wide", DENSE_CFG, {}, ACKERMAN_KERNELS,
+                         n_steps=WIDE_STEPS, P=P_DENSE)
+    k_counts, k2048 = run_path(dev, "wide", DENSE_CFG, DENSE_K2048,
+                               DENSE_K2048_KERNELS, n_steps=WIDE_STEPS,
+                               P=P_DENSE)
+    for label, res in (("full grid", full), ("K=2048", k2048)):
+        clean(res["run"], f"dense {label}")
+        phase("wide", f"dense {label} P={P_DENSE}, {WIDE_STEPS} steps: mean "
+              f"ATE {res['mean_pose_err']:.4f} m, OSPA "
+              f"{res['mean_ospa']:.4f}, {res['steps_per_s']:.2f} steps/s, "
+              f"beside the capped K=1024 run over the same steps: "
+              f"{capped['mean_pose_err']:.4f} m, {capped['mean_ospa']:.4f}, "
+              f"{capped['steps_per_s']:.2f} steps/s")
+        require(res["mean_pose_err"] <= ATE_LIMIT,
+                f"dense {label}: mean ATE {res['mean_pose_err']:.4f} m > "
+                f"{ATE_LIMIT} m")
+    return full_counts, k_counts, got[0]
+
+
+def run_wide(dev, errs, capped_mixed):
+    """The staged wide-lane variants: the mixed full grid, the dynamic-only
+    full grid (cfg/ackerman.cfg, feature_model 1, cap 0: 128 + 48 * 128 +
+    48 = 6320 4D lanes) over WIDE_STEPS steps at P=512 and the dense wide
+    paths, each finite and launching its wide kernels; then every staged
+    variant against its twin and beside its narrow kernel
+    (:func:`wide_merges`, :func:`wide_detects`). Returns (path counts,
+    time_kernels' rows)."""
+    t0 = time.perf_counter()
+    mixed_counts, mixed_planes = run_mixed_full(dev, capped_mixed)
+    dyn_counts = run_dynamic_full(dev)
+    dense_counts, k_counts, dense_planes = run_dense_wide(dev)
+    rows = wide_merges(dev, errs, mixed_planes, dense_planes)
+    rows.update(wide_detects(dev, errs))
+    phase("wide", f"{time.perf_counter() - t0:.1f} s")
+    return [(MIXED_FULL_KERNELS, mixed_counts), (DYN_FULL_KERNELS, dyn_counts),
+            (DENSE_FULL_KERNELS, dense_counts),
+            (DENSE_K2048_KERNELS, k_counts)], rows
+
 
 def main():
     t_start = time.perf_counter()
@@ -3160,7 +3552,7 @@ def main():
     run_scheme2(dev)
     run_scale(dev)
     mixed_counts, mixed_res = run_mixed(dev)
-    slow_counts = run_mixed_slow(dev, mixed_res)
+    slow_counts, slow_res = run_mixed_slow(dev, mixed_res)
     mixed_accuracy(dev)
     mixed_hell_counts = mixed_option_accuracy(dev)
     disp_counts = run_disparity_data(dev)
@@ -3176,7 +3568,8 @@ def main():
     dense_counts = run_dense(dev)
     audit_dense_scale(dev)
     dense_seeds(dev)
-    times = time_kernels(dev, errs)
+    wide_counts, wide_rows = run_wide(dev, errs, slow_res)
+    times = time_kernels(dev, errs, wide_rows)
     profile_step(SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN}),
                                  DATA, device=dev), "ackerman")
     profile_step(mixed_runner(dev), "mixed")
@@ -3219,9 +3612,8 @@ def main():
                    (HELL_FUSED_KERNELS, hell_fused_counts),
                    (MIXED_SLOW_KERNELS, slow_counts),
                    (MIXED_HELL_KERNELS, mixed_hell_counts),
-                   (DISP_HELL_KERNELS, disp_hell_counts),
-                   (("gather_rows", "gather_cols_ldg", "gather_rows_ldg"),
-                    {})]
+                   (DISP_HELL_KERNELS, disp_hell_counts), *wide_counts,
+                   (tuple(KERNELS), {})]
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": int(next(c for ks, c in path_counts

@@ -432,18 +432,23 @@ def captured_args(call):
             kw.get("adaptive", False))
 
 
-def check_case(name, a):
-    """The kernel against its twin on one case's arguments; returns
-    (outputs, launch name, max |err|, member flips)."""
+def check_case(name, a, wide=None):
+    """The kernel against its twin on one case's arguments (``wide=True``:
+    the wide variant forced); returns (outputs, launch name, max |err|,
+    member flips)."""
     from phdslam_tpu_torch.kernels import build
+    from phdslam_tpu_torch.kernels import detect as kdetect
     from phdslam_tpu_torch.kernels.detect import (detect, detect_reference,
                                                   detect_variant)
     planes, z4, T, min_fw, cb, min_sep, adaptive = a
     build.reset_launch_counts()
-    got = detect(*a)
+    got = detect(*a, wide=True) if wide else detect(*a)
     torch.cuda.synchronize()
     launched = dict(build.launch_counts)
-    want_name = detect_variant(min_sep > 0, adaptive)
+    # a checkout without the wide variants has no NARROW_FEATURES
+    narrow = getattr(kdetect, "NARROW_FEATURES", planes.shape[2])
+    want_name = detect_variant(min_sep > 0, adaptive) \
+        + ("_wide" if wide or planes.shape[2] > narrow else "")
     require(launched == {want_name: 1},
             f"{name}: launched {launched}, not {want_name}")
     want = detect_reference(planes, z4, T, min_fw, cb, min_sep)

@@ -169,7 +169,7 @@ def merge3d_inputs(dev, P=512, N=512, seed=0, n_centers=16, spread=3.0):
 # quarter without any (covariance 0, the mean on its centre), so that a
 # pair of them hits the |det| > 1e-30 clamp of the 3D and 4D distances;
 # "dims": the dimensions that run the case (default all; merge3d and
-# merge4d only up to their 2048 lanes)
+# merge4d only up to their narrow kernels' 2048 lanes)
 MERGE_EDGES = {
     "no lane entering": (4, 512, 128, {"frac": 0.0}),
     "one lane": (4, 512, 128, {"one": True}),
@@ -189,18 +189,28 @@ MERGE_EDGES = {
 }
 
 
+# the staged wide-lane variants' cases, in MERGE_EDGES' terms: just above
+# merge2d's narrow 8192 lanes, and at its limit (the narrow kernel beside
+# the staged one)
+WIDE_EDGES = {
+    "N 8448": (16, 8448, 128, {"dims": (2,)}),
+    "N 8192": (16, 8192, 128, {"dims": (2,)}),
+}
+
+
 def edge_dims(name):
     """The dimensions D whose kernels run MERGE_EDGES[name]."""
-    from phdslam_tpu_torch.kernels.merge import MAX_CANDIDATES
+    from phdslam_tpu_torch.kernels import merge
+    # a checkout without the wide variants names its caps MAX_CANDIDATES
+    narrow = getattr(merge, "NARROW_LANES", None) or merge.MAX_CANDIDATES
     P, N, K, opt = MERGE_EDGES[name]
-    return tuple(D for D in opt.get("dims", (2, 3, 4))
-                 if N <= MAX_CANDIDATES[D])
+    return tuple(D for D in opt.get("dims", (2, 3, 4)) if N <= narrow[D])
 
 
 def _edge_lanes(name, seed, D=2):
-    """(w, act, mean [P, N, D], cov [P, N, D, D], K) of MERGE_EDGES[name],
-    lanes weight-descending."""
-    P, N, K, opt = MERGE_EDGES[name]
+    """(w, act, mean [P, N, D], cov [P, N, D, D], K) of MERGE_EDGES[name]
+    (or WIDE_EDGES[name]), lanes weight-descending."""
+    P, N, K, opt = MERGE_EDGES.get(name) or WIDE_EDGES[name]
     rng = np.random.default_rng(seed + N + 7 * P)
     n_c = N if opt.get("far") else opt.get("centers", 40)
     centers = rng.normal(0, 20, (P, n_c, D))

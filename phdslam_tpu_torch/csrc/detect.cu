@@ -233,41 +233,17 @@ __device__ __forceinline__ void select_trips(unsigned (&key)[KPL], int T,
   }
 }
 
-// The top-T of one warp's row from its keys (a lane's pdw bits where it is
-// eligible, 0 elsewhere) and their warp-uniform count
+// The keys above thr and the r lowest-index keys equal to it (at most 32),
+// compacted in index order (j, then lane; key j of a lane is index idx0 +
+// lane + 32 j) and sorted across the warp: lane t ends with the t-th in
+// (value descending, index ascending) order, (-1, INT_MAX) past them.
+// Returns how many were selected.
 template <int KPL>
-__device__ __forceinline__ void select_keys(unsigned (&key)[KPL], int cnt,
-                                            int T, int lane, Slots& s,
-                                            float* vals, int* idx) {
-  if (cnt == 0) {
-    write_row(0.f, 0, 0, T, lane, vals, idx);
-    return;
-  }
-  if (cnt > 32 && T > 32) {
-    select_trips<KPL>(key, T, lane, vals, idx);
-    return;
-  }
-  // select the keys above thr and the r lowest-index keys equal to it
-  unsigned thr = 0u;
-  int r = 0;
-  if (cnt > 32) {
-    // T < cnt: thr = the T-th largest key, the largest value with at least
-    // T keys at or above it, bit by bit (live keys are > 0 with bit 31
-    // clear)
-    for (int b = 30; b >= 0; --b) {
-      const unsigned c = thr | (1u << b);
-      int n = 0;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) n += key[j] >= c ? 1 : 0;
-      if (__reduce_add_sync(kFull, n) >= T) thr = c;
-    }
-    int n_gt = 0;
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) n_gt += key[j] > thr ? 1 : 0;
-    r = T - __reduce_add_sync(kFull, n_gt);
-  }
-  // compaction in index order (j, then lane): the equal keys' ranks count
-  // up from the lowest index
+__device__ __forceinline__ int select_sorted(const unsigned (&key)[KPL],
+                                             unsigned thr, int r, int lane,
+                                             Slots& s, int idx0, float& v,
+                                             int& i) {
+  // the equal keys' ranks count up from the lowest index
   const unsigned below = (1u << lane) - 1u;
   int base = 0, seen = 0;
 #pragma unroll
@@ -283,20 +259,68 @@ __device__ __forceinline__ void select_keys(unsigned (&key)[KPL], int cnt,
     if (sel) {
       const int pos = base + __popc(sm & below);
       s.v[pos] = __uint_as_float(key[j]);
-      s.i[pos] = lane + 32 * j;
+      s.i[pos] = idx0 + lane + 32 * j;
     }
     base += __popc(sm);
   }
   __syncwarp();
-  float v = -1.f;
-  int i = INT_MAX;
+  v = -1.f;
+  i = INT_MAX;
   if (lane < base) {
     v = s.v[lane];
     i = s.i[lane];
   }
   __syncwarp();                          // the slots are free again
   warp_sort(v, i, lane);
-  write_row(v, i, base, T, lane, vals, idx);
+  return base;
+}
+
+// thr and r of select_sorted for the top T (T <= 32) of cnt keys: at
+// cnt <= 32 every key (thr 0, r 0); otherwise thr = the T-th largest key,
+// the largest value with at least T keys at or above it, found bit by bit
+// (live keys are > 0 with bit 31 clear), and r = T - the keys above it
+template <int KPL>
+__device__ __forceinline__ unsigned top_threshold(const unsigned (&key)[KPL],
+                                                  int cnt, int T, int& r) {
+  unsigned thr = 0u;
+  r = 0;
+  if (cnt > 32) {
+    for (int b = 30; b >= 0; --b) {
+      const unsigned c = thr | (1u << b);
+      int n = 0;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) n += key[j] >= c ? 1 : 0;
+      if (__reduce_add_sync(kFull, n) >= T) thr = c;
+    }
+    int n_gt = 0;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) n_gt += key[j] > thr ? 1 : 0;
+    r = T - __reduce_add_sync(kFull, n_gt);
+  }
+  return thr;
+}
+
+// The top-T of one warp's row from its keys (a lane's pdw bits where it is
+// eligible, 0 elsewhere) and their warp-uniform count
+template <int KPL>
+__device__ __forceinline__ void select_keys(unsigned (&key)[KPL], int cnt,
+                                            int T, int lane, Slots& s,
+                                            float* vals, int* idx) {
+  if (cnt == 0) {
+    write_row(0.f, 0, 0, T, lane, vals, idx);
+    return;
+  }
+  if (cnt > 32 && T > 32) {
+    select_trips<KPL>(key, T, lane, vals, idx);
+    return;
+  }
+  // select the keys above thr and the r lowest-index keys equal to it
+  int r;
+  const unsigned thr = top_threshold<KPL>(key, cnt, T, r);
+  float v;
+  int i;
+  const int n_sel = select_sorted<KPL>(key, thr, r, lane, s, 0, v, i);
+  write_row(v, i, n_sel, T, lane, vals, idx);
 }
 
 template <int KPL>
@@ -340,6 +364,105 @@ detect_kernel(const float* __restrict__ planes, const float* __restrict__ z4,
     }
     select_keys<KPL>(key, cnt, T, lane, slots[warp], vals + row * T,
                      idx + row * T);
+  }
+}
+
+// The consolidating kernels' column pass: a thread per column k, a warp
+// per 32 consecutive columns (one bit word a row, which only this warp
+// reads and writes). sp: the 6 pdw planes, gx: the 7 consolidation planes
+// (wp, q.., p..), z: z4 [M, 4], nrm: the rows' normalizers, words: the
+// live lanes [M, W] (members cleared here), cp: this particle's cons
+// [10, K]
+__device__ __forceinline__ void column_pass(const float* sp, const float* gx,
+                                            const float* z, const float* nrm,
+                                            unsigned* words, int K, int M,
+                                            float min_sep, float* cp) {
+  const int W = (K + 31) / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int kb = 32 * warp; kb < K; kb += 32 * kWarps) {
+    const int k = kb + lane;
+    const bool real = k < K;
+    unsigned* col_words = words + (kb >> 5);
+    // the head copy: the heaviest live w_det, the lowest m among ties
+    float best = -INFINITY;
+    float uh_r = 0.f, uh_b = 0.f;
+    for (int m = 0; m < M; ++m) {
+      if ((col_words[m * W] >> lane) & 1u) {
+        float ir, ib;
+        const float v = lane_pdw(sp, K, k, z[4 * m], z[4 * m + 1], ir, ib);
+        const float wd = v / nrm[m];
+        if (wd > best) {
+          best = wd;
+          uh_r = ir;
+          uh_b = ib;
+        }
+      }
+    }
+    const float colmax = fmaxf(best, 0.f);
+    const float wp = real ? gx[k] : 0.f;
+    const float q00 = real ? gx[K + k] : 0.f;
+    const float q01 = real ? gx[2 * K + k] : 0.f;
+    const float q11 = real ? gx[3 * K + k] : 0.f;
+    const float p00 = real ? gx[4 * K + k] : 0.f;
+    const float p01 = real ? gx[5 * K + k] : 0.f;
+    const float p11 = real ? gx[6 * K + k] : 0.f;
+    const bool has_copy = colmax > 0.f;
+    // the persistent lane heads the column when at least as heavy
+    const bool head_p = wp >= colmax && wp > 0.f;
+    const float c_r = head_p ? 0.f : uh_r;
+    const float c_b = head_p ? 0.f : uh_b;
+    const float pers_near = p00 * uh_r * uh_r + 2.f * p01 * uh_r * uh_b
+                            + p11 * uh_b * uh_b;
+    const bool pers_in = wp > 0.f && (head_p || pers_near < min_sep)
+                         && has_copy;
+    const bool flag = has_copy && (wp <= 0.f || pers_in);
+    const float a00 = head_p ? p00 : q00;
+    const float a01 = head_p ? p01 : q01;
+    const float a11 = head_p ? p11 : q11;
+    float s_w = 0.f, s_r = 0.f, s_b = 0.f, s_rr = 0.f, s_rb = 0.f,
+          s_bb = 0.f;
+    int n_mem = 0;
+    if (__any_sync(kFull, flag)) {       // else no member in these columns
+      for (int m = 0; m < M; ++m) {
+        const unsigned word = col_words[m * W];
+        bool member = false;
+        if (flag && ((word >> lane) & 1u)) {
+          float ir, ib;
+          const float v = lane_pdw(sp, K, k, z[4 * m], z[4 * m + 1], ir,
+                                   ib);
+          const float du_r = ir - c_r;
+          const float du_b = ib - c_b;
+          const float quad = a00 * du_r * du_r + 2.f * a01 * du_r * du_b
+                             + a11 * du_b * du_b;
+          if (quad < min_sep) {
+            member = true;
+            const float wm = v / nrm[m];
+            s_w += wm;
+            s_r += wm * du_r;
+            s_b += wm * du_b;
+            s_rr += wm * du_r * du_r;
+            s_rb += wm * du_r * du_b;
+            s_bb += wm * du_b * du_b;
+            ++n_mem;
+          }
+        }
+        const unsigned bits = __ballot_sync(kFull, member);
+        if (lane == 0 && bits != 0u) col_words[m * W] = word & ~bits;
+      }
+    }
+    if (real) {
+      cp[k] = s_w;
+      cp[K + k] = s_r;
+      cp[2 * K + k] = s_b;
+      cp[3 * K + k] = s_rr;
+      cp[4 * K + k] = s_rb;
+      cp[5 * K + k] = s_bb;
+      cp[6 * K + k] = c_r;
+      cp[7 * K + k] = c_b;
+      cp[8 * K + k] = static_cast<float>(n_mem);
+      cp[9 * K + k] = pers_in ? 1.f : 0.f;
+    }
   }
 }
 
@@ -387,94 +510,9 @@ detect_cons_kernel(const float* __restrict__ planes,
   }
   __syncthreads();
 
-  // pass 2: a thread per column k, a warp per 32 consecutive columns (one
-  // bit word a row, which only this warp reads and writes)
-  float* cp = cons + static_cast<size_t>(p) * kConsOut * K;
-  const float* gx = src + kPdwPlanes * K;        // wp, q.., p.. planes
-  for (int kb = 32 * warp; kb < K; kb += 32 * kWarps) {
-    const int k = kb + lane;
-    const bool real = k < K;
-    unsigned* col_words = sbits + (kb >> 5);
-    // the head copy: the heaviest live w_det, the lowest m among ties
-    float best = -INFINITY;
-    float uh_r = 0.f, uh_b = 0.f;
-    for (int m = 0; m < M; ++m) {
-      if ((col_words[m * W] >> lane) & 1u) {
-        float ir, ib;
-        const float v = lane_pdw(sp, K, k, sz[4 * m], sz[4 * m + 1], ir, ib);
-        const float wd = v / snorm[m];
-        if (wd > best) {
-          best = wd;
-          uh_r = ir;
-          uh_b = ib;
-        }
-      }
-    }
-    const float colmax = fmaxf(best, 0.f);
-    const float wp = real ? gx[k] : 0.f;
-    const float q00 = real ? gx[K + k] : 0.f;
-    const float q01 = real ? gx[2 * K + k] : 0.f;
-    const float q11 = real ? gx[3 * K + k] : 0.f;
-    const float p00 = real ? gx[4 * K + k] : 0.f;
-    const float p01 = real ? gx[5 * K + k] : 0.f;
-    const float p11 = real ? gx[6 * K + k] : 0.f;
-    const bool has_copy = colmax > 0.f;
-    // the persistent lane heads the column when at least as heavy
-    const bool head_p = wp >= colmax && wp > 0.f;
-    const float c_r = head_p ? 0.f : uh_r;
-    const float c_b = head_p ? 0.f : uh_b;
-    const float pers_near = p00 * uh_r * uh_r + 2.f * p01 * uh_r * uh_b
-                            + p11 * uh_b * uh_b;
-    const bool pers_in = wp > 0.f && (head_p || pers_near < min_sep)
-                         && has_copy;
-    const bool flag = has_copy && (wp <= 0.f || pers_in);
-    const float a00 = head_p ? p00 : q00;
-    const float a01 = head_p ? p01 : q01;
-    const float a11 = head_p ? p11 : q11;
-    float s_w = 0.f, s_r = 0.f, s_b = 0.f, s_rr = 0.f, s_rb = 0.f,
-          s_bb = 0.f;
-    int n_mem = 0;
-    if (__any_sync(kFull, flag)) {       // else no member in these columns
-      for (int m = 0; m < M; ++m) {
-        const unsigned word = col_words[m * W];
-        bool member = false;
-        if (flag && ((word >> lane) & 1u)) {
-          float ir, ib;
-          const float v = lane_pdw(sp, K, k, sz[4 * m], sz[4 * m + 1], ir,
-                                   ib);
-          const float du_r = ir - c_r;
-          const float du_b = ib - c_b;
-          const float quad = a00 * du_r * du_r + 2.f * a01 * du_r * du_b
-                             + a11 * du_b * du_b;
-          if (quad < min_sep) {
-            member = true;
-            const float wm = v / snorm[m];
-            s_w += wm;
-            s_r += wm * du_r;
-            s_b += wm * du_b;
-            s_rr += wm * du_r * du_r;
-            s_rb += wm * du_r * du_b;
-            s_bb += wm * du_b * du_b;
-            ++n_mem;
-          }
-        }
-        const unsigned bits = __ballot_sync(kFull, member);
-        if (lane == 0 && bits != 0u) col_words[m * W] = word & ~bits;
-      }
-    }
-    if (real) {
-      cp[k] = s_w;
-      cp[K + k] = s_r;
-      cp[2 * K + k] = s_b;
-      cp[3 * K + k] = s_rr;
-      cp[4 * K + k] = s_rb;
-      cp[5 * K + k] = s_bb;
-      cp[6 * K + k] = c_r;
-      cp[7 * K + k] = c_b;
-      cp[8 * K + k] = static_cast<float>(n_mem);
-      cp[9 * K + k] = pers_in ? 1.f : 0.f;
-    }
-  }
+  // pass 2: the column pass
+  column_pass(sp, src + kPdwPlanes * K, sz, snorm, sbits, K, M, min_sep,
+              cons + static_cast<size_t>(p) * kConsOut * K);
   __syncthreads();
 
   // pass 3: the count and the top-T over the live non-member lanes, a warp
@@ -527,6 +565,222 @@ detect_cons_kernel(const float* __restrict__ planes,
       }
       select_keys<KPL>(key, cnt, T, lane, slots[warp], vrow, irow);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide variants: any K (the wrapper takes them above 1024, where the
+// narrow kernels' 32 features a lane no longer fit). A warp per row, as
+// above, but the row is never held whole: the planes are read from device
+// memory (a particle's stay in L1 / L2), the normalizer sums each lane's
+// features k = lane + 32 j with j ascending and then the butterfly (the
+// narrow kernels' order, so the same bits), and the selection walks the
+// row in tiles of 1024 features (32 a lane), each tile's top min(T, 32)
+// (select_sorted) merged into a running top 32: the better of running
+// slot t and the tile's slot 31 - t is the top 32 of the two as a bitonic
+// sequence, which warp_sort orders. The order (value descending, index
+// ascending) is total, so the tiles give the narrow kernels' selection.
+// T > 32 with more than 32 eligible lanes (no shipped configuration) runs
+// trips over the whole row instead, each after the previous pick.
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 32;          // features a lane a tile
+
+// The T heaviest keys of one warp's row of K features, written as the
+// narrow kernels write them; key(k) is feature k's key (its pdw bits where
+// it is eligible, else 0; 0 past K). Returns the eligible count.
+template <class Key>
+__device__ int wide_select(const Key& key, int K, int T, int lane, Slots& s,
+                           float* vals, int* idx) {
+  const int n_tiles = (K + 32 * kTile - 1) / (32 * kTile);
+  float rv = -1.f;
+  int ri = INT_MAX;
+  int cnt = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int idx0 = 32 * kTile * t;
+    unsigned kt[kTile];
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < kTile; ++j) {
+      kt[j] = key(idx0 + lane + 32 * j);
+      c += kt[j] != 0u;
+    }
+    c = __reduce_add_sync(kFull, c);
+    if (c == 0) continue;                 // warp-uniform
+    cnt += c;
+    int r;
+    const unsigned thr = top_threshold<kTile>(kt, c, min(T, 32), r);
+    float tv;
+    int ti;
+    select_sorted<kTile>(kt, thr, r, lane, s, idx0, tv, ti);
+    const float ov = __shfl_sync(kFull, tv, 31 - lane);
+    const int oi = __shfl_sync(kFull, ti, 31 - lane);
+    if (ahead(ov, oi, rv, ri)) {
+      rv = ov;
+      ri = oi;
+    }
+    warp_sort(rv, ri, lane);
+  }
+  if (cnt <= 32 || T <= 32) {
+    write_row(rv, ri, min(cnt, T), T, lane, vals, idx);
+    return cnt;
+  }
+  // trips: pick t is the heaviest key behind pick t - 1
+  float pv = INFINITY;
+  int pi = -1;
+  for (int t = 0; t < T; ++t) {
+    float bv = -1.f;
+    int bi = INT_MAX;
+    for (int k = lane; k < K; k += 32) {
+      const unsigned kk = key(k);
+      const float v = __uint_as_float(kk);
+      if (kk != 0u && (v < pv || (v == pv && k > pi)) && ahead(v, k, bv, bi)) {
+        bv = v;
+        bi = k;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, bv, off);
+      const int oi = __shfl_xor_sync(kFull, bi, off);
+      if (ahead(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (bi == INT_MAX) {                  // warp-uniform: none left
+      for (int u = t + lane; u < T; u += 32) {
+        vals[u] = 0.f;
+        idx[u] = 0;
+      }
+      break;
+    }
+    if (lane == 0) {
+      vals[t] = bv;
+      idx[t] = bi;
+    }
+    pv = bv;
+    pi = bi;
+  }
+  return cnt;
+}
+
+// The warp-wide sum of a row's pdw in the narrow kernels' order, plus cb
+__device__ __forceinline__ float wide_norm(const float* sp, int K, int lane,
+                                           float zr, float zb, bool zvalid,
+                                           float cb) {
+  float sum = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    float v = 0.f;
+    if (zvalid) {
+      float ir, ib;
+      v = lane_pdw(sp, K, k, zr, zb, ir, ib);
+    }
+    sum += v;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(kFull, sum, off);
+  return sum + cb;
+}
+
+__global__ void __launch_bounds__(kThreads)
+detect_wide_kernel(const float* __restrict__ planes,
+                   const float* __restrict__ z4, float* __restrict__ vals,
+                   int* __restrict__ idx, float* __restrict__ norm,
+                   int* __restrict__ count, int K, int M, int T, float min_fw,
+                   float cb) {
+  __shared__ Slots slots[kWarps];
+  const int p = blockIdx.x;
+  const float* sp = planes + static_cast<size_t>(p) * kPdwPlanes * K;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int m = warp; m < M; m += kWarps) {
+    const float zr = z4[4 * m], zb = z4[4 * m + 1];
+    const bool zvalid = z4[4 * m + 2] > 0.5f;
+    const float nrm = wide_norm(sp, K, lane, zr, zb, zvalid, cb);
+    const float thr = min_fw * nrm;
+    const auto key = [&](int k) -> unsigned {
+      if (k >= K || !zvalid) return 0u;
+      float ir, ib;
+      const float v = lane_pdw(sp, K, k, zr, zb, ir, ib);
+      return v >= thr && v > 0.f ? __float_as_uint(v) : 0u;
+    };
+    const size_t row = static_cast<size_t>(p) * M + m;
+    const int cnt =
+        wide_select(key, K, T, lane, slots[warp], vals + row * T,
+                    idx + row * T);
+    if (lane == 0) {
+      norm[row] = nrm;
+      count[row] = cnt;
+    }
+  }
+}
+
+// The consolidating kernel's three passes (see detect_cons_kernel) with
+// the live-lane words in ``words`` [P, M, W] (device memory) and the
+// normalizers read back from ``norm``
+__global__ void __launch_bounds__(kThreads)
+detect_cons_wide_kernel(const float* __restrict__ planes,
+                        const float* __restrict__ z4,
+                        float* __restrict__ vals, int* __restrict__ idx,
+                        float* __restrict__ norm, int* __restrict__ count,
+                        float* __restrict__ cons, unsigned* __restrict__ words,
+                        int K, int M, int T, float min_fw, float cb,
+                        float min_sep) {
+  __shared__ Slots slots[kWarps];
+  const int W = (K + 31) / 32;
+  const int p = blockIdx.x;
+  const float* sp = planes + static_cast<size_t>(p) * kConsPlanes * K;
+  unsigned* pw = words + static_cast<size_t>(p) * M * W;
+  float* pn = norm + static_cast<size_t>(p) * M;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  // pass 1: a warp per row: the normalizer and the live lanes as words
+  for (int m = warp; m < M; m += kWarps) {
+    const float zr = z4[4 * m], zb = z4[4 * m + 1];
+    const bool zvalid = z4[4 * m + 2] > 0.5f;
+    const float nrm = wide_norm(sp, K, lane, zr, zb, zvalid, cb);
+    const float thr = min_fw * nrm;
+    for (int w0 = 0; w0 < W; w0 += 32) {
+      unsigned word = 0u;
+      for (int j = 0; j < 32 && w0 + j < W; ++j) {
+        const int k = 32 * (w0 + j) + lane;
+        bool live = false;
+        if (k < K && zvalid) {
+          float ir, ib;
+          const float v = lane_pdw(sp, K, k, zr, zb, ir, ib);
+          live = v >= thr && v > 0.f;
+        }
+        const unsigned b = __ballot_sync(kFull, live);
+        if (lane == j) word = b;
+      }
+      if (w0 + lane < W) pw[m * W + w0 + lane] = word;
+    }
+    if (lane == 0) pn[m] = nrm;
+  }
+  __syncthreads();
+
+  // pass 2: the column pass
+  column_pass(sp, sp + kPdwPlanes * K, z4, pn, pw, K, M, min_sep,
+              cons + static_cast<size_t>(p) * kConsOut * K);
+  __syncthreads();
+
+  // pass 3: the count and the top-T over the live non-member lanes
+  for (int m = warp; m < M; m += kWarps) {
+    const float zr = z4[4 * m], zb = z4[4 * m + 1];
+    const unsigned* rw = pw + m * W;
+    const auto key = [&](int k) -> unsigned {
+      if (k >= K || !((rw[k >> 5] >> (k & 31)) & 1u)) return 0u;
+      float ir, ib;
+      return __float_as_uint(lane_pdw(sp, K, k, zr, zb, ir, ib));
+    };
+    const size_t row = static_cast<size_t>(p) * M + m;
+    const int cnt =
+        wide_select(key, K, T, lane, slots[warp], vals + row * T,
+                    idx + row * T);
+    if (lane == 0) count[row] = cnt;
   }
 }
 
@@ -591,4 +845,27 @@ extern "C" int phd_detect(const float* planes, const float* z4, float* vals,
   if (K <= 512) return launch<16>(a, s);
   if (K <= 1024) return launch<32>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide variants at any K (the wrapper takes them above 1024): cons ==
+// nullptr runs the plain one on planes [P, 6, K], otherwise the
+// consolidating one on planes [P, 13, K], writing cons [P, 10, K], with
+// ``words`` uint32 [P, M, (K + 31) / 32] as scratch
+extern "C" int phd_detect_wide(const float* planes, const float* z4,
+                               float* vals, int* idx, float* norm, int* count,
+                               float* cons, unsigned* words, int P, int K,
+                               int M, int T, float min_fw, float cb,
+                               float min_sep, void* stream) {
+  if (P <= 0 || M <= 0) return 0;
+  if (T <= 0 || T > K || (cons != nullptr && words == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cons == nullptr)
+    detect_wide_kernel<<<P, kThreads, 0, s>>>(planes, z4, vals, idx, norm,
+                                              count, K, M, T, min_fw, cb);
+  else
+    detect_cons_wide_kernel<<<P, kThreads, 0, s>>>(
+        planes, z4, vals, idx, norm, count, cons, words, K, M, T, min_fw, cb,
+        min_sep);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -88,6 +88,7 @@
 #include <climits>
 #include <cmath>
 
+#include "merge_wide.cuh"
 #include "wrap.cuh"
 
 namespace {
@@ -778,6 +779,43 @@ merge2d_kernel(const float* __restrict__ packed, float* __restrict__ out,
       K, min_sep, sh);
 }
 
+// Lane i of the fused route combined from the tables (see below): w, mean
+// x, y, cov 00, 01, 11
+__device__ __forceinline__ void table_lane(const int* ip, const float* fp,
+                                           const float* tkp,
+                                           const float* tmp, int N, int Kt,
+                                           int Mt, int i,
+                                           float (&v)[kPlanes]) {
+  const int k = ip[i];
+  const int m = ip[N + i];
+  const bool k_ok = k >= 0 && k < Kt;
+  const bool m_ok = m >= 0 && m < Mt;
+  auto tkv = [&](int c) { return k_ok ? tkp[c * Kt + k] : 0.f; };
+  auto tmv = [&](int c) { return m_ok ? tmp[c * Mt + m] : 0.f; };
+  v[0] = fp[i];
+  if (ip[2 * N + i] > 0) {                    // persistent
+    v[1] = tkv(0);
+    v[2] = tkv(1);
+    v[3] = tkv(2);
+    v[4] = tkv(3);
+    v[5] = tkv(5);
+  } else if (ip[3 * N + i] > 0) {             // detection
+    const float innov_r = tmv(0) - tkv(14);
+    const float innov_b = phd::wrap_angle_floor(tmv(1) - tkv(15));
+    v[1] = tkv(0) + tkv(10) * innov_r + tkv(11) * innov_b;
+    v[2] = tkv(1) + tkv(12) * innov_r + tkv(13) * innov_b;
+    v[3] = tkv(6);
+    v[4] = tkv(7);
+    v[5] = tkv(9);
+  } else {                                    // birth
+    v[1] = tmv(2);
+    v[2] = tmv(3);
+    v[3] = tmv(4);
+    v[4] = tmv(5);
+    v[5] = tmv(7);
+  }
+}
+
 // The fused gather + combine + merge (sorted mode): lanes from the
 // deferred-gather tables instead of packed planes. ints [P, 4, N] (k_eff,
 // m_eff, is_p, is_d), flts [P, 2, N] (cand_w, sel_act), t_k [P, 16, Kt]
@@ -822,41 +860,11 @@ merge2d_tables_kernel(const int* __restrict__ ints,
   for (unsigned b = enter; b; b &= b - 1, ++e) {
     const int i = tid + kThreads * (__ffs(b) - 1);
     ln.lane[e] = static_cast<unsigned short>(i);
-    const int k = ip[i];
-    const int m = ip[N + i];
-    const bool k_ok = k >= 0 && k < Kt;
-    const bool m_ok = m >= 0 && m < Mt;
-    auto tkv = [&](int c) { return k_ok ? tkp[c * Kt + k] : 0.f; };
-    auto tmv = [&](int c) { return m_ok ? tmp[c * Mt + m] : 0.f; };
-    float vx, vy, v00, v01, v11;
-    if (ip[2 * N + i] > 0) {                    // persistent
-      vx = tkv(0);
-      vy = tkv(1);
-      v00 = tkv(2);
-      v01 = tkv(3);
-      v11 = tkv(5);
-    } else if (ip[3 * N + i] > 0) {             // detection
-      const float innov_r = tmv(0) - tkv(14);
-      const float innov_b = phd::wrap_angle_floor(tmv(1) - tkv(15));
-      vx = tkv(0) + tkv(10) * innov_r + tkv(11) * innov_b;
-      vy = tkv(1) + tkv(12) * innov_r + tkv(13) * innov_b;
-      v00 = tkv(6);
-      v01 = tkv(7);
-      v11 = tkv(9);
-    } else {                                    // birth
-      vx = tmv(2);
-      vy = tmv(3);
-      v00 = tmv(4);
-      v01 = tmv(5);
-      v11 = tmv(7);
-    }
+    float v[kPlanes];
+    table_lane(ip, fp, tkp, tmp, N, Kt, Mt, i, v);
     ln.state[e] = kFree;
-    ln.put(0, e, fp[i]);
-    ln.put(1, e, vx);
-    ln.put(2, e, vy);
-    ln.put(3, e, v00);
-    ln.put(4, e, v01);
-    ln.put(5, e, v11);
+#pragma unroll
+    for (int c = 0; c < kPlanes; ++c) ln.put(c, e, v[c]);
   }
   greedy_merge<kThreads, false, kMetric>(enter, base, total, ln,
                                          out + p * 8 * K, K, min_sep, sh);
@@ -1056,6 +1064,139 @@ int run_tables(const int* ints, const float* flts, const float* tk,
                                       Kt, Mt, K, min_sep, metric, st, report);
 }
 
+// ---------------------------------------------------------------------------
+// the staged wide-lane variants (merge_wide.cuh): any N, for N > 8192
+// ---------------------------------------------------------------------------
+
+constexpr int kWideThreads = 256;
+
+// pair_dist<0> and pair_dist<1> in merge_wide.cuh's terms: d = principal
+// - candidate mean, S the averaged covariance (Mahalanobis), or the
+// candidate's covariance a and the principal's b (Hellinger)
+struct Gauss2 {
+  static constexpr int kDim = 2;
+  static constexpr int kCov = 3;          // cov 00, 01, 11
+  static constexpr int kPlanes = 7;
+  static constexpr int kOutPlanes = 8;
+  static constexpr bool kHellinger = false;
+
+  template <bool kFast>
+  __device__ __forceinline__ static float dist(const float (&d)[2],
+                                               const float (&s)[3], bool&) {
+    const float det = fmaxf(s[0] * s[2] - s[1] * s[1], 1e-30f);
+    const float num =
+        d[0] * d[0] * s[2] - 2.f * d[0] * d[1] * s[1] + d[1] * d[1] * s[0];
+    return num / det;
+  }
+};
+
+struct Hell2 : Gauss2 {
+  static constexpr bool kHellinger = true;
+
+  __device__ __forceinline__ static float hell(const float (&d)[2],
+                                               const float (&a)[3],
+                                               const float (&b)[3]) {
+    return pair_dist<1>(d[0], d[1], a[0], a[1], a[2], b[0], b[1], b[2]);
+  }
+};
+
+// The fused route's wide variant: merge2d_tables_kernel's lanes, staged
+// in lane order (entries past E into ``spill`` [P, kPlanes, X]), on the
+// wide rounds; lanes / states: [P, N] scratch
+template <class G>
+__global__ void __launch_bounds__(kWideThreads)
+tables_wide_kernel(const int* __restrict__ ints,
+                   const float* __restrict__ flts,
+                   const float* __restrict__ tk, const float* __restrict__ tm,
+                   int* __restrict__ lanes, unsigned char* __restrict__ states,
+                   float* __restrict__ spill, float* __restrict__ out, int N,
+                   int Kt, int Mt, int K, float min_sep, int E, int X) {
+  extern __shared__ float s[];                       // [kPlanes][E]
+  __shared__ phd_wide::Shared<G, kWideThreads> sh;
+  const size_t p = blockIdx.x;
+  const int* ip = ints + p * 4 * N;
+  const float* fp = flts + p * 2 * N;
+  const float* tkp = tk + p * kTablesK * Kt;
+  const float* tmp = tm + p * kTablesM * Mt;
+  const phd_wide::Entries<kPlanes> en{
+      s, E, lanes + p * N, states + p * N, nullptr, N,
+      X > 0 ? spill + p * kPlanes * X : nullptr, X};
+  int n_e = 0, parity = 0;
+  for (int i0 = 0; i0 < N; i0 += kWideThreads, parity ^= 1) {
+    const int i = i0 + threadIdx.x;
+    const bool enter = i < N && fp[N + i] > 0.5f && fp[i] > 0.f;
+    int total;
+    const int e = n_e + phd_wide::chunk_slot(enter, parity, sh, total);
+    if (enter) {
+      en.lane[e] = i;
+      en.state[e] = phd_wide::kFree;
+      float v[kPlanes];
+      table_lane(ip, fp, tkp, tmp, N, Kt, Mt, i, v);
+#pragma unroll
+      for (int c = 0; c < kPlanes; ++c) en.put(c, e, v[c]);
+    }
+    n_e += total;
+  }
+  __syncthreads();
+  phd_wide::wide_rounds<G, kWideThreads, false>(en, n_e, out + p * 8 * K, K,
+                                               min_sep, sh);
+}
+
+int run_wide(const float* packed, float* out, int* lanes,
+             unsigned char* states, int P, int N, int K, float min_sep,
+             int argmax, int metric, void* st, phd_wide::Plan* report) {
+  using phd_wide::launch;
+  if (argmax)
+    return metric ? launch<Hell2, kWideThreads, true>(
+                        packed, out, lanes, states, P, N, K, min_sep, st,
+                        report)
+                  : launch<Gauss2, kWideThreads, true>(
+                        packed, out, lanes, states, P, N, K, min_sep, st,
+                        report);
+  return metric ? launch<Hell2, kWideThreads, false>(
+                      packed, out, lanes, states, P, N, K, min_sep, st,
+                      report)
+                : launch<Gauss2, kWideThreads, false>(
+                      packed, out, lanes, states, P, N, K, min_sep, st,
+                      report);
+}
+
+template <class G>
+int launch_tables_wide(const int* ints, const float* flts, const float* tk,
+                       const float* tm, int* lanes, unsigned char* states,
+                       float* spill, float* out, int P, int N, int Kt, int Mt,
+                       int K, float min_sep, void* st,
+                       phd_wide::Plan* report) {
+  constexpr auto kernel = tables_wide_kernel<G>;
+  phd_wide::Plan plan;
+  const int err =
+      phd_wide::wide_plan<kWideThreads, kPlanes, kernel>(P, N, plan);
+  if (err || report) {
+    if (report) *report = plan;
+    return err;
+  }
+  if (lanes == nullptr || states == nullptr ||
+      (plan.overflow > 0 && spill == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<P, kWideThreads, plan.smem, static_cast<cudaStream_t>(st)>>>(
+      ints, flts, tk, tm, lanes, states, spill, out, N, Kt, Mt, K, min_sep,
+      plan.entries, plan.overflow);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int run_tables_wide(const int* ints, const float* flts, const float* tk,
+                    const float* tm, int* lanes, unsigned char* states,
+                    float* spill, float* out, int P, int N, int Kt, int Mt,
+                    int K, float min_sep, int metric, void* st,
+                    phd_wide::Plan* report) {
+  return metric ? launch_tables_wide<Hell2>(ints, flts, tk, tm, lanes, states,
+                                            spill, out, P, N, Kt, Mt, K,
+                                            min_sep, st, report)
+                : launch_tables_wide<Gauss2>(ints, flts, tk, tm, lanes,
+                                             states, spill, out, P, N, Kt,
+                                             Mt, K, min_sep, st, report);
+}
+
 }  // namespace
 
 extern "C" int phd_merge2d(const float* packed, float* out, int P, int N,
@@ -1100,5 +1241,52 @@ extern "C" int phd_merge2d_plan(int P, int N, int argmax, int metric,
                        plan.blocks_per_sm, plan.overflow, plan.registers,
                        plan.waves};
   for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
+}
+
+// The staged wide-lane variant at any N (the wrapper takes it above
+// 8192): lanes int[P, N] and states uint8[P, N] are scratch
+extern "C" int phd_merge2d_wide(const float* packed, float* out, int* lanes,
+                                unsigned char* states, int P, int N, int K,
+                                float min_sep, int argmax, int metric,
+                                void* stream) {
+  if (P <= 0 || K <= 0) return 0;
+  if (N < 0 || (metric != 0 && metric != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run_wide(packed, out, lanes, states, P, N, K, min_sep, argmax,
+                  metric, stream, nullptr);
+}
+
+// The fused route's wide variant; ``spill``: kPlanes * X floats a particle
+// (X: the wide plan's overflow), or null when X is 0
+extern "C" int phd_merge2d_tables_wide(const int* ints, const float* flts,
+                                       const float* tk, const float* tm,
+                                       int* lanes, unsigned char* states,
+                                       float* spill, float* out, int P,
+                                       int N, int Kt, int Mt, int K,
+                                       float min_sep, int metric,
+                                       void* stream) {
+  if (P <= 0 || K <= 0) return 0;
+  if (N < 0 || (metric != 0 && metric != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run_tables_wide(ints, flts, tk, tm, lanes, states, spill, out, P, N,
+                         Kt, Mt, K, min_sep, metric, stream, nullptr);
+}
+
+// The wide variants' launch plan, into out[7] (phd_merge2d_plan's layout)
+extern "C" int phd_merge2d_wide_plan(int P, int N, int argmax, int metric,
+                                     int tables, int* out) {
+  if (P <= 0) P = 1;
+  if (N < 0 || (metric != 0 && metric != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  phd_wide::Plan plan{};
+  const int err =
+      tables ? run_tables_wide(nullptr, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, nullptr, nullptr, P, N, 0, 0, 1, 0.f,
+                               metric, nullptr, &plan)
+             : run_wide(nullptr, nullptr, nullptr, nullptr, P, N, 1, 0.f,
+                        argmax, metric, nullptr, &plan);
+  if (err) return err;
+  phd_wide::plan_out(plan, out);
   return 0;
 }

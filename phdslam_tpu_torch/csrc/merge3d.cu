@@ -22,10 +22,12 @@
 #include <cuda_runtime.h>
 
 #include "merge_core.cuh"
+#include "merge_wide.cuh"
 
 namespace {
 
 constexpr int kR = 8;           // tentative principals a round
+constexpr int kWideThreads = 128;  // the staged wide-lane variants
 
 struct Gauss3 {
   static constexpr int kDim = 3;
@@ -122,4 +124,44 @@ extern "C" int phd_merge3d_plan(int P, int N, int argmax, int metric,
     return static_cast<int>(cudaErrorInvalidValue);
   if (metric == 1) return phd_merge::plan<Hell3, kR>(P, N, out);
   return phd_merge::plan<Gauss3, kR>(P, N, out);
+}
+
+namespace {
+
+// The wide variants (merge_wide.cuh) of phd_merge3d's: sorted lanes,
+// either metric
+int run_wide(const float* packed, float* out, int* lanes,
+             unsigned char* states, int P, int N, int K, float min_sep,
+             int argmax, int metric, void* stream, phd_wide::Plan* report) {
+  if (argmax || (metric != 0 && metric != 1) || N < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (metric == 1)
+    return phd_wide::launch<Hell3, kWideThreads, false>(
+        packed, out, lanes, states, P, N, K, min_sep, stream, report);
+  return phd_wide::launch<Gauss3, kWideThreads, false>(
+      packed, out, lanes, states, P, N, K, min_sep, stream, report);
+}
+
+}  // namespace
+
+// The staged wide-lane variant at any N (the wrapper takes it above
+// 2048): lanes int[P, N] and states uint8[P, N] are scratch
+extern "C" int phd_merge3d_wide(const float* packed, float* out, int* lanes,
+                                unsigned char* states, int P, int N, int K,
+                                float min_sep, int argmax, int metric,
+                                void* stream) {
+  if (P <= 0 || K <= 0) return 0;
+  return run_wide(packed, out, lanes, states, P, N, K, min_sep, argmax,
+                  metric, stream, nullptr);
+}
+
+// The wide variants' launch plan, into out[7] (merge_core.cuh's layout)
+extern "C" int phd_merge3d_wide_plan(int P, int N, int argmax, int metric,
+                                     int* out) {
+  phd_wide::Plan plan{};
+  const int err = run_wide(nullptr, nullptr, nullptr, nullptr, P, N, 1, 0.f,
+                           argmax, metric, nullptr, &plan);
+  if (err) return err;
+  phd_wide::plan_out(plan, out);
+  return 0;
 }

@@ -47,7 +47,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import SlamConfig
-from ..kernels.merge import MAX_CANDIDATES, merge3d
+from ..kernels.merge import merge3d
 from ..ops.gm_merge import (compact_candidates, merge_out, pack_planes,
                             sort_candidates)
 from ..ops.math import LOG0, chol3, logsumexp, safe_log, sym, wrap_angle
@@ -72,25 +72,15 @@ class DisparityOutputs(NamedTuple):
 
 
 def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
-    """Raise for a configuration outside the ported disparity path: a
-    merge wider than merge3d's 2048 lanes (naming the width), and clouds
-    of fewer than 2 points, whose sample covariance the JAX version
-    divides by N - 1 = 0."""
-    bad = []
+    """Raise for a configuration outside the ported disparity path:
+    clouds of fewer than 2 points, whose sample covariance the JAX version
+    divides by N - 1 = 0. No merge width is refused: above merge3d's
+    narrow 2048 lanes the staged wide-lane variant runs."""
     if cfg.particles_per_feature < 2:
-        bad.append(f"particles_per_feature={cfg.particles_per_feature} "
-                   "(ported: >= 2)")
-    n_full = K + M * K + M
-    cap = cfg.merge_candidate_cap
-    width = cap if 0 < cap < n_full else n_full
-    if width > MAX_CANDIDATES[3]:
-        bad.append(f"merge_candidate_cap={cap}: {width} merge lanes a "
-                   f"particle (merge3d is built for <= {MAX_CANDIDATES[3]}; "
-                   "the staged wide-lane variant is not built)")
-    if bad:
         raise NotImplementedError(
             "configuration outside the ported disparity path: "
-            + "; ".join(bad))
+            f"particles_per_feature={cfg.particles_per_feature} "
+            "(ported: >= 2)")
 
 
 # ----------------------------------------------------------------------------

@@ -70,27 +70,6 @@ def uses_fast_route(cfg: SlamConfig, K: int, M: int) -> bool:
             and bool(cfg.mixed_fast_path))
 
 
-def mixed_widths(cfg: SlamConfig, K: int, M: int):
-    """(D, merge lanes a particle, what) of each map's merge on the route
-    the configuration takes, for ``check_supported``'s width checks."""
-    cap = cfg.merge_candidate_cap
-    cap_d = cfg.merge_candidate_cap_dynamic or cap
-    n_full = full_grid_width(cfg, K, M)
-    n_jax = full_grid_width(cfg, K, max(M, cfg.max_measurements))
-    if uses_fast_route(cfg, K, M):
-        return [(2, cap, f"merge_candidate_cap={cap}"),
-                (4, cap_d if 0 < cap_d else cap,
-                 f"merge_candidate_cap_dynamic={cap_d}")]
-
-    def lanes(c):
-        return c if 0 < c < n_jax else n_full
-    return [(2, lanes(cap), f"the per-particle route's static map "
-             f"(merge_candidate_cap={cap}, max_features={K}, M={M})"),
-            (4, lanes(cap_d), f"the per-particle route's dynamic map "
-             f"(merge_candidate_cap_dynamic={cap_d}, max_features={K}, "
-             f"M={M}; the mixed full grid)")]
-
-
 def _birth_weights(z_label, M, cfg: SlamConfig, dtype, device):
     """Per-measurement birth weights of each map [M] and the normalizer's
     birth term: labeled measurements birth only into the matching map (one

@@ -15,8 +15,10 @@ column gather (candidate tables and post-merge compaction) and the greedy
 merges (2D for the static map and the EAP tree, 4D for the dynamic one).
 
 Scope (:func:`check_supported`): every option of the JAX package's PHD,
-CPHD and mixed updates but the approximate ``merge_spatial_tiles``, within
-the kernels' lane widths:
+CPHD and mixed updates but the approximate ``merge_spatial_tiles``, at
+any width (a merge wider than its narrow kernel, such as the mixed,
+dynamic-only or dense full grid, and a detect row above 1024 features
+take the staged wide-lane kernels):
   - the static 2D map (feature_model 0) or the dynamic-only 4D map
     (feature_model 1: the same pipeline on ``map_dynamic``, its births from
     ``birth_mean_cov_4d``, the 4D merge), Ackerman or constant-velocity
@@ -68,8 +70,7 @@ from torch.profiler import record_function
 from ..config import SlamConfig
 from ..kernels.detect import detect
 from ..kernels.gather_cols import gather_cols
-from ..kernels.merge import (MAX_CANDIDATES, merge2d, merge2d_tables, merge4d,
-                             tables_operands)
+from ..kernels.merge import merge2d, merge2d_tables, merge4d, tables_operands
 from ..models import feature_motion, measurement, vehicle
 from ..ops import ekf
 from ..ops.gm_merge import (MERGE_DIMS, compact_candidates, merge_out,
@@ -145,11 +146,10 @@ def uses_eap(cfg: SlamConfig) -> bool:
 
 def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
     """Raise for a configuration outside the ported path: a value the JAX
-    package does not define, the approximate ``merge_spatial_tiles`` by
-    name, and every merge whose lanes exceed its kernel's width (merge2d
-    N <= 8192, merge3d / merge4d N <= 2048, kernels/merge.py::
-    MAX_CANDIDATES; the staged wide-lane variants are not built), naming
-    the width."""
+    package does not define, and the approximate ``merge_spatial_tiles``
+    by name. No width is refused: a merge wider than its narrow kernel
+    (kernels/merge.py::NARROW_LANES) and a detect row wider than 1024
+    features take the staged wide-lane variants."""
     bad = [f"{name}={getattr(cfg, name)!r} (the JAX package defines "
            f"{', '.join(map(str, values))})"
            for name, values in (("filter_type", (0, 1)),
@@ -160,36 +160,6 @@ def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
     if cfg.merge_spatial_tiles not in (0,):
         bad.append(f"merge_spatial_tiles={cfg.merge_spatial_tiles!r} "
                    "(ported: 0; the tiled merge is approximate)")
-
-    def width(D, lanes, what):
-        if lanes > MAX_CANDIDATES[D]:
-            bad.append(f"{what}: {lanes} merge lanes a particle "
-                       f"(merge{D}d is built for <= {MAX_CANDIDATES[D]}; the "
-                       "staged wide-lane variant is not built)")
-    # extraction reads the dynamic-only map (feature_model 1); the CPHD
-    # update, as the JAX version's, runs on the static map whatever the
-    # feature model
-    D = 4 if cfg.feature_model == 1 else 2
-    if uses_eap(cfg):
-        # every tree level merges a pair's lanes in one merge row (the flat
-        # form all P k lanes)
-        n_ext = max(1, cfg.n_particles) * max(1, cfg.n_predict_particles)
-        lanes = (n_ext * K if n_ext <= 2
-                 else 2 * max(K, cfg.eap_tree_cap or K))
-        width(D, lanes, f"eap_tree_cap={cfg.eap_tree_cap} with "
-              f"max_features={K}: the EAP tree")
-    cap = cfg.merge_candidate_cap
-    if cfg.filter_type == 1:
-        D = 2
-    if cfg.feature_model == 2 and cfg.filter_type == 0:
-        from .mixed import mixed_widths
-        for D_m, lanes, what in mixed_widths(cfg, K, M):
-            width(D_m, lanes, what)
-    else:
-        lanes = full_grid_width(cfg, K, M) if uses_full_grid(cfg, K, M) \
-            else cap
-        width(D, lanes, f"merge_candidate_cap={cap} with max_features={K}, "
-              f"M={M}")
     if bad:
         raise NotImplementedError(
             "configuration outside the ported path: " + "; ".join(bad))

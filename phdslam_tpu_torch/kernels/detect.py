@@ -21,7 +21,10 @@ and the top-T, and a fifth output cons [P, 10, K] carries their moment
 sums. :func:`detect` launches the CUDA kernel (csrc/detect.cu) for CUDA
 tensors and runs the plain twin :func:`detect_reference` for CPU tensors;
 each variant counts its launches under its own name
-(:func:`detect_variant`).
+(:func:`detect_variant`). Above :data:`NARROW_FEATURES` features (or with
+``wide=True``) a CUDA launch takes the wide variant of the same mode,
+which walks each row in tiles of 1024 features, counted with "_wide"
+appended.
 """
 
 from __future__ import annotations
@@ -33,15 +36,19 @@ import torch
 from . import build
 
 TWO_PI = 2.0 * math.pi
-MAX_FEATURES = 1024      # 32 features per lane in the kernel's registers
+# the dispatch threshold: features the narrow kernels hold (32 a lane in
+# registers); a wider launch takes the wide variant
+NARROW_FEATURES = 1024
 N_PLANES = {False: 6, True: 13}     # consolidating -> input planes
 
 
-def detect_variant(cons: bool = False, adaptive: bool = False) -> str:
+def detect_variant(cons: bool = False, adaptive: bool = False,
+                   wide: bool = False) -> str:
     """The launch-count name of a detect variant: "detect",
-    "detect_adaptive", "detect_cons", "detect_cons_adaptive"."""
+    "detect_adaptive", "detect_cons", "detect_cons_adaptive", each with
+    "_wide" appended for the wide variant."""
     return "detect" + ("_cons" if cons else "") \
-        + ("_adaptive" if adaptive else "")
+        + ("_adaptive" if adaptive else "") + ("_wide" if wide else "")
 
 
 def _wrap_angle_floor(a):
@@ -152,14 +159,15 @@ def detect_reference(planes, z4, top_t, min_fw, cb, min_sep=0.0,
 
 
 def detect(planes, z4, top_t: int, min_fw: float, cb: float,
-           min_sep: float = 0.0, adaptive: bool = False):
+           min_sep: float = 0.0, adaptive: bool = False, wide=None):
     """Batched detection + top-T; same contract as :func:`detect_reference`.
 
     A CPU tensor runs the twin; a CUDA tensor launches the kernel, the same
     one with or without ``adaptive`` (its selection does not depend on the
-    trip count), counted under the variant's name. The argument check
-    formats its message only on a failure, so a passing call costs the
-    host little.
+    trip count), counted under the variant's name: the narrow kernel up to
+    NARROW_FEATURES features, the wide one above (or with ``wide``). The
+    argument check formats its message only on a failure, so a passing call
+    costs the host little.
     """
     if planes.is_cpu:
         return detect_reference(planes, z4, top_t, min_fw, cb, min_sep,
@@ -171,10 +179,10 @@ def detect(planes, z4, top_t: int, min_fw: float, cb: float,
             and z4.shape == (M, 4) and planes.dtype == torch.float32
             and z4.dtype == torch.float32 and z4.device == planes.device
             and planes.is_contiguous() and z4.is_contiguous()
-            and 0 < K <= MAX_FEATURES and 0 < top_t <= K):
+            and 0 < top_t <= K):
         raise ValueError(
             f"detect: needs contiguous float32 planes [P, "
-            f"{N_PLANES[cons_on]}, K] (K <= {MAX_FEATURES}) and z4 [M, 4] "
+            f"{N_PLANES[cons_on]}, K] and z4 [M, 4] "
             f"on one CUDA device, 0 < T <= K; got planes "
             f"{tuple(planes.shape)} {planes.dtype} on {planes.device}, z4 "
             f"{tuple(z4.shape)} {z4.dtype} on {z4.device}, T={top_t}, "
@@ -189,12 +197,21 @@ def detect(planes, z4, top_t: int, min_fw: float, cb: float,
         if cons_on:
             cons.zero_()                 # no measurement, no member
         return outs
-    err = build.library().phd_detect(
-        planes.data_ptr(), z4.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        norm.data_ptr(), count.data_ptr(),
-        cons.data_ptr() if cons_on else None, P, K, M, top_t, float(min_fw),
-        float(cb), float(min_sep), build.stream_handle(planes.device))
-    name = detect_variant(cons_on, adaptive)
+    wide = K > NARROW_FEATURES if wide is None else bool(wide)
+    ptrs = (planes.data_ptr(), z4.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), norm.data_ptr(), count.data_ptr(),
+            cons.data_ptr() if cons_on else None)
+    tail = (P, K, M, top_t, float(min_fw), float(cb), float(min_sep),
+            build.stream_handle(planes.device))
+    if wide:
+        # the consolidating passes' live-lane words, a row's K bits
+        words = planes.new_empty((P, M, (K + 31) // 32),
+                                 dtype=torch.int32) if cons_on else None
+        err = build.library().phd_detect_wide(
+            *ptrs, None if words is None else words.data_ptr(), *tail)
+    else:
+        err = build.library().phd_detect(*ptrs, *tail)
+    name = detect_variant(cons_on, adaptive, wide)
     build.check_launch(err, name)
     build.launch_counts[name] += 1
     return outs

@@ -28,6 +28,13 @@ csrc/merge_core.cuh) for CUDA tensors and runs its plain twin
 (``*_reference``) for CPU tensors. Each merge2d variant counts
 its launches under its own name (:func:`merge2d_variant`).
 
+Width: a CUDA launch of up to :data:`NARROW_LANES` lanes (8192 at D = 2,
+2048 at D = 3 and 4) runs the narrow kernel, a wider one the staged
+wide-lane variant of the same mode and metric (csrc/merge_wide.cuh: the
+entering lanes compacted into one block-wide list, no lane cap), counted
+under the variant's name with "_wide" appended. ``wide=True`` forces the
+staged variant at any width (its check against the narrow kernel).
+
 ``merge2d_tables`` replaces ``_merge_tables_kernel`` (fused_gather_merge,
 entry ``gm_merge_pallas_batch_tables``): the fused column gather + combine
 + sorted-mode merge, reading each entering lane straight from the
@@ -48,9 +55,10 @@ from . import build
 from .detect import _wrap_angle_floor
 from .gather_cols import gather_cols_reference
 
-# lanes per particle: one 32-bit mask word per thread, 64 threads (merge3d,
-# merge4d) or up to 256 (merge2d, whose full-grid route needs K + M K + M)
-MAX_CANDIDATES = {2: 8192, 3: 2048, 4: 2048}
+# the dispatch threshold: lanes a particle the narrow kernels hold (one
+# 32-bit mask word a thread: 64 threads in merge3d / merge4d, up to 256 in
+# merge2d); a wider launch takes the staged wide-lane variant
+NARROW_LANES = {2: 8192, 3: 2048, 4: 2048}
 _PLANES = {2: (7, 8), 3: (11, 12), 4: (16, 16)}  # D -> (input, output)
 TABLE_ROWS = (16, 8)     # t_k, t_m rows of the fused route (D = 2, births)
 
@@ -60,43 +68,56 @@ PLAN_KEYS = ("threads", "entries", "smem", "blocks_per_sm", "overflow",
 _plans: dict = {}
 
 
+def uses_wide(D: int, N: int, wide=None) -> bool:
+    """Whether a merge of N lanes at dimension D takes the staged wide-lane
+    variant: above :data:`NARROW_LANES`, or as ``wide`` forces."""
+    return N > NARROW_LANES[D] if wide is None else bool(wide)
+
+
 def merge2d_plan(P: int, N: int, sorted_w: bool = True, metric: int = 0,
-                 tables: bool = False, device=None) -> dict:
+                 tables: bool = False, device=None, wide=None) -> dict:
     """The launch plan of a merge2d variant (``tables``: merge2d_tables)
     for P particles of N lanes on a CUDA device (csrc/merge2d.cu::
-    make_plan): threads a block, entering lanes a block keeps in shared
-    memory, dynamic shared memory a block (bytes), resident blocks an SM,
-    entries that may lie past the shared ones (N - entries), registers a
-    thread, waves. Cached."""
+    make_plan; above NARROW_LANES, or with ``wide``, the staged variant's,
+    csrc/merge_wide.cuh::wide_plan): threads a block, entering lanes a
+    block keeps in shared memory, dynamic shared memory a block (bytes),
+    resident blocks an SM, entries that may lie past the shared ones
+    (N - entries), registers a thread, waves. Cached."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    key = (index, P, N, bool(sorted_w), int(metric), bool(tables))
+    wide = uses_wide(2, N, wide)
+    key = (index, P, N, bool(sorted_w), int(metric), bool(tables), wide)
     plan = _plans.get(key)
     if plan is None:
         out = (ctypes.c_int * len(PLAN_KEYS))()
+        fn = build.library().phd_merge2d_wide_plan if wide \
+            else build.library().phd_merge2d_plan
         with torch.cuda.device(index):
-            err = build.library().phd_merge2d_plan(
-                P, N, int(not sorted_w), int(metric), int(tables), out)
+            err = fn(P, N, int(not sorted_w), int(metric), int(tables), out)
         build.check_launch(err, "merge2d plan")
         plan = _plans[key] = dict(zip(PLAN_KEYS, out))
     return plan
 
 
 def merge_plan(D: int, P: int, N: int, device=None, sorted_w: bool = True,
-               metric: int = 0) -> dict:
+               metric: int = 0, wide=None) -> dict:
     """The launch plan of a merge3d (D = 3) or merge4d (D = 4) variant for
-    P particles of N lanes on a CUDA device (csrc/merge_core.cuh::plan),
-    in merge2d_plan's keys: threads a block, lanes a block keeps in shared
-    memory (N), dynamic shared memory a block (bytes), resident blocks an
-    SM, overflow (0), registers a thread, waves. Cached."""
+    P particles of N lanes on a CUDA device (csrc/merge_core.cuh::plan; the
+    staged variant's above NARROW_LANES or with ``wide``), in
+    merge2d_plan's keys: threads a block, lanes a block keeps in shared
+    memory (narrow: N), dynamic shared memory a block (bytes), resident
+    blocks an SM, overflow (narrow: 0), registers a thread, waves.
+    Cached."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    key = (index, P, N, D, bool(sorted_w), int(metric))
+    wide = uses_wide(D, N, wide)
+    key = (index, P, N, D, bool(sorted_w), int(metric), wide)
     plan = _plans.get(key)
     if plan is None:
         out = (ctypes.c_int * len(PLAN_KEYS))()
+        name = f"phd_merge{D}d" + ("_wide_plan" if wide else "_plan")
         with torch.cuda.device(index):
-            err = getattr(build.library(), f"phd_merge{D}d_plan")(
+            err = getattr(build.library(), name)(
                 P, N, int(not sorted_w), int(metric), out)
         build.check_launch(err, f"merge{D}d plan")
         plan = _plans[key] = dict(zip(PLAN_KEYS, out))
@@ -122,16 +143,18 @@ def recip_check(n: int, seed: int = 0, mode: int = 0, device=None) -> dict:
 
 
 def merge2d_variant(sorted_w: bool = True, metric: int = 0,
-                    tables: bool = False, D: int = 2) -> str:
+                    tables: bool = False, D: int = 2,
+                    wide: bool = False) -> str:
     """The launch-count name of a merge variant: "merge2d" (sorted,
     Mahalanobis), "merge2d_argmax", "merge2d_hellinger",
     "merge2d_argmax_hellinger", the fused route's "merge2d_tables",
     "merge2d_tables_hellinger", and at D = 3 and 4 "merge3d",
     "merge3d_hellinger", "merge4d", "merge4d_argmax", "merge4d_hellinger"
-    (the variants built, :data:`VARIANTS_3D4D`)."""
+    (the variants built, :data:`VARIANTS_3D4D`); each staged wide-lane
+    variant with "_wide" appended ("merge2d_argmax_wide", ...)."""
     return f"merge{D}d" + ("_tables" if tables else "") \
         + ("" if sorted_w else "_argmax") \
-        + ("_hellinger" if metric == 1 else "")
+        + ("_hellinger" if metric == 1 else "") + ("_wide" if wide else "")
 
 
 # the merge3d and merge4d variants built: D -> ((sorted_w, metric), ...)
@@ -170,7 +193,8 @@ def merge4d_reference(packed, min_separation: float, out_cap: int,
     return _reference(packed, min_separation, out_cap, 4, sorted_w, metric)
 
 
-def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0):
+def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0,
+            wide=None):
     name = f"merge{D}d"
     c_in, c_out = _PLANES[D]
     build.require(packed.device.type == "cuda",
@@ -181,58 +205,70 @@ def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0):
     build.require(packed.dtype == torch.float32 and packed.is_contiguous(),
                   f"{name}: contiguous float32 planes required")
     P, _, N = packed.shape
-    build.require(N <= MAX_CANDIDATES[D] and out_cap > 0,
-                  f"{name}: N={N} (max {MAX_CANDIDATES[D]}), "
-                  f"out_cap={out_cap}")
+    build.require(out_cap > 0, f"{name}: out_cap={out_cap}")
     build.require(metric in (0, 1) and (
         D == 2 or (bool(sorted_w), metric) in VARIANTS_3D4D[D]),
         f"{name}: sorted_w={sorted_w}, metric={metric} not built")
+    wide = uses_wide(D, N, wide)
     out = torch.empty((P, c_out, out_cap), dtype=torch.float32,
                       device=packed.device)
     if P == 0:
         return out
-    fn = getattr(build.library(), f"phd_{name}")
-    err = fn(packed.data_ptr(), out.data_ptr(), P, N, out_cap,
-             float(min_separation), int(not sorted_w), int(metric),
-             build.stream_handle(packed.device))
-    build.check_launch(err, name)
-    build.launch_counts[merge2d_variant(sorted_w, metric, D=D)] += 1
+    args = (P, N, out_cap, float(min_separation), int(not sorted_w),
+            int(metric), build.stream_handle(packed.device))
+    if wide:
+        # each particle's entering lanes and their states
+        lanes = torch.empty((P, N), dtype=torch.int32, device=packed.device)
+        states = torch.empty((P, N), dtype=torch.uint8, device=packed.device)
+        err = getattr(build.library(), f"phd_{name}_wide")(
+            packed.data_ptr(), out.data_ptr(), lanes.data_ptr(),
+            states.data_ptr(), *args)
+    else:
+        err = getattr(build.library(), f"phd_{name}")(
+            packed.data_ptr(), out.data_ptr(), *args)
+    variant = merge2d_variant(sorted_w, metric, D=D, wide=wide)
+    build.check_launch(err, variant)
+    build.launch_counts[variant] += 1
     return out
 
 
 def merge2d(packed, min_separation: float, out_cap: int,
-            sorted_w: bool = True, metric: int = 0):
+            sorted_w: bool = True, metric: int = 0, wide=None):
     """Greedy 2D merge; same contract as :func:`merge2d_reference`.
 
-    A CPU tensor runs the twin; a CUDA tensor launches the kernel.
+    A CPU tensor runs the twin; a CUDA tensor launches the kernel (the
+    staged wide-lane variant above 8192 lanes or with ``wide``).
     """
     if packed.device.type == "cpu":
         return merge2d_reference(packed, min_separation, out_cap, sorted_w,
                                  metric)
-    return _launch(packed, min_separation, out_cap, 2, sorted_w, metric)
+    return _launch(packed, min_separation, out_cap, 2, sorted_w, metric, wide)
 
 
-def merge3d(packed, min_separation: float, out_cap: int, metric: int = 0):
+def merge3d(packed, min_separation: float, out_cap: int, metric: int = 0,
+            wide=None):
     """Greedy 3D (u, v, d) merge; same contract as
     :func:`merge3d_reference`.
 
-    A CPU tensor runs the twin; a CUDA tensor launches the kernel.
+    A CPU tensor runs the twin; a CUDA tensor launches the kernel (the
+    staged wide-lane variant above 2048 lanes or with ``wide``).
     """
     if packed.device.type == "cpu":
         return merge3d_reference(packed, min_separation, out_cap, metric)
-    return _launch(packed, min_separation, out_cap, 3, True, metric)
+    return _launch(packed, min_separation, out_cap, 3, True, metric, wide)
 
 
 def merge4d(packed, min_separation: float, out_cap: int,
-            sorted_w: bool = True, metric: int = 0):
+            sorted_w: bool = True, metric: int = 0, wide=None):
     """Greedy 4D merge; same contract as :func:`merge4d_reference`.
 
-    A CPU tensor runs the twin; a CUDA tensor launches the kernel.
+    A CPU tensor runs the twin; a CUDA tensor launches the kernel (the
+    staged wide-lane variant above 2048 lanes or with ``wide``).
     """
     if packed.device.type == "cpu":
         return merge4d_reference(packed, min_separation, out_cap, sorted_w,
                                  metric)
-    return _launch(packed, min_separation, out_cap, 4, sorted_w, metric)
+    return _launch(packed, min_separation, out_cap, 4, sorted_w, metric, wide)
 
 
 def tables_packed(ints, flts, t_k, t_m):
@@ -275,18 +311,20 @@ def tables_operands(gather):
 
 
 def merge2d_tables(ints, flts, t_k, t_m, min_separation: float,
-                   out_cap: int, metric: int = 0):
+                   out_cap: int, metric: int = 0, wide=None):
     """Fused column gather + combine + sorted greedy 2D merge; same
     contract as :func:`merge2d_tables_reference`.
 
     A CPU tensor runs the twin; a CUDA tensor launches the kernel (ints
-    int32, the rest float32, all contiguous).
+    int32, the rest float32, all contiguous; the staged wide-lane variant
+    above 8192 lanes or with ``wide``).
     """
     if flts.device.type == "cpu":
         return merge2d_tables_reference(ints, flts, t_k, t_m, min_separation,
                                         out_cap, metric)
-    name = merge2d_variant(True, metric, tables=True)
     dev = flts.device
+    wide = uses_wide(2, ints.shape[-1], wide)
+    name = merge2d_variant(True, metric, tables=True, wide=wide)
     build.require(dev.type == "cuda", f"{name}: unsupported device {dev}")
     P, _, N = ints.shape
     build.require(ints.shape == (P, 4, N) and flts.shape == (P, 2, N)
@@ -302,23 +340,29 @@ def merge2d_tables(ints, flts, t_k, t_m, min_separation: float,
     build.require(all(x.device == dev and x.is_contiguous()
                       for x in (ints, flts, t_k, t_m)),
                   f"{name}: contiguous inputs on one device required")
-    build.require(N <= MAX_CANDIDATES[2] and out_cap > 0 and metric in (0, 1),
-                  f"{name}: N={N} (max {MAX_CANDIDATES[2]}), "
-                  f"out_cap={out_cap}, metric={metric}")
+    build.require(out_cap > 0 and metric in (0, 1),
+                  f"{name}: out_cap={out_cap}, metric={metric}")
     out = torch.empty((P, 8, out_cap), dtype=torch.float32, device=dev)
     if P == 0:
         return out
     # room for the entering lanes past the block's shared-memory entries,
     # written only where more lanes enter than the plan's entries
-    plan = merge2d_plan(P, N, True, metric, tables=True, device=dev)
+    plan = merge2d_plan(P, N, True, metric, tables=True, device=dev,
+                        wide=wide)
     n_over = 6 * plan["overflow"]
     scratch = torch.empty((P, n_over), dtype=torch.float32,
                           device=dev) if n_over else None
-    err = build.library().phd_merge2d_tables(
-        ints.data_ptr(), flts.data_ptr(), t_k.data_ptr(), t_m.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), out.data_ptr(), P,
-        N, t_k.shape[2], t_m.shape[2], out_cap, float(min_separation),
-        int(metric), build.stream_handle(dev))
+    ptrs = (ints.data_ptr(), flts.data_ptr(), t_k.data_ptr(), t_m.data_ptr())
+    tail = (None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            P, N, t_k.shape[2], t_m.shape[2], out_cap, float(min_separation),
+            int(metric), build.stream_handle(dev))
+    if wide:
+        lanes = torch.empty((P, N), dtype=torch.int32, device=dev)
+        states = torch.empty((P, N), dtype=torch.uint8, device=dev)
+        err = build.library().phd_merge2d_tables_wide(
+            *ptrs, lanes.data_ptr(), states.data_ptr(), *tail)
+    else:
+        err = build.library().phd_merge2d_tables(*ptrs, *tail)
     build.check_launch(err, name)
     build.launch_counts[name] += 1
     return out

@@ -461,14 +461,13 @@ def test_check_supported_routes():
     kw = dict(merge_candidate_cap=K + 64 * K, max_measurements=80)
     check_supported(dataclasses.replace(base, **kw), K, 64)
     assert update_route(dataclasses.replace(base, **kw), K, 64) == "det"
-    refused = {
-        "distance_metric": dict(distance_metric=2),
-        "lanes": dict(merge_candidate_cap=0, max_features=128),
-    }
-    for match, kw in refused.items():
-        with pytest.raises(NotImplementedError, match=match):
-            check_supported(dataclasses.replace(base, **kw),
-                            kw.get("max_features", K), 64)
+    # the CPHD full grid above merge2d's narrow 8192 lanes (128 + 64 * 128
+    # = 8320): accepted, on the staged wide-lane variant
+    kw = dict(merge_candidate_cap=0, max_features=128)
+    check_supported(dataclasses.replace(base, **kw), 128, 64)
+    assert update_route(dataclasses.replace(base, **kw), 128, 64) == "full"
+    with pytest.raises(NotImplementedError, match="distance_metric"):
+        check_supported(dataclasses.replace(base, distance_metric=2), K, 64)
 
 
 # ----------------------------------------------------------------------------

@@ -26,8 +26,12 @@ merge4d, merge4d's argmax mode and both Hellinger variants), with the
 launch plan of every path's merge shape one wave. merge4d's argmax mode
 runs on lanes in a random order with w <= 0 lanes, a NaN row and a
 binding out_cap, and the 3D / 4D Hellinger variants on sorted lanes, each
-against its twin. The resampling's fixed-order
-cumsum repeats its bits at P=10240.
+against its twin. The staged wide-lane variants (every merge mode
+just above its narrow kernel's width, merge2d_tables at N=8448, detect at
+K=2048 in all four modes and at K=1500 with trips) run against their
+twins, detect also against the same call on the CPU, and each beside its
+narrow kernel at the narrow limit (N=8192, 2048, K=1024). The
+resampling's fixed-order cumsum repeats its bits at P=10240.
 """
 
 import numpy as np
@@ -48,8 +52,10 @@ from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
                                                    gather_rows_reference)
-from merge_bench import MERGE_EDGES, edge_runs, run_case
-from phdslam_tpu_torch.kernels.merge import (MAX_CANDIDATES, merge2d,
+from merge_bench import (MERGE_EDGES, edge_runs, run_case,
+                         tables_edge_case)
+from phdslam_tpu_torch.kernels.merge import (NARROW_LANES, VARIANTS_3D4D,
+                                             merge2d,
                                              merge2d_plan, merge2d_reference,
                                              merge2d_tables,
                                              merge2d_tables_reference,
@@ -151,9 +157,14 @@ def test_merge2d_argmax_full_grid_matches_twin(dev, N, metric):
     got = assert_merge_matches(full_grid_inputs(dev, N=N, seed=N), min_sep,
                                128, sorted_w=False, metric=metric)
     assert (got[3] > 10).all()
-    with pytest.raises(ValueError):
-        merge2d(full_grid_inputs(dev, P=2, N=MAX_CANDIDATES[2] + 1), min_sep,
-                128, sorted_w=False, metric=metric)
+    # one lane wider: the staged wide-lane variant, against the twin
+    wide = full_grid_inputs(dev, P=2, N=NARROW_LANES[2] + 1)
+    build.reset_launch_counts()
+    got = merge2d(wide, min_sep, 128, sorted_w=False, metric=metric)
+    assert dict(build.launch_counts) == {
+        merge2d_variant(False, metric, wide=True): 1}
+    assert_outputs_match(got, merge2d_reference(wide, min_sep, 128, False,
+                                                metric), 2)
 
 
 @pytest.mark.parametrize("sorted_w", [True, False])
@@ -501,7 +512,7 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         merge3d(merge_inputs(dev, P=2), 20.0, 24)   # 7 planes, not 11
     with pytest.raises(ValueError):
-        merge3d(merge3d_inputs(dev, P=2, N=2049), 20.0, 24)  # > 2048 lanes
+        merge3d(merge3d_inputs(dev, P=2), 20.0, 0)  # no output slot
     with pytest.raises(ValueError):
         merge3d(merge3d_inputs(dev, P=2).double(), 20.0, 24)
     idx, tab = gather_case(dev, "t_k")
@@ -628,6 +639,173 @@ def test_merge2d_tables_matches_two_kernel_route(dev, shape, metric):
         for a, b in zip(got[:3], want[:3]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     assert (got[3] > 10).all()
+
+
+def assert_outputs_match(got, want, D):
+    """Merge planes at dimension D against another merge's: equal cluster
+    and leftover counts, rtol 1e-4 / atol 1e-5 on weights, means and
+    covariances. Returns got's merge tuple."""
+    g, w = merge_out(got, D), merge_out(want, D)
+    assert torch.equal(g[3], w[3]) and torch.equal(g[4], w[4])
+    for a, b in zip(g[:3], w[:3]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    return g
+
+
+def wide_planes(dev, D, N, sorted_w, seed=0):
+    """Clustered planes at dimension D for the staged variants: weight-
+    descending (sorted) or full-grid lanes in no order (argmax, 2D), or the
+    4D argmax mode's lanes in a random order."""
+    if D == 2:
+        return merge_inputs(dev, P=16, N=N, seed=seed) if sorted_w else \
+            full_grid_inputs(dev, P=16, N=N, seed=seed)
+    planes = (merge4d_inputs if D == 4 else merge3d_inputs)(dev, P=16, N=N,
+                                                            seed=seed)
+    if not sorted_w:
+        g = torch.Generator().manual_seed(seed)
+        planes = planes[:, :, torch.randperm(N, generator=g).to(dev)]
+    return planes.contiguous()
+
+
+WIDE_VARIANTS = [(2, s, m) for s in (True, False) for m in (0, 1)] + [
+    (D, s, m) for D in (3, 4) for s, m in VARIANTS_3D4D[D]]
+
+
+def merge_call(D, planes, sep, K, sorted_w, metric, **kw):
+    if D == 2:
+        return merge2d(planes, sep, K, sorted_w, metric, **kw)
+    if D == 3:
+        return merge3d(planes, sep, K, metric, **kw)
+    return merge4d(planes, sep, K, sorted_w, metric, **kw)
+
+
+def merge_twin(D, planes, sep, K, sorted_w, metric):
+    if D == 3:
+        return merge3d_reference(planes, sep, K, metric)
+    ref = merge2d_reference if D == 2 else merge4d_reference
+    return ref(planes, sep, K, sorted_w, metric)
+
+
+WIDE_SEP = {2: 5.0, 3: 20.0, 4: 2.0}
+
+
+@pytest.mark.parametrize("D,sorted_w,metric", WIDE_VARIANTS)
+def test_merge_wide_matches_twin(dev, D, sorted_w, metric):
+    """Each staged wide-lane variant just above its narrow kernel's width
+    (N = 8448 at D = 2, 2304 at D = 3 and 4), counted under its "_wide"
+    name, against the twin: equal counts, rtol 1e-4 / atol 1e-5."""
+    N = NARROW_LANES[D] + 256
+    planes = wide_planes(dev, D, N, sorted_w, seed=N)
+    sep = 0.6 if metric else WIDE_SEP[D]
+    build.reset_launch_counts()
+    got = merge_call(D, planes, sep, 128, sorted_w, metric)
+    assert dict(build.launch_counts) == {
+        merge2d_variant(sorted_w, metric, D=D, wide=True): 1}
+    g = assert_outputs_match(got, merge_twin(D, planes, sep, 128, sorted_w,
+                                             metric), D)
+    assert (g[3] > 5).all()
+
+
+@pytest.mark.parametrize("D,sorted_w,metric", WIDE_VARIANTS)
+def test_merge_wide_at_the_narrow_limit(dev, D, sorted_w, metric):
+    """The staged variant forced at its narrow kernel's limit (N = 8192,
+    2048) beside the narrow kernel: the same clusters and counts, the sums
+    to rtol 1e-4 / atol 1e-5 (their order differs)."""
+    N = NARROW_LANES[D]
+    planes = wide_planes(dev, D, N, sorted_w, seed=N)
+    sep = 0.6 if metric else WIDE_SEP[D]
+    build.reset_launch_counts()
+    narrow = merge_call(D, planes, sep, 128, sorted_w, metric)
+    wide = merge_call(D, planes, sep, 128, sorted_w, metric, wide=True)
+    assert dict(build.launch_counts) == {
+        merge2d_variant(sorted_w, metric, D=D): 1,
+        merge2d_variant(sorted_w, metric, D=D, wide=True): 1}
+    assert_outputs_match(wide, narrow, D)
+
+
+@pytest.mark.parametrize("metric", [0, 1])
+def test_merge2d_tables_wide_matches_twin(dev, metric):
+    """merge2d_tables' staged variant at N = 8448 against its twin, and
+    forced at N = 8192 beside the narrow fused kernel."""
+    sep = 0.6 if metric else 5.0
+    for name, wide in (("N 8448", None), ("N 8192", True)):
+        *tabs, K = tables_edge_case(name)
+        tabs = [torch.from_numpy(x).to(dev) for x in tabs]
+        build.reset_launch_counts()
+        got = merge2d_tables(*tabs, sep, K, metric, wide=wide)
+        assert dict(build.launch_counts) == {
+            merge2d_variant(True, metric, tables=True, wide=True): 1}
+        g = assert_outputs_match(got, merge2d_tables_reference(
+            *tabs, sep, K, metric), 2)
+        assert (g[3] > 5).all()
+        if wide:
+            assert_outputs_match(got, merge2d_tables(*tabs, sep, K, metric),
+                                 2)
+
+
+def test_merge_wide_plans(dev):
+    """The staged variants' plans: any N, entries past the shared ones
+    read again (packed) or spilled (tables)."""
+    for D in (2, 3, 4):
+        plan = merge_plan(D, 512, 74824, device=dev) if D > 2 else \
+            merge2d_plan(512, 74824, False, device=dev)
+        assert plan["entries"] + plan["overflow"] == 74824
+        assert plan["blocks_per_sm"] >= 1 and plan["waves"] >= 1
+    plan = merge2d_plan(16, 8448, True, 0, tables=True, device=dev)
+    assert plan["entries"] > 0
+
+
+def wide_detect_args(dev, cons, K=2048, seed=4):
+    """The dense scene at K features (T = 32, M = 72; consolidating
+    planes with ``cons``)."""
+    cfg = load_config("cfg/dense.cfg")
+    s = map_scene(cfg, 32, K, 72, 65, seed, dev)
+    planes, z4 = detect_planes(cfg, s, consolidate=cons)
+    return (planes, z4, 32, cfg.min_feature_weight,
+            cfg.clutter_density + cfg.birth_weight,
+            cfg.min_separation if cons else 0.0)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("cons", [False, True])
+def test_detect_wide_matches_twin(dev, cons, adaptive):
+    """Each detect variant at K = 2048 (the wide variant, "_wide") against
+    the twin, and the same call on CPU tensors (the twin the CPU runs)
+    beside it: the card and the CPU give the same answer."""
+    args = wide_detect_args(dev, cons)
+    build.reset_launch_counts()
+    got = detect(*args, adaptive=adaptive)
+    assert dict(build.launch_counts) == {
+        detect_variant(cons, adaptive, wide=True): 1}
+    assert_detect_matches(got, detect_reference(*args))
+    cpu = detect(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+                 adaptive=adaptive)
+    assert_detect_matches([x.cpu() for x in got], cpu)
+    assert (got[3] > 0).any()
+
+
+@pytest.mark.parametrize("cons", [False, True])
+def test_detect_wide_at_the_narrow_limit(dev, cons):
+    """The wide variant forced at K = 1024 beside the narrow kernel: the
+    same bits (the same pdw, normalizer order and selection)."""
+    args = wide_detect_args(dev, cons, K=1024)
+    narrow = detect(*args)
+    wide = detect(*args, wide=True)
+    for a, b in zip(narrow, wide):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T", [40, 8])
+def test_detect_wide_trips_and_small_t(dev, T):
+    """The wide variant's trips (T > 32 with more than 32 live lanes, at
+    min_fw 0) and a small T, against the twin at K = 1500."""
+    planes, z4 = detect_inputs(dev, P=16, K=1500, M=24, n_valid=20)
+    args = (planes, z4, T, 0.0, 0.0)
+    got = detect(*args)
+    assert_detect_matches(got, detect_reference(*args))
+    assert (got[3] > 32).any()
 
 
 def test_merge2d_dense_matches_twin(dev):

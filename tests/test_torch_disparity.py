@@ -595,12 +595,13 @@ def test_disparity_state_round_trip(jax_runs):
     (dict(merge_candidate_cap=4096), "merge_candidate_cap"),
 ])
 def test_check_supported_rejects_unported_disparity_options(override, name):
-    """Weighting 2 (Vo's scheme there, as in the JAX version) and the
-    Hellinger merge (merge3d's variant) are ported and accepted; a cloud
-    of one point and a merge above merge3d's 2048 lanes are still
-    refused."""
+    """Weighting 2 (Vo's scheme there, as in the JAX version), the
+    Hellinger merge (merge3d's variant) and a merge above merge3d's narrow
+    2048 lanes (its staged wide-lane variant) are ported and accepted; a
+    cloud of one point is still refused."""
     cfg = SlamConfig(**dict(DISP, **override))
-    if name in ("particle_weighting", "distance_metric"):
+    if name in ("particle_weighting", "distance_metric",
+                "merge_candidate_cap"):
         td.check_supported(cfg, 48, 48)
         return
     with pytest.raises(NotImplementedError, match=name):

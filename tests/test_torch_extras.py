@@ -357,13 +357,13 @@ def test_check_supported_accepts_the_estimators(over):
     (dict(particle_weighting=1), "particle_weighting"),
 ])
 def test_check_supported_refuses_by_name(over, name):
-    """Of the options once refused by name, the tiled merge still is and
-    the EAP tree above merge2d's width is refused naming its width; the
+    """Of the options once refused by name, the tiled merge still is; the
     others (the mixed model's weighting 2, variance and top-cap lanes,
-    CPHD's variance, the dynamic-only map, Vo's weighting) are ported and
-    accepted."""
+    CPHD's variance, the dynamic-only map, Vo's weighting, and an EAP tree
+    whose pair exceeds merge2d's narrow width: its staged wide-lane
+    variant) are ported and accepted."""
     cfg = SlamConfig(**dict(BASE, **over))
-    if name in ("merge_spatial_tiles", "eap_tree_cap"):
+    if name == "merge_spatial_tiles":
         with pytest.raises(NotImplementedError, match=name):
             check_supported(cfg, K_CS, M_CS)
     else:

@@ -346,25 +346,45 @@ def test_check_supported_refuses_only_tiles_by_name():
                         K_CS, M_CS)
 
 
-@pytest.mark.parametrize("over,M,width", [
+@pytest.mark.parametrize("over,M,D,width", [
     # the mixed full grid at the mixed bench's widths: 128 + 32 * 128 + 32
     (dict(MIXED_CS, max_features=128, max_measurements=32,
-          merge_candidate_cap=0), 32, "4256 merge lanes"),
+          merge_candidate_cap=0), 32, 4, 4256),
     # the dynamic-only map's full grid: 64 + 32 * 64 + 32 > 2048
     (dict(CS, feature_model=1, max_features=64, max_measurements=32,
-          merge_candidate_cap=0), 32, "2144 merge lanes"),
+          merge_candidate_cap=0), 32, 4, 2144),
     (dict(CS, max_features=256, max_measurements=32, merge_candidate_cap=0),
-     32, "8480 merge lanes"),
+     32, 2, 8480),
 ], ids=["mixed full grid", "dynamic-only full grid", "static full grid"])
-def test_check_supported_refuses_widths_by_width(over, M, width):
+def test_check_supported_accepts_widths_by_route(over, M, D, width):
+    """Merges wider than their narrow kernels are accepted: each takes the
+    full-grid route (the mixed model's per-particle route), whose lanes
+    exceed the narrow kernel's width, so the staged wide-lane variant runs
+    on the card."""
+    from phdslam_tpu_torch.filters.mixed import uses_fast_route
+    from phdslam_tpu_torch.filters.phd import full_grid_width, update_route
+    from phdslam_tpu_torch.kernels.merge import NARROW_LANES, uses_wide
+    cfg = SlamConfig(**over)
     K = over["max_features"]
-    with pytest.raises(NotImplementedError, match=width):
-        check_supported(SlamConfig(**over), K, M)
+    check_supported(cfg, K, M)
+    assert update_route(cfg, K, M) == "full"
+    if cfg.feature_model == 2:
+        assert not uses_fast_route(cfg, K, M)
+    assert full_grid_width(cfg, K, M) == width > NARROW_LANES[D]
+    assert uses_wide(D, width)
 
 
-def test_disparity_check_supported_refuses_only_widths():
+def test_disparity_check_supported_accepts_widths():
+    """A disparity merge above merge3d's narrow 2048 lanes (cap 4096 at
+    K = M = 48: every one of the 48 + 48 * 48 + 48 = 2400 lanes) is
+    accepted; it takes the staged wide-lane variant. A cloud of one point
+    is still refused."""
+    from phdslam_tpu_torch.kernels.merge import NARROW_LANES, uses_wide
     base = dict(DISP, particle_weighting=2, distance_metric=1)
     td.check_supported(SlamConfig(**base), 48, 48)
-    with pytest.raises(NotImplementedError, match="2400 merge lanes"):
-        td.check_supported(SlamConfig(**dict(base, merge_candidate_cap=4096)),
+    td.check_supported(SlamConfig(**dict(base, merge_candidate_cap=4096)),
+                       48, 48)
+    assert 48 + 48 * 48 + 48 == 2400 > NARROW_LANES[3] and uses_wide(3, 2400)
+    with pytest.raises(NotImplementedError, match="particles_per_feature"):
+        td.check_supported(SlamConfig(**dict(base, particles_per_feature=1)),
                            48, 48)
