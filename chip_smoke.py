@@ -184,6 +184,7 @@ from phdslam_tpu_torch.filters import mixed as mixed_filter
 from phdslam_tpu_torch.ops.gm_merge import (MERGE_DIMS, merge_out,
                                             sort_planes, unpack_planes)
 from phdslam_tpu_torch.ops import resample
+from phdslam_tpu_torch.parallel.sim import run_group
 from phdslam_tpu_torch.ops.math import (hellinger2, logsumexp, mahalanobis2,
                                         mahalanobis2_3d, mahalanobis2_4d)
 from phdslam_tpu_torch.runtime.checkpoint import profile_single_update
@@ -3526,6 +3527,185 @@ def run_wide(dev, errs, capped_mixed):
             (DENSE_K2048_KERNELS, k_counts)], rows
 
 
+# ----------------------------------------------------------------------------
+# the multi-process runtime (phdslam_tpu_torch/parallel): one NCCL rank,
+# then Gloo ranks sharing the card
+# ----------------------------------------------------------------------------
+
+PAR_LOCKSTEP = 60               # gloo4's gated steps at threshold 1.1
+PAR_SHORT = 30                  # mixed4, cphd4 and eap4
+PAR_DISP_FRAMES = 20
+PAR_CKPT = (40, 80)             # saved by two ranks, resumed on four
+PAR_FULL_STEPS = 10             # neighbor_migration 0: the full gather
+PAR_TIMEOUT = 600
+
+
+def par_group(n, task, backend, walls):
+    """run_group on the card, its wall time (spawn to exit) kept."""
+    t0 = time.perf_counter()
+    out = run_group(n, task, device="cuda", backend=backend,
+                    timeout_s=PAR_TIMEOUT)
+    walls.append(f"{n} {backend} rank(s) {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def ack_task(kind, steps=None, cfg_path=CFG, **overrides):
+    task = {"kind": kind, "runner": "synth", "cfg": cfg_path, "data": DATA,
+            "overrides": dict(overrides, n_particles=P_MAIN)}
+    return dict(task, steps=steps) if steps else task
+
+
+def gated_phase(label, ranks, kernels):
+    """One gated run on every rank: each sharded step within the step gates
+    of the 1-process step on the same state and draws (sim.Gate), every
+    kernel of the path launched by the sharded steps on every rank."""
+    r = ranks[0]
+    for k in kernels:
+        require(all(x["launches"].get(k, 0) > 0 for x in ranks),
+                f"{label}: {k} not launched on every rank: "
+                f"{[x['launches'] for x in ranks]}")
+    mig = r["migrations"]
+    per = {k: r["migration_bytes"][k] / v for k, v in mig.items() if v}
+    phase(label, f"{r['steps']} steps on {len(ranks)} ranks within the "
+          f"step gates (rtol 1e-4, atol 1e-5), {r['bit_equal_steps']} "
+          f"bit-equal to the 1-process step, {r['resyncs']} resyncs "
+          f"({r['strata_moved']} strata at a cumulative-weight boundary), "
+          f"{r['slots_swapped']} weight-tied slots swapped, max |diff| "
+          f"{r['max_err']:.3g}; {r['resampled_steps']} resampling steps: "
+          f"migrations {mig}, bytes a resampling step on rank 0 "
+          + ", ".join(f"{k} {v:.0f}" for k, v in per.items())
+          + f"; launches per rank "
+          + "; ".join(", ".join(f"{k}={x['launches'].get(k, 0)}"
+                                for k in kernels) for x in ranks)
+          + "; transport per rank " + ", ".join(x["transport"] for x in ranks))
+
+
+def run_parallel(dev, main_res):
+    """The sharded runtime on the card through ``parallel/sim.py``: a world
+    of one NCCL rank repeating run_main bit for bit; a 2-rank Gloo group
+    saving a checkpoint; then one 4-rank Gloo group (block 128, the ranks
+    sharing the card) running the Ackerman lockstep window, the full
+    sequence twice, the mixed, CPHD, EAP and disparity windows and the
+    checkpoint resumed."""
+    t0 = time.perf_counter()
+    walls = []
+    ref = main_res["run"]
+    r = par_group(1, dict(ack_task("run"), score=True), "nccl", walls)[0]
+    a = r.pop("arrays")
+    bits = {k: bool(np.array_equal(a[k], ref[k]))
+            for k in ("est_poses", "n_eff", "resampled")}
+    require(all(bits.values()), f"parallel nccl1: not bit-equal to run_main "
+            f"{bits}, max pose |diff| "
+            f"{float(np.abs(a['est_poses'] - ref['est_poses']).max()):.3g}")
+    require(all(r["launches"].get(k, 0) > 0 for k in ACKERMAN_KERNELS),
+            f"parallel nccl1: launches {r['launches']}")
+    phase("parallel nccl1", f"data/ackerman P={P_MAIN}, {r['steps']} steps "
+          f"on one NCCL rank: poses, nEff and resampling decisions "
+          f"bit-equal to run_main; {r['steps_per_s']:.2f} steps/s (run_main "
+          f"{main_res['steps_per_s']:.2f} in this call), mean ATE "
+          f"{r['mean_pose_err']:.4f} m; launches "
+          + ", ".join(f"{k}={r['launches'].get(k, 0)}"
+                      for k in ACKERMAN_KERNELS)
+          + f"; migrations {r['migrations']}; transport {r['transport']}")
+
+    z_all, mask_all = mixed_scans(MIXED_STEPS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        save, end = PAR_CKPT
+        par_group(2, dict(ack_task("run", save), chunk=save, save=ckpt),
+                  "gloo", walls)
+        np.savez(os.path.join(tmp, "mixed.npz"), z_all=z_all[:PAR_SHORT],
+                 mask_all=mask_all[:PAR_SHORT])
+        tasks = {
+            "gloo4": ack_task("gated", PAR_LOCKSTEP, resample_threshold=1.1),
+            "gloo4 full gather": ack_task(
+                "gated", PAR_FULL_STEPS, resample_threshold=1.1,
+                neighbor_migration=0),
+            "run": dict(ack_task("run"), score=True),
+            "run again": dict(ack_task("run"), score=True,
+                              collective_timing=True),
+            "mixed4": {"kind": "gated", "runner": "scan", "dt": MIXED_DT,
+                       "npz": os.path.join(tmp, "mixed.npz"),
+                       "fields": dataclasses.asdict(mixed_cfg(P_MAIN)),
+                       "steps": PAR_SHORT},
+            "cphd4": ack_task("gated", PAR_SHORT, CPHD_CFG),
+            "eap4": ack_task("gated", PAR_SHORT, **EAP),
+            "disparity4": {"kind": "gated", "runner": "disparity",
+                           "cfg": DISP_CFG, "data": DISP_DATA,
+                           "overrides": {"n_particles": P_MAIN},
+                           "steps": PAR_DISP_FRAMES},
+            "ckpt": dict(ack_task("run", end), chunk=save, resume=os.path.join(
+                ckpt, f"step{save:05d}")),
+        }
+        res = par_group(4, {"kind": "each", "tasks": list(tasks.values())},
+                        "gloo", walls)
+    out = {name: [x["results"][i] for x in res]
+           for i, name in enumerate(tasks)}
+    arrays = {name: {k[len(f"t{i}_"):]: v for k, v in res[0]["arrays"]
+                     .items() if k.startswith(f"t{i}_")}
+              for i, name in enumerate(tasks)}
+    gated_phase("parallel gloo4", out["gloo4"], ACKERMAN_KERNELS)
+    gated_phase("parallel gloo4", out["gloo4 full gather"], ACKERMAN_KERNELS)
+    runs = [out["run"][0], out["run again"][0]]
+    repeat = all(np.array_equal(arrays["run"][k], arrays["run again"][k])
+                 for k in ("est_poses", "n_eff", "resampled"))
+    require(repeat, "parallel gloo4: the repeated run's bits differ")
+    ate = runs[0]["mean_pose_err"]
+    require(ate <= ATE_LIMIT, f"parallel gloo4: mean ATE {ate:.4f} m > "
+            f"{ATE_LIMIT} m")
+    require(np.isfinite(arrays["run"]["est_poses"]).all(),
+            "parallel gloo4: NaN poses")
+    for x in out["run"]:
+        require(all(x["launches"].get(k, 0) > 0 for k in ACKERMAN_KERNELS),
+                f"parallel gloo4: rank launches {x['launches']}")
+    timed = runs[1]
+    coll_ms = sum(timed["collective_ms"].values()) / timed["steps"]
+    mig = runs[0]["migrations"]
+    lo, hi = ATE_BAND
+    phase("parallel gloo4", f"data/ackerman P={P_MAIN} over "
+          f"{runs[0]['steps']} steps on 4 Gloo ranks sharing the card: "
+          f"{runs[0]['steps_per_s']:.2f} steps/s (run_main "
+          f"{main_res['steps_per_s']:.2f}), mean ATE {ate:.4f} m (JAX band "
+          f"{lo}-{hi} m; run_main {main_res['mean_pose_err']:.4f}), OSPA "
+          f"{runs[0]['mean_ospa']:.4f}; the repeated run bit-equal; "
+          f"migrations {mig}; collectives {coll_ms:.3f} ms a step on rank 0 "
+          f"(synchronised, the peers' waits included: "
+          + ", ".join(f"{k} {v / timed['steps']:.3f}"
+                      for k, v in timed["collective_ms"].items())
+          + f"), bytes a step from the other ranks "
+          + ", ".join(f"{k} {v / timed['steps']:.0f}"
+                      for k, v in timed["collective_bytes"].items())
+          + "; launches per rank "
+          + "; ".join(", ".join(f"{k}={x['launches'].get(k, 0)}"
+                                for k in ACKERMAN_KERNELS)
+                      for x in out["run"])
+          + "; transport per rank "
+          + ", ".join(x["transport"] for x in out["run"]))
+    gated_phase("parallel mixed4", out["mixed4"], MIXED_KERNELS)
+    gated_phase("parallel cphd4", out["cphd4"], CPHD_KERNELS)
+    gated_phase("parallel eap4", out["eap4"], ACKERMAN_KERNELS)
+    gated_phase("parallel disparity4", out["disparity4"], DISP_KERNELS)
+
+    cfg80 = load_config(CFG, {"n_particles": P_MAIN, "n_steps": end})
+    want = SynthSLAMRunner(cfg80, DATA, device=dev).run(chunk=save)
+    got = arrays["ckpt"]
+    g, w = got["est_poses"][save:], want["est_poses"][save:]
+    require(np.allclose(g, w, rtol=1e-4, atol=1e-5)
+            and np.array_equal(got["resampled"][save:],
+                               want["resampled"][save:]),
+            f"parallel ckpt: steps {save}-{end - 1} outside the step gates "
+            f"of the uninterrupted run, max pose |diff| "
+            f"{float(np.abs(g - w).max()):.3g}")
+    phase("parallel ckpt", f"saved at step {save} by 2 Gloo ranks, resumed "
+          f"on 4 to step {end}: within the step gates of the uninterrupted "
+          f"1-process run (rtol 1e-4, atol 1e-5; max pose |diff| "
+          f"{float(np.abs(g - w).max()):.3g}, bit-equal "
+          f"{bool(np.array_equal(g, w))})")
+    phase("parallel", f"{time.perf_counter() - t0:.1f} s: groups "
+          + ", ".join(walls) + "; the 4-rank tasks' loops "
+          + ", ".join(f"{k} {v[0]['wall_s']:.1f} s" for k, v in out.items()))
+
+
 def main():
     t_start = time.perf_counter()
     smi = check_device()
@@ -3543,6 +3723,7 @@ def main():
     check_estimator_steps(dev)
     counts, main_res = run_main(dev)
     run_runtime(dev, main_res)
+    run_parallel(dev, main_res)
     knob_counts, cons_counts = run_knobs(dev, main_res)
     run_eap(dev, main_res, counts)
     time_eap(dev)

@@ -20,6 +20,13 @@ strategies for its TPU; here all three run the one step loop
 is still refused without ``--runner chunked`` (and with ``--timing``,
 which the JAX version runs on its per-step runner), so scripts behave
 alike on both packages. ``--replay`` needs matplotlib.
+
+``--distributed`` under a launcher (``torchrun --nproc-per-node N -m
+phdslam_tpu_torch ...``; NCCL, one GPU per rank, on the card) splits the
+particle axis over the ranks (``parallel/``): every rank runs its block,
+and the primary (rank 0) writes the logs, checkpoints and artifacts.
+Without a launcher it runs the one-process path, as the JAX version's
+does.
 """
 
 from __future__ import annotations
@@ -74,13 +81,23 @@ def main(argv=None, device="cuda"):
                     help="write a torch.profiler trace of the run "
                          "(DIR/trace.json)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-device runs (not ported yet)")
+                    help="run on every process of a torch.distributed "
+                         "group (torchrun; the same command on every "
+                         "rank): the particle axis split over the ranks")
     args = ap.parse_args(argv)
 
+    mesh = owned_group = None
     if args.distributed:
-        ap.error("--distributed: the multi-device runtime is not ported yet "
-                 "(ROADMAP.md Queue 1 item 7, torch.distributed over the "
-                 "particle axis)")
+        import torch.distributed as dist
+
+        from .parallel import distributed
+        owned_group = not dist.is_initialized()
+        if distributed.initialize(device=device):
+            mesh = distributed.global_mesh(device)
+            device = mesh.device
+            print(f"multi-process runtime: process {dist.get_rank()}/"
+                  f"{dist.get_world_size()}, {mesh.size} global devices")
+    primary = mesh is None or mesh.rank == 0
     # the JAX version times with its per-step runner, which cannot resume
     runner_kind = "async" if args.timing else args.runner
     if args.resume and runner_kind != "chunked":
@@ -97,27 +114,31 @@ def main(argv=None, device="cuda"):
     out_dir = args.out_dir
     if out_dir is None:
         out_dir = os.path.join("runs", time.strftime("%Y%m%d-%H%M%S"))
-    os.makedirs(out_dir, exist_ok=True)
-    shutil.copy(args.config, os.path.join(out_dir, "config.cfg"))
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
+        shutil.copy(args.config, os.path.join(out_dir, "config.cfg"))
 
     from .runtime import profiling
     ctx = contextlib.ExitStack()
     if args.debug:
         ctx.enter_context(profiling.debug_mode())
-    if args.trace:
+    if args.trace and primary:
         ctx.enter_context(profiling.trace(args.trace))
+    if owned_group and dist.is_initialized():
+        # the group this command initialized ends with it
+        ctx.callback(dist.destroy_process_group)
 
     with ctx:
         if args.run_type == "disparity":
             from .slam_disparity import run_disparity
             res = run_disparity(cfg, out_dir=out_dir, timing=args.timing,
-                                chunk=args.chunk, device=device)
+                                chunk=args.chunk, device=device, mesh=mesh)
         elif args.profile:
             from .runtime.checkpoint import profile_single_update
             res = profile_single_update(cfg, args.profile, device=device)
         else:
             from .slam import SynthSLAMRunner
-            runner = SynthSLAMRunner(cfg, device=device)
+            runner = SynthSLAMRunner(cfg, device=device, mesh=mesh)
             start_step = 0
             if args.resume:
                 start_step = runner.restore(args.resume)
@@ -128,12 +149,13 @@ def main(argv=None, device="cuda"):
                 checkpoint_dir=(os.path.join(out_dir, "checkpoints")
                                 if args.checkpoint_every else None),
                 start_step=start_step)
-            if args.replay:
+            if args.replay and primary:
                 write_replay(res, cfg, out_dir, args.replay,
                              args.replay_every)
 
-    print(f"done: {len(res['est_poses'])} steps "
-          f"{res.get('steps_per_s', 0):.2f} steps/s -> {out_dir}")
+    if primary:
+        print(f"done: {len(res['est_poses'])} steps "
+              f"{res.get('steps_per_s', 0):.2f} steps/s -> {out_dir}")
     return 0
 
 

@@ -32,7 +32,8 @@ from .ospa import extract_map_estimate, ospa_distance
 
 def evaluate_dataset(cfg_path: str, repo_root: str = ".",
                      n_steps: Optional[int] = None,
-                     overrides: Optional[dict] = None, device="cuda"):
+                     overrides: Optional[dict] = None, device="cuda",
+                     mesh=None):
     """Run the filter on a dataset and score it against its ground truth.
 
     OSPA(p=1, c=5) is scored on every measurement step, as the JAX version
@@ -40,7 +41,9 @@ def evaluate_dataset(cfg_path: str, repo_root: str = ".",
     observed up to that step (``groundtruth.npz`` ``cumulative_counts``,
     all landmarks when absent). Returns pose_err [T] (m) and ospa [T] with
     their mean/final (and the max pose error), est_poses, steps_per_s and
-    the runner's result dict under "run".
+    the runner's result dict under "run". With a particle ``mesh`` this
+    rank runs its block (``parallel/sharding.py``); every rank scores the
+    same result.
     """
     cfg = load_config(cfg_path, overrides)
     data_dir = os.path.join(repo_root, cfg.data_directory)
@@ -51,7 +54,7 @@ def evaluate_dataset(cfg_path: str, repo_root: str = ".",
     cum_counts = (gt["cumulative_counts"] if "cumulative_counts" in gt.files
                   else np.full(len(traj), len(landmarks)))
 
-    r = SynthSLAMRunner(cfg, data_dir, device=device)
+    r = SynthSLAMRunner(cfg, data_dir, device=device, mesh=mesh)
     res = r.run(collect_maps=True)
 
     midx = [i for i, p in enumerate(r.schedule) if p.z_idx >= 0]

@@ -41,6 +41,7 @@ from ..models import measurement
 from ..ops import ekf
 from ..ops.gm_merge import topcap_sort, topk_compact_indices
 from ..ops.math import LOG0, logsumexp, masked_logsumexp, safe_log, wrap_angle
+from ..ops.resample import max_over_particles, normalize_log_weights
 from ..types import FilterState, GMState
 from .phd import (_detection_planes, _post_compact_batched, check_supported,
                   deferred_gather, full_grid_planes, gather_merge,
@@ -471,10 +472,12 @@ def add_births(gm: GMState, pose, z, z_mask, cfg: SlamConfig, allowed=None):
 
 
 def cphd_update(state: FilterState, z, z_mask, consts: CphdConstants,
-                cfg: SlamConfig):
+                cfg: SlamConfig, mesh=None):
     """CPHD measurement update over all particles, birth injection for the
     next scan and the cardinality convolution with the binomial birth
-    cardinality. Returns (state, overflow)."""
+    cardinality. On a particle ``mesh`` the state is this rank's block,
+    its weights normalized over every rank's. Returns (state,
+    overflow)."""
     gm = state.map_static
     K, M = gm.mean.shape[-2], z.shape[0]
     check_supported(cfg, K, M)
@@ -487,8 +490,7 @@ def cphd_update(state: FilterState, z, z_mask, consts: CphdConstants,
     with record_function("phd.post"):
         new_mean, new_cov, new_w, dlog_w, overflow = _post_compact_batched(
             mg, pre, gm.mean, gm.cov, gm.weight, cfg)
-        log_w = state.log_weight + dlog_w
-        log_w = log_w - logsumexp(log_w, dim=0)
+        log_w = normalize_log_weights(state.log_weight + dlog_w, mesh)
 
     with record_function("cphd.births"):
         # births from this scan feed the next update; gated births only
@@ -513,4 +515,5 @@ def cphd_update(state: FilterState, z, z_mask, consts: CphdConstants,
             log_cn = cardinality_predict_batch(log_cn, cn_birth)
     state = state.replace(map_static=new_gm, log_weight=log_w,
                           cardinality=log_cn)
-    return state, torch.amax(overflow) + torch.amax(b_overflow)
+    return state, max_over_particles(overflow, mesh) \
+        + max_over_particles(b_overflow, mesh)

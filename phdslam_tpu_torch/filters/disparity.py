@@ -33,8 +33,12 @@ empty-map weighting, as in the JAX version.
 Profiler ranges (``disp.predict``, ``disp.pre``, ``disp.compact``,
 ``disp.merge``, ``disp.post``, ``disp.resample_extract``) mark the layers
 for ``torch.profiler``. Which branches run (predict, update) is decided on
-the host; the resampling decision stays on the device. Not ported: the
-sharded resampling migration (the JAX version's ``mesh`` argument).
+the host; the resampling decision stays on the device. On a particle
+mesh (``mesh``, ``parallel/sharding.py``) the state is this rank's block:
+the normaliser, nEff, the ancestry, the expected pose and the MAP row go
+through the mesh's collectives, and a resampling step (read on the host)
+migrates the rows, the cloud leaf [P, K, N, 3] with them
+(``parallel/migrate.py``; the JAX version's ``_gather_disparity_sharded``).
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ from ..kernels.merge import merge3d
 from ..ops.gm_merge import (compact_candidates, merge_out, pack_planes,
                             sort_candidates)
 from ..ops.math import LOG0, chol3, logsumexp, safe_log, sym, wrap_angle
-from ..ops.resample import effective_sample_ratio, systematic_ancestors
+from ..ops.resample import (effective_sample_ratio, max_over_particles,
+                            particle_scalars, systematic_ancestors)
 from ..types import DisparityState
 
 
@@ -369,7 +374,7 @@ def _disparity_update_post(mg, pre, cam_pose, cloud, feat_w, eps_sample,
 
 
 def disparity_update(state: DisparityState, z, z_mask, cfg: SlamConfig,
-                     eps_sample):
+                     eps_sample, mesh=None):
     """SC-PHD update of every particle's clouds; returns (state with the
     new clouds, feature weights and normalized log weights, overflow)."""
     K, M = state.cloud.shape[1], z.shape[0]
@@ -390,40 +395,54 @@ def disparity_update(state: DisparityState, z, z_mask, cfg: SlamConfig,
             state.feat_weight, eps_sample, cfg)
     state = state.replace(cloud=new_cloud, feat_weight=new_w,
                           log_weight=state.log_weight + dlog_w)
-    return state, torch.amax(overflow)
+    return state, max_over_particles(overflow, mesh)
 
 
 # ----------------------------------------------------------------------------
 # Full step
 # ----------------------------------------------------------------------------
 
-def _resample(state: DisparityState, cfg: SlamConfig, u):
+def _resample(state: DisparityState, cfg: SlamConfig, u, mesh=None,
+              log_weight=None):
     """Systematic resampling when nEff/N <= threshold (on every step, as
     the reference's disparity loop does). The decision stays on the
-    device. Returns (state, n_eff, resampled)."""
-    P = state.cam_pose.shape[0]
+    device; on a ``mesh`` (``log_weight``: every particle's) the host
+    reads it and a resampling step migrates the rows. Returns (state,
+    n_eff, resampled)."""
+    lw = state.log_weight if mesh is None else log_weight
+    P = lw.shape[0]
     dev = state.cam_pose.device
-    n_eff = effective_sample_ratio(state.log_weight)
+    n_eff = effective_sample_ratio(lw)
     do_resample = n_eff <= cfg.resample_threshold
-    ancestors = systematic_ancestors(state.log_weight, u, P)
+    ancestors = systematic_ancestors(lw, u, P)
     idx = torch.where(do_resample, ancestors,
                       torch.arange(P, dtype=torch.int64, device=dev))
     log_p = torch.log(torch.tensor(float(P), dtype=state.log_weight.dtype,
                                    device=dev))
-    state = state.replace(
-        cam_pose=state.cam_pose[idx], cloud=state.cloud[idx],
-        feat_weight=state.feat_weight[idx],
-        log_weight=torch.where(do_resample, -log_p, state.log_weight),
-        resample_idx=idx.to(torch.int32))
+    log_w = torch.where(do_resample, -log_p, state.log_weight)
+    if mesh is None:
+        state = state.replace(
+            cam_pose=state.cam_pose[idx], cloud=state.cloud[idx],
+            feat_weight=state.feat_weight[idx])
+    elif bool(do_resample):
+        from ..parallel.migrate import gather_particles_sharded
+        state = gather_particles_sharded(state, idx, mesh, cfg)
+    rows = slice(None) if mesh is None else mesh.rows(P)
+    state = state.replace(log_weight=log_w,
+                          resample_idx=idx[rows].to(torch.int32))
     return state, n_eff, do_resample
 
 
 def disparity_step(state: DisparityState, z, z_mask, dt, do_predict: bool,
-                   cfg: SlamConfig, noise: DisparityNoise, has_z=None):
+                   cfg: SlamConfig, noise: DisparityNoise, has_z=None,
+                   mesh=None):
     """One SC-PHD step: predict -> update -> normalize -> resample ->
     extract. ``z`` [M, 2] padded (u, v) measurements with ``z_mask`` [M];
     ``has_z`` (whether z_mask has any True) is read from the device when
-    not given."""
+    not given. On a particle ``mesh`` the state and ``noise`` are this
+    rank's block and rows (``parallel/sharding.py::
+    make_sharded_disparity_step_fn`` takes the global draws); the outputs
+    come out the same on every rank."""
     if has_z is None:
         has_z = bool(z_mask.any())
     if do_predict:
@@ -433,16 +452,26 @@ def disparity_step(state: DisparityState, z, z_mask, dt, do_predict: bool,
                            device=state.cam_pose.device)
     if has_z:
         state, overflow = disparity_update(state, z, z_mask, cfg,
-                                           noise.eps_sample)
+                                           noise.eps_sample, mesh)
     with record_function("disp.resample_extract"):
-        log_w = state.log_weight - logsumexp(state.log_weight, dim=0)
-        state, n_eff, resampled = _resample(
-            state.replace(log_weight=log_w), cfg, noise.u_resample)
+        every = (state.log_weight if mesh is None
+                 else mesh.all_gather(state.log_weight))
+        lse = logsumexp(every, dim=0)
+        state = state.replace(log_weight=state.log_weight - lse)
+        log_w = state.log_weight if mesh is None else every - lse
+        state, n_eff, resampled = _resample(state, cfg, noise.u_resample,
+                                            mesh, log_w)
         state = state.replace(step=state.step + 1)
-        w = torch.exp(state.log_weight)
-        i = torch.argmax(state.log_weight)
+        log_w, cam_pose = particle_scalars(state.log_weight, state.cam_pose,
+                                           mesh)
+        i = torch.argmax(log_w)
+        if mesh is None:
+            map_cloud, map_weight = state.cloud[i], state.feat_weight[i]
+        else:
+            map_cloud, map_weight = mesh.take_row(
+                i, [state.cloud, state.feat_weight])
         out = DisparityOutputs(
-            expected_pose=w @ state.cam_pose, map_cloud=state.cloud[i],
-            map_weight=state.feat_weight[i], n_eff=n_eff,
-            resampled=resampled, overflow=overflow)
+            expected_pose=torch.exp(log_w) @ cam_pose, map_cloud=map_cloud,
+            map_weight=map_weight, n_eff=n_eff, resampled=resampled,
+            overflow=overflow)
     return state, out

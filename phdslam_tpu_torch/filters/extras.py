@@ -76,11 +76,15 @@ def eap_expected_map_flat(gm: GMState, log_weight, cfg: SlamConfig,
     principal, as the JAX version's XLA ``gm_merge``) over the particle-
     weight-scaled concatenation of all P K lanes, as one merge row.
     Returns (mean [out_cap, D], cov, weight)."""
-    P, K, _ = gm.mean.shape
-    planes = _scaled_planes(gm, log_weight)
-    C = planes.shape[1]
+    return _flat(_scaled_planes(gm, log_weight), cfg,
+                 out_cap or gm.mean.shape[1])
+
+
+def _flat(planes, cfg: SlamConfig, out_cap):
+    """The flat form's merge of every particle's planes [P, C, K]."""
+    P, C, K = planes.shape
     flat = planes.transpose(0, 1).reshape(1, C, P * K)
-    mean, cov, w, _, _ = _merge(flat, cfg, out_cap or K, sorted_w=False)
+    mean, cov, w, _, _ = _merge(flat, cfg, out_cap, sorted_w=False)
     return mean[0], cov[0], w[0]
 
 
@@ -100,7 +104,7 @@ def sort_lanes_desc(planes):
 
 
 def eap_expected_map(gm: GMState, log_weight, cfg: SlamConfig,
-                     out_cap=None, return_dropped: bool = False):
+                     out_cap=None, return_dropped: bool = False, mesh=None):
     """Expected a-posteriori map via the log2(P)-level pairwise tree.
 
     Each level pairs particles 2i and 2i + 1 ([Pl, 7, L] -> [Pl/2, 2, 7,
@@ -114,19 +118,43 @@ def eap_expected_map(gm: GMState, log_weight, cfg: SlamConfig,
     form. Fixed-capacity levels can drop the lightest clusters of a pair;
     ``return_dropped`` adds their count over all levels as a 4th output.
 
+    On a particle ``mesh`` ``gm`` and ``log_weight`` are this rank's block
+    of b particles. When b is a power of two the first log2(b) levels pair
+    particles inside the block and run on the rank; the ranks then gather
+    their one reduced map each and finish the last levels identically.
+    Otherwise every rank gathers the scaled planes and runs the tree
+    unchanged. Either way every rank returns the unsharded tree's map.
+
     Returns (mean [out_cap, D], cov, weight[, n_dropped]).
     """
     P, K, _ = gm.mean.shape
+    size = 1 if mesh is None else mesh.size
     out_cap = out_cap or K
-    if P <= 2:
-        out = eap_expected_map_flat(gm, log_weight, cfg, out_cap)
-        if return_dropped:
-            return out + (torch.zeros((), dtype=torch.int64,
-                                      device=gm.mean.device),)
-        return out
-    planes = _scaled_planes(gm, log_weight)
     mid_cap = cfg.eap_tree_cap or K
+    planes = _scaled_planes(gm, log_weight)
     n_dropped = torch.zeros((), dtype=torch.int64, device=gm.mean.device)
+    if size > 1:
+        if P * size > 2 and P & (P - 1) == 0:
+            planes, _, n_dropped = _tree(planes, cfg, out_cap, mid_cap,
+                                         scale=size)
+            n_dropped = mesh.all_gather(n_dropped[None]).sum()
+        planes = mesh.all_gather(planes)
+    if P * size <= 2:
+        out = _flat(planes, cfg, out_cap)
+    else:
+        _, (mean, cov, w), drop = _tree(planes, cfg, out_cap, mid_cap)
+        n_dropped = n_dropped + drop
+        out = (mean[0], cov[0], w[0])
+    return out + (n_dropped,) if return_dropped else out
+
+
+def _tree(planes, cfg: SlamConfig, out_cap, mid_cap, scale=1):
+    """The pairwise tree's levels on planes [Pl, C, L] down to one row,
+    merging to ``out_cap`` at the level of 2 x ``scale`` particles (the
+    whole tree's last) and to ``mid_cap`` before it. Returns (planes, the
+    last merge's (mean, cov, w), the clusters dropped)."""
+    n_dropped = torch.zeros((), dtype=torch.int64, device=planes.device)
+    last = None
     while planes.shape[0] > 1:
         Pl, C, L = planes.shape
         if Pl % 2:
@@ -139,12 +167,12 @@ def eap_expected_map(gm: GMState, log_weight, cfg: SlamConfig,
             Pl += 1
         planes = planes.view(Pl // 2, 2, C, L).transpose(1, 2) \
             .reshape(Pl // 2, C, 2 * L)
-        cap = out_cap if Pl == 2 else mid_cap
+        cap = out_cap if Pl * scale == 2 else mid_cap
         mean, cov, w, _, drop = _merge(sort_lanes_desc(planes), cfg, cap)
         n_dropped = n_dropped + drop.sum()
         planes = merge_planes(w, mean, cov)
-    out = (mean[0], cov[0], w[0])
-    return out + (n_dropped,) if return_dropped else out
+        last = (mean, cov, w)
+    return planes, last, n_dropped
 
 
 def _peak_values(weight, cov):

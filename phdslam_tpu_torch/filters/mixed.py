@@ -48,7 +48,8 @@ from ..models import measurement
 from ..ops import ekf
 from ..ops.gm_merge import (compact_candidates, pack_planes, topcap_sort,
                             topk_compact_indices)
-from ..ops.math import LOG0, logsumexp, safe_log
+from ..ops.math import LOG0, safe_log
+from ..ops.resample import max_over_particles, normalize_log_weights
 from ..types import FilterState, GMState
 from .phd import (_detection_planes, _post_compact_batched, check_supported,
                   deferred_gather, full_grid_width, gather_merge,
@@ -387,13 +388,15 @@ def scan_positions(pose, z, z_mask, prev_z, cfg: SlamConfig):
 
 
 def mixed_update(state: FilterState, z, z_mask, cfg: SlamConfig,
-                 z_label=None):
+                 z_label=None, mesh=None):
     """Mixed-model measurement update over all particles; returns
     (state, overflow). ``z_label`` [M] (0 static, 1 dynamic) is read only
     with labeled_measurements; None means all static, as in the JAX
     version. The route is the JAX version's (:func:`uses_fast_route`).
     With birth_velocity_init the state's ``prev_z`` seeds the dynamic
-    births and then holds this scan's world positions."""
+    births and then holds this scan's world positions. On a particle
+    ``mesh`` the state is this rank's block, its weights normalized over
+    every rank's."""
     gs, gd = state.map_static, state.map_dynamic
     K, M = gs.mean.shape[-2], z.shape[0]
     check_supported(cfg, K, M)
@@ -404,8 +407,7 @@ def mixed_update(state: FilterState, z, z_mask, cfg: SlamConfig,
              else _update_mixed_full)
     (sm, sc, sw), (dm, dc, dw), dlog_w, overflow = route(
         state.pose, gs, gd, z, z_label, z_mask, cfg, prev_z)
-    log_w = state.log_weight + dlog_w
-    log_w = log_w - logsumexp(log_w, dim=0)
+    log_w = normalize_log_weights(state.log_weight + dlog_w, mesh)
     state = state.replace(
         map_static=GMState(mean=sm, cov=sc, weight=sw),
         map_dynamic=GMState(mean=dm, cov=dc, weight=dw),
@@ -413,4 +415,4 @@ def mixed_update(state: FilterState, z, z_mask, cfg: SlamConfig,
     if state.prev_z is not None:
         state = state.replace(prev_z=scan_positions(state.pose, z, z_mask,
                                                     state.prev_z, cfg))
-    return state, torch.amax(overflow)
+    return state, max_over_particles(overflow, mesh)

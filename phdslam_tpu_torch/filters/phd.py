@@ -56,6 +56,13 @@ version's keys. Profiler ranges (``phd.predict``, ``phd.pre``, ``phd.gather``,
 mark the layers for ``torch.profiler``. Which branches run (predict,
 update, EAP or MAP extraction) is decided on the host; the resampling
 decision stays on the device, so a step never waits for the GPU.
+
+On a particle mesh (``mesh``, ``parallel/sharding.py``) the state is this
+rank's block; the cross-particle points (the log-weight normaliser, the
+overflow maximum, nEff, the ancestry, the expected pose, the MAP row, the
+EAP tree and the resampling gather) go through the mesh's collectives, and
+the host reads the resampling decision, since the migration's routes run
+different collectives (``parallel/migrate.py``).
 """
 
 from __future__ import annotations
@@ -76,8 +83,10 @@ from ..ops import ekf
 from ..ops.gm_merge import (MERGE_DIMS, compact_candidates, merge_out,
                             pack_planes, sort_planes, topcap_sort,
                             topk_compact_indices, unpack_planes)
-from ..ops.math import LOG0, logsumexp, safe_log
-from ..ops.resample import effective_sample_ratio, systematic_ancestors
+from ..ops.math import LOG0, safe_log
+from ..ops.resample import (effective_sample_ratio, max_over_particles,
+                            normalize_log_weights, particle_scalars,
+                            systematic_ancestors)
 from ..types import FilterState, GMState
 from .extras import (eap_expected_map, mc_variance_candidates,
                      mc_variance_packed, single_feature_argmax,
@@ -767,8 +776,9 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
 
 
 def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None,
-           var_draw=None):
-    """Measurement update over all particles; returns (state, overflow).
+           var_draw=None, mesh=None):
+    """Measurement update over all particles (this rank's block on a
+    ``mesh``, normalized over every rank's); returns (state, overflow).
     The static pipeline updates the static map (feature_model 0) or the
     dynamic-only 4D map (1); the mixed model (2) updates both jointly; the
     CPHD
@@ -780,28 +790,28 @@ def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None,
         from .cphd import cphd_constants, cphd_update
         if consts is None:
             consts = cphd_constants(cfg, device=state.pose.device)
-        return cphd_update(state, z, z_mask, consts, cfg)
+        return cphd_update(state, z, z_mask, consts, cfg, mesh=mesh)
     if cfg.feature_model == 2:
         from .mixed import mixed_update
-        return mixed_update(state, z, z_mask, cfg)
+        return mixed_update(state, z, z_mask, cfg, mesh=mesh)
     gm = state.map_dynamic if cfg.feature_model == 1 else state.map_static
     new_mean, new_cov, new_w, dlog_w, overflow, *var = _batched_update(
         state.pose, gm.mean, gm.cov, gm.weight, z, z_mask, cfg, var_draw)
-    log_w = state.log_weight + dlog_w
-    log_w = log_w - logsumexp(log_w, dim=0)
+    log_w = normalize_log_weights(state.log_weight + dlog_w, mesh)
     new_gm = GMState(mean=new_mean, cov=new_cov, weight=new_w)
     state = state.replace(
         log_weight=log_w, variance=var[0] if var else state.variance,
         **{"map_dynamic" if cfg.feature_model == 1 else "map_static":
            new_gm})
-    return state, torch.amax(overflow)
+    return state, max_over_particles(overflow, mesh)
 
 
 # ----------------------------------------------------------------------------
 # Extraction + resampling
 # ----------------------------------------------------------------------------
 
-def extract(state: FilterState, cfg: SlamConfig):
+def extract(state: FilterState, cfg: SlamConfig, mesh=None,
+            log_weight=None, pose=None):
     """Expected pose + the map estimate: the MAP map (the static map of the
     heaviest particle, for the mixed model too, its dynamic map for the
     dynamic-only model (feature_model 1); argmax ties go to the
@@ -810,14 +820,24 @@ def extract(state: FilterState, cfg: SlamConfig):
     (``filters/extras.py::eap_expected_map``) on the steps where
     ``state.step % eap_every == 0`` and the MAP map in between. The step
     count lives on the host, so the choice reads nothing from the
-    device."""
-    w = torch.exp(state.log_weight)
-    expected_pose = w @ state.pose
+    device. On a ``mesh`` the state is this rank's block, ``log_weight``
+    and ``pose`` every particle's (``ops/resample.py::particle_scalars``),
+    and the MAP row comes from the rank that holds it."""
+    if mesh is None:
+        log_weight, pose = state.log_weight, state.pose
+    w = torch.exp(log_weight)
+    expected_pose = w @ pose
     gm = state.map_dynamic if cfg.feature_model == 1 else state.map_static
     if uses_eap(cfg) and state.step % max(1, cfg.eap_every) == 0:
-        return expected_pose, eap_expected_map(gm, state.log_weight, cfg)
-    i = torch.argmax(state.log_weight)
-    return expected_pose, (gm.mean[i], gm.cov[i], gm.weight[i])
+        if mesh is None:
+            return expected_pose, eap_expected_map(gm, state.log_weight, cfg)
+        return expected_pose, eap_expected_map(gm, state.log_weight, cfg,
+                                               mesh=mesh)
+    i = torch.argmax(log_weight)
+    if mesh is None:
+        return expected_pose, (gm.mean[i], gm.cov[i], gm.weight[i])
+    return expected_pose, tuple(mesh.take_row(i, [gm.mean, gm.cov,
+                                                  gm.weight]))
 
 
 def take_particles(state: FilterState, idx) -> FilterState:
@@ -844,25 +864,36 @@ def _log_count(n, like):
 
 
 def maybe_resample(state: FilterState, has_measurements: bool,
-                   cfg: SlamConfig, u):
+                   cfg: SlamConfig, u, mesh=None, log_weight=None):
     """Systematic resampling when nEff/N <= threshold on a step with
     measurements. The decision stays on the device: every particle array is
-    gathered through ``where(resample, ancestors, arange(P))``.
-    Returns (state, n_eff, resampled)."""
-    P = state.pose.shape[0]
+    gathered through ``where(resample, ancestors, arange(P))``. On a
+    ``mesh`` (``log_weight``: every particle's) the host reads the
+    decision and a resampling step migrates the rows
+    (``parallel/migrate.py::gather_particles_sharded``); resample_idx holds
+    this rank's rows' global ancestors. Returns (state, n_eff,
+    resampled)."""
+    lw = state.log_weight if mesh is None else log_weight
+    P = lw.shape[0]
     dev = state.pose.device
-    n_eff = effective_sample_ratio(state.log_weight)
+    rows = slice(None) if mesh is None else mesh.rows(P)
+    n_eff = effective_sample_ratio(lw)
     identity = torch.arange(P, dtype=torch.int64, device=dev)
     if not has_measurements:
-        return (state.replace(resample_idx=identity.to(torch.int32)), n_eff,
-                torch.zeros((), dtype=torch.bool, device=dev))
+        return (state.replace(resample_idx=identity[rows].to(torch.int32)),
+                n_eff, torch.zeros((), dtype=torch.bool, device=dev))
     do_resample = n_eff <= cfg.resample_threshold
-    ancestors = systematic_ancestors(state.log_weight, u, P)
+    ancestors = systematic_ancestors(lw, u, P)
     idx = torch.where(do_resample, ancestors, identity)
     log_w = torch.where(do_resample, -_log_count(P, state.log_weight),
                         state.log_weight)
-    state = take_particles(state, idx).replace(
-        log_weight=log_w, resample_idx=idx.to(torch.int32))
+    if mesh is None:
+        state = take_particles(state, idx)
+    elif bool(do_resample):
+        from ..parallel.migrate import gather_particles_sharded
+        state = gather_particles_sharded(state, idx, mesh, cfg)
+    state = state.replace(log_weight=log_w,
+                          resample_idx=idx[rows].to(torch.int32))
     return state, n_eff, do_resample
 
 
@@ -890,19 +921,32 @@ def expand_particles(state: FilterState, k: int) -> FilterState:
 
 
 def resample_particles(state: FilterState, has_measurements: bool,
-                       cfg: SlamConfig, u, n_particles: int):
+                       cfg: SlamConfig, u, n_particles: int, mesh=None,
+                       log_weight=None):
     """The step's resampling of a state of ``n_particles`` particles (P k
     of them after :func:`expand_particles`): with shotgunning, the forced
     systematic contraction back to ``n_particles`` on every step (nEff
     taken at P k, uniform weights, resampled True); otherwise
-    :func:`maybe_resample`. Returns (state, n_eff, resampled)."""
+    :func:`maybe_resample`. On a ``mesh`` ``n_particles`` is this rank's
+    block and ``log_weight`` every particle's; the contraction takes the
+    exact full gather, as the JAX version's does. Returns (state, n_eff,
+    resampled)."""
     if max(1, cfg.n_predict_particles) == 1:
-        return maybe_resample(state, has_measurements, cfg, u)
-    n_eff = effective_sample_ratio(state.log_weight)
-    ancestors = systematic_ancestors(state.log_weight, u, n_particles)
-    log_w = (-_log_count(n_particles, state.log_weight)).expand(n_particles)
-    state = take_particles(state, ancestors).replace(
-        log_weight=log_w.clone(), resample_idx=ancestors.to(torch.int32))
+        return maybe_resample(state, has_measurements, cfg, u, mesh,
+                              log_weight)
+    lw = state.log_weight if mesh is None else log_weight
+    n_out = n_particles * (1 if mesh is None else mesh.size)
+    n_eff = effective_sample_ratio(lw)
+    ancestors = systematic_ancestors(lw, u, n_out)
+    log_w = (-_log_count(n_out, state.log_weight)).expand(n_particles)
+    if mesh is None:
+        state = take_particles(state, ancestors)
+    else:
+        from ..parallel.migrate import gather_particles_full
+        ancestors = ancestors[mesh.rows(n_out)]
+        state = gather_particles_full(state, ancestors, mesh)
+    state = state.replace(log_weight=log_w.clone(),
+                          resample_idx=ancestors.to(torch.int32))
     return state, n_eff, torch.ones((), dtype=torch.bool,
                                     device=state.pose.device)
 
@@ -912,7 +956,8 @@ def resample_particles(state: FilterState, has_measurements: bool,
 # ----------------------------------------------------------------------------
 
 def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
-             cfg: SlamConfig, noise: StepNoise, has_z=None, consts=None):
+             cfg: SlamConfig, noise: StepNoise, has_z=None, consts=None,
+             mesh=None):
     """One filter step: (shotgun) -> predict -> update -> extract ->
     resample.
 
@@ -924,6 +969,9 @@ def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
     With n_predict_particles = k > 1, the P particles are repeated k times
     before prediction (``noise.eps_pred`` holds P k draws), extraction
     sees all P k, and the step ends with the contraction back to P.
+    On a particle ``mesh`` the state and ``noise`` are this rank's block
+    and rows (``parallel/sharding.py::make_sharded_step_fn`` takes the
+    global draws); the estimates come out the same on every rank.
     """
     if has_z is None:
         has_z = bool(z_mask.any())
@@ -937,15 +985,22 @@ def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
     overflow = torch.zeros((), dtype=torch.int64, device=state.pose.device)
     if has_z:
         state, overflow = update(state, z, z_mask, cfg, consts,
-                                 noise.var_draw)
+                                 noise.var_draw, mesh)
     with record_function("phd.extract_resample"):
-        expected_pose, (mm, mc, mw) = extract(state, cfg)
+        log_weight, pose = particle_scalars(state.log_weight, state.pose,
+                                            mesh)
+        expected_pose, (mm, mc, mw) = extract(state, cfg, mesh, log_weight,
+                                              pose)
         state, n_eff, resampled = resample_particles(
-            state, has_z, cfg, noise.u_resample, P)
+            state, has_z, cfg, noise.u_resample, P, mesh, log_weight)
         # the MAP particle's cardinality after resampling, argmax ties to
         # the lowest index, as the JAX version extracts it
-        cn = (None if state.cardinality is None
-              else state.cardinality[torch.argmax(state.log_weight)])
+        cn = None
+        if state.cardinality is not None and mesh is None:
+            cn = state.cardinality[torch.argmax(state.log_weight)]
+        elif state.cardinality is not None:
+            i = torch.argmax(mesh.all_gather(state.log_weight))
+            cn = mesh.take_row(i, [state.cardinality])[0]
     state = state.replace(step=state.step + 1)
     out = StepOutputs(expected_pose=expected_pose, map_mean=mm, map_cov=mc,
                       map_weight=mw, n_eff=n_eff, resampled=resampled,

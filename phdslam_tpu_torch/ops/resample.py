@@ -5,11 +5,18 @@ Stratum j draws r_j = (j + u_j) / N with u_j ~ U(0, 1); its ancestor is the
 first index whose cumulative weight reaches r_j. Strata past the weight sum
 (an overrun from rounding) take the max-weight particle. The uniforms are
 an argument, so a test can feed the port the JAX version's draws.
+
+On a particle mesh (``parallel/sharding.py``) the step gathers the P log
+weights once and these functions run on the gathered vector, on every
+rank, in the unsharded order; :func:`normalize_log_weights` and
+:func:`max_over_particles` are the two reductions the updates end with.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .math import logsumexp
 
 SCAN_BLOCK = 1024
 
@@ -49,3 +56,27 @@ def effective_sample_ratio(log_weight):
     """nEff / N = 1 / (N * sum exp(2 w))."""
     P = log_weight.shape[0]
     return 1.0 / (torch.sum(torch.exp(2.0 * log_weight)) * P)
+
+
+def normalize_log_weights(log_w, mesh=None):
+    """log_w - logsumexp over every particle: this rank's block normalized
+    by the sum over the mesh's gathered log weights (the unsharded
+    normalizer, bit for bit)."""
+    every = log_w if mesh is None else mesh.all_gather(log_w)
+    return log_w - logsumexp(every, dim=0)
+
+
+def particle_scalars(log_weight, pose, mesh=None):
+    """Every particle's log weights [P] and poses [P, D]: the arguments
+    themselves without a mesh, else one all-gather of the ranks' blocks
+    (rows in global order)."""
+    if mesh is None:
+        return log_weight, pose
+    both = mesh.all_gather(torch.cat([log_weight[:, None], pose], dim=1))
+    return both[:, 0].contiguous(), both[:, 1:].contiguous()
+
+
+def max_over_particles(x, mesh=None):
+    """The largest entry of ``x`` over every particle of the mesh."""
+    m = torch.amax(x)
+    return m if mesh is None else mesh.all_max(m)

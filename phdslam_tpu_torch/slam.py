@@ -14,6 +14,13 @@ generators' states, so a resumed run draws what the uninterrupted one
 does. The loop reads nothing from the card unless asked to check every
 step for NaN (``debug``); it writes the reference's state logs after the
 run.
+
+On a particle mesh (``mesh``, ``parallel/sharding.py``; :meth:`_Runner.
+run_sharded`) every rank runs the same loop on its block: it draws the
+step's global noise from its generator (the same on every rank) and
+keeps its rows, and the per-particle outputs are gathered after the run.
+Only the primary rank writes logs, ``loopTime.log`` and checkpoints (the
+gathered global state); any number of ranks can resume a checkpoint.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from .config import SlamConfig
 from .filters.cphd import cphd_constants
 from .filters.phd import (StepNoise, check_supported, expand_particles,
                           phd_step, predict)
+from .parallel.sharding import (gather_state, local_noise, make_mesh,
+                                shard_state)
 from .runtime import io, profiling
 from .runtime.checkpoint import load_checkpoint, save_checkpoint
 from .types import init_state
@@ -90,13 +99,22 @@ _VIEWS = ("map_mean", "map_weight", "log_weight", "poses", "resample_idx",
           "map_cov", "cardinality")
 
 
+# per-particle step outputs: this rank's rows on a mesh
+_PER_PARTICLE = ("log_weight", "poses", "resample_idx")
+
+
 class _Runner:
     """The step loop shared by the runners: a subclass sets ``state`` and
-    ``n_steps`` and provides :meth:`step_args`."""
+    ``n_steps`` and provides :meth:`step_args`; given a particle ``mesh``,
+    it calls :meth:`attach_mesh` once the global initial state is set."""
 
-    def __init__(self, cfg: SlamConfig, device):
+    def __init__(self, cfg: SlamConfig, device, mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the runner's device {self.device} is not "
+                             f"the mesh's {mesh.device}")
+        self.mesh = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self.var_generator = None
@@ -112,6 +130,36 @@ class _Runner:
         (z, z_mask, control, dt, do_predict, has_z)."""
         raise NotImplementedError
 
+    def attach_mesh(self, mesh) -> None:
+        """Keep this rank's block of the (global) state and run every
+        later step on ``mesh``."""
+        if mesh is None or mesh is self.mesh:
+            return
+        if self.mesh is not None:
+            raise ValueError("the runner already runs on another mesh")
+        self.state = shard_state(mesh, self.state)
+        self.mesh = mesh
+
+    @property
+    def primary(self) -> bool:
+        """Whether this process writes the logs and checkpoints."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def n_particles(self) -> int:
+        """The particle count over every rank."""
+        return self.state.log_weight.shape[0] * (
+            1 if self.mesh is None else self.mesh.size)
+
+    def global_state(self):
+        """The whole state (gathered from every rank on a mesh)."""
+        return (self.state if self.mesh is None
+                else gather_state(self.mesh, self.state))
+
+    def local_noise(self, noise):
+        """This rank's rows of a step's global draws."""
+        return local_noise(noise, self.mesh)
+
     def noise(self) -> StepNoise:
         """The next step's draws from the runner's generator: one
         prediction draw per sub-step for each of the P k predicted
@@ -119,8 +167,9 @@ class _Runner:
         vehicle (motion_type 0), 2 control perturbations for Ackerman, and
         P resampling uniforms; with compute_variance, a source of the
         estimator's samples, drawn from the second generator when the
-        estimator asks for them."""
-        P = self.state.pose.shape[0]
+        estimator asks for them. On a mesh these are the global draws
+        (every rank draws the same)."""
+        P = self.n_particles
         k = max(1, self.cfg.n_predict_particles)
         sub = max(1, self.cfg.subdivide_predict)
         width = 3 if self.cfg.motion_type == 0 else 2
@@ -137,14 +186,16 @@ class _Runner:
             var_draw=var_draw)
 
     def step(self, n: int, noise=None):
-        """Run step n on the runner's state (on ``noise``, else the next
-        draws of the generator); returns the step's outputs."""
+        """Run step n on the runner's state (on ``noise``, this rank's rows
+        of the draws, else the next draws of the generator); returns the
+        step's outputs."""
         z, zm, control, dt, do_predict, has_z = self.step_args(n)
         if noise is None:
-            noise = self.noise()
+            noise = self.local_noise(self.noise())
         self.state, out = phd_step(self.state, z, zm, control, dt,
                                    do_predict, self.cfg, noise,
-                                   has_z=has_z, consts=self.consts)
+                                   has_z=has_z, consts=self.consts,
+                                   mesh=self.mesh)
         return out
 
     def predict_only(self, n: int, noise):
@@ -171,7 +222,11 @@ class _Runner:
     def save(self, path: str, steps_done: int) -> None:
         """Checkpoint the state after ``steps_done`` steps, with the
         generators' states (the draws of every later step depend on them)
-        and the control carried into the next step."""
+        and the control carried into the next step. On a mesh every rank
+        gathers the state and the primary writes it."""
+        state = self.global_state()
+        if not self.primary:
+            return
         last = self.last_control(steps_done)
         extra = {"step": steps_done,
                  "last_ctrl": torch.tensor(last, dtype=torch.float32),
@@ -179,12 +234,14 @@ class _Runner:
                  "generator_device": self.device.type}
         if self.var_generator is not None:
             extra["var_generator"] = self.var_generator.get_state()
-        save_checkpoint(path, self.state, extra)
+        save_checkpoint(path, state, extra)
 
     def restore(self, path: str) -> int:
         """Load a checkpoint written by :meth:`save` into this runner (state
-        and generators); returns the step to resume at."""
-        state, extra = load_checkpoint(path, self.state, extra_like={})
+        and generators; on a mesh of any size, this rank's block of the
+        saved global state); returns the step to resume at."""
+        state, extra = load_checkpoint(path, self.global_state(),
+                                       extra_like={})
         kind = (extra or {}).get("generator_device")
         if kind != self.device.type:
             raise ValueError(
@@ -199,7 +256,8 @@ class _Runner:
                     f"checkpoint {path} holds no variance generator state: "
                     "it was saved without compute_variance")
             self.var_generator.set_state(extra["var_generator"].cpu())
-        self.state = state
+        self.state = (state if self.mesh is None
+                      else shard_state(self.mesh, state))
         return int(extra["step"])
 
     def last_control(self, n: int):
@@ -234,14 +292,17 @@ class _Runner:
         Returns est_poses [T, D] (the step's expected pose), n_eff [T],
         resampled [T], the largest overflow count, wall_s and steps_per_s
         (host clock around the loop, ending in a device synchronize),
+        ``n_devices`` (the mesh's ranks, 1 without one),
         chunk, chunk_ms, step_ms and predict_ms (None without ``timing``),
         start_step and nan_step; steps before ``start_step`` are zeros.
         With ``collect_maps``, each step's MAP map (map_means [T, K, 2],
         map_weights [T, K]); with ``collect_particles``, log_weights
         [T, P], poses [T, P, 6], resample_idx [T, P], map_covs
         [T, K, 2, 2] and cardinalities [T, C + 1] (CPHD; [T, 1] zeros
-        otherwise), all kept on the card until the end. ``out_dir`` collects
-        both and writes the logs (:meth:`write_logs`).
+        otherwise), all kept on the card until the end (on a mesh each
+        rank keeps its rows and they are gathered after the loop).
+        ``out_dir`` collects both and writes the logs (:meth:`write_logs`;
+        the primary rank alone on a mesh).
         """
         T = self.n_steps
         chunk = chunk if chunk > 0 else T
@@ -272,7 +333,7 @@ class _Runner:
         t0 = t_chunk = time.perf_counter()
         for n in range(start_step, T):
             t_step = time.perf_counter()
-            noise = self.noise()
+            noise = self.local_noise(self.noise())
             if timing:
                 pred, p_ms = profiling.timed_call(self.predict_only, n, noise)
                 predict_ms.append(p_ms if pred is not None else 0.0)
@@ -306,7 +367,11 @@ class _Runner:
             if ys[k][0] is None:        # the PHD filter's cardinality
                 x = np.zeros((T - start_step, 1), np.float32)
             else:
-                x = torch.stack(ys[k]).cpu().numpy()
+                x = torch.stack(ys[k])
+                if self.mesh is not None and k in _PER_PARTICLE:
+                    x = self.mesh.all_gather(
+                        x.transpose(0, 1).contiguous()).transpose(0, 1)
+                x = x.cpu().numpy()
             if start_step:              # zero-fill the resumed-over steps
                 x = np.concatenate([np.zeros((start_step,) + x.shape[1:],
                                              x.dtype), x])
@@ -329,6 +394,7 @@ class _Runner:
             "predict_ms": np.asarray(predict_ms) if timing else None,
             "start_step": start_step,
             "nan_step": nan_step,
+            "n_devices": 1 if self.mesh is None else self.mesh.size,
         }
         if collect_maps:
             res["map_means"] = stacked("map_mean")
@@ -339,9 +405,19 @@ class _Runner:
                            ("map_covs", "map_cov"),
                            ("cardinalities", "cardinality")):
                 res[key] = stacked(k)
-        if out_dir:
+        if out_dir and self.primary:
             self.write_logs(out_dir, res, log_every)
         return res
+
+    def run_sharded(self, mesh=None, **kwargs):
+        """:meth:`run` on this rank's block of a particle ``mesh`` (by
+        default every process of the group, :func:`parallel.sharding.
+        make_mesh`, on the runner's device): the JAX version's
+        ``run_sharded``, here the same step loop. Returns run's result;
+        its ``n_devices`` is the mesh's size."""
+        self.attach_mesh(mesh or self.mesh
+                         or make_mesh(device=self.device))
+        return self.run(**kwargs)
 
     def write_logs(self, out_dir: str, res: dict, log_every: int = 1):
         """Write the state logs of a :meth:`run` result collected with
@@ -394,8 +470,8 @@ class SynthSLAMRunner(_Runner):
     """End-to-end filter runner on a dataset directory."""
 
     def __init__(self, cfg: SlamConfig, data_dir: Optional[str] = None,
-                 device="cuda"):
-        super().__init__(cfg, device)
+                 device="cuda", mesh=None):
+        super().__init__(cfg, device, mesh)
         self.data_dir = data_dir = data_dir or cfg.data_directory
         measurements = io.load_measurements(
             os.path.join(data_dir, "measurements.txt"),
@@ -435,6 +511,7 @@ class SynthSLAMRunner(_Runner):
             if plan.c_idx >= 0:
                 control = tuple(float(v) for v in self.controls[plan.c_idx])
             self.step_controls.append(control)
+        self.attach_mesh(mesh)
 
     def step_args(self, n: int):
         plan = self.schedule[n]
@@ -464,8 +541,8 @@ class ScanRunner(_Runner):
     (``eval/parity.py::_mixed_scan_fn``, ``tools/bench_mixed.py``)."""
 
     def __init__(self, cfg: SlamConfig, z_all, mask_all, dt: float,
-                 device="cuda"):
-        super().__init__(cfg, device)
+                 device="cuda", mesh=None):
+        super().__init__(cfg, device, mesh)
         z_all = np.asarray(z_all, np.float32)
         mask_all = np.asarray(mask_all, bool)
         self.n_steps, m_max = mask_all.shape
@@ -475,6 +552,7 @@ class ScanRunner(_Runner):
         self.state = init_state(cfg, device=self.device)
         self.z_dev = torch.as_tensor(z_all, device=self.device)
         self.mask_dev = torch.as_tensor(mask_all, device=self.device)
+        self.attach_mesh(mesh)
 
     def step_args(self, n: int):
         return (self.z_dev[n], self.mask_dev[n], (0.0, 0.0), self.dt, n > 0,

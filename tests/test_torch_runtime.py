@@ -86,6 +86,8 @@ def test_runtime_imports_no_jax_and_no_matplotlib():
             "import phdslam_tpu_torch.__main__, phdslam_tpu_torch.eval.batch\n"
             "import phdslam_tpu_torch.runtime.checkpoint\n"
             "import phdslam_tpu_torch.runtime.profiling\n"
+            "import phdslam_tpu_torch.parallel, phdslam_tpu_torch.parallel.sim\n"
+            "import phdslam_tpu_torch.parallel.migrate\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'phdslam_tpu', 'matplotlib'))\n"
             "assert not bad, bad\n")
@@ -420,10 +422,18 @@ def test_cli_disparity(tmp_path):
     assert len(times) == 12 and len(np.unique(times)) == 3
 
 
-def test_cli_refuses_distributed(batch_root, tmp_path):
-    cfg = write_cfg(tmp_path / "t.cfg", f"{batch_root}/run000")
-    with pytest.raises(SystemExit):
-        cli([cfg, "--out-dir", str(tmp_path / "o"), "--distributed"])
+def test_cli_distributed_single_process(batch_root, tmp_path, monkeypatch):
+    """--distributed with no launcher environment runs the one-process
+    path, as the JAX CLI does: the same logs as without the flag."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    cfg = write_cfg(tmp_path / "t.cfg", f"{batch_root}/run000",
+                    "n_steps = 8\n")
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    assert cli([cfg, "--out-dir", a]) == 0
+    assert cli([cfg, "--out-dir", b, "--distributed"]) == 0
+    assert logs(a) == logs(b) and len(logs(a)) == 8
+    assert_logs_equal(a, b, logs(a))
 
 
 # ----------------------------------------------------------------------------
