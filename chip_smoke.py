@@ -3580,6 +3580,150 @@ def gated_phase(label, ranks, kernels):
           + "; transport per rank " + ", ".join(x["transport"] for x in ranks))
 
 
+class OpLog(torch.utils._python_dispatch.TorchDispatchMode):
+    """Every PyTorch op of a call, in order: its name, the innermost line of
+    the port that issued it, and clones of its tensor inputs and outputs
+    (allocations and factories skipped: a kernel launched through ctypes
+    fills the former unseen, the latter take the batch's size). Given ``ref`` (another call's log) and a block ``r`` of
+    ``n``, each op is held instead to the reference op's rows of that
+    block (:func:`block_rows`) and only whether its inputs and its outputs
+    equal them, all and floating-point only, is kept."""
+    SKIP = ("aten.empty", "aten.empty_like", "aten.empty_strided",
+            "aten.new_empty", "aten.new_empty_strided")
+
+    def __init__(self, ref=None, r=0, n=1):
+        super().__init__()
+        self.ops, self.ref, self.r, self.n = [], ref, r, n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        import traceback
+        out = func(*args, **(kwargs or {}))
+        name = str(func.overloadpacket)
+        if name in self.SKIP:
+            return out
+        ins = [a for a in torch.utils._pytree.tree_leaves((args, kwargs))
+               if isinstance(a, torch.Tensor)]
+        if not ins:             # a factory: its size is the batch's
+            return out
+        port = [f for f in traceback.extract_stack()
+                if f"{os.sep}phdslam_tpu_torch{os.sep}" in f.filename]
+        site = (f"{os.path.relpath(port[-1].filename)}:{port[-1].lineno}"
+                if port else "?")
+        if any(f.filename.endswith(os.path.join("ops", "resample.py"))
+               for f in port):
+            site += " (ops/resample.py)"
+        outs = [o for o in torch.utils._pytree.tree_leaves(out)
+                if isinstance(o, torch.Tensor)]
+        if self.ref is None:
+            self.ops.append((name, site, [a.detach().clone() for a in ins],
+                             [o.detach().clone() for o in outs]))
+            return out
+        k = len(self.ops)
+        if k >= len(self.ref) or self.ref[k][0] != name:
+            self.ops.append((name, site, None, None, None, None))
+            return out
+        _, _, r_ins, r_outs = self.ref[k]
+        self.ops.append((name, site, *(
+            same_rows(a, b, self.r, self.n, floats)
+            for a, b in ((r_ins, ins), (r_outs, outs))
+            for floats in (False, True))))
+        return out
+
+
+def block_rows(big, small, r, n):
+    """Block r of n of ``big`` along its particle axis (the one axis n
+    times ``small``'s), ``big`` itself where the shapes agree, else None."""
+    if big.shape == small.shape:
+        return big
+    for a in range(big.dim()):
+        if big.dim() == small.dim() and big.shape[a] == n * small.shape[a] \
+                and all(big.shape[i] == small.shape[i]
+                        for i in range(big.dim()) if i != a):
+            return big.narrow(a, r * small.shape[a], small.shape[a])
+    return None
+
+
+def same_rows(bigs, smalls, r, n, floats=False):
+    """True when every tensor of ``smalls`` (``floats``: every floating-point
+    one) equals block r of its ``bigs`` bit for bit (NaN equal to NaN),
+    None when one has no such block."""
+    if len(bigs) != len(smalls):
+        return None
+    for b, s in zip(bigs, smalls):
+        if floats and not s.dtype.is_floating_point:
+            continue
+        b = block_rows(b, s, r, n)
+        if b is None:
+            return None
+        if b.dtype.is_floating_point:
+            if not bool(((b == s) | (b.isnan() & s.isnan())).all()):
+                return False
+        elif not torch.equal(b, s):
+            return False
+    return True
+
+
+def cphd_block_bits(dev, n_before=20, n=4):
+    """Where a CPHD update's bits depend on the batch: the update of step
+    n_before of cfg/ackerman_cphd.cfg at P=512 on the whole batch, then on
+    each of n blocks of 128 rows of the same state (what a rank of
+    ``[parallel cphd4]`` runs), every PyTorch op held to the batch's rows
+    (:class:`OpLog`). An op whose outputs part while its inputs agree is
+    where the bits part; the cross-particle reductions of
+    ``ops/resample.py`` part by design (a block's own sum and maximum). An
+    op whose floating-point inputs part before any op's outputs did reads
+    what a kernel (launched through ctypes, unseen) wrote."""
+    from phdslam_tpu_torch.parallel.sharding import map_leaves
+    cfg = load_config(CPHD_CFG, {"n_particles": P_MAIN})
+    r = SynthSLAMRunner(cfg, DATA, device=dev)
+    for i in range(n_before):
+        r.step(i)
+    z, zm, ctl, dt, dp, has_z = r.step_args(n_before)
+    require(has_z, f"parallel cphd bits: no measurements at {n_before}")
+    noise = r.noise()
+    st = phd_filter.predict(r.state, ctl, dt, cfg, noise.eps_pred) \
+        if dp else r.state
+    with OpLog() as big:
+        phd_filter.update(st, z, zm, cfg, r.consts)
+    b = P_MAIN // n
+    origins, diverged, fed = {}, None, None
+    for j in range(n):
+        blk = map_leaves(st, lambda x: x[j * b:(j + 1) * b])
+        with OpLog(big.ops, j, n) as small:
+            phd_filter.update(blk, z, zm, cfg, r.consts)
+        parted = False
+        for k, (name, site, ins, ins_f, outs, outs_f) in enumerate(
+                small.ops):
+            if k >= len(big.ops) or big.ops[k][0] != name:
+                diverged = min(k, diverged if diverged is not None else k)
+                break
+            if ins and outs is False:
+                origins.setdefault((k, name, site), []).append(j)
+            elif ins_f is False and not parted and fed is None:
+                fed = (k, name, site)       # written unseen: a kernel's
+            parted = parted or outs_f is False
+    del big
+    torch.cuda.empty_cache()
+    cross = {o: v for o, v in origins.items()
+             if o[2].endswith("(ops/resample.py)")}
+    own = sorted(set(origins) - set(cross))
+    first_fed = ("none" if fed is None else
+                 f"op {fed[0]} {fed[1]} at {fed[2]}")
+    phase("parallel cphd bits", f"CPHD update of step {n_before} at "
+          f"P={P_MAIN} (data/ackerman) as one batch and as {n} blocks of "
+          f"{b} rows, {len(small.ops)} PyTorch ops each held to the batch's "
+          f"rows: ops whose outputs part while their inputs agree "
+          + ("none" if not own else "; ".join(
+              f"op {k} {name} at {site} (blocks {origins[(k, name, site)]})"
+              for k, name, site in own[:6]))
+          + f"; the cross-particle reductions (by design) "
+          + (", ".join(sorted({f"{nm} at {st_}" for _, nm, st_ in cross}))
+             or "none")
+          + f"; the first op fed inputs that already part: {first_fed}"
+          + ("" if diverged is None else
+             f"; the op sequence diverges at op {diverged}"))
+
+
 def run_parallel(dev, main_res):
     """The sharded runtime on the card through ``parallel/sim.py``: a world
     of one NCCL rank repeating run_main bit for bit; a 2-rank Gloo group
@@ -3683,6 +3827,7 @@ def run_parallel(dev, main_res):
           + ", ".join(x["transport"] for x in out["run"]))
     gated_phase("parallel mixed4", out["mixed4"], MIXED_KERNELS)
     gated_phase("parallel cphd4", out["cphd4"], CPHD_KERNELS)
+    cphd_block_bits(dev)
     gated_phase("parallel eap4", out["eap4"], ACKERMAN_KERNELS)
     gated_phase("parallel disparity4", out["disparity4"], DISP_KERNELS)
 

@@ -55,7 +55,8 @@ from ..kernels.merge import merge3d
 from ..ops.gm_merge import (compact_candidates, merge_out, pack_planes,
                             sort_candidates)
 from ..ops.math import LOG0, chol3, logsumexp, safe_log, sym, wrap_angle
-from ..ops.resample import (effective_sample_ratio, max_over_particles,
+from ..ops.resample import (effective_sample_ratio, every_particle,
+                            max_over_particles, particle_row,
                             particle_scalars, systematic_ancestors)
 from ..types import DisparityState
 
@@ -435,14 +436,15 @@ def _resample(state: DisparityState, cfg: SlamConfig, u, mesh=None,
 
 def disparity_step(state: DisparityState, z, z_mask, dt, do_predict: bool,
                    cfg: SlamConfig, noise: DisparityNoise, has_z=None,
-                   mesh=None):
+                   mesh=None, return_updated: bool = False):
     """One SC-PHD step: predict -> update -> normalize -> resample ->
     extract. ``z`` [M, 2] padded (u, v) measurements with ``z_mask`` [M];
     ``has_z`` (whether z_mask has any True) is read from the device when
     not given. On a particle ``mesh`` the state and ``noise`` are this
     rank's block and rows (``parallel/sharding.py::
     make_sharded_disparity_step_fn`` takes the global draws); the outputs
-    come out the same on every rank."""
+    come out the same on every rank. ``return_updated`` adds a third
+    output: every particle's normalized log weights before resampling."""
     if has_z is None:
         has_z = bool(z_mask.any())
     if do_predict:
@@ -454,24 +456,19 @@ def disparity_step(state: DisparityState, z, z_mask, dt, do_predict: bool,
         state, overflow = disparity_update(state, z, z_mask, cfg,
                                            noise.eps_sample, mesh)
     with record_function("disp.resample_extract"):
-        every = (state.log_weight if mesh is None
-                 else mesh.all_gather(state.log_weight))
+        every = every_particle(state.log_weight, mesh)
         lse = logsumexp(every, dim=0)
         state = state.replace(log_weight=state.log_weight - lse)
-        log_w = state.log_weight if mesh is None else every - lse
+        updated = every - lse
         state, n_eff, resampled = _resample(state, cfg, noise.u_resample,
-                                            mesh, log_w)
+                                            mesh, updated)
         state = state.replace(step=state.step + 1)
         log_w, cam_pose = particle_scalars(state.log_weight, state.cam_pose,
                                            mesh)
-        i = torch.argmax(log_w)
-        if mesh is None:
-            map_cloud, map_weight = state.cloud[i], state.feat_weight[i]
-        else:
-            map_cloud, map_weight = mesh.take_row(
-                i, [state.cloud, state.feat_weight])
+        map_cloud, map_weight = particle_row(
+            torch.argmax(log_w), [state.cloud, state.feat_weight], mesh)
         out = DisparityOutputs(
             expected_pose=torch.exp(log_w) @ cam_pose, map_cloud=map_cloud,
             map_weight=map_weight, n_eff=n_eff, resampled=resampled,
             overflow=overflow)
-    return state, out
+    return (state, out, updated) if return_updated else (state, out)

@@ -84,8 +84,9 @@ from ..ops.gm_merge import (MERGE_DIMS, compact_candidates, merge_out,
                             pack_planes, sort_planes, topcap_sort,
                             topk_compact_indices, unpack_planes)
 from ..ops.math import LOG0, safe_log
-from ..ops.resample import (effective_sample_ratio, max_over_particles,
-                            normalize_log_weights, particle_scalars,
+from ..ops.resample import (effective_sample_ratio, every_particle,
+                            max_over_particles, normalize_log_weights,
+                            particle_row, particle_scalars,
                             systematic_ancestors)
 from ..types import FilterState, GMState
 from .extras import (eap_expected_map, mc_variance_candidates,
@@ -821,23 +822,21 @@ def extract(state: FilterState, cfg: SlamConfig, mesh=None,
     ``state.step % eap_every == 0`` and the MAP map in between. The step
     count lives on the host, so the choice reads nothing from the
     device. On a ``mesh`` the state is this rank's block, ``log_weight``
-    and ``pose`` every particle's (``ops/resample.py::particle_scalars``),
-    and the MAP row comes from the rank that holds it."""
-    if mesh is None:
-        log_weight, pose = state.log_weight, state.pose
+    and ``pose`` every particle's (``ops/resample.py::particle_scalars``,
+    gathered here when not given), and the MAP row comes from the rank
+    that holds it."""
+    if log_weight is None:
+        log_weight, pose = particle_scalars(state.log_weight, state.pose,
+                                            mesh)
     w = torch.exp(log_weight)
     expected_pose = w @ pose
     gm = state.map_dynamic if cfg.feature_model == 1 else state.map_static
     if uses_eap(cfg) and state.step % max(1, cfg.eap_every) == 0:
-        if mesh is None:
-            return expected_pose, eap_expected_map(gm, state.log_weight, cfg)
         return expected_pose, eap_expected_map(gm, state.log_weight, cfg,
                                                mesh=mesh)
     i = torch.argmax(log_weight)
-    if mesh is None:
-        return expected_pose, (gm.mean[i], gm.cov[i], gm.weight[i])
-    return expected_pose, tuple(mesh.take_row(i, [gm.mean, gm.cov,
-                                                  gm.weight]))
+    return expected_pose, tuple(particle_row(i, [gm.mean, gm.cov,
+                                                 gm.weight], mesh))
 
 
 def take_particles(state: FilterState, idx) -> FilterState:
@@ -957,7 +956,7 @@ def resample_particles(state: FilterState, has_measurements: bool,
 
 def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
              cfg: SlamConfig, noise: StepNoise, has_z=None, consts=None,
-             mesh=None):
+             mesh=None, return_updated: bool = False):
     """One filter step: (shotgun) -> predict -> update -> extract ->
     resample.
 
@@ -972,6 +971,8 @@ def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
     On a particle ``mesh`` the state and ``noise`` are this rank's block
     and rows (``parallel/sharding.py::make_sharded_step_fn`` takes the
     global draws); the estimates come out the same on every rank.
+    ``return_updated`` adds a third output: every particle's log weights
+    as the resampling read them (a check of its ancestry needs them).
     """
     if has_z is None:
         has_z = bool(z_mask.any())
@@ -996,15 +997,13 @@ def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
         # the MAP particle's cardinality after resampling, argmax ties to
         # the lowest index, as the JAX version extracts it
         cn = None
-        if state.cardinality is not None and mesh is None:
-            cn = state.cardinality[torch.argmax(state.log_weight)]
-        elif state.cardinality is not None:
-            i = torch.argmax(mesh.all_gather(state.log_weight))
-            cn = mesh.take_row(i, [state.cardinality])[0]
+        if state.cardinality is not None:
+            i = torch.argmax(every_particle(state.log_weight, mesh))
+            cn = particle_row(i, [state.cardinality], mesh)[0]
     state = state.replace(step=state.step + 1)
     out = StepOutputs(expected_pose=expected_pose, map_mean=mm, map_cov=mc,
                       map_weight=mw, n_eff=n_eff, resampled=resampled,
                       overflow=overflow, log_weight=state.log_weight,
                       poses=state.pose, resample_idx=state.resample_idx,
                       cardinality=cn)
-    return state, out
+    return (state, out, log_weight) if return_updated else (state, out)

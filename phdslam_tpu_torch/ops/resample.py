@@ -9,7 +9,8 @@ an argument, so a test can feed the port the JAX version's draws.
 On a particle mesh (``parallel/sharding.py``) the step gathers the P log
 weights once and these functions run on the gathered vector, on every
 rank, in the unsharded order; :func:`normalize_log_weights` and
-:func:`max_over_particles` are the two reductions the updates end with.
+:func:`max_over_particles` are the two reductions the updates end with,
+:func:`particle_row` takes the MAP particle's row.
 """
 
 from __future__ import annotations
@@ -58,12 +59,17 @@ def effective_sample_ratio(log_weight):
     return 1.0 / (torch.sum(torch.exp(2.0 * log_weight)) * P)
 
 
+def every_particle(x, mesh=None):
+    """``x`` [b, ...], this rank's particles, gathered over the mesh
+    ([P, ...] in global order); ``x`` itself without a mesh."""
+    return x if mesh is None else mesh.all_gather(x)
+
+
 def normalize_log_weights(log_w, mesh=None):
     """log_w - logsumexp over every particle: this rank's block normalized
     by the sum over the mesh's gathered log weights (the unsharded
     normalizer, bit for bit)."""
-    every = log_w if mesh is None else mesh.all_gather(log_w)
-    return log_w - logsumexp(every, dim=0)
+    return log_w - logsumexp(every_particle(log_w, mesh), dim=0)
 
 
 def particle_scalars(log_weight, pose, mesh=None):
@@ -74,6 +80,15 @@ def particle_scalars(log_weight, pose, mesh=None):
         return log_weight, pose
     both = mesh.all_gather(torch.cat([log_weight[:, None], pose], dim=1))
     return both[:, 0].contiguous(), both[:, 1:].contiguous()
+
+
+def particle_row(i, leaves, mesh=None):
+    """Row ``i`` (a global particle index, a 0-dim tensor on the device)
+    of every leaf: indexed in place without a mesh, else taken from the
+    rank that holds it (``Mesh.take_row``)."""
+    if mesh is None:
+        return [x[i] for x in leaves]
+    return mesh.take_row(i, leaves)
 
 
 def max_over_particles(x, mesh=None):

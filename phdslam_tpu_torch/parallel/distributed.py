@@ -66,7 +66,7 @@ def initialize(init_method: Optional[str] = None,
     ``MASTER_ADDR`` and ``MASTER_PORT``, or the explicit arguments (e.g. a
     ``file://`` store for tests). Returns False, touching nothing, when
     neither is there (the single-process case: :func:`global_mesh` is then
-    one process); else initializes the group with a finite ``timeout_s``
+    None); else initializes the group with a finite ``timeout_s``
     and returns whether it spans more than one process, as the JAX
     version does. Under NCCL each rank takes the GPU ``LOCAL_RANK`` and a
     node with fewer GPUs than local ranks raises. Any failure raises. A
@@ -128,7 +128,7 @@ def world_size() -> int:
 
 def global_mesh(device="cuda"):
     """1-D particle mesh over every process of the group, each on its
-    :func:`local_device`."""
+    :func:`local_device`; None (the unsharded path) without a group."""
     from .sharding import make_mesh
     return make_mesh(device=local_device(device))
 

@@ -72,15 +72,15 @@ class CollectiveStats:
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """A 1-D particle mesh: the ``size`` processes of the default group,
-    this one being ``rank``, each computing on ``device``. ``backend`` is
-    "nccl", "gloo" or "local" (one process without a group: every
-    collective is the identity). Under Gloo on a CUDA device each
-    collective stages its buffers through host memory (``staged``)."""
+    """A 1-D particle mesh: the ``size`` processes of the default group
+    (``backend`` "nccl" or "gloo"), this one being ``rank``, each
+    computing on ``device``. Under Gloo on a CUDA device each collective
+    stages its buffers through host memory (``staged``). One process
+    without a group has no mesh: ``mesh=None`` throughout."""
     size: int
     rank: int
     device: torch.device
-    backend: str = "local"
+    backend: str
     stats: CollectiveStats = dataclasses.field(
         default_factory=CollectiveStats)
     axis_names = (PARTICLE_AXIS,)
@@ -91,9 +91,9 @@ class Mesh:
 
     @property
     def transport(self) -> str:
-        """How the collectives move data: "local", "nccl" (device
-        buffers), "gloo" (host tensors) or "gloo via host" (device tensors
-        staged through host memory on every call)."""
+        """How the collectives move data: "nccl" (device buffers), "gloo"
+        (host tensors) or "gloo via host" (device tensors staged through
+        host memory on every call)."""
         return "gloo via host" if self.staged else self.backend
 
     def block(self, n: int) -> int:
@@ -139,8 +139,6 @@ class Mesh:
 
     def all_gather(self, x, kind: str = "all_gather"):
         """[b, ...] on every rank -> [size b, ...], in rank order."""
-        if self.backend == "local":
-            return x
         with self._record(kind, x.nbytes * (self.size - 1)):
             w = self._wire(x)
             if self.backend == "nccl":
@@ -154,8 +152,6 @@ class Mesh:
 
     def all_max(self, x):
         """The elementwise maximum of ``x`` over the ranks."""
-        if self.backend == "local":
-            return x
         with self._record("all_max", x.nbytes * (self.size - 1)):
             w = self._wire(x).clone()
             dist.all_reduce(w, op=dist.ReduceOp.MAX)
@@ -170,9 +166,8 @@ class Mesh:
         b = leaves[0].shape[0]
         local = torch.clamp(i - self.rank * b, 0, b - 1)
         flat = torch.cat([x[local].reshape(-1) for x in leaves])
-        if self.backend != "local":
-            flat = self.all_gather(flat[None], "take_row")[
-                torch.div(i, b, rounding_mode="floor")]
+        flat = self.all_gather(flat[None], "take_row")[
+            torch.div(i, b, rounding_mode="floor")]
         out, at = [], 0
         for x in leaves:
             n = x[0].numel()
@@ -198,20 +193,20 @@ class Mesh:
             return [self._back(r) for r in outs]
 
 
-def make_mesh(n_devices: Optional[int] = None, device="cuda") -> Mesh:
+def make_mesh(n_devices: Optional[int] = None,
+              device="cuda") -> Optional[Mesh]:
     """The 1-D particle mesh over every process of the group (one device a
-    process), or over this one process when no group is initialized.
+    process); None, the unsharded path, when no group is initialized.
     ``n_devices``, when given, must be that count: more raises, as in the
     JAX version, and so does fewer (a mesh spans the whole group)."""
-    device = torch.device(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if n_devices not in (None, world):
         raise ValueError(f"requested {n_devices} mesh devices; the group "
                          f"has {world} processes (one device each)")
-    if world == 1 and not dist.is_initialized():
-        return Mesh(size=1, rank=0, device=device)
-    return Mesh(size=world, rank=dist.get_rank(), device=device,
-                backend=dist.get_backend())
+    if not dist.is_initialized():
+        return None
+    return Mesh(size=world, rank=dist.get_rank(),
+                device=torch.device(device), backend=dist.get_backend())
 
 
 # ----------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 ``tools/multihost_sim.py``).
 
     python -m phdslam_tpu_torch.parallel.sim --nproc N --steps S
-        [--disparity] [--ckpt-test] [--device cpu|cuda]
+        [--disparity] [--ckpt-test] [--device cuda|cpu]
         [--backend gloo|nccl] [--particles P]
 
 spawns N processes wired into one ``torch.distributed`` group over a
@@ -17,9 +17,10 @@ boundary takes another ancestor, the run resyncs to the 1-process state).
 Prints ``PARITY`` or ``MISMATCH`` and one JSON line, and exits non-zero on
 a mismatch. ``--ckpt-test`` saves a checkpoint from 2 ranks halfway,
 resumes it on N and holds the result to the uninterrupted 1-process run.
-On the card, ``--device cuda --backend gloo`` shares the one GPU among the
-ranks (staged through host memory), ``--backend nccl`` takes one GPU per
-rank.
+The ranks run on the card unless ``--device cpu`` asks for the CPU
+(Gloo): ``--backend nccl`` (the default on the card) takes one GPU per
+rank, ``--backend gloo`` shares the one GPU among the ranks (staged
+through host memory).
 
 The same machinery is a Python API (:func:`run_group` with a task dict)
 that the tests and ``chip_smoke.py`` drive: "gated" (the above on any
@@ -38,6 +39,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -52,15 +54,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 # the parent: spawn, watch, collect
 # ----------------------------------------------------------------------------
 
-def run_group(nproc: int, task: dict, device="cpu", backend="gloo",
+def run_group(nproc: int, task: dict, device="cuda",
+              backend: Optional[str] = None,
               timeout_s: float = DEFAULT_TIMEOUT_S) -> list:
-    """Run ``task`` on ``nproc`` ranks (``backend`` None: one process with
-    no group) and return each rank's result dict, rank 0's arrays under
-    "arrays". The group shares one ``file://`` store in a new temporary
-    directory; it is killed when any rank fails or when ``timeout_s``
-    passes, and a RuntimeError carries the failed rank's output."""
-    if backend is None and nproc != 1:
-        raise ValueError("a group without a backend has one process")
+    """Run ``task`` on a group of ``nproc`` ranks on ``device`` (the
+    backend the device's, :func:`.distributed.backend_for`, unless given)
+    and return each rank's result dict, rank 0's arrays under "arrays".
+    The group shares one ``file://`` store in a new temporary directory;
+    it is killed when any rank fails or when ``timeout_s`` passes, and a
+    RuntimeError carries the failed rank's output."""
+    from .distributed import backend_for
+    backend = backend_for(device, backend)
     with tempfile.TemporaryDirectory(prefix="sim_") as tmp:
         spec = {"nproc": nproc, "device": device, "backend": backend,
                 "store": "file://" + os.path.join(tmp, "store"),
@@ -134,9 +138,8 @@ def _child(rank: int, spec_path: str) -> None:
     n = spec["nproc"]
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * n)))
     device = spec["device"]
-    if spec["backend"] is not None:
-        distributed.initialize(spec["store"], n, rank, spec["backend"],
-                               device, INIT_TIMEOUT_S)
+    distributed.initialize(spec["store"], n, rank, spec["backend"], device,
+                           INIT_TIMEOUT_S)
     mesh = make_mesh(device=distributed.local_device(device))
     res, arrays = run_task_kind(spec["task"], mesh, device)
     res.update(rank=rank, transport=mesh.transport, device=str(mesh.device))
@@ -145,9 +148,8 @@ def _child(rank: int, spec_path: str) -> None:
     if rank == 0 and arrays:
         np.savez(os.path.join(spec["out"], "rank0.npz"), **arrays)
     import torch.distributed as dist
-    if dist.is_initialized():
-        dist.barrier()
-        dist.destroy_process_group()
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def run_task_kind(task, mesh, device):
@@ -239,53 +241,11 @@ def _replayable(noise):
     return noise._replace(var_draw=again)
 
 
-def reference_step(runner, state, n, noise):
-    """Step n of ``runner``'s schedule from the global ``state`` with the
-    global ``noise``, on one process (no mesh), split where the gate needs
-    it: (the updated state before resampling, the state after, the step's
-    outputs as (expected_pose, map_weight, n_eff, resampled, overflow))."""
-    import torch
-
-    from ..filters import disparity as disp
-    from ..filters import phd
-    cfg = runner.cfg
-    if isinstance(noise, disp.DisparityNoise):
-        z, zm = runner.z_dev[n], runner.mask_dev[n]
-        has_z = bool(runner.has_z[n])
-        st = state
-        if n > 0 and runner.traj_dev is None:
-            st = disp.disparity_predict(st, cfg.dt, cfg, noise.eps_pred)
-        ovf = torch.zeros((), dtype=torch.int64, device=st.cam_pose.device)
-        if has_z:
-            st, ovf = disp.disparity_update(st, z, zm, cfg, noise.eps_sample)
-        from ..ops.math import logsumexp
-        upd = st.replace(log_weight=st.log_weight
-                         - logsumexp(st.log_weight, dim=0))
-        new, n_eff, res = disp._resample(upd, cfg, noise.u_resample)
-        new = new.replace(step=new.step + 1)
-        w = torch.exp(new.log_weight)
-        i = torch.argmax(new.log_weight)
-        return upd, new, (w @ new.cam_pose, new.feat_weight[i], n_eff, res,
-                          ovf)
-    z, zm, ctl, dt, dp, has_z = runner.step_args(n)
-    P = state.pose.shape[0]
-    k = max(1, cfg.n_predict_particles)
-    st = phd.expand_particles(state, k) if k > 1 else state
-    if dp:
-        st = phd.predict(st, ctl, dt, cfg, noise.eps_pred)
-    ovf = torch.zeros((), dtype=torch.int64, device=st.pose.device)
-    if has_z:
-        st, ovf = phd.update(st, z, zm, cfg, runner.consts, noise.var_draw)
-    pose, (_, _, mw) = phd.extract(st, cfg)
-    new, n_eff, res = phd.resample_particles(st, has_z, cfg,
-                                             noise.u_resample, P)
-    return st, new.replace(step=new.step + 1), (pose, mw, n_eff, res, ovf)
-
-
 class Gate:
     """The step gates of a sharded step against the 1-process step from the
     same state and draws: every per-particle leaf and the step's outputs
-    within rtol / atol (rtol 1e-4 / atol 1e-5 by default, as the card-vs-CPU
+    (expected pose, nEff, the MAP or EAP map, the MAP cardinality) within
+    rtol / atol (rtol 1e-4 / atol 1e-5 by default, as the card-vs-CPU
     step checks), a map slot allowed to hold another component of its
     particle where the two weights tie within the tolerance (the
     compaction sorts by weight), the CPHD log cardinality compared within
@@ -350,34 +310,46 @@ class Gate:
                                      "boundary")
         return differ
 
-    def check(self, got_state, got_out, upd, want_state, want_out, u):
-        """Hold one step; returns (bits, strata moved, slots swapped)."""
+    def check(self, got_state, got_out, want_state, want_out, updated, u):
+        """Hold one step (``updated``: the 1-process step's log weights as
+        its resampling read them); returns (bits, strata moved, slots
+        swapped)."""
         import torch
 
+        from ..slam import PER_PARTICLE_OUTPUTS
         from .sharding import particle_leaves
-        pose, mw, n_eff, res, ovf = want_out
-        if bool(got_out.resampled) != bool(res):
+        if bool(got_out.resampled) != bool(want_out.resampled):
             raise AssertionError("the resampling decision differs")
-        if int(got_out.overflow) != int(ovf):
+        if int(got_out.overflow) != int(want_out.overflow):
             raise AssertionError(f"overflow {int(got_out.overflow)} != "
-                                 f"{int(ovf)}")
-        self.close("n_eff", got_out.n_eff, n_eff)
-        self.close("expected_pose", got_out.expected_pose, pose)
+                                 f"{int(want_out.overflow)}")
+        self.close("n_eff", got_out.n_eff, want_out.n_eff)
+        self.close("expected_pose", got_out.expected_pose,
+                   want_out.expected_pose)
         self.close("map weights (sorted)",
                    torch.sort(got_out.map_weight).values,
-                   torch.sort(mw).values)
+                   torch.sort(want_out.map_weight).values)
+        fields = [f for f in want_out._fields
+                  if f not in PER_PARTICLE_OUTPUTS
+                  and getattr(want_out, f) is not None]
+        swapped = 0
+        for f in fields:
+            g, w = getattr(got_out, f)[None], getattr(want_out, f)[None]
+            if f == "cardinality":
+                self.log_card(g.cpu(), w.cpu())
+            elif f in ("map_mean", "map_cov", "map_cloud"):
+                swapped += self.slots(f, got_out.map_weight[None], g,
+                                      want_out.map_weight[None], w)
         moved = self.strata(got_state.resample_idx, want_state.resample_idx,
-                            upd.log_weight, u)
+                            updated, u)
         keep = torch.ones(want_state.log_weight.shape[0], dtype=torch.bool)
         keep[moved] = False
         got = dict(particle_leaves(got_state))
         want = dict(particle_leaves(want_state))
         bits = len(moved) == 0 and all(
             torch.equal(got[p].cpu(), want[p].cpu()) for p in want) \
-            and torch.equal(got_out.expected_pose.cpu(), pose.cpu()) \
-            and torch.equal(got_out.map_weight.cpu(), mw.cpu()) \
-            and torch.equal(got_out.n_eff.cpu(), n_eff.cpu())
-        swapped = 0
+            and all(torch.equal(getattr(got_out, f).cpu(),
+                                getattr(want_out, f).cpu()) for f in fields)
         for p, w in want.items():
             g, w = got[p].cpu()[keep], w.cpu()[keep]
             name = ".".join(p)
@@ -407,8 +379,9 @@ class Gate:
 
 def gated_task(task, mesh):
     """Step the sharded runner and hold every step to the 1-process step
-    from the same (gathered) state and draws (:class:`Gate`); resync to the
-    1-process state after a step whose ancestry moved at a boundary.
+    (the runner's own step without a mesh) from the same (gathered) state
+    and draws (:class:`Gate`); resync to the 1-process state after a step
+    whose ancestry moved at a boundary.
     ``launches``: the sharded steps' kernel launches on this rank (the
     1-process steps' not counted)."""
     import collections
@@ -426,12 +399,12 @@ def gated_task(task, mesh):
     t0 = time.perf_counter()
     for n in range(steps):
         noise = _replayable(runner.noise())
-        g = runner.global_state()
-        upd, want, want_out = reference_step(runner, g, n, noise)
+        want, want_out, updated = runner.step_state(
+            runner.global_state(), n, noise, return_updated=True)
         out, made = _launched_by(runner.step, n, runner.local_noise(noise))
         launches.update(made)
-        b, m, s = gate.check(runner.global_state(), out, upd, want,
-                             want_out, noise.u_resample)
+        b, m, s = gate.check(runner.global_state(), out, want, want_out,
+                             updated, noise.u_resample)
         bits += b
         strata += m
         swapped += s
@@ -508,6 +481,7 @@ def replay_task(task, mesh):
     from .. import types
     from ..filters.disparity import DisparityNoise
     from ..filters.phd import StepNoise
+    from ..slam import PER_PARTICLE_OUTPUTS
     from .sharding import (gather_state, make_sharded_disparity_step_fn,
                            make_sharded_step_fn, shard_state)
     cfg = build_cfg(task)
@@ -550,7 +524,7 @@ def replay_task(task, mesh):
             arrays[f"step{n}_{k}"] = v
         for k, v in out._asdict().items():
             if v is not None:
-                if k in ("log_weight", "poses", "resample_idx"):
+                if k in PER_PARTICLE_OUTPUTS:
                     v = mesh.all_gather(v)
                 arrays[f"step{n}_out_{k}"] = v.cpu().numpy()
     return {"steps": len(rec["dt"]),
@@ -603,7 +577,7 @@ def main(argv=None):
     ap.add_argument("--nproc", type=int, default=2)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--particles", type=int, default=32)
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
                     help="default: nccl on cuda, gloo on the cpu")
     ap.add_argument("--timeout", type=float, default=DEFAULT_TIMEOUT_S,
@@ -619,15 +593,13 @@ def main(argv=None):
     if args.child:
         _child(int(args.child[0]), args.child[1])
         return 0
-    from .distributed import backend_for
-    backend = backend_for(args.device, args.backend)
-    kw = dict(device=args.device, timeout_s=args.timeout)
+    kw = dict(device=args.device, backend=args.backend,
+              timeout_s=args.timeout)
     with tempfile.TemporaryDirectory(prefix="sim_data_") as tmp:
         task = small_task(args.particles, args.steps, args.disparity, tmp)
         if args.ckpt_test:
-            return _ckpt_test(task, args, backend, kw, tmp)
-        res = run_group(args.nproc, dict(task, kind="gated"),
-                        backend=backend, **kw)[0]
+            return _ckpt_test(task, args, kw, tmp)
+        res = run_group(args.nproc, dict(task, kind="gated"), **kw)[0]
     ok = res["resampled_steps"] > 0
     print(f"{args.nproc}-process sharded steps vs the 1-process step on "
           f"the same states and draws: {res['steps']} steps within the "
@@ -641,17 +613,20 @@ def main(argv=None):
     return 0 if ok else 1
 
 
-def _ckpt_test(task, args, backend, kw, tmp):
+def _ckpt_test(task, args, kw, tmp):
     half = max(2, args.steps // 2)
     steps = 2 * half
     ckpt = os.path.join(tmp, "ckpt")
     run = dict(task, kind="run", chunk=half)
-    run_group(2, dict(run, steps=half, save=ckpt), backend=backend, **kw)
+    run_group(2, dict(run, steps=half, save=ckpt), **kw)
     resumed = run_group(args.nproc, dict(
         run, steps=steps, resume=os.path.join(ckpt, f"step{half:05d}")),
-        backend=backend, **kw)[0]["arrays"]
-    ref = run_group(1, dict(run, steps=steps), backend=None,
-                    **kw)[0]["arrays"]
+        **kw)[0]["arrays"]
+    # the uninterrupted run in this process, without a group
+    spec = dict(run, steps=steps)
+    cfg = build_cfg(spec)
+    cfg.n_steps = steps
+    ref = build_runner(spec, cfg, None, args.device).run(chunk=half)
     got, want = resumed["est_poses"][half:], ref["est_poses"][half:]
     ok = np.allclose(got, want, rtol=1e-4, atol=1e-5) and np.array_equal(
         resumed["resampled"][half:], ref["resampled"][half:])

@@ -100,7 +100,7 @@ _VIEWS = ("map_mean", "map_weight", "log_weight", "poses", "resample_idx",
 
 
 # per-particle step outputs: this rank's rows on a mesh
-_PER_PARTICLE = ("log_weight", "poses", "resample_idx")
+PER_PARTICLE_OUTPUTS = ("log_weight", "poses", "resample_idx")
 
 
 class _Runner:
@@ -189,14 +189,20 @@ class _Runner:
         """Run step n on the runner's state (on ``noise``, this rank's rows
         of the draws, else the next draws of the generator); returns the
         step's outputs."""
-        z, zm, control, dt, do_predict, has_z = self.step_args(n)
         if noise is None:
             noise = self.local_noise(self.noise())
-        self.state, out = phd_step(self.state, z, zm, control, dt,
-                                   do_predict, self.cfg, noise,
-                                   has_z=has_z, consts=self.consts,
-                                   mesh=self.mesh)
+        self.state, out = self.step_state(self.state, n, noise, self.mesh)
         return out
+
+    def step_state(self, state, n: int, noise, mesh=None,
+                   return_updated: bool = False):
+        """Step n of the schedule from ``state`` (this rank's block on a
+        ``mesh``) on ``noise``, leaving the runner's state untouched: the
+        filter step's (state, outputs[, log weights before resampling])."""
+        z, zm, control, dt, do_predict, has_z = self.step_args(n)
+        return phd_step(state, z, zm, control, dt, do_predict, self.cfg,
+                        noise, has_z=has_z, consts=self.consts, mesh=mesh,
+                        return_updated=return_updated)
 
     def predict_only(self, n: int, noise):
         """Step n's prediction alone, on the step's own draws and the
@@ -368,7 +374,7 @@ class _Runner:
                 x = np.zeros((T - start_step, 1), np.float32)
             else:
                 x = torch.stack(ys[k])
-                if self.mesh is not None and k in _PER_PARTICLE:
+                if self.mesh is not None and k in PER_PARTICLE_OUTPUTS:
                     x = self.mesh.all_gather(
                         x.transpose(0, 1).contiguous()).transpose(0, 1)
                 x = x.cpu().numpy()
@@ -412,9 +418,10 @@ class _Runner:
     def run_sharded(self, mesh=None, **kwargs):
         """:meth:`run` on this rank's block of a particle ``mesh`` (by
         default every process of the group, :func:`parallel.sharding.
-        make_mesh`, on the runner's device): the JAX version's
-        ``run_sharded``, here the same step loop. Returns run's result;
-        its ``n_devices`` is the mesh's size."""
+        make_mesh`, on the runner's device; without a group, the plain
+        :meth:`run`): the JAX version's ``run_sharded``, here the same
+        step loop. Returns run's result; its ``n_devices`` is the mesh's
+        size."""
         self.attach_mesh(mesh or self.mesh
                          or make_mesh(device=self.device))
         return self.run(**kwargs)

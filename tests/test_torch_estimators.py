@@ -161,7 +161,8 @@ def test_eap_step_matches_jax(every, monkeypatch):
     calls = []
     eap = tphd.eap_expected_map
 
-    def tree(gm, log_weight, cfg):
+    def tree(gm, log_weight, cfg, mesh=None):
+        assert mesh is None             # one process
         got = eap(gm, log_weight, cfg)
         want = jextras.eap_expected_map(
             jGMState(*(jnp.asarray(x.numpy())

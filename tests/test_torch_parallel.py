@@ -178,7 +178,7 @@ def runs(tmp_path_factory):
         cases["disparity"] = want
         tasks.append(task)
         res = run_group(size, {"kind": "each", "tasks": tasks},
-                        timeout_s=240)
+                        device="cpu", timeout_s=240)
         arrays = res[0]["arrays"]
         out[size] = {name: (want, {k[len(f"t{i}_"):]: v
                                    for k, v in arrays.items()
@@ -406,7 +406,8 @@ def test_gather_rows_neighbor_matches_jax(tmp_path):
 
 def test_init_sharded_state_refuses_remainder():
     """As JAX's: P % size != 0 is refused, not padded."""
-    mesh = sharding.Mesh(size=4, rank=0, device=torch.device("cpu"))
+    mesh = sharding.Mesh(size=4, rank=0, device=torch.device("cpu"),
+                         backend="gloo")
     with pytest.raises(ValueError):
         sharding.init_sharded_state(SlamConfig(**SMALL), mesh, 10)
     with pytest.raises(ValueError):
@@ -420,7 +421,8 @@ def test_init_sharded_disparity_state_takes_the_rank_block():
     cfg = SlamConfig(**DISP_SHARDED)
     eps = torch.randn((cfg.n_particles, 2),
                       generator=torch.Generator().manual_seed(0))
-    mesh = sharding.Mesh(size=2, rank=1, device=torch.device("cpu"))
+    mesh = sharding.Mesh(size=2, rank=1, device=torch.device("cpu"),
+                         backend="gloo")
     got = sharding.init_sharded_disparity_state(cfg, mesh, eps)
     full = init_disparity_state(cfg, eps)
     for k in ("cam_pose", "log_weight", "cloud", "feat_weight",
@@ -434,14 +436,14 @@ def test_init_sharded_disparity_state_takes_the_rank_block():
 
 def test_initialize_without_launcher(monkeypatch):
     """No launcher environment and no coordinator: False, nothing
-    initialized, a one-process mesh (JAX test_sharding.py:134)."""
+    initialized, no mesh (the unsharded path; JAX test_sharding.py:134)."""
     for name in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(name, raising=False)
     assert distributed.initialize(device="cpu") is False
     assert not torch.distributed.is_initialized()
     assert distributed.is_primary()
-    mesh = distributed.global_mesh("cpu")
-    assert (mesh.size, mesh.rank, mesh.transport) == (1, 0, "local")
+    assert distributed.global_mesh("cpu") is None
+    assert sharding.make_mesh(1, device="cpu") is None
     assert distributed.process_local_batch(64) == 64
     with pytest.raises(ValueError):
         sharding.make_mesh(2, device="cpu")
@@ -498,7 +500,8 @@ def test_shard_state_takes_each_rank_block(variant):
     full = init_state(cfg)
     full = sharding.map_leaves(full, lambda x: torch.arange(
         x.numel(), dtype=x.dtype).view(x.shape))
-    mesh = sharding.Mesh(size=4, rank=2, device=torch.device("cpu"))
+    mesh = sharding.Mesh(size=4, rank=2, device=torch.device("cpu"),
+                         backend="gloo")
     got = dict(sharding.particle_leaves(sharding.shard_state(mesh, full)))
     want = dict(sharding.particle_leaves(full))
     assert got.keys() == want.keys()
@@ -513,7 +516,8 @@ def test_local_noise_keeps_the_rank_rows():
     """The global draws sliced to the rank's rows: the prediction draws of
     its P k particles, the resampling uniforms whole, the variance
     samples in either estimator layout, disparity draws by particle."""
-    mesh = sharding.Mesh(size=4, rank=1, device=torch.device("cpu"))
+    mesh = sharding.Mesh(size=4, rank=1, device=torch.device("cpu"),
+                         backend="gloo")
     g = torch.Generator().manual_seed(0)
     eps = torch.randn((2, 16, 3), generator=g)
     u = torch.rand((16,), generator=g)

@@ -83,7 +83,7 @@ def gated(tmp_path_factory):
         tasks = [scene_task(size, **VARIANTS[n]) for n in VARIANTS] \
             + [disparity_task(size, tmp)]
         res = run_group(size, {"kind": "each", "tasks": tasks},
-                        timeout_s=240)
+                        device="cpu", timeout_s=240)
         assert {r["transport"] for r in res} == {"gloo"}
         out[size] = dict(zip(names, res[0]["results"]))
     return out
@@ -132,7 +132,7 @@ def test_dense_shape_sharded_bit_equal():
     gather), every step bit-equal to the 1-process step."""
     res = run_group(4, {"kind": "each", "tasks": [dense_task(0),
                                                   dense_task(1)]},
-                    timeout_s=240)[0]["results"]
+                    device="cpu", timeout_s=240)[0]["results"]
     for r, route in zip(res, ("neighbour", "full")):
         assert r["bit_equal_steps"] == r["steps"] == 4, r
         assert r["migrations"].get(route, 0) >= 3, r
@@ -183,7 +183,8 @@ def test_cli_distributed_matches_one_process(dataset, tmp_path):
     args = ["--chunk", "6", "--checkpoint-every", "6"]
     assert main([cfg, "--out-dir", one, *args], device="cpu") == 0
     res = run_group(2, {"kind": "cli", "argv": [
-        cfg, "--out-dir", two, *args, "--distributed"]}, timeout_s=180)
+        cfg, "--out-dir", two, *args, "--distributed"]}, device="cpu",
+        timeout_s=180)
     assert [r["rc"] for r in res] == [0, 0]
     assert logs(one) == logs(two) and len(logs(one)) == 12
     same_logs(one, two, logs(one) + ["config.cfg"])
@@ -192,7 +193,7 @@ def test_cli_distributed_matches_one_process(dataset, tmp_path):
     res = run_group(4, {"kind": "cli", "argv": [
         cfg, "--out-dir", four, "--chunk", "6", "--distributed",
         "--resume", os.path.join(two, "checkpoints", "step00006")]},
-        timeout_s=180)
+        device="cpu", timeout_s=180)
     assert [r["rc"] for r in res] == [0] * 4
     resumed = logs(four)
     assert resumed == logs(one)[6:]
@@ -254,7 +255,7 @@ def test_run_sharded_matches_unsharded(dataset):
     from phdslam_tpu_torch import load_config
     ref = SynthSLAMRunner(load_config(cfg), device="cpu").run()
     res = run_group(2, {"kind": "run", "runner": "synth", "cfg": cfg},
-                    timeout_s=180)
+                    device="cpu", timeout_s=180)
     got = res[0]["arrays"]
     assert res[0]["n_devices"] == 2
     for k in ("est_poses", "n_eff", "resampled"):
@@ -269,7 +270,8 @@ def test_run_sharded_matches_unsharded(dataset):
 def test_sim_command_line(args):
     """``python -m phdslam_tpu_torch.parallel.sim``: PARITY, exit 0."""
     r = subprocess.run([sys.executable, "-m",
-                        "phdslam_tpu_torch.parallel.sim", *args],
+                        "phdslam_tpu_torch.parallel.sim", "--device", "cpu",
+                        *args],
                        capture_output=True, text=True, timeout=240,
                        cwd=REPO)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
