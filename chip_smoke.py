@@ -66,10 +66,24 @@ drives both paths:
   compute_variance (poses bit-equal to plain CPHD), and data/disparity at
   weighting 2 and with the Hellinger merge (merge3d_hellinger);
 
+- the spatially tiled merge (``merge_spatial_tiles = 4``): its two
+  launches (the tile extraction through gather_cols, merge2d on the
+  [4 P, 7, ct] tile rows) on the captured inputs of step 60 of the dense
+  configuration at P=1024 against their twins, one step with tiles on of
+  the dense (64 of P=1024), Ackerman, CPHD and mixed paths against the
+  CPU (the same tiled-or-untiled choices at the same widths on both),
+  data/ackerman P=512 and data/dense P=1024 untiled, tiled, tiled,
+  untiled (steps/s, ATE, OSPA, tiled launches, untiled fallbacks), and
+  Ackerman P=128 seeds 0-4 tiled beside the JAX package's tiled CPU runs;
+  the mixed accuracy runs through ``evaluate_mixed_mc`` (detection by
+  speed too), and disparity clouds of one point (NaN, reported) run on
+  the card and the CPU;
+
 - the runtime around the runner: ``python -m phdslam_tpu_torch``'s
   ``main`` on the full ``data/ackerman`` sequence at P=512 (331 state
-  logs scored by ``eval/batch.py::analyze_log_dir``, checkpoints every 160
-  steps, the resume from step 160 byte-equal), 60 steps ``--timing``
+  logs scored by ``eval/batch.py::analyze_log_dir`` and byte-equal to
+  the Python writer's, checkpoints every 160 steps, the resume from step
+  160 byte-equal), 60 steps ``--timing``
   (poses bit-equal), 20 steps ``--trace`` (the kernels' device events),
   ``--profile``'s single update, the ``disparity`` run type, a four-run
   Monte-Carlo batch (``tools/mc_scale.py``'s PHD P=1024) and a run with
@@ -95,7 +109,10 @@ against their twins at those shapes and at unaligned, ragged,
 out-of-range and above-budget cases, each of their two modes (the slab
 staged in shared memory, or read through ``__ldg``) counted under its
 own name.
-Each phase prints its result; any failure raises and exits non-zero. Each
+Each phase prints its result; any failure raises and exits non-zero.
+After the ``[total]`` line, ``[phases]`` gives each phase's wall time
+(``phase_times.py``, which times an older checkout's script the same
+way). Each
 path's run resets the launch counts before it and requires every kernel
 variant of that path to have launched. The line before the card's name
 and power limit lists every kernel variant (the merge2d kernel's four:
@@ -107,9 +124,9 @@ same function, that call's time; the kernel's and the library call's
 device times beside them. The last line is one JSON object naming the
 device.
 Needs a CUDA device, ``gather_bench.py`` (the gathers' cases and the
-timing helpers) and ``detect_bench.py`` (the detect kernels' edge cases,
-the step capture and the comparison with the twin) beside it; imports no
-jax.
+timing helpers), ``detect_bench.py`` (the detect kernels' edge cases,
+the step capture and the comparison with the twin), ``merge_bench.py``
+and ``phase_times.py`` beside it; imports no jax.
 """
 
 from __future__ import annotations
@@ -143,6 +160,7 @@ from merge_bench import (DISP_SEP, HELL_SEP, MERGE_EDGES, MIN_SEP,
                          merge_bound, merge_inputs, merge_rounds,
                          round_stats, run_case, tables_bound,
                          tables_edge_case)
+from phase_times import phases_line, time_phases
 from phdslam_tpu_torch import SlamConfig, load_config
 from phdslam_tpu_torch.__main__ import main as cli_main
 from phdslam_tpu_torch.eval import simdata
@@ -151,7 +169,8 @@ from phdslam_tpu_torch.eval.batch import (analyze_log_dir,
 from phdslam_tpu_torch.eval.ospa import ospa_distance
 from phdslam_tpu_torch.eval.parity import (disparity_map_estimate,
                                            evaluate_dataset,
-                                           evaluate_disparity, evaluate_mixed)
+                                           evaluate_disparity, evaluate_mixed,
+                                           evaluate_mixed_mc)
 from phdslam_tpu_torch.eval.scenes import (Scene, detect_planes, map_scene,
                                            tables_payload)
 from phdslam_tpu_torch.filters import disparity as disp
@@ -181,12 +200,14 @@ from phdslam_tpu_torch.kernels.merge import (NARROW_LANES, merge2d,
                                              merge4d_reference, recip_check,
                                              tables_packed)
 from phdslam_tpu_torch.filters import mixed as mixed_filter
+from phdslam_tpu_torch.ops import gm_merge as tgm
 from phdslam_tpu_torch.ops.gm_merge import (MERGE_DIMS, merge_out,
                                             sort_planes, unpack_planes)
 from phdslam_tpu_torch.ops import resample
 from phdslam_tpu_torch.parallel.sim import run_group
 from phdslam_tpu_torch.ops.math import (hellinger2, logsumexp, mahalanobis2,
                                         mahalanobis2_3d, mahalanobis2_4d)
+from phdslam_tpu_torch.runtime import io as rt_io
 from phdslam_tpu_torch.runtime.checkpoint import profile_single_update
 from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
 from phdslam_tpu_torch.slam_disparity import DisparityRunner
@@ -1276,6 +1297,31 @@ def run_disparity_data(dev):
     return counts
 
 
+def disparity_one_point(dev, P=64, frames=10):
+    """particles_per_feature 1 (clouds of one point: the sample covariance
+    divides by N - 1 = 0, NaN, as in the JAX package) over the first
+    frames of data/disparity on the card and on the CPU: both runs end,
+    merge3d launched on the card over the NaN lanes, and the runner
+    reports the same first NaN step on both."""
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        cfg = load_config(DISP_CFG, {"n_particles": P, "n_steps": frames,
+                                     "particles_per_feature": 1})
+        build.reset_launch_counts()
+        out[where.type] = (DisparityRunner(cfg, DISP_DATA,
+                                           device=where).run(),
+                           dict(build.launch_counts))
+    (g, counts), (c, _) = out["cuda"], out["cpu"]
+    require(g["nan_step"] is not None and g["nan_step"] == c["nan_step"],
+            f"disparity one-point: first NaN step {g['nan_step']} on the "
+            f"card, {c['nan_step']} on the CPU")
+    require(counts.get("merge3d", 0) > 0,
+            "disparity one-point: merge3d never launched")
+    phase("disparity one-point", f"P={P}, {frames} frames: NaN weights "
+          f"reported from step {g['nan_step']} on the card and on the CPU, "
+          f"merge3d {counts['merge3d']} launches, both runs ended")
+
+
 def disparity_bench(dev):
     """The JAX package's disparity bench rows (``bench.py::_disparity_row``):
     a generated world (seed 0, 24 landmarks, 60 frames) at P=200 and
@@ -1785,17 +1831,18 @@ def run_mixed(dev):
 
 
 def mixed_accuracy(dev):
-    """evaluate_mixed over five seeds at P=256, against the JAX package's
-    50-run mean +- 2 std. As in the JAX aggregate
-    (``eval/parity.py::evaluate_mixed_mc``), a run whose movers are all out
-    of sensor range at the last step has no dynamic OSPA (NaN by design)
-    and is left out of that metric; a NaN anywhere else fails."""
-    keys = tuple(MIXED_BANDS)
-    rows = []
-    for seed in MIXED_SEEDS:
-        r = evaluate_mixed(seed=seed, n_particles=P_MIXED_ACC, device=dev)
+    """evaluate_mixed_mc over seeds 0-4 at P=256 (``eval/parity.py``, the
+    JAX package's Monte-Carlo aggregate: a run whose movers are all out of
+    sensor range at the last step has no dynamic OSPA, NaN by design, and
+    is left out of that metric; a NaN anywhere else fails), each metric's
+    mean beside the JAX package's 50-run mean +- 2 std, and the movers'
+    detection by speed stratum."""
+    require(list(MIXED_SEEDS) == list(range(len(MIXED_SEEDS))),
+            "mixed accuracy: evaluate_mixed_mc runs seeds 0 .. n - 1")
+    mc = evaluate_mixed_mc(n_runs=len(MIXED_SEEDS), n_particles=P_MIXED_ACC,
+                           device=dev)
+    for seed, r in zip(MIXED_SEEDS, mc["runs"]):
         clean(r["run"], f"mixed accuracy seed {seed}")
-        rows.append([r[k] for k in keys])
         require(np.isfinite(r["run"]["est_poses"]).all()
                 and np.isfinite([r["mean_pose_err"], r["static_ospa"]]).all()
                 and np.isfinite(r["dynamic_ospa"]) == (r["n_dyn_visible"] > 0),
@@ -1804,22 +1851,26 @@ def mixed_accuracy(dev):
               f"static OSPA {r['static_ospa']:.4f}, dynamic OSPA "
               f"{r['dynamic_ospa']:.4f} ({r['n_dyn_visible']} movers "
               f"visible), {r['run']['steps_per_s']:.2f} steps/s")
-    rows = np.asarray(rows)
-    for i, k in enumerate(keys):
-        v = rows[:, i][np.isfinite(rows[:, i])]
-        if not len(v):
+    for k, agg in (("mean_pose_err", "pose"), ("static_ospa", "static_ospa"),
+                   ("dynamic_ospa", "dynamic_ospa")):
+        mean, std = mc[agg]
+        n = sum(np.isfinite(r[k]) for r in mc["runs"])
+        if not n:
             phase("accuracy", f"{k}: no run has a value")
             continue
-        mean, std = float(v.mean()), float(v.std())
         ref, ref_std = MIXED_BANDS[k]
         lo, hi = ref - 2 * ref_std, ref + 2 * ref_std
-        phase("accuracy", f"{k} over {len(v)} of seeds {list(MIXED_SEEDS)} "
+        phase("accuracy", f"{k} over {n} of seeds {list(MIXED_SEEDS)} "
               f"at P={P_MIXED_ACC}: {mean:.4f} +- {std:.4f}, "
               f"{'inside' if lo <= mean <= hi else 'outside'} the JAX "
               f"50-run band {ref} +- 2 x {ref_std}")
-    pose = float(rows[:, 0].mean())
-    require(pose <= ATE_LIMIT, f"mixed mean pose error {pose:.4f} m > "
-            f"{ATE_LIMIT} m")
+    phase("accuracy", "movers detected (dynamic map / either map): overall "
+          f"{mc['det_overall']['dyn']:.3f} / {mc['det_overall']['either']:.3f}"
+          "; by speed " + ", ".join(
+              f"{name} m/s {v['dyn']:.3f} / {v['either']:.3f} of {v['n']}"
+              for name, v in mc["det_strata"].items()))
+    require(mc["pose"][0] <= ATE_LIMIT, f"mixed mean pose error "
+            f"{mc['pose'][0]:.4f} m > {ATE_LIMIT} m")
 
 
 # ----------------------------------------------------------------------------
@@ -2234,7 +2285,8 @@ def eap_level1_calls(dev):
 def time_kernels(dev, errs, extra=None):
     """Kernel against twin at the main path's shapes, in turns
     (twin, kernel, library, kernel, library, twin); CUDA events, ms per
-    eager call, host included (gather_bench.time_call: 50 calls after 5);
+    eager call, host included (gather_bench.time_call: 50 calls after 5;
+    the twin its iterations with no warm-up call);
     the library call is one PyTorch call that computes the same function
     (gather_cols, gather_rows: torch.gather), where there is one. Beside each, the device time of the
     kernel and of the library call (gather_bench.graph_ms: 50 calls
@@ -2298,13 +2350,16 @@ def time_kernels(dev, errs, extra=None):
     times = {}
     for name, (kern, plain, iters, lib, (b_ms, b_by)) in calls.items():
         # kernel and library call in turns: the host's share of an eager
-        # call drifts with the shared host's load
-        p1 = time_call(plain, iters, 1)
+        # call drifts with the shared host's load. The plain version gets
+        # no warm-up call of its own (up to 2.9 s a call): the check
+        # phases ran it at these shapes, and its first timing warms the
+        # second, of which the smaller is kept
+        p1 = time_call(plain, iters, 0)
         k1 = time_call(kern)
         l1 = None if lib is None else time_call(lib)
         k2 = time_call(kern)
         l2 = None if lib is None else time_call(lib)
-        p2 = time_call(plain, iters, 1)
+        p2 = time_call(plain, iters, 0)
         k_dev = graph_ms(kern)
         lib_ms = lib_dev = None
         if lib is not None:
@@ -2641,13 +2696,14 @@ def run_cli(dev, tmp, main_res):
     out = os.path.join(tmp, "cli")
     argv = [CFG, "synth", "--out-dir", out, "--particles", str(P_MAIN),
             "--chunk", "32", "--checkpoint-every", "160"]
-    write_s = []
+    write_s, calls = [], []
     write_logs = SynthSLAMRunner.write_logs
 
-    def timed_write_logs(self, *args, **kwargs):
+    def timed_write_logs(self, log_dir, *args, **kwargs):
         t0 = time.perf_counter()
-        write_logs(self, *args, **kwargs)
+        write_logs(self, log_dir, *args, **kwargs)
         write_s.append(time.perf_counter() - t0)
+        calls.append((self, args, kwargs))
     build.reset_launch_counts()
     with mock.patch.object(SynthSLAMRunner, "write_logs", timed_write_logs):
         _, loop_rate, wall = cli(argv)
@@ -2670,6 +2726,22 @@ def run_cli(dev, tmp, main_res):
           f"{T / wall:.2f} steps/s ({wall:.3f} s; run_main without logs "
           f"{main_res['steps_per_s']:.2f}), write_logs "
           f"{write_s[0] * 1000.0 / T:.3f} ms/step ({write_s[0]:.3f} s)")
+    # the same logs from the Python writer, the C++ writer's plain version
+    plain_dir = os.path.join(tmp, "cli_python_writer")
+    self, args, kwargs = calls[0]
+    with mock.patch.object(rt_io, "write_state_log",
+                           rt_io.write_state_log_reference):
+        t0 = time.perf_counter()
+        write_logs(self, plain_dir, *args, **kwargs)
+        plain_s = [time.perf_counter() - t0]
+    differ = [n for n in names if read_bytes(os.path.join(out, n))
+              != read_bytes(os.path.join(plain_dir, n))]
+    require(not differ and state_logs(plain_dir) == names,
+            f"cli: {len(differ)} logs of the C++ writer differ from the "
+            f"Python writer's, first {differ[:1]}")
+    phase("cli", f"state logs: the C++ writer {write_s[0] * 1000.0 / T:.3f} "
+          f"ms/step, the Python writer {plain_s[0] * 1000.0 / T:.3f} ms/step "
+          f"on the same results in this call; all {T} logs byte-equal")
     phase("cli", f"analyze_log_dir: mean ATE {ate:.4f} m "
           f"({'inside' if lo <= ate <= hi else 'outside'} the JAX band "
           f"{lo}-{hi} m), OSPA(1, 5) every 10th log against every landmark "
@@ -3149,6 +3221,232 @@ def variant_calls(dev, errs):
               f"parting at a lane within 1e-5 of min_sep (float64) "
               f"{[(p, c, d) for p, c, d in flips]}")
     return rows
+
+# ----------------------------------------------------------------------------
+# the spatially tiled merge (phase "tiles")
+# ----------------------------------------------------------------------------
+
+TILED = {"merge_spatial_tiles": 4}
+TILE_CAPTURE = 60               # the dense tiled run's merge captured
+# the JAX package's CPU runs of the Ackerman configuration at P=128 with
+# tiles on, seeds 0-4 (reference_band.py cfg/ackerman.cfg --particles 128
+# --seeds 0 1 2 3 4 --set merge_spatial_tiles=4 pallas_merge=2: the JAX
+# package tiles only through its Pallas kernels, run here in interpret
+# mode): mean ATE and every-step OSPA(1, 5) per seed
+TILED_CPU_SEEDS = {"ate": (0.4807, 0.7473, 1.1291, 0.5190, 0.6367),
+                   "ospa": (1.9468, 2.0585, 2.1822, 1.9934, 2.0642)}
+TILED_CPU_BAND = {k: (float(np.mean(v)), float(np.std(v)))
+                  for k, v in TILED_CPU_SEEDS.items()}
+
+
+@contextlib.contextmanager
+def tile_choices():
+    """The tiled-or-untiled choices made inside the block, in order:
+    (candidate width N, tile row width ct; 0 untiled)."""
+    got = []
+    real = phd_filter.tile_width
+
+    def spy(N, n_tile):
+        ct = real(N, n_tile)
+        got.append((N, ct))
+        return ct
+    with mock.patch.object(phd_filter, "tile_width", spy):
+        yield got
+
+
+def tile_step(dev, label, r, n_before=40, advance=True):
+    """Step ``n_before`` of runner r (tiles on; stepped there first unless
+    ``advance`` is False) on the card against the CPU twins
+    (:func:`step_against_cpu`): every merge of the card took the CPU's
+    tiled-or-untiled choice at the same widths."""
+    for n in range(n_before if advance else 0):
+        r.step(n)
+    with tile_choices() as got:
+        err, cpu_state, n_edge, n_swap = step_against_cpu(r, n_before)
+    half = len(got) // 2
+    require(len(got) == 2 * half and got[:half] == got[half:],
+            f"tiles {label}: the card's choices {got[:half]}, the CPU's "
+            f"{got[half:]}")
+    phase("tiles", f"{label} step {n_before}: card vs CPU twins max |err| "
+          f"{err:.3g} (rtol 1e-4, atol 1e-5), overflow equal; merges "
+          f"(N, tile row width; 0 untiled) {got[:half]} on both; {n_swap} "
+          f"weight-tied slots swapped, {n_edge} resampling strata at a "
+          "cumulative-weight boundary")
+    return got[:half]
+
+
+def tile_steps(dev):
+    """One step with tiles on of each path that tiles, against the CPU:
+    a 64-particle subset of the dense configuration's P=1024 state at step
+    40, Ackerman and CPHD at P=512 and the mixed bench at P=512. Requires
+    a tiled merge among them."""
+    base = SynthSLAMRunner(load_config(DENSE_CFG, {"n_particles": P_DENSE}),
+                           DENSE_DATA, device=dev)
+    for n in range(40):
+        base.step(n)
+    idx = torch.arange(0, P_DENSE, P_DENSE // P_DENSE_STEP, device=dev)
+    gm = base.state.map_static
+    r = SynthSLAMRunner(load_config(DENSE_CFG, dict(
+        TILED, n_particles=P_DENSE_STEP)), DENSE_DATA, device=dev)
+    r.state = base.state.replace(
+        pose=base.state.pose[idx], log_weight=base.state.log_weight[idx],
+        map_static=GMState(mean=gm.mean[idx], cov=gm.cov[idx],
+                           weight=gm.weight[idx]),
+        resample_idx=base.state.resample_idx[idx])
+    choices = tile_step(dev, f"dense {P_DENSE_STEP} of P={P_DENSE}", r,
+                        advance=False)
+    for label, cfg_path in (("ackerman", CFG), ("cphd", CPHD_CFG)):
+        choices += tile_step(dev, f"{label} P={P_MAIN}", SynthSLAMRunner(
+            load_config(cfg_path, dict(TILED, n_particles=P_MAIN)), DATA,
+            device=dev))
+    z, mask = mixed_scans(MIXED_STEPS)
+    choices += tile_step(dev, f"mixed P={P_MAIN}", ScanRunner(
+        dataclasses.replace(mixed_cfg(P_MAIN), **TILED), z, mask, MIXED_DT,
+        device=dev))
+    require(any(ct for _, ct in choices), "tiles: no step merged on tiled "
+            "rows")
+
+
+def tiles_in_turns(dev, label, cfg_path, P):
+    """evaluate_dataset untiled, tiled, tiled, untiled at P particles (the
+    whole dataset), launch counts and choices set to 0 just before each
+    run and read just after: steps/s, ATE, OSPA, merge2d and gather_cols
+    launches, the tiled merges (one merge2d launch on [4 P, 7, ct] rows
+    and one gather_cols launch each) and the untiled fallbacks. Fails on
+    NaN, ATE > ATE_LIMIT or a tiled run with no tiled merge. Returns the
+    tiled runs' launches of the tiled merge."""
+    rates = collections.defaultdict(list)
+    tiled_launches = 0
+    for tag in ("untiled", "tiled", "tiled", "untiled"):
+        over = dict(TILED if tag == "tiled" else {}, n_particles=P)
+        build.reset_launch_counts()
+        with tile_choices() as got:
+            res = evaluate_dataset(cfg_path, ".", overrides=over, device=dev)
+        counts = dict(build.launch_counts)
+        run = clean(res["run"], f"tiles {label} {tag}")
+        require(np.isfinite(run["est_poses"]).all(),
+                f"tiles {label} {tag}: NaN in the poses")
+        require(res["mean_pose_err"] <= ATE_LIMIT,
+                f"tiles {label} {tag}: mean ATE {res['mean_pose_err']:.4f} "
+                f"m > {ATE_LIMIT} m")
+        n_tiled = sum(1 for _, ct in got if ct)
+        fallback = sum(1 for N, ct in got if not ct and N >= 256)
+        widths = collections.Counter(ct for _, ct in got if ct)
+        if tag == "tiled":
+            require(n_tiled > 0, f"tiles {label}: merge2d never launched on "
+                    "tiled rows")
+            tiled_launches = n_tiled
+        rates[tag].append(res["steps_per_s"])
+        phase("tiles", f"{label} {cfg_path} P={P} {tag}: "
+              f"{res['steps_per_s']:.2f} steps/s ({run['wall_s']:.3f} s), "
+              f"mean ATE {res['mean_pose_err']:.4f} m, mean OSPA(1, 5) "
+              f"{res['mean_ospa']:.4f}, overflow {run['overflow']}; merge2d "
+              f"{counts.get('merge2d', 0)} launches ({n_tiled} on tiled rows, "
+              f"tile row widths {dict(widths)}), gather_cols "
+              f"{counts.get('gather_cols', 0)}; untiled fallback (a tile "
+              f"above its widest row) on {fallback} steps, candidate width "
+              f"below 256 on {len(got) - n_tiled - fallback}")
+    t, u = np.mean(rates["tiled"]), np.mean(rates["untiled"])
+    phase("tiles", f"{label} P={P}: tiled {t:.2f} steps/s, untiled {u:.2f} "
+          f"(means of two runs in turns), ratio {t / u:.3f}")
+    return tiled_launches
+
+
+def capture_tiled(dev):
+    """The dense configuration at P=1024 with tiles on, stepped to step
+    TILE_CAPTURE: the arguments of that step's tiled merge (or the first
+    later step's) and the step."""
+    r = SynthSLAMRunner(load_config(DENSE_CFG, dict(
+        TILED, n_particles=P_DENSE)), DENSE_DATA, device=dev)
+    got = []
+    armed = [False]
+
+    def keep(i, args, kwargs):
+        if armed[0] and not got:
+            got.append([x.clone() if torch.is_tensor(x) else
+                        tuple(t.clone() for t in x)
+                        if isinstance(x, tuple) else x for x in args])
+    n = 0
+    with spy_on(phd_filter, "tiled_merge_packed", keep):
+        while not got:
+            require(n < r.n_steps, "tiles: the dense run never tiled after "
+                    f"step {TILE_CAPTURE}")
+            armed[0] = n >= TILE_CAPTURE
+            r.step(n)
+            n += 1
+    return got[0], n - 1
+
+
+def tiled_kernels(dev, errs):
+    """The tiled merge's two launches on the captured dense inputs
+    (:func:`capture_tiled`): the tile extraction (gather_cols) bit for bit
+    its twin, merge2d on the [4096, 7, ct] tile rows against its twin
+    (:func:`check_merge_rows`); errs takes the largest error. Returns
+    time_kernels rows for both ("gather_cols tiled captured", "merge2d
+    tiled captured")."""
+    (packed, layout, ct, sep, out_cap), step = capture_tiled(dev)
+    P, C, N = packed.shape
+    idx, _ = tgm.tile_index(layout, ct, N)
+    rows = tgm.tile_rows(packed, layout, ct)
+    want_rows = tgm.tile_rows(packed.cpu(), tuple(x.cpu() for x in layout),
+                              ct)
+    require(torch.equal(rows.cpu(), want_rows),
+            "tiles: the tile extraction differs from the twin")
+    oc = out_cap // tgm.TILES
+    got = merge_out(merge2d(rows, sep, oc), 2)
+    want = merge_out(merge2d_reference(rows.cpu(), sep, oc), 2)
+    flips, err = check_merge_rows(got, want, rows, sep, "merge2d tiled")
+    errs["merge2d"] = max(errs["merge2d"], err)
+    counts = layout[1]
+    phase("tiles", f"dense P={P} step {step} captured: planes [{P}, {C}, "
+          f"{N}] -> tile rows {list(rows.shape)} (ct {ct}; live lanes a "
+          f"tile: mean {float(counts.float().mean()):.1f}, max "
+          f"{int(counts.max())}); gather_cols bit-equal to its twin; merge2d "
+          f"(out_cap {oc}) against its twin max |err| {err:.3g} (rtol 1e-4, "
+          f"atol 1e-5), {len(flips)} rows parted at a lane on the merge "
+          "threshold")
+    sets = [(idx, packed)]
+    return {
+        "gather_cols tiled captured": (
+            lambda: gather_cols(idx, packed),
+            lambda: gather_cols_reference(idx, packed), 2,
+            cycling(lambda i, t: torch.gather(
+                t, 2, i.long()[:, None].expand(P, C, i.shape[1])), sets),
+            (gather_bound(idx, C, N), "bytes")),
+        "merge2d tiled captured": (
+            lambda: merge2d(rows, sep, oc),
+            lambda: merge2d_reference(rows, sep, oc), 1, None,
+            merge_bound(rows, oc, 8, 27)),
+    }
+
+
+def run_tiles(dev, errs):
+    """The spatially tiled merge (merge_spatial_tiles = 4): its kernels on
+    captured dense inputs against their twins, one step of each path with
+    tiles on against the CPU, data/ackerman at P=512 and data/dense at
+    P=1024 tiled and untiled in turns, and the Ackerman P=128 seeds 0-4
+    beside the JAX package's CPU runs with tiles (and its untiled ones).
+    Returns time_kernels rows (:func:`tiled_kernels`)."""
+    t = [time.perf_counter()]
+
+    def lap():
+        t.append(time.perf_counter())
+        return t[-1] - t[-2]
+    rows = tiled_kernels(dev, errs)
+    parts = {"kernels": lap()}
+    tile_steps(dev)
+    parts["steps against the CPU"] = lap()
+    tiles_in_turns(dev, "ackerman", CFG, P_MAIN)
+    tiles_in_turns(dev, "dense", DENSE_CFG, P_DENSE)
+    parts["runs in turns"] = lap()
+    band = seed_band(dev, "tiled", CFG, TILED, TILED_CPU_BAND)
+    band_line(f"tiled P={P_BAND} seeds {list(BAND_SEEDS)} beside the JAX "
+              "package's untiled CPU runs", band, PLAIN_CPU_BAND)
+    parts["band"] = lap()
+    phase("tiles", f"{t[-1] - t[0]:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return rows
+
 
 # ----------------------------------------------------------------------------
 # the staged wide-lane kernels (phase "wide")
@@ -3853,6 +4151,8 @@ def run_parallel(dev, main_res):
 
 def main():
     t_start = time.perf_counter()
+    seconds = {}                    # each phase's wall time ([phases])
+    time_phases(sys.modules[__name__], seconds)
     smi = check_device()
     dev = torch.device("cuda:0")
     build_kernels()
@@ -3884,6 +4184,7 @@ def main():
     disp_counts = run_disparity_data(dev)
     disparity_bench(dev)
     disparity_accuracy(dev)
+    disparity_one_point(dev)
     cphd_counts, cphd_res = run_cphd(dev)
     grid_counts, cphd_full_res = run_full_grid(
         dev, {CFG: main_res["mean_pose_err"],
@@ -3892,10 +4193,11 @@ def main():
     disp_hell_counts = run_options(dev, cphd_res)
     hell_counts, hell_full_counts, hell_fused_counts = run_hellinger(dev)
     dense_counts = run_dense(dev)
+    tile_rows = run_tiles(dev, errs)
     audit_dense_scale(dev)
     dense_seeds(dev)
     wide_counts, wide_rows = run_wide(dev, errs, slow_res)
-    times = time_kernels(dev, errs, wide_rows)
+    times = time_kernels(dev, errs, {**wide_rows, **tile_rows})
     profile_step(SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN}),
                                  DATA, device=dev), "ackerman")
     profile_step(mixed_runner(dev), "mixed")
@@ -3951,6 +4253,7 @@ def main():
          "library_device_ms": times[name][6]}
         for name, (src, rep) in KERNELS.items()]}
     phase("total", f"{time.perf_counter() - t_start:.1f} s")
+    print(phases_line(seconds))
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Accuracy evaluation (port of ``phdslam_tpu/eval/parity.py``:
 ``evaluate_dataset``, ``evaluate_mixed`` with its world and configuration,
-and ``evaluate_disparity``).
+its Monte-Carlo aggregate ``evaluate_mixed_mc``, and
+``evaluate_disparity``).
 
 The dataset protocol: run the filter over the dataset, take the expected
 pose on every step that carries a measurement set, and score its XY error
@@ -242,6 +243,70 @@ def evaluate_mixed(n_landmarks: int = 30, n_movers: int = 2,
         "vel_err": (float(np.mean(vel_errs)) if vel_errs else float("nan")),
         "n_eff": float(run["n_eff"][-1]),
         "run": run,
+    }
+
+
+DETECTION_STRATA = (("slow_0.2-0.35", 0.2, 0.35), ("mid_0.35-0.5", 0.35, 0.5),
+                    ("fast_0.5+", 0.5, np.inf))     # mover speeds, m/s
+
+
+def evaluate_mixed_mc(n_runs: int = 50, n_landmarks: int = 30,
+                      n_movers: int = 2, n_steps: int = 100,
+                      dt: float = 0.15, n_particles: int = 256,
+                      ospa_c: float = 5.0,
+                      cfg_overrides: Optional[dict] = None,
+                      verbose: bool = False, device="cuda"):
+    """Monte-Carlo accuracy of the mixed filter: :func:`evaluate_mixed` at
+    seeds 0 .. n_runs - 1 (a fresh world and noise each), aggregated as
+    the JAX version's ``evaluate_mixed_mc``: per metric the mean and
+    standard deviation over the runs that have a value (a run whose
+    movers all left the sensor's range has no dynamic OSPA), and the
+    movers' detection (in the dynamic map, or in either map) over every
+    visible mover of the campaign, overall and by speed
+    (:data:`DETECTION_STRATA`). ``runs`` holds each run's result."""
+    rows = []
+    for s in range(n_runs):
+        r = evaluate_mixed(n_landmarks=n_landmarks, n_movers=n_movers,
+                           n_steps=n_steps, dt=dt, seed=s,
+                           n_particles=n_particles, ospa_c=ospa_c,
+                           cfg_overrides=cfg_overrides, device=device)
+        rows.append(r)
+        if verbose:
+            print(f"run {s}: pose {r['mean_pose_err']:.2f} "
+                  f"static {r['static_ospa']:.2f} "
+                  f"dyn {r['dynamic_ospa']:.2f} vel {r['vel_err']:.2f}",
+                  flush=True)
+
+    def agg(k):
+        v = np.asarray([r[k] for r in rows], np.float64)
+        v = v[np.isfinite(v)]
+        return ((float(v.mean()), float(v.std())) if len(v)
+                else (float("nan"), float("nan")))
+
+    def cat(k, dtype):
+        return (np.concatenate([np.asarray(r[k], dtype) for r in rows])
+                if rows else np.zeros(0, dtype))
+
+    def frac(flags):
+        return float(flags.mean()) if len(flags) else float("nan")
+    flags, flags_any = cat("det_flags", bool), cat("det_any_flags", bool)
+    spd = cat("det_speeds", np.float64)
+    strata = {}
+    for name, lo, hi in DETECTION_STRATA:
+        m = (spd >= lo) & (spd < hi)
+        strata[name] = {"n": int(m.sum()), "dyn": frac(flags[m]),
+                        "either": frac(flags_any[m])}
+    return {
+        "n_runs": n_runs,
+        "det_strata": strata,
+        "det_overall": {"dyn": frac(flags), "either": frac(flags_any)},
+        "pose": agg("mean_pose_err"),
+        "static_ospa": agg("static_ospa"),
+        "dynamic_ospa": agg("dynamic_ospa"),
+        "dyn_detected_frac": agg("dyn_detected_frac"),
+        "dyn_track_err": agg("dyn_track_err"),
+        "vel_err": agg("vel_err"),
+        "runs": rows,
     }
 
 

@@ -45,7 +45,7 @@ from ..ops.resample import max_over_particles, normalize_log_weights
 from ..types import FilterState, GMState
 from .phd import (_detection_planes, _post_compact_batched, check_supported,
                   deferred_gather, full_grid_planes, gather_merge,
-                  merge_full_grid, update_route)
+                  merge_full_grid, tile_route, update_route)
 
 
 class CphdConstants(NamedTuple):
@@ -484,7 +484,9 @@ def cphd_update(state: FilterState, z, z_mask, consts: CphdConstants,
     pre = _cphd_update_pre(state.pose, gm.mean, gm.cov, gm.weight, z,
                            z_mask, consts, cfg)
     if "gather" in pre:
-        mg = gather_merge(pre["gather"], 2, cfg, K, has_birth=False)
+        mg = gather_merge(pre["gather"], 2, cfg, K, has_birth=False,
+                          tiles=tile_route(cfg, 2, K, M, births=False),
+                          mesh=mesh)
     else:
         mg = merge_full_grid(pre["packed"], cfg, K)
     with record_function("phd.post"):

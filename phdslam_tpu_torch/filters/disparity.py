@@ -78,15 +78,17 @@ class DisparityOutputs(NamedTuple):
 
 
 def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
-    """Raise for a configuration outside the ported disparity path:
-    clouds of fewer than 2 points, whose sample covariance the JAX version
-    divides by N - 1 = 0. No merge width is refused: above merge3d's
+    """Raise for a value the JAX package does not define: a cloud of no
+    points. A cloud of one point runs as there: its sample covariance
+    divides by N - 1 = 0, the fitted covariances are NaN, the particle
+    weights turn NaN on the first update with a live feature and the NaN
+    policy reports that step. No merge width is refused: above merge3d's
     narrow 2048 lanes the staged wide-lane variant runs."""
-    if cfg.particles_per_feature < 2:
+    if cfg.particles_per_feature < 1:
         raise NotImplementedError(
             "configuration outside the ported disparity path: "
             f"particles_per_feature={cfg.particles_per_feature} "
-            "(ported: >= 2)")
+            "(the JAX package defines clouds of 1 or more points)")
 
 
 # ----------------------------------------------------------------------------

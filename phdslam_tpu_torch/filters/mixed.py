@@ -53,7 +53,7 @@ from ..ops.resample import max_over_particles, normalize_log_weights
 from ..types import FilterState, GMState
 from .phd import (_detection_planes, _post_compact_batched, check_supported,
                   deferred_gather, full_grid_width, gather_merge,
-                  merge_full_grid)
+                  merge_full_grid, tile_route)
 
 STATIC_MEASUREMENT = 0
 DYNAMIC_MEASUREMENT = 1
@@ -232,16 +232,18 @@ def dynamic_births(pose_b, z, z_mask, cfg: SlamConfig, prev_z=None):
 
 
 def _batched_mixed_update(pose, gs: GMState, gd: GMState, z, z_label,
-                          z_mask, cfg: SlamConfig, prev_z=None):
+                          z_mask, cfg: SlamConfig, prev_z=None, mesh=None):
     """All-particle mixed update, fast route: pre-half, one gather + merge
-    per map (2D static, 4D dynamic), then each map's post-merge
-    compaction. Returns ((sm, sc, sw), (dm, dc, dw), dlog_w [P],
-    overflow [P])."""
+    per map (2D static, tiled where the JAX version tiles it; 4D
+    dynamic), then each map's post-merge compaction. Returns ((sm, sc,
+    sw), (dm, dc, dw), dlog_w [P], overflow [P]). ``mesh``: the particle
+    mesh, whose batch-wide counts the tiled-or-untiled choice reads."""
     K = gs.mean.shape[-2]
     with record_function("phd.pre"):
         pre = _update_mixed_pre(pose, gs, gd, z, z_label, z_mask, cfg,
                                 prev_z)
-    mg_s = gather_merge(pre["g_s"], 2, cfg, K)
+    mg_s = gather_merge(pre["g_s"], 2, cfg, K,
+                        tiles=tile_route(cfg, 2, K, z.shape[0]), mesh=mesh)
     mg_d = gather_merge(pre["g_d"], 4, cfg, K)
     with record_function("phd.post"):
         bits_s = dict(out_m=pre["out_s"], dlog_w=pre["dlog_w"],
@@ -403,10 +405,10 @@ def mixed_update(state: FilterState, z, z_mask, cfg: SlamConfig,
     if z_label is None:
         z_label = torch.zeros((M,), dtype=torch.int32, device=z.device)
     prev_z = state.prev_z if cfg.birth_velocity_init else None
-    route = (_batched_mixed_update if uses_fast_route(cfg, K, M)
-             else _update_mixed_full)
-    (sm, sc, sw), (dm, dc, dw), dlog_w, overflow = route(
-        state.pose, gs, gd, z, z_label, z_mask, cfg, prev_z)
+    args = (state.pose, gs, gd, z, z_label, z_mask, cfg, prev_z)
+    (sm, sc, sw), (dm, dc, dw), dlog_w, overflow = (
+        _batched_mixed_update(*args, mesh) if uses_fast_route(cfg, K, M)
+        else _update_mixed_full(*args))
     log_w = normalize_log_weights(state.log_weight + dlog_w, mesh)
     state = state.replace(
         map_static=GMState(mean=sm, cov=sc, weight=sw),

@@ -15,10 +15,9 @@ column gather (candidate tables and post-merge compaction) and the greedy
 merges (2D for the static map and the EAP tree, 4D for the dynamic one).
 
 Scope (:func:`check_supported`): every option of the JAX package's PHD,
-CPHD and mixed updates but the approximate ``merge_spatial_tiles``, at
-any width (a merge wider than its narrow kernel, such as the mixed,
-dynamic-only or dense full grid, and a detect row above 1024 features
-take the staged wide-lane kernels):
+CPHD and mixed updates, at any width (a merge wider than its narrow
+kernel, such as the mixed, dynamic-only or dense full grid, and a detect
+row above 1024 features take the staged wide-lane kernels):
   - the static 2D map (feature_model 0) or the dynamic-only 4D map
     (feature_model 1: the same pipeline on ``map_dynamic``, its births from
     ``birth_mean_cov_4d``, the 4D merge), Ackerman or constant-velocity
@@ -38,11 +37,17 @@ take the staged wide-lane kernels):
     route batched over P where the JAX version takes it), with the
     two-scan velocity births (birth_velocity_init);
   - MAP or EAP extraction (map_estimate, eap_every, eap_tree_cap) and
-    shotgunning on each of them.
+    shotgunning on each of them;
+  - the spatially tiled merge (merge_spatial_tiles 4,
+    ``ops/gm_merge.py::tiled_merge_packed``) where the JAX version's
+    packed merge dispatch tiles (:class:`TileRoute`).
 The JAX version's live-width ``lax.switch`` families are exact prefix
-slices, so this port runs everything at full width instead. Three kernel
-knobs act where they act in the JAX version: ``detect_adaptive`` (every
-detect call: trips stop once a row's lanes are used up, same outputs),
+slices, so this port runs everything at full width instead; only the
+tiled-or-untiled choice reads the widths they pick, from one host read of
+the batch's largest live counts a merge (:meth:`TileRoute.tile_width`).
+Three kernel knobs act where they act in the JAX version:
+``detect_adaptive`` (every detect call: trips stop once a row's lanes
+are used up, same outputs),
 ``premerge_consolidate`` (the PHD det route with the Mahalanobis metric:
 the detect kernel collapses same-source detection copies onto the
 persistent lane, :func:`consolidates`) and ``fused_gather_merge`` (the
@@ -80,8 +85,10 @@ from ..kernels.gather_cols import gather_cols
 from ..kernels.merge import merge2d, merge2d_tables, merge4d, tables_operands
 from ..models import feature_motion, measurement, vehicle
 from ..ops import ekf
-from ..ops.gm_merge import (MERGE_DIMS, compact_candidates, merge_out,
-                            pack_planes, sort_planes, topcap_sort,
+from ..ops.gm_merge import (MERGE_DIMS, TILES, compact_candidates,
+                            merge_out, pack_planes, sort_planes,
+                            switch_widths, switched_width, tile_layout,
+                            tile_width, tiled_merge_packed, topcap_sort,
                             topk_compact_indices, unpack_planes)
 from ..ops.math import LOG0, safe_log
 from ..ops.resample import (effective_sample_ratio, every_particle,
@@ -155,9 +162,8 @@ def uses_eap(cfg: SlamConfig) -> bool:
 
 
 def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
-    """Raise for a configuration outside the ported path: a value the JAX
-    package does not define, and the approximate ``merge_spatial_tiles``
-    by name. No width is refused: a merge wider than its narrow kernel
+    """Raise for a value the JAX package does not define. No width is
+    refused: a merge wider than its narrow kernel
     (kernels/merge.py::NARROW_LANES) and a detect row wider than 1024
     features take the staged wide-lane variants."""
     bad = [f"{name}={getattr(cfg, name)!r} (the JAX package defines "
@@ -167,9 +173,6 @@ def check_supported(cfg: SlamConfig, K: int, M: int) -> None:
                                 ("motion_type", (0, 1)),
                                 ("distance_metric", (0, 1)))
            if getattr(cfg, name) not in values]
-    if cfg.merge_spatial_tiles not in (0,):
-        bad.append(f"merge_spatial_tiles={cfg.merge_spatial_tiles!r} "
-                   "(ported: 0; the tiled merge is approximate)")
     if bad:
         raise NotImplementedError(
             "configuration outside the ported path: " + "; ".join(bad))
@@ -510,13 +513,15 @@ def _finish_candidates_packed(g, D, has_birth=True):
 
 
 def gather_merge(gather, D, cfg: SlamConfig, out_cap, has_birth=True,
-                 fused=False):
+                 fused=False, tiles=None, mesh=None):
     """Gather + combine + greedy merge of a deferred-gather dict (the JAX
     version's ``gather_merge_width_switched`` at full width). ``fused``
     (the PHD capped routes with fused_gather_merge, no consolidated rows
     and no variance estimator): one merge2d_tables kernel instead of two
-    column gathers, the combine and merge2d. Returns the merge tuple
-    (mean, cov, w, n_merged, n_dropped)."""
+    column gathers, the combine and merge2d, never tiled (as the JAX
+    version's fused dispatch); else ``tiles`` and ``mesh`` go to
+    :func:`merge_packed`. Returns the merge tuple (mean, cov, w, n_merged,
+    n_dropped)."""
     if fused:
         with record_function("phd.gather"):
             ints, flts = tables_operands(gather)
@@ -526,15 +531,100 @@ def gather_merge(gather, D, cfg: SlamConfig, out_cap, has_birth=True,
                 float(cfg.min_separation), out_cap, cfg.distance_metric), 2)
     with record_function("phd.gather"):
         packed = _finish_candidates_packed(gather, D, has_birth)
-    return merge_packed(packed, D, cfg, out_cap)
+    return merge_packed(packed, D, cfg, out_cap, tiles, mesh)
 
 
-def merge_packed(packed, D, cfg: SlamConfig, out_cap):
+class TileRoute(NamedTuple):
+    """What the JAX version's tiled-or-untiled choice reads on a capped
+    route, whose candidates are a weight-sorted prefix of the stage-2
+    top-cap selection. Its ``lax.switch`` families pick the merge's width:
+    the PHD update's feature-width switch the map's live prefix K'
+    (``feat_widths``, by the batch's largest live feature count
+    ``n_feat``), its candidate-width switch the candidates' live prefix
+    (by the largest live candidate count). The packed merge tiles at that
+    width N >= 256 when the largest tile fits a tile row narrower than N
+    (``ops/gm_merge.py::tile_width``)."""
+    K: int                    # map features
+    M: int                    # measurements as the JAX version pads them
+    T: int                    # detection_topk (the det route: 0 < T < K')
+    cap: int                  # merge_candidate_cap
+    births: bool              # the lanes hold the M births (PHD, mixed)
+    switch: bool              # the candidate-width switch runs
+    from_cap: bool = False    # PHD: the switch's widths from cap (CPHD and
+                              # mixed: from the selection's width)
+    feat_widths: tuple = ()   # PHD: the feature-width switch ((K,) else)
+    n_feat: Optional[torch.Tensor] = None     # [P] live map features
+
+    def width(self, n_feat: int, n_live: int) -> int:
+        """The JAX version's merge width at these batch maxima; 0 where
+        its lanes are no sorted prefix (the cap does not bind at K')."""
+        k = switched_width(self.feat_widths or (self.K,), n_feat)
+        b = self.M if self.births else 0
+        if not 0 < self.cap < k + self.M * k + b:
+            return 0
+        sel = (min(self.cap, k + self.M * self.T + b) if 0 < self.T < k
+               else self.cap)
+        base = self.cap if self.from_cap else sel
+        widths = (switch_widths(base) if self.switch and base >= 256
+                  else [base])
+        return min(switched_width(widths, n_live), sel)
+
+    def tile_width(self, packed, counts, mesh=None) -> int:
+        """The tile row width for candidate planes [P, 7, N] whose tiles
+        hold ``counts`` [P, 4] lanes (0: untiled), from one host read of
+        the batch's largest live feature, live candidate and tile counts
+        (the largest over every rank of a ``mesh``, as the JAX version's
+        sharded step sees them)."""
+        live = ((packed[:, 1] > 0.5) & (packed[:, 0] > 0)).sum(dim=1)
+        n_feat = (self.n_feat if self.n_feat is not None
+                  else torch.zeros_like(live))
+        vals = torch.stack([n_feat.amax(), live.amax(), counts.amax()])
+        if mesh is not None:
+            vals = mesh.all_max(vals)
+        n_feat, n_live, n_tile = vals.tolist()
+        N = self.width(n_feat, n_live)
+        return tile_width(N, n_tile)
+
+
+def tile_route(cfg: SlamConfig, D: int, K: int, M: int, weight=None,
+               births=True, variance=False) -> Optional[TileRoute]:
+    """The :class:`TileRoute` of a capped route where the JAX version's
+    packed merge dispatch may tile, else None: 2 x 2 quadrants
+    (merge_spatial_tiles 4; any other value runs untiled) of the 2D map
+    under the Mahalanobis metric, through its Pallas merge (pallas_merge 0
+    runs its untiled XLA merge). ``weight`` [P, K]: the PHD update's map
+    (its feature-width switch; None on the CPHD and mixed updates, which
+    have none); ``births``: the lanes hold the M births; ``variance``: the
+    PHD update's variance estimator runs (no width switch then)."""
+    if not (cfg.merge_spatial_tiles == TILES and cfg.pallas_merge
+            and D == 2 and cfg.distance_metric == 0):
+        return None
+    T, phd = cfg.detection_topk, weight is not None
+    switch = bool(cfg.feature_width_switch) and not variance
+    feat = (tuple(switch_widths(K, above=T)) if phd and switch and K >= 256
+            else (K,))
+    return TileRoute(K, max(M, cfg.max_measurements), T,
+                     cfg.merge_candidate_cap, births, switch, from_cap=phd,
+                     feat_widths=feat,
+                     n_feat=(weight > 0).sum(dim=1) if phd else None)
+
+
+def merge_packed(packed, D, cfg: SlamConfig, out_cap, tiles=None,
+                 mesh=None):
     """Greedy merge of selected candidate planes [P, C, cap] (the JAX
-    version's merge dispatch: width switch and tiling reduce here to the
+    version's packed merge dispatch: its width switch reduces here to the
     sorted-mode kernel of the feature dimension, which loops only over
-    live lanes). Returns the merge tuple."""
+    live lanes). On a ``tiles`` route (:class:`TileRoute`) with out_cap a
+    multiple of 4, the spatially tiled merge runs where the JAX version's
+    does (``ops/gm_merge.py::tiled_merge_packed``). Returns the merge
+    tuple."""
     with record_function("phd.merge"):
+        if tiles is not None and out_cap % TILES == 0:
+            layout = tile_layout(packed)
+            ct = tiles.tile_width(packed, layout[1], mesh)
+            if ct:
+                return tiled_merge_packed(packed, layout, ct,
+                                          cfg.min_separation, out_cap)
         if D == 2:
             out = merge2d(packed, float(cfg.min_separation), out_cap,
                           metric=cfg.distance_metric)
@@ -664,28 +754,31 @@ def full_grid_planes(ws, acts, means, covs):
 
 
 def _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
-                     out_cap, var_draw=None):
+                     out_cap, var_draw=None, mesh=None):
     """Pre-half + gather + merge of a capped route. Returns (mg, bits,
     variance): the merge tuple, the post-half inputs (out_m, dlog_w,
     n_compact, s2) and, with compute_variance, the MC estimate over the
-    selected lanes (else None)."""
+    selected lanes (else None). ``mesh``: the particle mesh, whose
+    batch-wide counts the tiled-or-untiled choice reads."""
     with record_function("phd.pre"):
         pre = _update_pre(pose, mean, cov, weight, z, z_mask, cfg)
     g = pre["gather"]
     bits = dict(out_m=pre["out_m"], dlog_w=pre["dlog_w"],
                 n_compact=pre["n_compact"], s2=pre["s2"])
+    K, D = mean.shape[-2:]
+    tiles = tile_route(cfg, D, K, z.shape[0], weight,
+                       variance=cfg.compute_variance)
     if not cfg.compute_variance:
         # the fused route as the JAX version gates it: the 2D map only,
         # not over consolidated rows, which take the two-kernel route
-        fused = bool(cfg.fused_gather_merge) and not g["cons"] \
-            and mean.shape[-1] == 2
-        return gather_merge(g, mean.shape[-1], cfg, out_cap,
-                            fused=fused), bits, None
+        fused = bool(cfg.fused_gather_merge) and not g["cons"] and D == 2
+        return gather_merge(g, D, cfg, out_cap, fused=fused, tiles=tiles,
+                            mesh=mesh), bits, None
     # the estimator reads the selected planes, so the two-kernel route
     # runs whatever fused_gather_merge says (as in the JAX version)
     with record_function("phd.gather"):
-        packed = _finish_candidates_packed(g, mean.shape[-1])
-    mg = merge_packed(packed, mean.shape[-1], cfg, out_cap)
+        packed = _finish_candidates_packed(g, D)
+    mg = merge_packed(packed, D, cfg, out_cap, tiles, mesh)
     with record_function("phd.variance"):
         variance = mc_variance_packed(packed, g["is_p"], cfg.n_samples,
                                       var_draw)
@@ -740,13 +833,13 @@ def _post_compact_batched(mg, pre, mean, cov, weight, cfg: SlamConfig):
 
 
 def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
-                    var_draw=None):
+                    var_draw=None, mesh=None):
     """All-particle update: pre-half + merge at full width on a capped
     route or the full-grid route, then the post-half compaction (the JAX
     version's ``_update_single_post`` has the same arithmetic on the
     full-grid route). Returns (new_mean, new_cov, new_w, dlog_w,
     overflow [P]) and, with compute_variance, the variance [P] as a sixth,
-    as the JAX version does."""
+    as the JAX version does. ``mesh``: see :func:`_pre_merge_phase`."""
     K, M, D = mean.shape[-2], z.shape[0], mean.shape[-1]
     check_supported(cfg, K, M)
     if cfg.compute_variance and var_draw is None:
@@ -770,7 +863,7 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
     else:
         mg, bits, variance = _pre_merge_phase(
             pose, mean, cov, weight, z, z_mask, cfg, out_cap=K,
-            var_draw=var_draw)
+            var_draw=var_draw, mesh=mesh)
     with record_function("phd.post"):
         out = _post_compact_batched(mg, bits, mean, cov, weight, cfg)
     return out if variance is None else out + (variance,)
@@ -797,7 +890,8 @@ def update(state: FilterState, z, z_mask, cfg: SlamConfig, consts=None,
         return mixed_update(state, z, z_mask, cfg, mesh=mesh)
     gm = state.map_dynamic if cfg.feature_model == 1 else state.map_static
     new_mean, new_cov, new_w, dlog_w, overflow, *var = _batched_update(
-        state.pose, gm.mean, gm.cov, gm.weight, z, z_mask, cfg, var_draw)
+        state.pose, gm.mean, gm.cov, gm.weight, z, z_mask, cfg, var_draw,
+        mesh)
     log_w = normalize_log_weights(state.log_weight + dlog_w, mesh)
     new_gm = GMState(mean=new_mean, cov=new_cov, weight=new_w)
     state = state.replace(

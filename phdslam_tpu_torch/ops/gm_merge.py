@@ -25,6 +25,14 @@ count (w <= 0 lanes) and in rows holding NaN weights.
 
 Sorts are stable with the JAX version's key order (``lax.sort`` is stable),
 so ties resolve to the lowest lane index exactly as there.
+
+:func:`tiled_merge_packed` is the JAX version's spatially tiled merge
+(``merge_spatial_tiles = 4``): each particle's live candidates split into
+2 x 2 quadrants about their centroid and each quadrant merged on its own
+(an approximation: a pair straddling a quadrant boundary stays unmerged
+that step). :func:`switch_widths` and :func:`tile_width` give the widths
+the JAX version's ``lax.switch`` families pick, which decide whether it
+tiles.
 """
 
 from __future__ import annotations
@@ -283,3 +291,117 @@ def topk_compact_indices(weight, active, cap):
     n_live = live.sum(dim=-1)
     return (idx[..., :cap], torch.where(sel_act, vals, 0.0), sel_act,
             torch.clamp_min(n_live - cap, 0))
+
+
+# the JAX version's width-switch fractions (quarter steps of the width)
+WIDTH_FRACS = (4, 2, 1.3333333)
+TILES = 4                          # 2 x 2 quadrants
+TILE_WIDTHS = (128, 256, 384)      # the tiled merge's lane widths
+
+
+def switch_widths(n: int, above: int = 0) -> list:
+    """The widths of the JAX version's width switch over n lanes: n over
+    each of :data:`WIDTH_FRACS` rounded up to 128, those in (above, n),
+    then n itself (ascending)."""
+    widths = []
+    for frac in WIDTH_FRACS:
+        w = -(-int(n // frac) // 128) * 128
+        if above < w < n and w not in widths:
+            widths.append(w)
+    return widths + [n]
+
+
+def switched_width(widths, n_live: int) -> int:
+    """The width the switch picks for the batch's largest live count: the
+    narrowest that holds it, else the last."""
+    return next((w for w in widths if n_live <= w), widths[-1])
+
+
+def tile_width(N: int, n_tile: int) -> int:
+    """The lanes a tile row gets in the JAX version's tiled merge of
+    candidate width N (``_tiled_merge_packed``'s switch): the narrowest of
+    :data:`TILE_WIDTHS` below N that holds the batch's largest tile
+    ``n_tile``; 0 where the merge runs untiled (N < 256, or no such
+    width)."""
+    if N < 256:
+        return 0
+    return next((ct for ct in TILE_WIDTHS if ct < N and n_tile <= ct), 0)
+
+
+def tile_layout(packed, T: int = TILES):
+    """Each particle's live candidates (act > 0.5, w > 0) of 2D planes
+    [P, 7, N] by quadrant about their centroid: tile 2 [x > cx] + [y > cy],
+    dead lanes last. Returns (order [P, N]: the lanes in tile-major order,
+    one stable sort, so each tile keeps the weight-descending order;
+    counts [P, T]; starts [P, T], each tile's first position in order)."""
+    w, act, mx, my = packed[:, 0], packed[:, 1], packed[:, 2], packed[:, 3]
+    live = (act > 0.5) & (w > 0)
+    livef = live.to(packed.dtype)
+    cnt = torch.clamp_min(livef.sum(dim=1), 1.0)
+    cx = (livef * mx).sum(dim=1) / cnt
+    cy = (livef * my).sum(dim=1) / cnt
+    tid = 2 * (mx > cx[:, None]).to(torch.int64) \
+        + (my > cy[:, None]).to(torch.int64)
+    tid = torch.where(live, tid, T)
+    order = torch.sort(tid, dim=1, stable=True).indices
+    counts = (tid[:, :, None] == torch.arange(T, device=tid.device)).sum(
+        dim=1)
+    return order, counts, torch.cumsum(counts, dim=1) - counts
+
+
+def tile_index(layout, ct: int, N: int):
+    """The column index of the tile rows: (idx [P, T ct] int32, lane j of
+    tile t of particle p at order[p, starts[p, t] + j], clamped into
+    [0, N); valid [P, T ct], j below the tile's count)."""
+    order, counts, starts = layout
+    P, T = counts.shape
+    j = torch.arange(ct, device=order.device)
+    flat = torch.clamp(starts[:, :, None] + j, 0, N - 1).reshape(P, T * ct)
+    return (torch.gather(order, 1, flat).to(torch.int32),
+            (j < counts[:, :, None]).reshape(P, T * ct))
+
+
+def tile_rows(packed, layout, ct: int):
+    """The tile rows [P T, 7, ct] of planes [P, 7, N]: tile t of particle
+    p in row p T + t, its lanes first in weight-descending order, w and
+    act zeroed past its count. One column gather (kernels/gather_cols.py)
+    reads them through :func:`tile_index`."""
+    from ..kernels.gather_cols import gather_cols
+    P, C, N = packed.shape
+    T = layout[1].shape[1]
+    idx, valid = tile_index(layout, ct, N)
+    g = gather_cols(idx, packed)                            # [P, 7, T ct]
+    g = torch.cat([g[:, :2] * valid[:, None].to(g.dtype), g[:, 2:]], dim=1)
+    return g.reshape(P, C, T, ct).transpose(1, 2).reshape(P * T, C, ct)
+
+
+def interleave_tiles(mg, T: int = TILES):
+    """Per-tile merge tuples of rows [P T, K / T] -> one [P, K] tuple,
+    lane j T + t holding tile t's j-th cluster; n_merged is T times the
+    largest tile's count (the live clusters' prefix bound), n_dropped the
+    tiles' sum."""
+    om, oc, ow, nm, nd = mg
+    P = ow.shape[0] // T
+    k = ow.shape[1]
+
+    def weave(x):
+        return x.reshape(P, T, k, *x.shape[2:]).transpose(1, 2).reshape(
+            P, T * k, *x.shape[2:])
+    return (weave(om), weave(oc), weave(ow),
+            T * nm.reshape(P, T).amax(dim=1), nd.reshape(P, T).sum(dim=1))
+
+
+def tiled_merge_packed(packed, layout, ct: int, min_separation: float,
+                       out_cap: int):
+    """The spatially tiled greedy merge of 2D planes [P, 7, N] (the JAX
+    version's ``_tiled_merge_packed``): the quadrants of
+    :func:`tile_layout` as rows of ct lanes (:func:`tile_rows`, ct at
+    least the largest tile), each merged on its own by the sorted-mode
+    merge2d kernel (Mahalanobis) with out_cap / 4 clusters, interleaved
+    back (:func:`interleave_tiles`). Returns the merge tuple (mean, cov, w,
+    n_merged, n_dropped)."""
+    from ..kernels.merge import merge2d
+    T = layout[1].shape[1]
+    out = merge2d(tile_rows(packed, layout, ct), float(min_separation),
+                  out_cap // T, sorted_w=True, metric=0)
+    return interleave_tiles(merge_out(out, 2), T)

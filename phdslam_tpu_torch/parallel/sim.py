@@ -33,6 +33,7 @@ rank).
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -40,6 +41,7 @@ import sys
 import tempfile
 import time
 from typing import Optional
+from unittest import mock
 
 import numpy as np
 
@@ -479,6 +481,7 @@ def replay_task(task, mesh):
     import torch
 
     from .. import types
+    from ..filters import phd
     from ..filters.disparity import DisparityNoise
     from ..filters.phd import StepNoise
     from ..slam import PER_PARTICLE_OUTPUTS
@@ -503,32 +506,45 @@ def replay_task(task, mesh):
         return shard_state(mesh, load(s, device=dev))
     step = (make_sharded_disparity_step_fn(cfg, mesh) if disparity
             else make_sharded_step_fn(cfg, mesh))
+    # the tiled-or-untiled choices of the merges: "tiled", "untiled" (a
+    # tile above the widest tile row) and "narrow" (candidate width < 256)
+    tiles = collections.Counter()
+    real_tile_width = phd.tile_width
+
+    def tile_width(N, n_tile):
+        ct = real_tile_width(N, n_tile)
+        tiles["tiled" if ct else "untiled" if N >= 256 else "narrow"] += 1
+        return ct
     arrays = {}
-    for n in range(len(rec["dt"])):
-        start = recorded(n)
-        state = state if start is None else start
-        z_n, zm = t(rec["z"][n]), t(rec["z_mask"][n])
-        dt, dp = float(rec["dt"][n]), bool(rec["do_predict"][n])
-        if disparity:
-            noise = DisparityNoise(t(rec["eps_pred"][n]),
-                                   t(rec["eps_sample"][n]),
-                                   t(rec["u_resample"][n]))
-            state, out = step(state, z_n, zm, dt, dp, noise)
-            got = types.disparity_state_to_numpy(gather_state(mesh, state))
-        else:
-            noise = StepNoise(t(rec["eps_pred"][n]), t(rec["u_resample"][n]))
-            ctl = tuple(float(c) for c in rec["control"][n])
-            state, out = step(state, z_n, zm, ctl, dt, dp, noise)
-            got = types.state_to_numpy(gather_state(mesh, state))
-        for k, v in got.items():
-            arrays[f"step{n}_{k}"] = v
-        for k, v in out._asdict().items():
-            if v is not None:
-                if k in PER_PARTICLE_OUTPUTS:
-                    v = mesh.all_gather(v)
-                arrays[f"step{n}_out_{k}"] = v.cpu().numpy()
+    with mock.patch.object(phd, "tile_width", tile_width):
+        for n in range(len(rec["dt"])):
+            start = recorded(n)
+            state = state if start is None else start
+            z_n, zm = t(rec["z"][n]), t(rec["z_mask"][n])
+            dt, dp = float(rec["dt"][n]), bool(rec["do_predict"][n])
+            if disparity:
+                noise = DisparityNoise(t(rec["eps_pred"][n]),
+                                       t(rec["eps_sample"][n]),
+                                       t(rec["u_resample"][n]))
+                state, out = step(state, z_n, zm, dt, dp, noise)
+                got = types.disparity_state_to_numpy(
+                    gather_state(mesh, state))
+            else:
+                noise = StepNoise(t(rec["eps_pred"][n]),
+                                  t(rec["u_resample"][n]))
+                ctl = tuple(float(c) for c in rec["control"][n])
+                state, out = step(state, z_n, zm, ctl, dt, dp, noise)
+                got = types.state_to_numpy(gather_state(mesh, state))
+            for k, v in got.items():
+                arrays[f"step{n}_{k}"] = v
+            for k, v in out._asdict().items():
+                if v is not None:
+                    if k in PER_PARTICLE_OUTPUTS:
+                        v = mesh.all_gather(v)
+                    arrays[f"step{n}_out_{k}"] = v.cpu().numpy()
     return {"steps": len(rec["dt"]),
-            "migrations": dict(mesh.stats.migrations)}, arrays
+            "migrations": dict(mesh.stats.migrations),
+            "tile_counts": dict(tiles)}, arrays
 
 
 TASKS = {"gated": gated_task, "run": run_task, "replay": replay_task}

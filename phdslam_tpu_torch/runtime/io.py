@@ -1,11 +1,16 @@
-"""Dataset loaders, the state-log writer and the particle dumps (copies of
-``phdslam_tpu/runtime/io.py``'s numpy code).
+"""Dataset loaders, the state-log writer and the particle dumps (port of
+``phdslam_tpu/runtime/io.py``).
 
 The port keeps its own copies because importing ``phdslam_tpu`` imports jax.
-These are the portable pure-Python paths of the originals (the JAX package
-prefers its C++ text parser and writer when built);
-``tests/test_torch_ops.py`` holds the loaders equal to the originals on the
-shipped datasets, ``tests/test_torch_runtime.py`` the writers.
+The loaders are the originals' pure-Python paths (they run once per
+dataset). :func:`write_state_log`, which runs every step, is the port's
+own C++ writer (``runtime/native/textio.cpp``), as the JAX package runs
+its own; the pure-Python writer stays as its plain version
+(:func:`write_state_log_reference`), which the tests hold it to byte for
+byte. ``tests/test_torch_ops.py`` and ``tests/test_torch_native.py`` hold
+the loaders equal to the originals on the shipped datasets,
+``tests/test_torch_runtime.py`` and ``tests/test_torch_native.py`` the
+writers.
 
 Format notes:
 * measurements files: one time step per line, header line first; each
@@ -21,6 +26,8 @@ import os
 from typing import List, Tuple
 
 import numpy as np
+
+from . import native
 
 
 def load_measurements(path: str, labeled: bool = False) -> List[np.ndarray]:
@@ -113,10 +120,38 @@ def write_state_log(outdir: str, t: int, expected_pose, static_map,
     (w, mean, flattened cov) of every component with w > 0; the particle
     log weights; the particle poses; the resampling ancestors; and the
     MAP particle's log cardinality (CPHD) or max_cardinality + 1 zeros.
+    The C++ writer; the bytes of :func:`write_state_log_reference`.
 
     static_map / dynamic_map: (weights[K], means[K,D], covs[K,D,D]) or
     None.
     """
+    lines = [(native.LINE_G, expected_pose)]
+    for gm, D in ((static_map, 2), (dynamic_map, 4)):
+        row = np.zeros(0)
+        if gm is not None:
+            w, m, c = (np.asarray(x) for x in gm)
+            live = w > 0
+            row = np.concatenate([w[live, None], m[live, :D],
+                                  c[live, :D, :D].reshape(-1, D * D)],
+                                 axis=1)
+        lines.append((native.LINE_MAP, row))
+    lines += [(native.LINE_G, particle_log_weights),
+              (native.LINE_G, particle_poses),
+              (native.LINE_INT, resample_idx)]
+    if filter_type == 1 and cardinality is not None:
+        lines.append((native.LINE_G,
+                      np.asarray(cardinality)[: max_cardinality + 1]))
+    else:
+        lines.append((native.LINE_INT, np.zeros(max_cardinality + 1)))
+    native.write_lines(os.path.join(outdir, "state_estimate%05d.log" % t),
+                       lines)
+
+
+def write_state_log_reference(outdir: str, t: int, expected_pose,
+                              static_map, dynamic_map, particle_log_weights,
+                              particle_poses, resample_idx, cardinality,
+                              max_cardinality: int, filter_type: int = 0):
+    """Plain Python version of :func:`write_state_log`."""
     path = os.path.join(outdir, "state_estimate%05d.log" % t)
     with open(path, "a") as fh:
         fh.write(" ".join("%g" % v for v in np.asarray(expected_pose))
@@ -126,7 +161,7 @@ def write_state_log(outdir: str, t: int, expected_pose, static_map,
                 w, m, c = (np.asarray(x) for x in gm)
                 parts = []
                 for i in range(len(w)):
-                    if w[i] <= 0:
+                    if not w[i] > 0:    # NaN too, as the C++ writer
                         continue
                     parts.append("%g" % w[i])
                     parts.extend("%g" % v for v in m[i, :D])

@@ -30,7 +30,9 @@ against its twin. The staged wide-lane variants (every merge mode
 just above its narrow kernel's width, merge2d_tables at N=8448, detect at
 K=2048 in all four modes and at K=1500 with trips) run against their
 twins, detect also against the same call on the CPU, and each beside its
-narrow kernel at the narrow limit (N=8192, 2048, K=1024). The
+narrow kernel at the narrow limit (N=8192, 2048, K=1024). The spatially
+tiled merge's gather_cols and merge2d launches run at its tile rows
+([4 P, 7, ct], ct 128, 256 and 384) against their twins. The
 resampling's fixed-order cumsum repeats its bits at P=10240.
 """
 
@@ -63,6 +65,7 @@ from phdslam_tpu_torch.kernels.merge import (NARROW_LANES, VARIANTS_3D4D,
                                              merge3d_reference, merge4d,
                                              merge4d_reference, merge_plan,
                                              recip_check)
+from phdslam_tpu_torch.ops import gm_merge as tgm
 from phdslam_tpu_torch.ops.gm_merge import merge_out
 from phdslam_tpu_torch.ops.resample import cumsum_fixed_order
 
@@ -812,6 +815,34 @@ def test_merge2d_dense_matches_twin(dev):
     """Sorted mode at the dense configuration's cap 1536 into K=1024."""
     got = assert_merge_matches(merge_inputs(dev, N=1536, seed=5), 5.0, 1024)
     assert (got[3] > 10).all()
+
+
+@pytest.mark.parametrize("P,N,ct", [(1024, 256, 128), (256, 512, 256),
+                                    (64, 512, 384), (512, 1024, 384)])
+def test_tiled_merge_kernels_match_twins(dev, P, N, ct):
+    """The spatially tiled merge's two launches at its tile row widths:
+    the tile extraction (gather_cols over the tile-major order) bit for
+    bit its twin, merge2d on the [4 P, 7, ct] rows (out_cap K / 4) within
+    assert_merge_matches' gates, and the interleaved merge tuple the CPU
+    route's."""
+    planes = merge_inputs(dev, P=P, N=N, seed=ct)
+    cpu = planes.cpu()
+    layout = tgm.tile_layout(cpu)
+    ct_need = tgm.tile_width(N, int(layout[1].max()))
+    assert 0 < ct_need <= ct
+    on_dev = tuple(x.to(dev) for x in layout)
+    build.reset_launch_counts()
+    rows = tgm.tile_rows(planes, on_dev, ct)
+    assert build.launch_counts["gather_cols"] == 1
+    assert rows.shape == (4 * P, 7, ct) and rows.is_contiguous()
+    assert torch.equal(rows.cpu(), tgm.tile_rows(cpu, layout, ct))
+    assert_merge_matches(rows, 5.0, 128 // 4)
+    got = tgm.tiled_merge_packed(planes, on_dev, ct, 5.0, 128)
+    want = tgm.tiled_merge_packed(cpu, layout, ct, 5.0, 128)
+    assert torch.equal(got[3].cpu(), want[3]) \
+        and torch.equal(got[4].cpu(), want[4])
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("case", [c for c, v in GATHER_CASES.items()

@@ -596,16 +596,55 @@ def test_disparity_state_round_trip(jax_runs):
 ])
 def test_check_supported_rejects_unported_disparity_options(override, name):
     """Weighting 2 (Vo's scheme there, as in the JAX version), the
-    Hellinger merge (merge3d's variant) and a merge above merge3d's narrow
-    2048 lanes (its staged wide-lane variant) are ported and accepted; a
-    cloud of one point is still refused."""
+    Hellinger merge (merge3d's variant), a merge above merge3d's narrow
+    2048 lanes (its staged wide-lane variant) and a cloud of one point
+    (NaN covariances, as in the JAX version) are accepted; a cloud of no
+    points, which the JAX package does not define, is refused."""
     cfg = SlamConfig(**dict(DISP, **override))
-    if name in ("particle_weighting", "distance_metric",
-                "merge_candidate_cap"):
-        td.check_supported(cfg, 48, 48)
-        return
-    with pytest.raises(NotImplementedError, match=name):
-        td.check_supported(cfg, 48, 48)
+    td.check_supported(cfg, 48, 48)
+    if name == "particles_per_feature":
+        with pytest.raises(NotImplementedError, match=name):
+            td.check_supported(dataclasses.replace(
+                cfg, particles_per_feature=0), 48, 48)
+
+
+def test_one_point_clouds_match_jax_nan_pattern(tmp_path):
+    """particles_per_feature 1: the JAX step divides the sample covariance
+    by N - 1 = 0 and completes with NaN covariances; four replayed steps
+    of the port give the same NaN entries in every state array (the
+    finite ones within the step tolerances), both merge3d and the step
+    terminate, and the runner's NaN policy reports the first step whose
+    weights are NaN, as JAX's do."""
+    over = dict(DISP, particles_per_feature=1)
+    jcfg, cfg = JaxSlamConfig(**over), SlamConfig(**over)
+    step = jd.make_disparity_step_fn(jcfg, donate=False)
+    z, mask, _ = scans()
+    js = jd.init_disparity_state(jcfg)
+    ts = disparity_state_from_jax(jax_arrays(js))
+    first_nan = None
+    for n in range(4):
+        noise = replay_noise(js, jcfg.max_features, 1)
+        js, jout = step(js, jnp.asarray(z[n]), jnp.asarray(mask[n]),
+                        jnp.float32(jcfg.dt), jnp.asarray(n > 0))
+        ts, out = td.disparity_step(ts, t(z[n]), t(mask[n]), cfg.dt, n > 0,
+                                    cfg, noise)
+        want, got = jax_arrays(js), disparity_state_to_numpy(ts)
+        for k in ("cam_pose", "log_weight", "cloud", "feat_weight"):
+            np.testing.assert_array_equal(np.isnan(got[k]),
+                                          np.isnan(want[k]), err_msg=k)
+            ok = ~np.isnan(want[k])
+            close(got[k][ok], want[k][ok], rtol=1e-4, atol=1e-4, msg=k)
+        assert np.isnan(float(out.n_eff)) == np.isnan(float(jout.n_eff))
+        if first_nan is None and np.isnan(float(jout.n_eff)):
+            first_nan = n
+    assert first_nan is not None
+    cfg_run, data, _ = small_run_dir(tmp_path)
+    res = run_disparity(dataclasses.replace(cfg_run, particles_per_feature=1,
+                                            debug=False),
+                        data_dir=data, device="cpu")
+    assert res["nan_step"] is not None
+    assert np.isnan(res["n_eff"][res["nan_step"]])
+    assert np.isfinite(res["n_eff"][:res["nan_step"]]).all()
 
 
 def test_check_supported_accepts_the_shipped_config():

@@ -357,17 +357,12 @@ def test_check_supported_accepts_the_estimators(over):
     (dict(particle_weighting=1), "particle_weighting"),
 ])
 def test_check_supported_refuses_by_name(over, name):
-    """Of the options once refused by name, the tiled merge still is; the
-    others (the mixed model's weighting 2, variance and top-cap lanes,
-    CPHD's variance, the dynamic-only map, Vo's weighting, and an EAP tree
-    whose pair exceeds merge2d's narrow width: its staged wide-lane
-    variant) are ported and accepted."""
-    cfg = SlamConfig(**dict(BASE, **over))
-    if name == "merge_spatial_tiles":
-        with pytest.raises(NotImplementedError, match=name):
-            check_supported(cfg, K_CS, M_CS)
-    else:
-        check_supported(cfg, K_CS, M_CS)
+    """Every option once refused by name (the mixed model's weighting 2,
+    variance and top-cap lanes, CPHD's variance, the dynamic-only map, the
+    tiled merge, Vo's weighting, and an EAP tree whose pair exceeds
+    merge2d's narrow width: its staged wide-lane variant) is ported and
+    accepted."""
+    check_supported(SlamConfig(**dict(BASE, **over)), K_CS, M_CS)
 
 
 def test_state_carries_variance():

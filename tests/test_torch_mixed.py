@@ -533,6 +533,78 @@ def test_evaluate_mixed_on_cpu():
     assert r["n_static_est"] > 0
 
 
+def mc_rows(n_runs, seed=0):
+    """Per-run evaluate_mixed rows to aggregate: random metrics, a run
+    without visible movers (NaN dynamic OSPA and track error), movers of
+    every speed stratum and below it."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for s in range(n_runs):
+        n_vis = 0 if s == 1 else int(rng.integers(1, 4))
+        det = rng.uniform(size=n_vis) < 0.6
+        rows.append({
+            "mean_pose_err": float(rng.uniform(0.05, 0.3)),
+            "static_ospa": float(rng.uniform(1, 3)),
+            "dynamic_ospa": float(rng.uniform(1, 5)) if n_vis
+            else float("nan"),
+            "dyn_detected_frac": float(det.mean()) if n_vis
+            else float("nan"),
+            "dyn_track_err": float(rng.uniform(0.1, 1)) if det.any()
+            else float("nan"),
+            "vel_err": float(rng.uniform(0, 1)),
+            "det_flags": [bool(d) for d in det],
+            "det_any_flags": [bool(d or rng.uniform() < 0.5) for d in det],
+            "det_speeds": [float(v) for v in rng.uniform(0.1, 0.8, n_vis)],
+        })
+    return rows
+
+
+def test_evaluate_mixed_mc_aggregates_match_jax(monkeypatch):
+    """The Monte-Carlo aggregate against the JAX package's on the same
+    per-run rows (each module's evaluate_mixed returns them, since the two
+    packages draw different noise): every mean and standard deviation
+    over the runs with a value, the detection strata and the overall
+    detection; the seeds and options pass through."""
+    import phdslam_tpu.eval.parity as jparity
+    import phdslam_tpu_torch.eval.parity as tparity
+    rows = mc_rows(7)
+    calls = {"jax": [], "port": []}
+
+    def fake(which):
+        def evaluate(seed, **kw):
+            calls[which].append((seed, kw.get("cfg_overrides")))
+            return dict(rows[seed])
+        return evaluate
+    monkeypatch.setattr(jparity, "evaluate_mixed", fake("jax"))
+    monkeypatch.setattr(tparity, "evaluate_mixed", fake("port"))
+    over = {"mixed_fast_path": 0}
+    want = jparity.evaluate_mixed_mc(n_runs=7, cfg_overrides=over)
+    got = tparity.evaluate_mixed_mc(n_runs=7, cfg_overrides=over,
+                                    device="cpu")
+    assert calls["jax"] == calls["port"] == [(s, over) for s in range(7)]
+    assert got.keys() == want.keys()
+    for k in want:
+        if k != "runs":
+            np.testing.assert_equal(got[k], want[k], err_msg=k)
+    assert got["runs"] == rows
+    assert np.isfinite(got["dynamic_ospa"]).all()
+    assert sum(v["n"] for v in got["det_strata"].values()) \
+        < sum(len(r["det_speeds"]) for r in rows)     # the slowest out
+
+
+def test_evaluate_mixed_mc_on_cpu():
+    """Two runs of six steps at P=8 on the CPU: the aggregate of
+    evaluate_mixed's own rows."""
+    from phdslam_tpu_torch.eval.parity import evaluate_mixed_mc
+    r = evaluate_mixed_mc(n_runs=2, n_steps=6, n_particles=8, device="cpu")
+    assert r["n_runs"] == 2 and len(r["runs"]) == 2
+    poses = [run["mean_pose_err"] for run in r["runs"]]
+    np.testing.assert_allclose(r["pose"], (np.mean(poses), np.std(poses)))
+    assert np.isfinite(r["static_ospa"]).all() and r["pose"][0] < 1.0
+    assert set(r["det_strata"]) == {"slow_0.2-0.35", "mid_0.35-0.5",
+                                    "fast_0.5+"}
+
+
 def test_mixed_world_and_simdata_copies_match_jax():
     want = jax_mixed_world(30, 2, 12, 0.15, 4, 32)
     got = _mixed_world(30, 2, 12, 0.15, 4, 32)

@@ -341,9 +341,15 @@ def test_check_supported_accepts_every_named_option(over):
 
 
 def test_check_supported_refuses_only_tiles_by_name():
-    with pytest.raises(NotImplementedError, match="merge_spatial_tiles"):
-        check_supported(SlamConfig(**dict(CS, merge_spatial_tiles=4)),
+    """No option is refused by name any more: the tiled merge (and any
+    other merge_spatial_tiles, untiled as in the JAX package) is accepted,
+    and only a value the JAX package does not define is refused."""
+    for tiles in (4, 2, 0):
+        check_supported(SlamConfig(**dict(CS, merge_spatial_tiles=tiles)),
                         K_CS, M_CS)
+    with pytest.raises(NotImplementedError, match="distance_metric"):
+        check_supported(SlamConfig(**dict(CS, merge_spatial_tiles=4,
+                                          distance_metric=2)), K_CS, M_CS)
 
 
 @pytest.mark.parametrize("over,M,D,width", [
@@ -378,13 +384,16 @@ def test_disparity_check_supported_accepts_widths():
     """A disparity merge above merge3d's narrow 2048 lanes (cap 4096 at
     K = M = 48: every one of the 48 + 48 * 48 + 48 = 2400 lanes) is
     accepted; it takes the staged wide-lane variant. A cloud of one point
-    is still refused."""
+    is accepted (NaN covariances, as in the JAX package), one of no points
+    refused."""
     from phdslam_tpu_torch.kernels.merge import NARROW_LANES, uses_wide
     base = dict(DISP, particle_weighting=2, distance_metric=1)
     td.check_supported(SlamConfig(**base), 48, 48)
     td.check_supported(SlamConfig(**dict(base, merge_candidate_cap=4096)),
                        48, 48)
     assert 48 + 48 * 48 + 48 == 2400 > NARROW_LANES[3] and uses_wide(3, 2400)
+    td.check_supported(SlamConfig(**dict(base, particles_per_feature=1)),
+                       48, 48)
     with pytest.raises(NotImplementedError, match="particles_per_feature"):
-        td.check_supported(SlamConfig(**dict(base, particles_per_feature=1)),
+        td.check_supported(SlamConfig(**dict(base, particles_per_feature=0)),
                            48, 48)

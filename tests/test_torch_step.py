@@ -238,10 +238,17 @@ def test_runner_on_cpu_tracks_the_start():
     assert err.max() < 1.0
 
 
-def test_runner_rejects_unported_config():
-    # the JAX package's approximate spatially tiled merge
-    cfg = load_config(CFG, dict(SMALL, merge_spatial_tiles=4))
-    with pytest.raises(NotImplementedError, match="merge_spatial_tiles"):
+@pytest.mark.parametrize("over,refused", [
+    (dict(filter_type=2), "filter_type"), (dict(merge_spatial_tiles=4), None)],
+    ids=["undefined filter_type", "tiles accepted"])
+def test_runner_rejects_unported_config(over, refused):
+    """The runner refuses a value the JAX package does not define and
+    takes the spatially tiled merge, which the JAX package runs."""
+    cfg = load_config(CFG, dict(SMALL, **over))
+    if refused is None:
+        SynthSLAMRunner(cfg, DATA, device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match=refused):
         SynthSLAMRunner(cfg, DATA, device="cpu")
 
 
