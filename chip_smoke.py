@@ -109,6 +109,12 @@ against their twins at those shapes and at unaligned, ragged,
 out-of-range and above-budget cases, each of their two modes (the slab
 staged in shared memory, or read through ``__ldg``) counted under its
 own name.
+The ``wide`` phase holds the dense full grid's merge2d_argmax_wide on the
+whole captured P=1024 launch (the path's plan) against the twin on the
+lanes that enter, and its first 8 particles alone against the twin, times
+the whole launch, and prints each redesigned staged kernel's plan at its
+path shape; ``[parallel cphd4]`` must repeat the 1-process CPHD step bit
+for bit on every step.
 Each phase prints its result; any failure raises and exits non-zero.
 After the ``[total]`` line, ``[phases]`` gives each phase's wall time
 (``phase_times.py``, which times an older checkout's script the same
@@ -147,7 +153,7 @@ import numpy as np
 import torch
 
 from detect_bench import (DETECT_EDGES, MIN_SEP_EDGES, MIXED_DT,
-                          MIXED_STEPS, capture_step, captured_args,
+                          MIXED_STEPS, bound, capture_step, captured_args,
                           check_case, compare_detect, detect_bound,
                           detect_edge_case, live_counts, max_err, mixed_cfg,
                           mixed_runner, mixed_scans, require)
@@ -155,7 +161,8 @@ from gather_bench import (GATHER_CASES, GATHER_TIMED, card_name, cycling,
                           gather_bound, gather_case, gather_sets, graph_ms,
                           time_call)
 from merge_bench import (DISP_SEP, HELL_SEP, MERGE_EDGES, MIN_SEP,
-                         MIXED_SEP, OUT_PLANES, edge_runs,
+                         MIXED_SEP, OUT_PLANES, check_merge_rows, edge_runs,
+                         entering_planes,
                          full_grid_inputs, merge3d_inputs, merge4d_inputs,
                          merge_bound, merge_inputs, merge_rounds,
                          round_stats, run_case, tables_bound,
@@ -184,29 +191,31 @@ from phdslam_tpu_torch.filters.phd import (StepNoise,
                                            maybe_resample, predict,
                                            resample_particles, update)
 from phdslam_tpu_torch.kernels import build
+from phdslam_tpu_torch.kernels.cardinality import (
+    cardinality_product, cardinality_product_reference)
 from phdslam_tpu_torch.kernels.detect import (NARROW_FEATURES, detect,
                                               detect_reference,
-                                              detect_variant)
+                                              detect_variant,
+                                              detect_wide_plan)
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
                                                    gather_rows_reference)
 from phdslam_tpu_torch.kernels.merge import (NARROW_LANES, merge2d,
-                                             merge2d_reference,
+                                             merge2d_plan, merge2d_reference,
                                              merge2d_tables,
                                              merge2d_tables_reference,
                                              merge2d_variant, merge3d,
                                              merge3d_reference, merge4d,
-                                             merge4d_reference, recip_check,
+                                             merge4d_reference, merge_plan,
+                                             recip_check,
                                              tables_packed)
 from phdslam_tpu_torch.filters import mixed as mixed_filter
 from phdslam_tpu_torch.ops import gm_merge as tgm
-from phdslam_tpu_torch.ops.gm_merge import (MERGE_DIMS, merge_out,
-                                            sort_planes, unpack_planes)
+from phdslam_tpu_torch.ops.gm_merge import MERGE_DIMS, merge_out, sort_planes
 from phdslam_tpu_torch.ops import resample
 from phdslam_tpu_torch.parallel.sim import run_group
-from phdslam_tpu_torch.ops.math import (hellinger2, logsumexp, mahalanobis2,
-                                        mahalanobis2_3d, mahalanobis2_4d)
+from phdslam_tpu_torch.ops.math import logsumexp
 from phdslam_tpu_torch.runtime import io as rt_io
 from phdslam_tpu_torch.runtime.checkpoint import profile_single_update
 from phdslam_tpu_torch.slam import ScanRunner, SynthSLAMRunner
@@ -242,6 +251,7 @@ DISP_KNOWN_POSE_OSPA = 0.90
 
 # the CPHD path and the full-grid / Hellinger variants
 CPHD_CFG = "cfg/ackerman_cphd.cfg"
+CPHD_C1 = 65                    # its max_cardinality + 1
 # the JAX package on the CPU, cfg/ackerman_cphd.cfg at P=512 over the full
 # dataset, seeds 0-2 (reference_band.py): mean ATE and mean every-step
 # OSPA(1, 5), mean and std over the seeds
@@ -327,6 +337,10 @@ KERNELS = {
                           "phdslam_tpu/ops/gm_merge.py:35"),
     "merge3d_hellinger": ("phdslam_tpu_torch/csrc/merge3d.cu",
                           "phdslam_tpu/ops/gm_merge.py:35"),
+    # the CPHD cardinality prediction's product in one fixed order (the
+    # JAX package's XLA dot there, no Pallas kernel)
+    "cardinality_product": ("phdslam_tpu_torch/csrc/cardinality.cu",
+                            "phdslam_tpu/filters/cphd.py:105"),
 }
 # the staged wide-lane variants: each merge and detect variant's, counted
 # under its name with "_wide" appended (the merges' round core in
@@ -345,7 +359,7 @@ DENSE_KERNELS = {"plain": ACKERMAN_KERNELS, "fused + adaptive": KNOB_KERNELS,
 HELL_FUSED_KERNELS = ("detect", "gather_cols", "merge2d_tables_hellinger")
 MIXED_KERNELS = ACKERMAN_KERNELS + ("merge4d",)
 DISP_KERNELS = ("merge3d",)
-CPHD_KERNELS = ACKERMAN_KERNELS
+CPHD_KERNELS = ACKERMAN_KERNELS + ("cardinality_product",)
 FULL_GRID_KERNELS = ("merge2d_argmax",)
 HELL_KERNELS = ("detect", "gather_cols", "merge2d_hellinger")
 HELL_FULL_KERNELS = ("merge2d_argmax_hellinger",)
@@ -714,7 +728,55 @@ def check_kernels(dev):
         phase("kernels", f"merge3d/merge4d quotient, mode {mode}: "
               f"{r['tested']} pairs, {r['declined']} left to IEEE "
               f"division, {r['differ']} differing from a / b")
+    check_cardinality(dev, errs)
     return errs
+
+
+def cardinality_inputs(dev, P=P_MAIN, C1=CPHD_C1, seed=0):
+    """(lin [P, C1], T [C1, C1]) as filters/cphd.py's
+    cardinality_predict_batch forms them, from random log cardinality
+    distributions and a random log birth distribution."""
+    rng = np.random.default_rng(seed)
+    log_cn = torch.from_numpy(
+        rng.uniform(-60, 0, (P, C1)).astype(np.float32)).to(dev)
+    log_b = torch.from_numpy(rng.uniform(-40, 0, C1).astype(np.float32)).to(
+        dev)
+    lin = torch.exp(log_cn - log_cn.amax(dim=-1, keepdim=True))
+    ar = torch.arange(C1, device=dev)
+    diff = ar[None, :] - ar[:, None]
+    T = torch.where(diff >= 0,
+                    torch.exp(log_b[diff.clamp_min(0)] - log_b.max()), 0.0)
+    return lin, T
+
+
+def check_cardinality(dev, errs):
+    """cardinality_product against its twin at the CPHD path's shapes (P =
+    512 and 10240 rows, C1 = 65): the same bits required, and the same
+    bits for the rows taken as four blocks and one at a time (what makes a
+    sharded CPHD step bit-equal); its distance to the float64 product is
+    reported."""
+    errs["cardinality_product"] = 0.0
+    for P in (P_MAIN, P_SCALE):
+        lin, T = cardinality_inputs(dev, P=P, seed=P)
+        got = cardinality_product(lin, T)
+        want = cardinality_product_reference(lin, T)
+        require(same_bits([got], [want]),
+                f"cardinality_product P={P}: bits differ from the twin")
+        blocks = torch.cat([cardinality_product(x, T)
+                            for x in lin.split(P // 4)])
+        rows = torch.cat([cardinality_product(lin[i:i + 1], T)
+                          for i in range(0, P, P // 64)])
+        require(same_bits([got], [blocks])
+                and same_bits([got[::P // 64]], [rows]),
+                f"cardinality_product P={P}: a block's bits differ from "
+                "the whole batch's")
+        exact = lin.double() @ T.double()
+        rel = float(((got.double() - exact).abs() / exact.abs()
+                     .clamp_min(1e-30)).amax())
+        phase("kernels", f"cardinality_product P={P} C1={T.shape[0]}: bits "
+              f"equal to the twin, 4 blocks and {P // (P // 64)} single "
+              f"rows equal to the batch, max relative distance to the "
+              f"float64 product {rel:.3g}")
 
 
 def far_persistent_scene(dev):
@@ -1897,67 +1959,6 @@ def check_estimator_steps(dev):
     check_eap_extract(r, "ackerman")
 
 
-def boundary_flip(row, sep, got, want, metric=0):
-    """Whether one particle's merge outputs, the kernel's ``got`` and the
-    twin's ``want`` (merge tuples of that row), part only where a lane
-    lies at the merge threshold: replaying the twin's greedy rounds (its
-    f32 distance) up to the first cluster that differs, the two clusters'
-    weights must differ by the weight of lanes whose float64 distance to
-    that cluster's principal is within 1e-5 of min_sep (an f32 quotient
-    at min_sep decided in another order: the kernel evaluates the Pallas
-    kernel's closed form in strict IEEE f32, the twin inverts the averaged
-    covariance first). Returns (explained, the cluster, those lanes'
-    distances). Any dimension (the planes' count says which) and either
-    metric (``metric`` 1: Hellinger)."""
-    D = MERGE_DIMS[row.shape[0]]
-    dist = hellinger2 if metric else {2: mahalanobis2, 3: mahalanobis2_3d,
-                                      4: mahalanobis2_4d}[D]
-    mean, cov, w, act = unpack_planes(row[None], D)
-    mean, cov, w = mean[0], cov[0], w[0]
-    unmerged = act[0] & (w > 0)
-    off = ((got[0] - want[0]).abs().amax(-1) > 1e-5 + 1e-4 * want[0].abs()
-           .amax(-1)) | ((got[2] - want[2]).abs() > 1e-5 + 1e-4 * want[2])
-    c = int(torch.nonzero(off)[0])
-    for k in range(c + 1):
-        i = int(torch.argmax(torch.where(unmerged, w, -torch.inf)))
-        d = dist(mean[i][None], cov[i][None], mean, cov)
-        sel = (unmerged & (d < sep)) | (torch.arange(len(w)) == i)
-        if k < c:
-            unmerged &= ~sel
-    d64 = dist(mean[i][None].double(), cov[i][None].double(), mean.double(),
-               cov.double())
-    edge = unmerged & ((d64 - sep).abs() <= 1e-5 * sep)
-    gap = abs(float(got[2][c]) - float(want[2][c]))
-    explained = bool(edge.any()) and gap <= float(w[edge].sum()) * 1.0001 \
-        + 1e-7
-    return explained, c, [round(float(x), 9) for x in d64[edge]]
-
-
-def check_merge_rows(got, want, packed, sep, label, metric=0):
-    """merge2d's outputs ``got`` against the twin's ``want`` (merge
-    tuples) on the same planes: equal cluster and leftover counts and
-    rtol 1e-4 / atol 1e-5 in every particle, except a particle whose two
-    merges part at a lane on the merge threshold (:func:`boundary_flip`).
-    Returns the count of such particles and the largest |difference| of
-    the others."""
-    got = [x.cpu() for x in got]
-    close = torch.ones(got[2].shape[0], dtype=torch.bool)
-    for g, w in zip(got[:3], want[:3]):
-        ok = torch.isclose(g, w, rtol=1e-4, atol=1e-5)
-        close &= ok.reshape(ok.shape[0], -1).all(dim=1)
-    close &= (got[3] == want[3]) & (got[4] == want[4])
-    flips = []
-    for p in torch.nonzero(~close)[:, 0].tolist():
-        explained, c, dists = boundary_flip(
-            packed[p].cpu(), sep, [x[p] for x in got], [x[p] for x in want],
-            metric)
-        require(explained, f"{label}: particle {p} parts from the twin at "
-                f"cluster {c} with no lane at the merge threshold")
-        flips.append((p, c, dists))
-    err = max_err([(g[close], w[close]) for g, w in zip(got[:3], want[:3])])
-    return flips, err
-
-
 def check_eap_extract(r, label):
     """The EAP tree on runner r's state on the card, each level's merge2d
     launch held against the twin on the same inputs
@@ -2288,7 +2289,8 @@ def time_kernels(dev, errs, extra=None):
     eager call, host included (gather_bench.time_call: 50 calls after 5;
     the twin its iterations with no warm-up call);
     the library call is one PyTorch call that computes the same function
-    (gather_cols, gather_rows: torch.gather), where there is one. Beside each, the device time of the
+    (gather_cols, gather_rows: torch.gather; cardinality_product: the
+    matmul), where there is one. Beside each, the device time of the
     kernel and of the library call (gather_bench.graph_ms: 50 calls
     replayed from a CUDA graph), printed and returned. The gathers run at
     every shape the paths launch (gather_calls), each call on the next of
@@ -2315,6 +2317,7 @@ def time_kernels(dev, errs, extra=None):
     grid = full_grid_inputs(dev)
     packed4 = merge4d_inputs(dev, N=128, seed=128)
     packed3 = merge3d_inputs(dev, seed=24)
+    lin, toep = cardinality_inputs(dev)
     T = 16
     # name: (kernel, twin, twin iterations, library call, bound)
     calls = {
@@ -2342,6 +2345,14 @@ def time_kernels(dev, errs, extra=None):
         "merge3d": (lambda: merge3d(packed3, 20.0, 24),
                     lambda: merge3d_reference(packed3, 20.0, 24), 5, None,
                     merge_bound(packed3, 24, 12, 70)),
+        # lin and T read once, the product written once; a multiply and an
+        # add per (p, j, n)
+        "cardinality_product": (
+            lambda: cardinality_product(lin, toep),
+            lambda: cardinality_product_reference(lin, toep), 5,
+            lambda: lin @ toep,
+            bound(4 * (2 * lin.numel() + toep.numel()),
+                  2 * lin.numel() * toep.shape[1])),
     }
     calls.update(gather_calls(dev))
     calls.update(knob_calls(dev, cfg))
@@ -3457,6 +3468,9 @@ WIDE_STEPS = 30                 # steps of the dynamic-only and dense runs
 WIDE_CAPTURE = 20               # the dense full grid's merge call captured
 P_DENSE_CAPTURED = 8            # its particles held against the twin
 MIXED_CAPTURE = 40              # the mixed full grid's step against the CPU
+# the dense wide runs' mean ATE (m) and OSPA(1, 5) over WIDE_STEPS steps
+# with the first design of the staged kernels (H100 80GB HBM3, 700 W)
+FIRST_DENSE_WIDE = {"full grid": (0.1152, 1.4202), "K=2048": (0.0938, 1.4037)}
 # the mixed bench with both caps off: the per-particle route over the full
 # grid, 128 + 32 * 128 + 32 = 4256 lanes a map
 MIXED_FULL = {"merge_candidate_cap": 0, "merge_candidate_cap_dynamic": 0}
@@ -3475,7 +3489,8 @@ def wide_merge_case(errs, label, name, fn, twin, packed, sep, metric):
     """One staged merge launch, counted under ``name``, against its twin
     with check_kernels' gates (:func:`check_merge_rows`: equal counts,
     rtol 1e-4 / atol 1e-5, a row parting only at a lane on the merge
-    threshold). ``packed``: the planes the twin merges."""
+    threshold). ``packed``: the planes the twin merges. Returns the
+    largest |difference|."""
     D = MERGE_DIMS[packed.shape[1]]
     build.reset_launch_counts()
     out = fn()
@@ -3492,6 +3507,7 @@ def wide_merge_case(errs, label, name, fn, twin, packed, sep, metric):
           f"{float(got[4].float().mean()):.1f}, max |err| {err:.3g} (rtol "
           f"1e-4, atol 1e-5), {len(flips)} of {packed.shape[0]} rows part at "
           "a lane on the merge threshold")
+    return err
 
 
 def staged_beside_narrow(label, narrow, staged, D):
@@ -3515,8 +3531,9 @@ def wide_merges(dev, errs, mixed_planes, dense_planes):
     kernel cannot hold, and forced at the narrow limit beside the narrow
     kernel: merge2d in its four variants at N = 8448 (sorted on weight-
     sorted clustered lanes, argmax on full-grid lanes), merge2d's argmax
-    mode on P_DENSE_CAPTURED particles of the captured dense full-grid
-    step, merge2d_tables at N = 8448 (merge_bench.WIDE_EDGES), merge3d
+    mode on the captured dense full-grid step (the whole launch, its twin
+    on the lanes that enter, and P_DENSE_CAPTURED particles alone),
+    merge2d_tables at N = 8448 (merge_bench.WIDE_EDGES), merge3d
     at N = 2400 and merge4d (sorted, argmax, Hellinger) on the captured
     mixed full-grid step (N = 4256). Returns time_kernels' rows."""
     rows = {}
@@ -3544,25 +3561,35 @@ def wide_merges(dev, errs, mixed_planes, dense_planes):
                               merge2d_reference(p, s, 128, sw, m), 1, None,
                               merge_bound(packed, 128, 8,
                                           40 if metric else 27))
-    # the dense full grid's own lanes: P_DENSE_CAPTURED of its particles
+    # the dense full grid's captured launch: the whole of it (the path's
+    # plan) against the twin on the lanes that enter
+    # (merge_bench.entering_planes: the same output), then
+    # P_DENSE_CAPTURED of its particles alone against the twin on all
+    # their lanes (another plan)
     packed, sep, K = dense_planes
-    sub = packed[:P_DENSE_CAPTURED].contiguous()
     name = merge2d_variant(False, 0, wide=True)
-    wide_merge_case(errs, f"merge2d dense full grid captured P="
+    entering = entering_planes(packed)
+    # the kernels line's max |err|: the timed launch's
+    errs[name] = wide_merge_case(
+        {}, f"merge2d dense full grid captured P={packed.shape[0]} N="
+        f"{packed.shape[2]} K={K}", name,
+        lambda: merge2d(packed, sep, K, False),
+        lambda: merge2d_reference(entering, sep, K, False), entering, sep, 0)
+    sub = packed[:P_DENSE_CAPTURED].contiguous()
+    wide_merge_case({}, f"merge2d dense full grid captured P="
                     f"{sub.shape[0]} N={sub.shape[2]} K={K}", name,
                     lambda: merge2d(sub, sep, K, False),
                     lambda: merge2d_reference(sub, sep, K, False), sub, sep,
                     0)
-    enter = int((sub[:, 1] > 0.5).sum()) / sub.shape[0]
-    phase("wide", f"dense full grid captured: {enter:.0f} entering lanes a "
-          f"particle of {sub.shape[2]}")
-    rows[name] = (lambda: merge2d(sub, sep, K, False),
-                  lambda: merge2d_reference(sub, sep, K, False), 1, None,
-                  merge_bound(sub, K, 8, 27))
-    full_ms = graph_ms(lambda: merge2d(packed, sep, K, False))
-    phase("wide", f"merge2d_argmax_wide on the whole captured step P="
-          f"{packed.shape[0]} N={packed.shape[2]}: {full_ms:.4f} ms on the "
-          "device")
+    enter = (packed[:, 1] > 0.5).sum(dim=1).float()
+    plan = merge2d_plan(packed.shape[0], packed.shape[2], False, device=dev)
+    phase("wide", f"dense full grid captured P={packed.shape[0]}: entering "
+          f"lanes a particle mean {float(enter.mean()):.1f}, max "
+          f"{int(enter.max())} of {packed.shape[2]}; {name} plan "
+          f"{json.dumps(plan)}")
+    rows[name] = (lambda: merge2d(packed, sep, K, False),
+                  lambda: merge2d_reference(entering, sep, K, False), 1,
+                  None, merge_bound(packed, K, 8, 27))
     for metric in (0, 1):
         sep = HELL_SEP if metric else MIN_SEP
         name = merge2d_variant(True, metric, tables=True, wide=True)
@@ -3615,6 +3642,13 @@ def wide_merges(dev, errs, mixed_planes, dense_planes):
                         f"{planes.shape[0]} N={planes.shape[2]}", name,
                         lambda c=call, p=planes: c(p), twin, planes, sep,
                         metric)
+        if not sorted_w:
+            enter = (planes[:, 1] > 0.5).sum(dim=1).float()
+            phase("wide", f"mixed full grid captured P={planes.shape[0]}: "
+                  f"entering lanes a particle mean "
+                  f"{float(enter.mean()):.1f}, max {int(enter.max())} of "
+                  f"{planes.shape[2]}; {name} plan " + json.dumps(merge_plan(
+                      4, planes.shape[0], planes.shape[2], dev, False)))
         limit = planes[:, :, :NARROW_LANES[4]].contiguous()
         staged_beside_narrow(f"{name} at N={NARROW_LANES[4]}",
                              lambda c=call: c(limit),
@@ -3645,10 +3679,13 @@ def wide_detects(dev, errs):
                 f"dense K={2 * NARROW_FEATURES}", a)
             errs[name] = max(errs.get(name, 0.0), err)
             stats = live_counts(got[3], a[1], 32)
+            plan = "" if cons else (
+                "; plan " + json.dumps(detect_wide_plan(2 * NARROW_FEATURES,
+                                                        dev)))
             phase("wide", f"{name} P={P_DENSE} K={2 * NARROW_FEATURES} M=72 "
                   f"T=32: live lanes per valid row {json.dumps(stats)}; "
                   f"against the twin max |err| {err:.3g}, {flips} member "
-                  "flips at an f32 boundary")
+                  f"flips at an f32 boundary{plan}")
             rows[name] = (lambda a=a: detect(*a),
                           lambda a=a: detect_reference(*a), 1, None,
                           detect_bound(*a[:6]))
@@ -3793,9 +3830,11 @@ def run_dense_wide(dev):
                                P=P_DENSE)
     for label, res in (("full grid", full), ("K=2048", k2048)):
         clean(res["run"], f"dense {label}")
+        ate0, ospa0 = FIRST_DENSE_WIDE[label]
         phase("wide", f"dense {label} P={P_DENSE}, {WIDE_STEPS} steps: mean "
               f"ATE {res['mean_pose_err']:.4f} m, OSPA "
-              f"{res['mean_ospa']:.4f}, {res['steps_per_s']:.2f} steps/s, "
+              f"{res['mean_ospa']:.4f} (the first staged kernels: "
+              f"{ate0} m, {ospa0}), {res['steps_per_s']:.2f} steps/s, "
               f"beside the capped K=1024 run over the same steps: "
               f"{capped['mean_pose_err']:.4f} m, {capped['mean_ospa']:.4f}, "
               f"{capped['steps_per_s']:.2f} steps/s")
@@ -4125,6 +4164,13 @@ def run_parallel(dev, main_res):
           + ", ".join(x["transport"] for x in out["run"]))
     gated_phase("parallel mixed4", out["mixed4"], MIXED_KERNELS)
     gated_phase("parallel cphd4", out["cphd4"], CPHD_KERNELS)
+    # every CPHD op's bits are the batch's whatever rows a rank holds
+    # (kernels/cardinality.py: the cardinality product in one fixed order):
+    # each sharded step repeats the 1-process step bit for bit
+    cphd4 = out["cphd4"][0]
+    require(cphd4["bit_equal_steps"] == cphd4["steps"],
+            f"parallel cphd4: {cphd4['bit_equal_steps']} of "
+            f"{cphd4['steps']} steps bit-equal to the 1-process step")
     cphd_block_bits(dev)
     gated_phase("parallel eap4", out["eap4"], ACKERMAN_KERNELS)
     gated_phase("parallel disparity4", out["disparity4"], DISP_KERNELS)

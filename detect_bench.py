@@ -36,6 +36,7 @@ comparison with the twin;
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import json
 import sys
@@ -129,6 +130,10 @@ def detect_edge_case(name, cons=False, seed=0):
 # ----------------------------------------------------------------------------
 
 CAPTURE_STEP = 60
+# the mixed bench with both candidate caps off: the per-particle route over
+# the full grid, 128 + 32 * 128 + 32 = 4256 lanes a map
+MIXED_FULL = {"mixed_fast_path": 0, "merge_candidate_cap": 0,
+              "merge_candidate_cap_dynamic": 0}
 DENSE = ("cfg/dense.cfg", "data/dense", 1024)
 ACKERMAN = ("cfg/ackerman.cfg", "data/ackerman", 512)
 FUSED_ADAPTIVE = {"fused_gather_merge": 1, "detect_adaptive": 1}
@@ -151,6 +156,16 @@ CAPTURED = {
                   ("merge2d",), CAPTURE_STEP),
     # the mixed path's dynamic 4D map and the disparity path's merge
     "mixed": ("mixed", None, None, 512, {}, ("merge4d",), CAPTURE_STEP),
+    # the staged wide-lane variants' paths (chip_smoke.py's run_wide): the
+    # mixed full grid's dynamic map (both caps 0: merge4d_argmax_wide), the
+    # dense full grid (merge2d_argmax_wide) and dense at K = 2048
+    # (detect_wide), at the steps chip_smoke.py captures
+    "mixed full grid": ("mixed", None, None, 512, MIXED_FULL, ("merge4d",),
+                        40),
+    "dense full grid": ("synth", *DENSE, {"merge_candidate_cap": 0},
+                        ("merge2d",), 20),
+    "dense K2048": ("synth", *DENSE, {"max_features": 2048}, ("detect",),
+                    20),
     "disparity": ("disparity", "cfg/disparity.cfg", "data/disparity", 512,
                   {}, ("merge3d",), 20),
 }
@@ -159,11 +174,12 @@ CAPTURED = {
 MIXED_STEPS, MIXED_DT = 100, 0.5
 
 
-def mixed_cfg(P=512, K=128, M=32):
+def mixed_cfg(P=512, K=128, M=32, **overrides):
     """tools/bench_mixed.py's mixed configuration (fast route, 4D stage-2
-    cap 128, detection_topk 16 and merge_candidate_cap 512 by default)."""
+    cap 128, detection_topk 16 and merge_candidate_cap 512 by default),
+    with ``overrides``."""
     from phdslam_tpu_torch import SlamConfig
-    return SlamConfig(
+    cfg = SlamConfig(
         n_particles=P, max_features=K, max_measurements=M,
         motion_type=0, feature_model=2, filter_type=0,
         vx0=1.5, vyaw0=0.2, ax=0.3, ayaw=0.03,
@@ -172,6 +188,7 @@ def mixed_cfg(P=512, K=128, M=32):
         resample_threshold=0.5, particle_weighting=0, tau=0.2,
         cov_vx_birth=0.25, cov_vy_birth=0.25, std_ax_map=0.05,
         std_ay_map=0.05, merge_candidate_cap_dynamic=128, seed=0)
+    return dataclasses.replace(cfg, **overrides)
 
 
 def mixed_scans(T=MIXED_STEPS, M=32):
@@ -185,11 +202,13 @@ def mixed_scans(T=MIXED_STEPS, M=32):
     return np.stack([zr, zb], axis=-1), mask
 
 
-def mixed_runner(dev, P=512, T=MIXED_STEPS):
-    """The mixed bench's ScanRunner at P particles over T scans."""
+def mixed_runner(dev, P=512, T=MIXED_STEPS, **overrides):
+    """The mixed bench's ScanRunner at P particles over T scans (with
+    ``overrides`` on its configuration)."""
     from phdslam_tpu_torch.slam import ScanRunner
     z, mask = mixed_scans(T)
-    return ScanRunner(mixed_cfg(P), z, mask, MIXED_DT, device=dev)
+    return ScanRunner(mixed_cfg(P, **overrides), z, mask, MIXED_DT,
+                      device=dev)
 
 
 def _clone(x):
@@ -212,7 +231,7 @@ def capture_runner(dev, run, P=None):
     kind, cfg_path, data, P0, overrides, _, _ = CAPTURED[run]
     P = P or P0
     if kind == "mixed":
-        return mixed_runner(dev, P), phd
+        return mixed_runner(dev, P, **overrides), phd
     cfg = load_config(cfg_path, dict(overrides, n_particles=P))
     if kind == "disparity":
         return DisparityRunner(cfg, data, device=dev), disparity
@@ -389,6 +408,7 @@ def digest(tensors):
 _ACK_SCENE = ("scene", "cfg/ackerman.cfg", 512, 128, 48, 44, 16)
 _MIXED_SCENE = ("scene", "cfg/ackerman.cfg", 512, 128, 32, 24, 16)
 _DENSE_SCENE = ("scene", "cfg/dense.cfg", 1024, 1024, 72, 65, 32)
+_K2048_SCENE = ("scene", "cfg/dense.cfg", 1024, 2048, 72, 65, 32)
 DETECT_TIMED = {
     "ackerman": (_ACK_SCENE, (False, False, True)),
     "ackerman adaptive": (_ACK_SCENE, (False, True, True)),
@@ -405,6 +425,9 @@ DETECT_TIMED = {
                                 None),
     "dense cons adaptive captured": (
         ("captured", "dense consolidating + adaptive"), None),
+    # detect_wide, the path at max_features 2048
+    "dense K2048": (_K2048_SCENE, (False, False, True)),
+    "dense K2048 captured": (("captured", "dense K2048"), None),
 }
 
 

@@ -1,7 +1,8 @@
 """Times the port's merge kernels at every shape the paths launch.
 
     python3 merge_bench.py [--root DIR] [--label NAME] [--out FILE]
-                           [--expect FILE]
+                           [--expect FILE] [--expect-counts FILE]
+                           [--keep DIR] [--only TEXT]
 
 Needs one NVIDIA GPU; imports no jax. ``phdslam_tpu_torch`` is imported
 from DIR (default: the directory of this script), so that two checkouts can
@@ -31,7 +32,16 @@ merge2d variant and both merge2d_tables metrics, and through merge3d and
 merge4d up to their 2048 lanes, checked and digested the same way,
 untimed. ``--out FILE`` keeps the lines; ``--expect FILE``
 requires every case's digest to equal the one in FILE (another checkout's
-run on the same inputs): the two kernels then agree bit for bit.
+run on the same inputs): the two kernels then agree bit for bit
+(``--keep DIR`` makes the runs merge the same captured steps);
+``--expect-counts FILE`` requires only the cluster and leftover counts
+(``counts_sha``) to repeat FILE's: the same clusters, summed in another
+order. The staged wide-lane variants are timed too: at the paths' shapes
+(the mixed full grid's dynamic map at step 40 and the dense full grid's
+whole launch at step 20, both argmax mode; their twins and the round
+replay on the lanes that enter, :func:`entering_planes`) and at
+``WIDE_EDGES`` in every merge2d variant and both merge2d_tables metrics
+(``wide_runs``), held to the twin by :func:`check_merge_rows`.
 
 This module is also the one home of the merges' synthetic inputs, their
 bounds and their edge cases; ``chip_smoke.py`` and the tests import them.
@@ -417,6 +427,71 @@ def check_merge(got, want, label, D=2):
     return max_err(list(zip(g[:3], w[:3]))), g[3]
 
 
+def boundary_flip(row, sep, got, want, metric=0):
+    """Whether one particle's merge outputs, the kernel's ``got`` and the
+    twin's ``want`` (merge tuples of that row), part only where a lane
+    lies at the merge threshold: replaying the twin's greedy rounds (its
+    f32 distance) up to the first cluster that differs, the two clusters'
+    weights must differ by the weight of lanes whose float64 distance to
+    that cluster's principal is within 1e-5 of min_sep (an f32 quotient
+    at min_sep decided in another order: the kernel evaluates the Pallas
+    kernel's closed form in strict IEEE f32, the twin inverts the averaged
+    covariance first). Returns (explained, the cluster, those lanes'
+    distances). Any dimension (the planes' count says which) and either
+    metric (``metric`` 1: Hellinger)."""
+    from phdslam_tpu_torch.ops.gm_merge import unpack_planes
+    from phdslam_tpu_torch.ops.math import (hellinger2, mahalanobis2,
+                                            mahalanobis2_3d,
+                                            mahalanobis2_4d)
+    D = MERGE_DIMS[row.shape[0]]
+    dist = hellinger2 if metric else {2: mahalanobis2, 3: mahalanobis2_3d,
+                                      4: mahalanobis2_4d}[D]
+    mean, cov, w, act = unpack_planes(row[None], D)
+    mean, cov, w = mean[0], cov[0], w[0]
+    unmerged = act[0] & (w > 0)
+    off = ((got[0] - want[0]).abs().amax(-1) > 1e-5 + 1e-4 * want[0].abs()
+           .amax(-1)) | ((got[2] - want[2]).abs() > 1e-5 + 1e-4 * want[2])
+    c = int(torch.nonzero(off)[0])
+    for k in range(c + 1):
+        i = int(torch.argmax(torch.where(unmerged, w, -torch.inf)))
+        d = dist(mean[i][None], cov[i][None], mean, cov)
+        sel = (unmerged & (d < sep)) | (torch.arange(len(w)) == i)
+        if k < c:
+            unmerged &= ~sel
+    d64 = dist(mean[i][None].double(), cov[i][None].double(), mean.double(),
+               cov.double())
+    edge = unmerged & ((d64 - sep).abs() <= 1e-5 * sep)
+    gap = abs(float(got[2][c]) - float(want[2][c]))
+    explained = bool(edge.any()) and gap <= float(w[edge].sum()) * 1.0001 \
+        + 1e-7
+    return explained, c, [round(float(x), 9) for x in d64[edge]]
+
+
+def check_merge_rows(got, want, packed, sep, label, metric=0):
+    """A merge's outputs ``got`` against the twin's ``want`` (merge
+    tuples) on the same planes: equal cluster and leftover counts and
+    rtol 1e-4 / atol 1e-5 in every particle, except a particle whose two
+    merges part at a lane on the merge threshold (:func:`boundary_flip`).
+    Returns the count of such particles and the largest |difference| of
+    the others."""
+    got = [x.cpu() for x in got]
+    close = torch.ones(got[2].shape[0], dtype=torch.bool)
+    for g, w in zip(got[:3], want[:3]):
+        ok = torch.isclose(g, w, rtol=1e-4, atol=1e-5)
+        close &= ok.reshape(ok.shape[0], -1).all(dim=1)
+    close &= (got[3] == want[3]) & (got[4] == want[4])
+    flips = []
+    for p in torch.nonzero(~close)[:, 0].tolist():
+        explained, c, dists = boundary_flip(
+            packed[p].cpu(), sep, [x[p] for x in got], [x[p] for x in want],
+            metric)
+        require(explained, f"{label}: particle {p} parts from the twin at "
+                f"cluster {c} with no lane at the merge threshold")
+        flips.append((p, c, dists))
+    err = max_err([(g[close], w[close]) for g, w in zip(got[:3], want[:3])])
+    return flips, err
+
+
 # ----------------------------------------------------------------------------
 # the timed cases
 # ----------------------------------------------------------------------------
@@ -449,7 +524,19 @@ MERGE_TIMED = {
     "merge3d": (("packed", "merge3d"), True, 0),
     "merge4d mixed captured": (("captured", "mixed"), True, 0),
     "merge3d disparity captured": (("captured", "disparity"), True, 0),
+    # the staged wide-lane variants where the paths launch them: the mixed
+    # full grid's dynamic map (step 40 of the mixed bench with both caps 0,
+    # P=512, N=4256) and the dense full grid's whole launch (step 20 of
+    # data/dense with cap 0, P=1024, N=74 824), both in argmax mode
+    "merge4d_argmax_wide mixed full grid captured": (
+        ("captured", "mixed full grid"), False, 0),
+    "merge2d_argmax_wide dense full grid captured": (
+        ("captured", "dense full grid"), False, 0),
 }
+# the staged variants on WIDE_EDGES, timed: every merge2d variant and both
+# merge2d_tables metrics above the narrow limit (N 8448), and forced at it
+# (N 8192)
+WIDE_TIMED = tuple(WIDE_EDGES)
 
 
 def _scene_tables(dev, source):
@@ -473,21 +560,41 @@ def tables_planes(tabs):
     return merge.tables_packed(*tabs)
 
 
-def timed_case(dev, name, captured):
+def kept_capture(dev, run, keep=None):
+    """capture_step(dev, run), or with ``keep`` (a directory) the capture
+    kept there by an earlier run, written there when there is none: the
+    staged merges' paths feed their own outputs forward, so two checkouts
+    whose kernels part in the last bits capture different steps; kept, both
+    merge the same inputs."""
+    if keep is None:
+        return capture_step(dev, run)
+    import os
+    path = os.path.join(keep, run.replace(" ", "_") + ".pt")
+    if os.path.exists(path):
+        calls, step = torch.load(path, map_location=dev)
+        return calls, step
+    calls, step = capture_step(dev, run)
+    os.makedirs(keep, exist_ok=True)
+    torch.save((calls, step), path)
+    return calls, step
+
+
+def timed_case(dev, name, captured, keep=None):
     """(tables operands or None, packed planes or None, K, min_sep,
     sorted_w, metric, step) of MERGE_TIMED[name]: a tables case has the
-    operands and no planes."""
+    operands and no planes. ``keep``: :func:`kept_capture`'s directory."""
     from phdslam_tpu_torch.filters.phd import _finish_candidates_packed
     source, sorted_w, metric = MERGE_TIMED[name]
     sep = HELL_SEP if metric else MIN_SEP
     if source[0] == "captured":
         if source[1] not in captured:
-            captured[source[1]] = capture_step(dev, source[1])
+            captured[source[1]] = kept_capture(dev, source[1], keep)
         calls, step = captured[source[1]]
         for name in ("merge3d", "merge4d"):
             if name in calls:
-                (packed, sep, K), _ = calls[name]
-                return None, packed, K, sep, True, 0, step
+                (packed, sep, K), kw = calls[name]
+                return (None, packed, K, sep, kw.get("sorted_w", True),
+                        kw.get("metric", 0), step)
         if "merge2d_tables" in calls:
             args, kw = calls["merge2d_tables"]
             return (tuple(args[:4]), None, args[5], args[4], True,
@@ -513,18 +620,47 @@ def timed_case(dev, name, captured):
             None)
 
 
-def plan_of(P, N, sorted_w, metric, tables, D=2):
+def plan_of(P, N, sorted_w, metric, tables, D=2, wide=None):
     """The checkout's launch plan (None where it reports none)."""
     from phdslam_tpu_torch.kernels import merge
+    kw = {} if wide is None else {"wide": wide}
     if D != 2:
         if not hasattr(merge, "merge_plan"):
             return None
-        if sorted_w and metric == 0:
+        if sorted_w and metric == 0 and not kw:
             return merge.merge_plan(D, P, N)
-        return merge.merge_plan(D, P, N, sorted_w=sorted_w, metric=metric)
+        return merge.merge_plan(D, P, N, sorted_w=sorted_w, metric=metric,
+                                **kw)
     if not hasattr(merge, "merge2d_plan"):
         return None
-    return merge.merge2d_plan(P, N, sorted_w, metric, tables)
+    return merge.merge2d_plan(P, N, sorted_w, metric, tables, **kw)
+
+
+def wide_runs(dev):
+    """(label, tables operands or None, packed, K, min_sep, sorted_w,
+    metric, wide) of WIDE_TIMED: each case in every merge2d variant and in
+    merge2d_tables at both metrics, the staged variant forced where the
+    case is within the narrow kernel's lanes."""
+    from phdslam_tpu_torch.kernels.merge import NARROW_LANES
+    runs = []
+    for name in WIDE_TIMED:
+        N = WIDE_EDGES[name][1]
+        wide = True if N <= NARROW_LANES[2] else None
+        for sorted_w in (True, False):
+            planes, K = merge_edge_case(name, sorted_w)
+            packed = torch.from_numpy(planes).to(dev)
+            for metric in (0, 1):
+                runs.append((f"wide {name} merge2d sorted_w={sorted_w} "
+                             f"metric={metric}", None, packed, K,
+                             HELL_SEP if metric else MIN_SEP, sorted_w,
+                             metric, wide))
+        *tabs, K = tables_edge_case(name)
+        tabs = tuple(torch.from_numpy(x).to(dev) for x in tabs)
+        for metric in (0, 1):
+            runs.append((f"wide {name} merge2d_tables metric={metric}", tabs,
+                         None, K, HELL_SEP if metric else MIN_SEP, True,
+                         metric, wide))
+    return runs
 
 
 def case_bound(tabs, packed, K, metric):
@@ -538,9 +674,33 @@ def case_bound(tabs, packed, K, metric):
     return merge_bound(packed, K, OUT_PLANES[D], flops)
 
 
-def run_case(tabs, packed, K, sep, sorted_w, metric, label):
-    """One merge call against its twin. Returns (fn, launch name, output,
-    max |err|)."""
+def entering_planes(packed):
+    """The planes with only the lanes whose act > 0.5, in lane order,
+    padded with inactive lanes to the largest count: no other lane enters
+    a merge in either mode, so every merge gives the same output on them
+    (the twin and the round replay at the full grid's 74 824 lanes)."""
+    act = packed[:, 1] > 0.5
+    n = max(int(act.sum(dim=1).max()), 1)
+    order = torch.sort((~act).to(torch.int8), dim=1, stable=True).indices
+    out = torch.gather(packed, 2, order[:, None, :n].expand(
+        -1, packed.shape[1], -1))
+    keep = torch.gather(act, 1, order[:, :n])[:, None]
+    D = MERGE_DIMS[packed.shape[1]]
+    blank = torch.zeros_like(out[:1, :, :1])
+    for q, (a, b) in enumerate((a, b) for a in range(D)
+                               for b in range(a, D)):
+        blank[:, 2 + D + q] = float(a == b)
+    return torch.where(keep, out, blank).contiguous()
+
+
+# above this many lanes the twin and the round replay run on
+# :func:`entering_planes`
+TWIN_COMPACT_LANES = 8192
+
+
+def run_case(tabs, packed, K, sep, sorted_w, metric, label, wide=None):
+    """One merge call against its twin (``wide=True``: the staged variant
+    forced). Returns (fn, launch name, output, max |err|)."""
     from phdslam_tpu_torch.kernels import build
     from phdslam_tpu_torch.kernels import merge
     from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
@@ -548,12 +708,16 @@ def run_case(tabs, packed, K, sep, sorted_w, metric, label):
                                                  merge2d_tables_reference,
                                                  merge2d_variant)
     D = 2 if tabs is not None else MERGE_DIMS[packed.shape[1]]
+    kw_w = {} if wide is None else {"wide": wide}
+    twin_in = packed
+    if packed is not None and packed.shape[2] > TWIN_COMPACT_LANES:
+        twin_in = entering_planes(packed)
     if D != 2 and sorted_w and metric == 0:
         kern = getattr(merge, f"merge{D}d")
 
         def fn():
-            return kern(packed, sep, K)
-        want = getattr(merge, f"merge{D}d_reference")(packed, sep, K)
+            return kern(packed, sep, K, **kw_w)
+        want = getattr(merge, f"merge{D}d_reference")(twin_in, sep, K)
         name = f"merge{D}d"
     elif D != 2:
         # the variants of merge.VARIANTS_3D4D (argmax 4D, Hellinger 3D/4D)
@@ -563,25 +727,38 @@ def run_case(tabs, packed, K, sep, sorted_w, metric, label):
                                                      metric=metric)
 
         def fn():
-            return kern(packed, sep, K, **kw)
-        want = ref(packed, sep, K, **kw)
+            return kern(packed, sep, K, **kw, **kw_w)
+        want = ref(twin_in, sep, K, **kw)
         name = merge2d_variant(sorted_w, metric, D=D)
     elif tabs is not None:
         def fn():
-            return merge2d_tables(*tabs, sep, K, metric)
+            return merge2d_tables(*tabs, sep, K, metric, **kw_w)
         want = merge2d_tables_reference(*tabs, sep, K, metric)
         name = merge2d_variant(True, metric, tables=True)
     else:
         def fn():
-            return merge2d(packed, sep, K, sorted_w, metric)
-        want = merge2d_reference(packed, sep, K, sorted_w, metric)
+            return merge2d(packed, sep, K, sorted_w, metric, **kw_w)
+        want = merge2d_reference(twin_in, sep, K, sorted_w, metric)
         name = merge2d_variant(sorted_w, metric)
+    N = (packed if tabs is None else tabs[0]).shape[2]
+    if wide or (wide is None and hasattr(merge, "NARROW_LANES")
+                and N > merge.NARROW_LANES[D]):
+        name += "_wide"
     build.reset_launch_counts()
     got = fn()
     torch.cuda.synchronize()
     require(dict(build.launch_counts) == {name: 1},
             f"{label}: launched {dict(build.launch_counts)}, not {name}")
-    err, _ = check_merge(got, want, label, D)
+    if name.endswith("_wide"):
+        # the staged variants' gate (another order of the sums): a row may
+        # part from the twin only at a lane on the merge threshold
+        from phdslam_tpu_torch.ops.gm_merge import merge_out
+        planes = twin_in if tabs is None else tables_planes(tabs)
+        _, err = check_merge_rows(merge_out(got, D),
+                                  [x.cpu() for x in merge_out(want, D)],
+                                  planes, sep, label, metric)
+    else:
+        err, _ = check_merge(got, want, label, D)
     return fn, name, got, err
 
 
@@ -634,12 +811,25 @@ def main():
     ap.add_argument("--out", help="also write the JSON lines to this file")
     ap.add_argument("--expect", help="JSON lines of another run whose "
                     "output digests every case must repeat")
+    ap.add_argument("--expect-counts", help="JSON lines of another run "
+                    "whose cluster and leftover counts every case must "
+                    "repeat (counts_sha)")
+    ap.add_argument("--keep", help="directory of captured steps shared "
+                    "between runs (kept_capture)")
+    ap.add_argument("--only", help="run only the cases whose name holds "
+                    "this text")
     args = ap.parse_args()
     card = open_checkout("merge_bench.py", args.root)
+    from phdslam_tpu_torch.ops.gm_merge import merge_out
     expect = {}
     if args.expect:
         with open(args.expect) as f:
             expect = {d["case"]: d["out_sha"] for d in map(json.loads, f)}
+    expect_counts = {}
+    if args.expect_counts:
+        with open(args.expect_counts) as f:
+            expect_counts = {d["case"]: d.get("counts_sha")
+                             for d in map(json.loads, f)}
     dev = torch.device("cuda:0")
     captured = {}
     lines = []
@@ -654,14 +844,27 @@ def main():
                 "out_sha"]
             if not line["matches_expected"]:
                 mismatched.append(line["case"])
+        if expect_counts and line["case"] in expect_counts:
+            line["counts_match"] = expect_counts[line["case"]] == line.get(
+                "counts_sha")
+            if not line["counts_match"]:
+                mismatched.append(f"{line['case']} (counts)")
         lines.append(json.dumps(line))
         print(lines[-1], flush=True)
 
-    for name in MERGE_TIMED:
-        tabs, packed, K, sep, sorted_w, metric, step = timed_case(
-            dev, name, captured)
+    def counts_sha(got, D):
+        return digest(merge_out(got, D)[3:5])
+
+    def chosen(case):
+        return args.only is None or args.only in case
+    timed = [(name, *timed_case(dev, name, captured, args.keep), None)
+             for name in MERGE_TIMED if chosen(name)]
+    timed += [(label, tabs, packed, K, sep, sorted_w, metric, None, wide)
+              for label, tabs, packed, K, sep, sorted_w, metric, wide
+              in wide_runs(dev) if chosen(label)]
+    for name, tabs, packed, K, sep, sorted_w, metric, step, wide in timed:
         fn, launched, got, err = run_case(tabs, packed, K, sep, sorted_w,
-                                          metric, name)
+                                          metric, name, wide)
         calls_ms = [time_call(fn) for _ in range(2)]
         b_ms, b_by = case_bound(tabs, packed, K, metric)
         if tabs is not None:
@@ -670,18 +873,24 @@ def main():
         else:
             P, _, N = packed.shape
         D = 2 if packed is None else MERGE_DIMS[packed.shape[1]]
-        stats = None if packed is None else round_stats(
-            *merge_rounds(packed, sep, K, sorted_w, metric))
+        stats = None if packed is None else round_stats(*merge_rounds(
+            entering_planes(packed) if N > TWIN_COMPACT_LANES else packed,
+            sep, K, sorted_w, metric))
         emit({"label": args.label, "case": name, "launched": launched,
               "step": step, "P": P, "N": N, "K": K, "min_sep": sep,
               "call_ms": min(calls_ms), "graph_ms": graph_ms(fn),
               "bound_ms": b_ms, "bound_by": b_by, "lanes": stats,
-              "plan": plan_of(P, N, sorted_w, metric, tabs is not None, D),
+              "plan": plan_of(P, N, sorted_w, metric, tabs is not None, D,
+                              wide),
               "max_abs_err": err, "out_sha": digest((got,)),
+              "counts_sha": counts_sha(got, D),
               "in_sha": digest(tabs if tabs is not None else (packed,)),
               "card": card})
+        del fn, got
     failed = []
     for label, tabs, packed, K, sep, sorted_w, metric in edge_runs(dev):
+        if not chosen(label):
+            continue
         P, _, N = (packed if tabs is None else tabs[0]).shape
         try:
             _, launched, got, err = run_case(tabs, packed, K, sep, sorted_w,
@@ -701,7 +910,8 @@ def main():
         emit({"label": args.label, "case": label, "launched": launched,
               "P": P, "N": N, "K": K, "lanes": stats,
               "plan": plan_of(P, N, sorted_w, metric, tabs is not None, D),
-              "max_abs_err": err, "out_sha": digest((got,)), "card": card})
+              "max_abs_err": err, "out_sha": digest((got,)),
+              "counts_sha": counts_sha(got, D), "card": card})
     if args.out:
         with open(args.out, "w") as f:
             f.write("".join(f"{line}\n" for line in lines))

@@ -571,17 +571,27 @@ detect_cons_kernel(const float* __restrict__ planes,
 // ---------------------------------------------------------------------------
 // The wide variants: any K (the wrapper takes them above 1024, where the
 // narrow kernels' 32 features a lane no longer fit). A warp per row, as
-// above, but the row is never held whole: the planes are read from device
-// memory (a particle's stay in L1 / L2), the normalizer sums each lane's
-// features k = lane + 32 j with j ascending and then the butterfly (the
-// narrow kernels' order, so the same bits), and the selection walks the
-// row in tiles of 1024 features (32 a lane), each tile's top min(T, 32)
-// (select_sorted) merged into a running top 32: the better of running
-// slot t and the tile's slot 31 - t is the top 32 of the two as a bitonic
-// sequence, which warp_sort orders. The order (value descending, index
-// ascending) is total, so the tiles give the narrow kernels' selection.
-// T > 32 with more than 32 eligible lanes (no shipped configuration) runs
-// trips over the whole row instead, each after the previous pick.
+// above, but the row is never held whole in registers; the normalizer
+// sums each lane's features k = lane + 32 j with j ascending and then the
+// butterfly (the narrow kernels' order, so the same bits). wide_select
+// walks a row in tiles of 1024 features (32 a lane), each tile's top
+// min(T, 32) (select_sorted) merged into a running top 32: the better of
+// running slot t and the tile's slot 31 - t is the top 32 of the two as a
+// bitonic sequence, which warp_sort orders. The order (value descending,
+// index ascending) is total, so the tiles give the narrow kernels'
+// selection. T > 32 with more than 32 eligible lanes (no shipped
+// configuration) runs trips over the whole row instead, each after the
+// previous pick.
+//
+// What the first plain wide kernel lost at K = 2048 (the dense
+// path at max_features 2048: 1.957 ms on the device, 41x its 0.047 ms
+// bound): it evaluated each lane's pdw twice (normalizer and keys), read
+// the particle's planes from device memory for every row, and ran the
+// tile selection (31 warp-wide counts, a compaction and a sort) on every
+// tile with a live lane, where a dense row has a few. detect_wide_kernel
+// stages the planes once by TMA where they fit (K <= 4096), evaluates pdw
+// once while keeping the row's few candidate lanes, and selects among
+// them (see the kernel); detect_cons_wide_kernel keeps the first design.
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 32;          // features a lane a tile
@@ -684,36 +694,144 @@ __device__ __forceinline__ float wide_norm(const float* sp, int K, int lane,
   return sum + cb;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// detect_wide_kernel's per-warp buffer: a row's candidate lanes (value,
+// feature), in feature order
+constexpr int kCandPerLane = 4;
+constexpr int kCand = 32 * kCandPerLane;
+struct Cand {
+  float v[kCand];
+  int i[kCand];
+};
+
+// The planes staged in shared memory up to this many floats (the narrow
+// kernels' K = 1024 slab and, with it, K <= 4096); a wider particle's are
+// read from device memory
+constexpr int kWideStaged = kPdwPlanes * 4096;
+
+// dynamic shared memory of detect_wide_kernel: the staged planes (where
+// they fit) and each warp's Slots and Cand
+size_t wide_smem(int K) {
+  const size_t planes = kPdwPlanes * K <= kWideStaged ? slots_offset(K)
+                                                      : 16;
+  return planes + kWarps * (sizeof(Slots) + sizeof(Cand));
+}
+
+// A warp per row. Pass 1 evaluates each feature's pdw once (lane_pdw, as
+// the narrow kernels), sums it in their order (each lane's features
+// k = lane + 32 j with j ascending, then the butterfly) and keeps the
+// candidates, the lanes with pdw > 0 and pdw >= min_fw * cb, in feature
+// order in the warp's Cand buffer: every live lane is one, since the
+// normalizer is at least cb (pdw >= 0; f32 sums and products are
+// monotone), so the live threshold min_fw * norm is at least min_fw * cb
+// (min_fw >= 0; a negative min_fw makes every pdw > 0 a candidate). With
+// the normalizer the live lanes are found among the candidates: at most
+// 32 are compacted by ballot and sorted (the narrow kernels' whole-row
+// path); more, at T <= 32, go through the bit-by-bit threshold over the
+// candidates' keys (4 a lane, in feature order, so the ties keep the
+// lowest feature). Only a row with more than kCand candidates (min_fw 0,
+// or a scene where most features gate) or with more than 32 live lanes
+// at T > 32 walks the whole row again (wide_select, pdw recomputed): the
+// same pdw, sum order and total order give the first design's bits in
+// every case.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 detect_wide_kernel(const float* __restrict__ planes,
                    const float* __restrict__ z4, float* __restrict__ vals,
                    int* __restrict__ idx, float* __restrict__ norm,
                    int* __restrict__ count, int K, int M, int T, float min_fw,
                    float cb) {
-  __shared__ Slots slots[kWarps];
+  // [barrier + staged [6, K] planes of particle p, where they fit] |
+  // Slots [kWarps] | Cand [kWarps]
+  extern __shared__ __align__(16) unsigned char smem[];
   const int p = blockIdx.x;
-  const float* sp = planes + static_cast<size_t>(p) * kPdwPlanes * K;
+  const float* gp = planes + static_cast<size_t>(p) * kPdwPlanes * K;
+  const bool staged = kPdwPlanes * K <= kWideStaged;
+  uint64_t* bar = nullptr;
+  const float* sp =
+      staged ? phd::stage_slab(gp, kPdwPlanes * K, smem, &bar) : gp;
+  Slots* slots =
+      reinterpret_cast<Slots*>(smem + (staged ? slots_offset(K) : 16));
+  Cand* cands = reinterpret_cast<Cand*>(slots + kWarps);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  Slots& sl = slots[warp];
+  Cand& cd = cands[warp];
+  const float lb = min_fw >= 0.f ? min_fw * cb : 0.f;
+  if (staged) {
+    __syncthreads();                    // the slab's head and tail
+    phd::mbar_wait(bar, 0);             // its bulk-copied middle
+  }
   for (int m = warp; m < M; m += kWarps) {
     const float zr = z4[4 * m], zb = z4[4 * m + 1];
     const bool zvalid = z4[4 * m + 2] > 0.5f;
-    const float nrm = wide_norm(sp, K, lane, zr, zb, zvalid, cb);
+    // pass 1: pdw once, the normalizer's sum, the candidates
+    float sum = 0.f;
+    int n_cand = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + lane;
+      float v = 0.f;
+      if (k < K && zvalid) {
+        float ir, ib;
+        v = lane_pdw(sp, K, k, zr, zb, ir, ib);
+      }
+      sum += v;
+      const bool cand = v >= lb && v > 0.f;
+      const unsigned bc = __ballot_sync(kFull, cand);
+      const int q = n_cand + __popc(bc & below);
+      if (cand && q < kCand) {
+        cd.v[q] = v;
+        cd.i[q] = k;
+      }
+      n_cand += __popc(bc);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    const float nrm = sum + cb;
     const float thr = min_fw * nrm;
-    const auto key = [&](int k) -> unsigned {
-      if (k >= K || !zvalid) return 0u;
-      float ir, ib;
-      const float v = lane_pdw(sp, K, k, zr, zb, ir, ib);
-      return v >= thr && v > 0.f ? __float_as_uint(v) : 0u;
-    };
+    __syncwarp();
     const size_t row = static_cast<size_t>(p) * M + m;
-    const int cnt =
-        wide_select(key, K, T, lane, slots[warp], vals + row * T,
-                    idx + row * T);
+    float* vrow = vals + row * T;
+    int* irow = idx + row * T;
+    // pass 2: the live lanes among the candidates, keys in feature order
+    unsigned key[kCandPerLane];
+    int cnt = 0;
+#pragma unroll
+    for (int u = 0; u < kCandPerLane; ++u) {
+      const int q = lane + 32 * u;
+      const float v = q < n_cand && q < kCand ? cd.v[q] : 0.f;
+      const bool live = v >= thr && v > 0.f;
+      key[u] = live ? __float_as_uint(v) : 0u;
+      cnt += live;
+    }
+    cnt = __reduce_add_sync(kFull, cnt);
+    if (n_cand > kCand || (cnt > 32 && T > 32)) {
+      const auto rekey = [&](int k) -> unsigned {
+        if (k >= K || !zvalid) return 0u;
+        float ir, ib;
+        const float v = lane_pdw(sp, K, k, zr, zb, ir, ib);
+        return v >= thr && v > 0.f ? __float_as_uint(v) : 0u;
+      };
+      cnt = wide_select(rekey, K, T, lane, sl, vrow, irow);
+    } else if (cnt == 0) {
+      write_row(0.f, 0, 0, T, lane, vrow, irow);
+    } else {
+      // select_sorted over candidate positions (their order is the
+      // features'), then each position's feature
+      int r;
+      const unsigned thr_k = top_threshold<kCandPerLane>(key, cnt, T, r);
+      float v;
+      int i;
+      const int n_sel =
+          select_sorted<kCandPerLane>(key, thr_k, r, lane, sl, 0, v, i);
+      if (lane < n_sel) i = cd.i[i];
+      write_row(v, i, n_sel, T, lane, vrow, irow);
+    }
     if (lane == 0) {
       norm[row] = nrm;
       count[row] = cnt;
     }
+    __syncwarp();                        // the warp's Cand is free again
   }
 }
 
@@ -784,6 +902,13 @@ detect_cons_wide_kernel(const float* __restrict__ planes,
   }
 }
 
+// Allows detect_wide_kernel the dynamic shared memory of a launch
+cudaError_t allow_wide(size_t smem) {
+  static int allowed[phd::kMaxDevices] = {};
+  return phd::allow_smem(detect_wide_kernel, static_cast<int>(smem),
+                         allowed);
+}
+
 struct Args {
   const float* planes;
   const float* z4;
@@ -847,6 +972,29 @@ extern "C" int phd_detect(const float* planes, const float* z4, float* vals,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// detect_wide_kernel's launch at K features on the current device, into
+// out[5]: threads a block, dynamic shared memory (bytes), 1 where the
+// planes are staged in shared memory (0: read from device memory),
+// registers a thread, resident blocks an SM
+extern "C" int phd_detect_wide_plan(int K, int* out) {
+  if (K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = wide_smem(K);
+  cudaError_t err = allow_wide(smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, detect_wide_kernel);
+  int occ = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, detect_wide_kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[5] = {kThreads, static_cast<int>(smem),
+                       kPdwPlanes * K <= kWideStaged ? 1 : 0, attr.numRegs,
+                       occ};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  return 0;
+}
+
 // The wide variants at any K (the wrapper takes them above 1024): cons ==
 // nullptr runs the plain one on planes [P, 6, K], otherwise the
 // consolidating one on planes [P, 13, K], writing cons [P, 10, K], with
@@ -860,10 +1008,13 @@ extern "C" int phd_detect_wide(const float* planes, const float* z4,
   if (T <= 0 || T > K || (cons != nullptr && words == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cons == nullptr)
-    detect_wide_kernel<<<P, kThreads, 0, s>>>(planes, z4, vals, idx, norm,
-                                              count, K, M, T, min_fw, cb);
-  else
+  if (cons == nullptr) {
+    const size_t smem = wide_smem(K);
+    const cudaError_t err = allow_wide(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    detect_wide_kernel<<<P, kThreads, smem, s>>>(planes, z4, vals, idx, norm,
+                                                 count, K, M, T, min_fw, cb);
+  } else
     detect_cons_wide_kernel<<<P, kThreads, 0, s>>>(
         planes, z4, vals, idx, norm, count, cons, words, K, M, T, min_fw, cb,
         min_sep);

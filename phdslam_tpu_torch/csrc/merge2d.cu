@@ -1068,7 +1068,26 @@ int run_tables(const int* ints, const float* flts, const float* tk,
 // the staged wide-lane variants (merge_wide.cuh): any N, for N > 8192
 // ---------------------------------------------------------------------------
 
+// The staged variants' block: 256 threads, or 128 where the launch needs
+// more than two resident blocks an SM (many_blocks): their rounds are
+// latency-bound, and at the dense full grid's P = 1024 four 128-thread
+// blocks an SM take 0.49 ms against two 256-thread ones' 0.70, while at
+// a few particles (one block an SM, merge_bench.WIDE_EDGES) 128 threads
+// take 1.06-1.22x the first staged design's time and 256 threads
+// 0.67-0.73x (merge_bench.py, H100 80GB HBM3 at 700 W; PERF.md section 6)
 constexpr int kWideThreads = 256;
+constexpr int kWideThreadsMany = 128;
+
+// Whether P particles need more than two resident blocks an SM of the
+// current device (``many``), or the CUDA error that asking gave
+int many_blocks(int P, bool& many) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  many = P > 2 * sms;
+  return static_cast<int>(e);
+}
 
 // pair_dist<0> and pair_dist<1> in merge_wide.cuh's terms: d = principal
 // - candidate mean, S the averaged covariance (Mahalanobis), or the
@@ -1101,72 +1120,80 @@ struct Hell2 : Gauss2 {
 };
 
 // The fused route's wide variant: merge2d_tables_kernel's lanes, staged
-// in lane order (entries past E into ``spill`` [P, kPlanes, X]), on the
-// wide rounds; lanes / states: [P, N] scratch
+// in lane order (entries past E into ``spill`` [P, kPlanes, X] and
+// ``gstate`` [P, X]), on the wide rounds
 template <class G>
 __global__ void __launch_bounds__(kWideThreads)
 tables_wide_kernel(const int* __restrict__ ints,
                    const float* __restrict__ flts,
                    const float* __restrict__ tk, const float* __restrict__ tm,
-                   int* __restrict__ lanes, unsigned char* __restrict__ states,
-                   float* __restrict__ spill, float* __restrict__ out, int N,
-                   int Kt, int Mt, int K, float min_sep, int E, int X) {
-  extern __shared__ float s[];                       // [kPlanes][E]
-  __shared__ phd_wide::Shared<G, kWideThreads> sh;
+                   float* __restrict__ spill,
+                   unsigned char* __restrict__ gstate,
+                   float* __restrict__ out, int N, int Kt, int Mt, int K,
+                   float min_sep, int E, int X) {
+  extern __shared__ float s[];                  // [kPlanes][E], [E] states
+  __shared__ phd_wide::Shared<G, kWideThreads, kR> sh;
   const size_t p = blockIdx.x;
   const int* ip = ints + p * 4 * N;
   const float* fp = flts + p * 2 * N;
   const float* tkp = tk + p * kTablesK * Kt;
   const float* tmp = tm + p * kTablesM * Mt;
   const phd_wide::Entries<kPlanes> en{
-      s, E, lanes + p * N, states + p * N, nullptr, N,
-      X > 0 ? spill + p * kPlanes * X : nullptr, X};
-  int n_e = 0, parity = 0;
-  for (int i0 = 0; i0 < N; i0 += kWideThreads, parity ^= 1) {
-    const int i = i0 + threadIdx.x;
-    const bool enter = i < N && fp[N + i] > 0.5f && fp[i] > 0.f;
-    int total;
-    const int e = n_e + phd_wide::chunk_slot(enter, parity, sh, total);
-    if (enter) {
-      en.lane[e] = i;
-      en.state[e] = phd_wide::kFree;
-      float v[kPlanes];
-      table_lane(ip, fp, tkp, tmp, N, Kt, Mt, i, v);
+      s, reinterpret_cast<unsigned char*>(s + kPlanes * E), E,
+      X > 0 ? spill + p * kPlanes * X : nullptr,
+      X > 0 ? gstate + p * X : nullptr, X};
+  unsigned kh[kR];
+  int ke[kR];
 #pragma unroll
-      for (int c = 0; c < kPlanes; ++c) en.put(c, e, v[c]);
-    }
-    n_e += total;
-  }
-  __syncthreads();
-  phd_wide::wide_rounds<G, kWideThreads, false>(en, n_e, out + p * 8 * K, K,
-                                               min_sep, sh);
+  for (int r = 0; r < kR; ++r) kh[r] = 0;
+  bool nan_seen = false;
+  const int n_e = phd_wide::stage<G, kWideThreads, kR, false>(
+      N, en, sh, [&](int i) { return fp[N + i] > 0.5f && fp[i] > 0.f; },
+      [&](int i, float (&v)[kPlanes]) {
+        table_lane(ip, fp, tkp, tmp, N, Kt, Mt, i, v);
+      },
+      kh, ke, nan_seen);
+  phd_wide::wide_rounds<G, kWideThreads, kR, false>(
+      en, n_e, kh, ke, nan_seen, out + p * 8 * K, K, min_sep, sh);
 }
 
-int run_wide(const float* packed, float* out, int* lanes,
-             unsigned char* states, int P, int N, int K, float min_sep,
-             int argmax, int metric, void* st, phd_wide::Plan* report) {
+template <int kThreads>
+int run_wide_n(const float* packed, float* out, float* spill,
+               unsigned char* gstate, int P, int N, int K, float min_sep,
+               int argmax, int metric, void* st, phd_wide::Plan* report) {
   using phd_wide::launch;
   if (argmax)
-    return metric ? launch<Hell2, kWideThreads, true>(
-                        packed, out, lanes, states, P, N, K, min_sep, st,
+    return metric ? launch<Hell2, kThreads, kR, true>(
+                        packed, out, spill, gstate, P, N, K, min_sep, st,
                         report)
-                  : launch<Gauss2, kWideThreads, true>(
-                        packed, out, lanes, states, P, N, K, min_sep, st,
+                  : launch<Gauss2, kThreads, kR, true>(
+                        packed, out, spill, gstate, P, N, K, min_sep, st,
                         report);
-  return metric ? launch<Hell2, kWideThreads, false>(
-                      packed, out, lanes, states, P, N, K, min_sep, st,
+  return metric ? launch<Hell2, kThreads, kR, false>(
+                      packed, out, spill, gstate, P, N, K, min_sep, st,
                       report)
-                : launch<Gauss2, kWideThreads, false>(
-                      packed, out, lanes, states, P, N, K, min_sep, st,
+                : launch<Gauss2, kThreads, kR, false>(
+                      packed, out, spill, gstate, P, N, K, min_sep, st,
                       report);
+}
+
+int run_wide(const float* packed, float* out, float* spill,
+             unsigned char* gstate, int P, int N, int K, float min_sep,
+             int argmax, int metric, void* st, phd_wide::Plan* report) {
+  bool many = false;
+  if (const int err = many_blocks(P, many)) return err;
+  return many ? run_wide_n<kWideThreadsMany>(packed, out, spill, gstate, P,
+                                             N, K, min_sep, argmax, metric,
+                                             st, report)
+              : run_wide_n<kWideThreads>(packed, out, spill, gstate, P, N, K,
+                                         min_sep, argmax, metric, st, report);
 }
 
 template <class G>
 int launch_tables_wide(const int* ints, const float* flts, const float* tk,
-                       const float* tm, int* lanes, unsigned char* states,
-                       float* spill, float* out, int P, int N, int Kt, int Mt,
-                       int K, float min_sep, void* st,
-                       phd_wide::Plan* report) {
+                       const float* tm, float* spill, unsigned char* gstate,
+                       float* out, int P, int N, int Kt, int Mt, int K,
+                       float min_sep, void* st, phd_wide::Plan* report) {
   constexpr auto kernel = tables_wide_kernel<G>;
   phd_wide::Plan plan;
   const int err =
@@ -1175,26 +1202,25 @@ int launch_tables_wide(const int* ints, const float* flts, const float* tk,
     if (report) *report = plan;
     return err;
   }
-  if (lanes == nullptr || states == nullptr ||
-      (plan.overflow > 0 && spill == nullptr))
+  if (plan.overflow > 0 && (spill == nullptr || gstate == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<P, kWideThreads, plan.smem, static_cast<cudaStream_t>(st)>>>(
-      ints, flts, tk, tm, lanes, states, spill, out, N, Kt, Mt, K, min_sep,
+      ints, flts, tk, tm, spill, gstate, out, N, Kt, Mt, K, min_sep,
       plan.entries, plan.overflow);
   return static_cast<int>(cudaGetLastError());
 }
 
 int run_tables_wide(const int* ints, const float* flts, const float* tk,
-                    const float* tm, int* lanes, unsigned char* states,
-                    float* spill, float* out, int P, int N, int Kt, int Mt,
-                    int K, float min_sep, int metric, void* st,
+                    const float* tm, float* spill, unsigned char* gstate,
+                    float* out, int P, int N, int Kt, int Mt, int K,
+                    float min_sep, int metric, void* st,
                     phd_wide::Plan* report) {
-  return metric ? launch_tables_wide<Hell2>(ints, flts, tk, tm, lanes, states,
-                                            spill, out, P, N, Kt, Mt, K,
-                                            min_sep, st, report)
-                : launch_tables_wide<Gauss2>(ints, flts, tk, tm, lanes,
-                                             states, spill, out, P, N, Kt,
-                                             Mt, K, min_sep, st, report);
+  return metric ? launch_tables_wide<Hell2>(ints, flts, tk, tm, spill, gstate,
+                                            out, P, N, Kt, Mt, K, min_sep, st,
+                                            report)
+                : launch_tables_wide<Gauss2>(ints, flts, tk, tm, spill,
+                                             gstate, out, P, N, Kt, Mt, K,
+                                             min_sep, st, report);
 }
 
 }  // namespace
@@ -1245,32 +1271,32 @@ extern "C" int phd_merge2d_plan(int P, int N, int argmax, int metric,
 }
 
 // The staged wide-lane variant at any N (the wrapper takes it above
-// 8192): lanes int[P, N] and states uint8[P, N] are scratch
-extern "C" int phd_merge2d_wide(const float* packed, float* out, int* lanes,
-                                unsigned char* states, int P, int N, int K,
-                                float min_sep, int argmax, int metric,
-                                void* stream) {
+// 8192): spill float[P, 6, X] and gstate uint8[P, X] are scratch for the
+// entries past the plan's shared ones (X: its overflow; null when 0)
+extern "C" int phd_merge2d_wide(const float* packed, float* out,
+                                float* spill, unsigned char* gstate, int P,
+                                int N, int K, float min_sep, int argmax,
+                                int metric, void* stream) {
   if (P <= 0 || K <= 0) return 0;
   if (N < 0 || (metric != 0 && metric != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  return run_wide(packed, out, lanes, states, P, N, K, min_sep, argmax,
+  return run_wide(packed, out, spill, gstate, P, N, K, min_sep, argmax,
                   metric, stream, nullptr);
 }
 
-// The fused route's wide variant; ``spill``: kPlanes * X floats a particle
-// (X: the wide plan's overflow), or null when X is 0
+// The fused route's wide variant; spill float[P, kPlanes, X] and gstate
+// uint8[P, X] as phd_merge2d_wide's
 extern "C" int phd_merge2d_tables_wide(const int* ints, const float* flts,
                                        const float* tk, const float* tm,
-                                       int* lanes, unsigned char* states,
-                                       float* spill, float* out, int P,
-                                       int N, int Kt, int Mt, int K,
-                                       float min_sep, int metric,
-                                       void* stream) {
+                                       float* spill, unsigned char* gstate,
+                                       float* out, int P, int N, int Kt,
+                                       int Mt, int K, float min_sep,
+                                       int metric, void* stream) {
   if (P <= 0 || K <= 0) return 0;
   if (N < 0 || (metric != 0 && metric != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  return run_tables_wide(ints, flts, tk, tm, lanes, states, spill, out, P, N,
-                         Kt, Mt, K, min_sep, metric, stream, nullptr);
+  return run_tables_wide(ints, flts, tk, tm, spill, gstate, out, P, N, Kt,
+                         Mt, K, min_sep, metric, stream, nullptr);
 }
 
 // The wide variants' launch plan, into out[7] (phd_merge2d_plan's layout)
@@ -1282,8 +1308,8 @@ extern "C" int phd_merge2d_wide_plan(int P, int N, int argmax, int metric,
   phd_wide::Plan plan{};
   const int err =
       tables ? run_tables_wide(nullptr, nullptr, nullptr, nullptr, nullptr,
-                               nullptr, nullptr, nullptr, P, N, 0, 0, 1, 0.f,
-                               metric, nullptr, &plan)
+                               nullptr, nullptr, P, N, 0, 0, 1, 0.f, metric,
+                               nullptr, &plan)
              : run_wide(nullptr, nullptr, nullptr, nullptr, P, N, 1, 0.f,
                         argmax, metric, nullptr, &plan);
   if (err) return err;

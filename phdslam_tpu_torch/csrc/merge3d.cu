@@ -130,28 +130,29 @@ namespace {
 
 // The wide variants (merge_wide.cuh) of phd_merge3d's: sorted lanes,
 // either metric
-int run_wide(const float* packed, float* out, int* lanes,
-             unsigned char* states, int P, int N, int K, float min_sep,
+int run_wide(const float* packed, float* out, float* spill,
+             unsigned char* gstate, int P, int N, int K, float min_sep,
              int argmax, int metric, void* stream, phd_wide::Plan* report) {
   if (argmax || (metric != 0 && metric != 1) || N < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (metric == 1)
-    return phd_wide::launch<Hell3, kWideThreads, false>(
-        packed, out, lanes, states, P, N, K, min_sep, stream, report);
-  return phd_wide::launch<Gauss3, kWideThreads, false>(
-      packed, out, lanes, states, P, N, K, min_sep, stream, report);
+    return phd_wide::launch<Hell3, kWideThreads, kR, false>(
+        packed, out, spill, gstate, P, N, K, min_sep, stream, report);
+  return phd_wide::launch<Gauss3, kWideThreads, kR, false>(
+      packed, out, spill, gstate, P, N, K, min_sep, stream, report);
 }
 
 }  // namespace
 
 // The staged wide-lane variant at any N (the wrapper takes it above
-// 2048): lanes int[P, N] and states uint8[P, N] are scratch
-extern "C" int phd_merge3d_wide(const float* packed, float* out, int* lanes,
-                                unsigned char* states, int P, int N, int K,
-                                float min_sep, int argmax, int metric,
-                                void* stream) {
+// 2048): spill float[P, 10, X] and gstate uint8[P, X] are scratch for the
+// entries past the plan's shared ones (X: its overflow; null when 0)
+extern "C" int phd_merge3d_wide(const float* packed, float* out,
+                                float* spill, unsigned char* gstate, int P,
+                                int N, int K, float min_sep, int argmax,
+                                int metric, void* stream) {
   if (P <= 0 || K <= 0) return 0;
-  return run_wide(packed, out, lanes, states, P, N, K, min_sep, argmax,
+  return run_wide(packed, out, spill, gstate, P, N, K, min_sep, argmax,
                   metric, stream, nullptr);
 }
 

@@ -24,7 +24,11 @@
 namespace {
 
 constexpr int kR = 8;           // tentative principals a round
-constexpr int kWideThreads = 128;  // the staged wide-lane variants
+// the staged wide-lane variants: 128 threads a block, 4 tentative
+// principals a round (faster than 8 on the mixed full grid's captured
+// step, merge_bench.py)
+constexpr int kWideThreads = 128;
+constexpr int kWideR = 4;
 
 struct Gauss4 {
   static constexpr int kDim = 4;
@@ -142,31 +146,32 @@ namespace {
 
 // The wide variants (merge_wide.cuh) of phd_merge4d's: sorted lanes with
 // either metric, argmax mode with the Mahalanobis one
-int run_wide(const float* packed, float* out, int* lanes,
-             unsigned char* states, int P, int N, int K, float min_sep,
+int run_wide(const float* packed, float* out, float* spill,
+             unsigned char* gstate, int P, int N, int K, float min_sep,
              int argmax, int metric, void* stream, phd_wide::Plan* report) {
   if (N < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (metric == 1 && !argmax)
-    return phd_wide::launch<Hell4, kWideThreads, false>(
-        packed, out, lanes, states, P, N, K, min_sep, stream, report);
+    return phd_wide::launch<Hell4, kWideThreads, kWideR, false>(
+        packed, out, spill, gstate, P, N, K, min_sep, stream, report);
   if (metric != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (argmax)
-    return phd_wide::launch<Gauss4, kWideThreads, true>(
-        packed, out, lanes, states, P, N, K, min_sep, stream, report);
-  return phd_wide::launch<Gauss4, kWideThreads, false>(
-      packed, out, lanes, states, P, N, K, min_sep, stream, report);
+    return phd_wide::launch<Gauss4, kWideThreads, kWideR, true>(
+        packed, out, spill, gstate, P, N, K, min_sep, stream, report);
+  return phd_wide::launch<Gauss4, kWideThreads, kWideR, false>(
+      packed, out, spill, gstate, P, N, K, min_sep, stream, report);
 }
 
 }  // namespace
 
 // The staged wide-lane variant at any N (the wrapper takes it above
-// 2048): lanes int[P, N] and states uint8[P, N] are scratch
-extern "C" int phd_merge4d_wide(const float* packed, float* out, int* lanes,
-                                unsigned char* states, int P, int N, int K,
-                                float min_sep, int argmax, int metric,
-                                void* stream) {
+// 2048): spill float[P, 15, X] and gstate uint8[P, X] are scratch for the
+// entries past the plan's shared ones (X: its overflow; null when 0)
+extern "C" int phd_merge4d_wide(const float* packed, float* out,
+                                float* spill, unsigned char* gstate, int P,
+                                int N, int K, float min_sep, int argmax,
+                                int metric, void* stream) {
   if (P <= 0 || K <= 0) return 0;
-  return run_wide(packed, out, lanes, states, P, N, K, min_sep, argmax,
+  return run_wide(packed, out, spill, gstate, P, N, K, min_sep, argmax,
                   metric, stream, nullptr);
 }
 

@@ -36,6 +36,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import SlamConfig
+from ..kernels.cardinality import cardinality_product
 from ..kernels.detect import detect
 from ..models import measurement
 from ..ops import ekf
@@ -93,7 +94,9 @@ def cardinality_predict(log_cn, log_cn_birth):
 def cardinality_predict_batch(log_cn, log_cn_birth):
     """The same convolution for log_cn [P, C+1] against one shared
     log_cn_birth [C+1] as a linear-domain Toeplitz product: subtract each
-    row's max, exp, one [P, C+1] x [C+1, C+1] f32 matmul, log back."""
+    row's max, exp, the [P, C+1] x [C+1, C+1] f32 product with each sum in
+    one fixed order (kernels/cardinality.py: a row's bits do not depend on
+    the batch's other rows), log back."""
     C1 = log_cn.shape[-1]
     mx = torch.amax(log_cn, dim=-1, keepdim=True)
     lin = torch.exp(log_cn - mx)
@@ -102,7 +105,7 @@ def cardinality_predict_batch(log_cn, log_cn_birth):
     diff = ar[None, :] - ar[:, None]                       # T[j, n]
     T = torch.where(diff >= 0,
                     torch.exp(log_cn_birth[diff.clamp_min(0)] - bmax), 0.0)
-    return safe_log(lin @ T) + mx + bmax
+    return safe_log(cardinality_product(lin, T)) + mx + bmax
 
 
 def binomial_birth_cardinality(n_births, birth_weight, max_cardinality,

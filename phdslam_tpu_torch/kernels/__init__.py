@@ -9,6 +9,8 @@
 |                 |                      | and ::_merge_tables_kernel             |
 | merge.py        | csrc/merge3d.cu      | ops/pallas_merge.py::_merge_kernel_3d  |
 | merge.py        | csrc/merge4d.cu      | ops/pallas_merge.py::_merge_kernel_4d  |
+| cardinality.py  | csrc/cardinality.cu  | filters/cphd.py::cardinality_predict_  |
+|                 |                      | batch's f32 dot (XLA, no Pallas)       |
 
 Shared headers: ``csrc/bulk_copy.cuh`` (the TMA bulk copy of a slab into
 shared memory on an mbarrier, used by both gathers) and ``csrc/wrap.cuh``

@@ -65,15 +65,17 @@ _SIGNATURES = {
     # P, N, argmax, metric, out int[7] (the launch plan)
     "phd_merge3d_plan": [_I, _I, _I, _I, _P],
     "phd_merge4d_plan": [_I, _I, _I, _I, _P],
-    # the staged wide-lane variants: packed, out, lanes int[P, N], states
-    # uint8[P, N], P, N, K, min_separation, argmax, metric, stream
+    # the staged wide-lane variants: packed, out, spill f32[P, C - 1, X]
+    # and states uint8[P, X] (X: the plan's overflow; NULL when 0), P, N,
+    # K, min_separation, argmax, metric, stream
     "phd_merge2d_wide": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "phd_merge3d_wide": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "phd_merge4d_wide": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-    # ints, flts, t_k, t_m, lanes, states, spill (NULL: no overflow), out,
-    # P, N, K tables, M tables, K out, min_separation, metric, stream
-    "phd_merge2d_tables_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _F, _I, _P],
+    # ints, flts, t_k, t_m, spill f32[P, 6, X], states uint8[P, X] (NULL:
+    # no overflow), out, P, N, K tables, M tables, K out, min_separation,
+    # metric, stream
+    "phd_merge2d_tables_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _F, _I, _P],
     # P, N, argmax, metric, tables, out int[7]
     "phd_merge2d_wide_plan": [_I, _I, _I, _I, _I, _P],
     # P, N, argmax, metric, out int[7]
@@ -84,6 +86,11 @@ _SIGNATURES = {
     # min_sep, stream
     "phd_detect_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                         _F, _F, _P],
+    # K, out int[5] (detect_wide's launch: threads, shared bytes, staged,
+    # registers, blocks an SM)
+    "phd_detect_wide_plan": [_I, _P],
+    # lin, T, out, P, J, N, stream (cardinality.cu)
+    "phd_cardinality_product": [_P, _P, _P, _I, _I, _I, _P],
     # pairs, seed, mode, counts int64[3], stream (merge_core_check.cu)
     "phd_merge_recip_check": [ctypes.c_ulonglong, ctypes.c_ulonglong, _I,
                               _P, _P],

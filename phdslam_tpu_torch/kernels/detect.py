@@ -22,13 +22,16 @@ sums. :func:`detect` launches the CUDA kernel (csrc/detect.cu) for CUDA
 tensors and runs the plain twin :func:`detect_reference` for CPU tensors;
 each variant counts its launches under its own name
 (:func:`detect_variant`). Above :data:`NARROW_FEATURES` features (or with
-``wide=True``) a CUDA launch takes the wide variant of the same mode,
-which walks each row in tiles of 1024 features, counted with "_wide"
-appended.
+``wide=True``) a CUDA launch takes the wide variant of the same mode
+(the plain one: the particle's planes staged once, each pdw evaluated
+once, the live lanes selected among the row's candidates; the
+consolidating one: rows walked in tiles of 1024 features), counted with
+"_wide" appended.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -156,6 +159,25 @@ def detect_reference(planes, z4, top_t, min_fw, cb, min_sep=0.0,
     if cons is None:
         return vals, idx, norm, count
     return vals, idx, norm, count, cons
+
+
+WIDE_PLAN_KEYS = ("threads", "smem", "staged", "registers",
+                  "blocks_per_sm")
+
+
+def detect_wide_plan(K: int, device=None) -> dict:
+    """The plain wide variant's launch at K features on a CUDA device
+    (csrc/detect.cu::detect_wide_kernel): threads a block, dynamic shared
+    memory a block (bytes), whether the particle's planes are staged in
+    shared memory (1) or read from device memory (0), registers a thread,
+    resident blocks an SM."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    out = (ctypes.c_int * len(WIDE_PLAN_KEYS))()
+    with torch.cuda.device(index):
+        err = build.library().phd_detect_wide_plan(K, out)
+    build.check_launch(err, "detect_wide plan")
+    return dict(zip(WIDE_PLAN_KEYS, out))
 
 
 def detect(planes, z4, top_t: int, min_fw: float, cb: float,

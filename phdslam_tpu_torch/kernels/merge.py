@@ -31,9 +31,11 @@ its launches under its own name (:func:`merge2d_variant`).
 Width: a CUDA launch of up to :data:`NARROW_LANES` lanes (8192 at D = 2,
 2048 at D = 3 and 4) runs the narrow kernel, a wider one the staged
 wide-lane variant of the same mode and metric (csrc/merge_wide.cuh: the
-entering lanes compacted into one block-wide list, no lane cap), counted
-under the variant's name with "_wide" appended. ``wide=True`` forces the
-staged variant at any width (its check against the narrow kernel).
+entering lanes compacted into one block-wide list, no lane cap; the
+entries past a block's shared ones in a scratch the wrapper allocates),
+counted under the variant's name with "_wide" appended. ``wide=True``
+forces the staged variant at any width (its check against the narrow
+kernel).
 
 ``merge2d_tables`` replaces ``_merge_tables_kernel`` (fused_gather_merge,
 entry ``gm_merge_pallas_batch_tables``): the fused column gather + combine
@@ -193,6 +195,20 @@ def merge4d_reference(packed, min_separation: float, out_cap: int,
     return _reference(packed, min_separation, out_cap, 4, sorted_w, metric)
 
 
+def _spill(P, n_vals, X, device):
+    """A staged wide-lane launch's scratch for X entries a particle past
+    its shared ones: values [P, n_vals, X] f32 and states [P, X] uint8
+    (None, None when X is 0)."""
+    if X <= 0:
+        return None, None
+    return (torch.empty((P, n_vals, X), dtype=torch.float32, device=device),
+            torch.empty((P, X), dtype=torch.uint8, device=device))
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0,
             wide=None):
     name = f"merge{D}d"
@@ -217,12 +233,15 @@ def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0,
     args = (P, N, out_cap, float(min_separation), int(not sorted_w),
             int(metric), build.stream_handle(packed.device))
     if wide:
-        # each particle's entering lanes and their states
-        lanes = torch.empty((P, N), dtype=torch.int32, device=packed.device)
-        states = torch.empty((P, N), dtype=torch.uint8, device=packed.device)
+        # the values and states of the entries past the block's shared
+        # ones (the plan's overflow X a particle)
+        plan = (merge2d_plan(P, N, sorted_w, metric, device=packed.device,
+                             wide=True) if D == 2 else
+                merge_plan(D, P, N, packed.device, sorted_w, metric, True))
+        spill, states = _spill(P, c_in - 1, plan["overflow"], packed.device)
         err = getattr(build.library(), f"phd_{name}_wide")(
-            packed.data_ptr(), out.data_ptr(), lanes.data_ptr(),
-            states.data_ptr(), *args)
+            packed.data_ptr(), out.data_ptr(), _ptr(spill), _ptr(states),
+            *args)
     else:
         err = getattr(build.library(), f"phd_{name}")(
             packed.data_ptr(), out.data_ptr(), *args)
@@ -349,20 +368,15 @@ def merge2d_tables(ints, flts, t_k, t_m, min_separation: float,
     # written only where more lanes enter than the plan's entries
     plan = merge2d_plan(P, N, True, metric, tables=True, device=dev,
                         wide=wide)
-    n_over = 6 * plan["overflow"]
-    scratch = torch.empty((P, n_over), dtype=torch.float32,
-                          device=dev) if n_over else None
+    spill, states = _spill(P, 6, plan["overflow"], dev)
     ptrs = (ints.data_ptr(), flts.data_ptr(), t_k.data_ptr(), t_m.data_ptr())
-    tail = (None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            P, N, t_k.shape[2], t_m.shape[2], out_cap, float(min_separation),
-            int(metric), build.stream_handle(dev))
+    tail = (out.data_ptr(), P, N, t_k.shape[2], t_m.shape[2], out_cap,
+            float(min_separation), int(metric), build.stream_handle(dev))
     if wide:
-        lanes = torch.empty((P, N), dtype=torch.int32, device=dev)
-        states = torch.empty((P, N), dtype=torch.uint8, device=dev)
         err = build.library().phd_merge2d_tables_wide(
-            *ptrs, lanes.data_ptr(), states.data_ptr(), *tail)
+            *ptrs, _ptr(spill), _ptr(states), *tail)
     else:
-        err = build.library().phd_merge2d_tables(*ptrs, *tail)
+        err = build.library().phd_merge2d_tables(*ptrs, _ptr(spill), *tail)
     build.check_launch(err, name)
     build.launch_counts[name] += 1
     return out

@@ -44,6 +44,7 @@ from phdslam_tpu_torch.filters import cphd as tcphd
 from phdslam_tpu_torch.filters.phd import (check_supported, update,
                                            update_route)
 from phdslam_tpu_torch.kernels import build
+from phdslam_tpu_torch.kernels.cardinality import cardinality_product
 from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
                                              merge2d_variant)
 from phdslam_tpu_torch.ops import math as tmath
@@ -105,6 +106,47 @@ def test_cardinality_predict_matches_jax():
     near = want > peak - 60.0
     close_log(got[near], want[near])
     assert ((got - peak)[~near] < -50.0).all()
+
+
+def test_cardinality_predict_batch_rows_independent():
+    """The Toeplitz product sums each row in a fixed order, so a row's bits
+    do not depend on the batch around it: 512 rows at once equal four
+    128-row blocks and one row at a time bit for bit (what makes a sharded
+    CPHD step bit-equal to one process). The batch still matches the JAX
+    function as test_cardinality_predict_matches_jax holds it."""
+    rng = np.random.default_rng(16)
+    log_cn = rng.uniform(-60, 0, (512, 49)).astype(np.float32)
+    log_b = rng.uniform(-40, 0, 49).astype(np.float32)
+    whole = tcphd.cardinality_predict_batch(t(log_cn), t(log_b)).numpy()
+    blocks = np.concatenate([tcphd.cardinality_predict_batch(
+        t(log_cn[i:i + 128]), t(log_b)).numpy() for i in range(0, 512, 128)])
+    rows = np.concatenate([tcphd.cardinality_predict_batch(
+        t(log_cn[i:i + 1]), t(log_b)).numpy() for i in range(512)])
+    assert np.array_equal(whole.view(np.uint32), blocks.view(np.uint32))
+    assert np.array_equal(whole.view(np.uint32), rows.view(np.uint32))
+    want = np.asarray(jcphd.cardinality_predict_batch(
+        jnp.asarray(log_cn), jnp.asarray(log_b)), np.float64)
+    got = whole.astype(np.float64)
+    peak = want.max(axis=1, keepdims=True)
+    near = want > peak - 60.0
+    close_log(got[near], want[near])
+    assert ((got - peak)[~near] < -50.0).all()
+
+
+def test_cardinality_product_order():
+    """The product's twin (the CPU path) sums each output j ascending from
+    0 in f32, a multiply and an add each rounded: numpy's f32 loop in that
+    order gives the same bits; the float64 product is within 1e-6."""
+    rng = np.random.default_rng(7)
+    lin = rng.uniform(0, 1, (33, 65)).astype(np.float32)
+    T = np.triu(rng.uniform(0, 1, (65, 65))).astype(np.float32)
+    want = np.zeros((33, 65), np.float32)
+    for j in range(65):
+        want = want + lin[:, j, None] * T[j]
+    got = cardinality_product(t(lin), t(T)).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    exact = lin.astype(np.float64) @ T.astype(np.float64)
+    np.testing.assert_allclose(got, exact, rtol=1e-6, atol=0)
 
 
 def test_binomial_birth_cardinality_matches_jax():

@@ -30,10 +30,15 @@ against its twin. The staged wide-lane variants (every merge mode
 just above its narrow kernel's width, merge2d_tables at N=8448, detect at
 K=2048 in all four modes and at K=1500 with trips) run against their
 twins, detect also against the same call on the CPU, and each beside its
-narrow kernel at the narrow limit (N=8192, 2048, K=1024). The spatially
+narrow kernel at the narrow limit (N=8192, 2048, K=1024); the staged
+merges also where entries lie past a block's shared ones and over many
+compacting rounds (P=264 / 528), and detect_wide through both of its
+candidate routes at K=2048. The spatially
 tiled merge's gather_cols and merge2d launches run at its tile rows
 ([4 P, 7, ct], ct 128, 256 and 384) against their twins. The
-resampling's fixed-order cumsum repeats its bits at P=10240.
+resampling's fixed-order cumsum repeats its bits at P=10240, and the
+CPHD cardinality product its twin's bits at P=512 and 10240 (whole, in
+blocks and row by row).
 """
 
 import numpy as np
@@ -47,15 +52,18 @@ from phdslam_tpu_torch import load_config
 from phdslam_tpu_torch.eval.scenes import (detect_planes, map_scene,
                                            tables_payload)
 from phdslam_tpu_torch.filters.phd import _finish_candidates_packed
+from phdslam_tpu_torch.filters import cphd as tcphd
 from phdslam_tpu_torch.kernels import build
+from phdslam_tpu_torch.kernels.cardinality import (
+    cardinality_product, cardinality_product_reference)
 from phdslam_tpu_torch.kernels.detect import (detect, detect_reference,
                                               detect_variant)
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
                                                    gather_rows_reference)
-from merge_bench import (MERGE_EDGES, edge_runs, run_case,
-                         tables_edge_case)
+from merge_bench import (MERGE_EDGES, check_merge_rows, edge_runs,
+                         run_case, tables_edge_case)
 from phdslam_tpu_torch.kernels.merge import (NARROW_LANES, VARIANTS_3D4D,
                                              merge2d,
                                              merge2d_plan, merge2d_reference,
@@ -758,6 +766,54 @@ def test_merge_wide_plans(dev):
     assert plan["entries"] > 0
 
 
+# (D, sorted_w, P, N, K, n_centers): every lane entering, at a P whose
+# blocks share an SM (2 and 4 an SM of 132), so that entries spill past
+# the shared ones; and hundreds of clusters into K = 1024, so that the
+# rounds compact the free entries many times
+WIDE_SPILL = {
+    "2D sorted, spill": (2, True, 264, 8448, 128, 40),
+    "2D argmax, spill": (2, False, 264, 8448, 128, 40),
+    "2D argmax, spill, 4 blocks an SM": (2, False, 528, 8448, 128, 40),
+    "2D argmax, 600 clusters into 1024": (2, False, 264, 8448, 1024, 600),
+    "2D sorted, 600 clusters into 1024": (2, True, 264, 8448, 1024, 600),
+    "4D argmax, spill": (4, False, 528, 2304, 128, 30),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_SPILL))
+def test_merge_wide_spill_and_compaction(dev, case):
+    """The staged variants where entries lie past the block's shared ones
+    (the plan's overflow, spilled to the wrapper's scratch) and over many
+    compacting rounds, against the twin under chip_smoke.py's gate
+    (merge_bench.check_merge_rows: equal counts, rtol 1e-4 / atol 1e-5,
+    a row parting only at a lane on the merge threshold)."""
+    D, sorted_w, P, N, K, n_centers = WIDE_SPILL[case]
+    if D == 2:
+        planes = full_grid_inputs(dev, P=P, N=N, seed=N, frac=1.0,
+                                  n_centers=n_centers)
+        if sorted_w:
+            planes = tgm.sort_planes(planes, 2).contiguous()
+        plan = merge2d_plan(P, N, sorted_w, device=dev)
+    else:
+        planes = merge4d_inputs(dev, P=P, N=N, seed=N)
+        g = torch.Generator().manual_seed(N)
+        planes = planes[:, :, torch.randperm(N, generator=g).to(dev)]
+        planes = planes.contiguous()
+        plan = merge_plan(D, P, N, device=dev, sorted_w=sorted_w)
+    entering = int((planes[:, 1] > 0.5).sum(dim=1).max())
+    assert entering > plan["entries"]
+    sep = WIDE_SEP[D]
+    build.reset_launch_counts()
+    got = merge_out(merge_call(D, planes, sep, K, sorted_w, 0), D)
+    assert dict(build.launch_counts) == {
+        merge2d_variant(sorted_w, 0, D=D, wide=True): 1}
+    want = [x.cpu() for x in merge_out(
+        merge_twin(D, planes, sep, K, sorted_w, 0), D)]
+    flips, _ = check_merge_rows(got, want, planes, sep, case)
+    assert len(flips) <= P // 100
+    assert (got[3] >= min(n_centers // 2, K)).all()
+
+
 def wide_detect_args(dev, cons, K=2048, seed=4):
     """The dense scene at K features (T = 32, M = 72; consolidating
     planes with ``cons``)."""
@@ -798,6 +854,33 @@ def test_detect_wide_at_the_narrow_limit(dev, cons):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("thresholded", [True, False])
+def test_detect_wide_candidate_routes(dev, thresholded):
+    """detect_wide at K = 2048 on rows with at most 32 live lanes and rows
+    with more (the dense scene's thresholds: the live lanes found among the
+    row's candidates), and at min_fw 0 (every pdw > 0 lane a candidate,
+    more than the warp's buffer holds: the whole row walked again),
+    against the twin; forced at K = 1024 beside the narrow kernel, bit for
+    bit."""
+    for K in (2048, 1024):
+        args = wide_detect_args(dev, False, K=K)
+        if not thresholded:
+            args = (*args[:3], 0.0, 0.0, 0.0)
+        got = detect(*args, wide=True)
+        if K == 1024:
+            narrow = detect(*args)
+            for a, b in zip(narrow, got):
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                assert torch.equal(a, b)
+            continue
+        assert_detect_matches(got, detect_reference(*args))
+        live = got[3][:, args[1][:, 2] > 0.5]
+        assert bool((live > 32).any())
+        if thresholded:
+            assert bool(((live > 0) & (live <= 32)).any())
 
 
 @pytest.mark.parametrize("T", [40, 8])
@@ -913,3 +996,34 @@ def test_resampling_cumsum_repeats_on_the_card(dev):
     torch.testing.assert_close(first.cpu().double(),
                                torch.cumsum(w.cpu().double(), dim=0),
                                rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("P", [512, 10240])
+def test_cardinality_product_fixed_order(dev, P):
+    """The CPHD cardinality product on the card: the same bits as its twin
+    on the card and on the CPU (each sum j ascending, no fused
+    multiply-add), for the whole batch, four blocks and single rows alike;
+    and cardinality_predict_batch launches it once."""
+    rng = np.random.default_rng(P)
+    log_cn = rng.uniform(-60, 0, (P, 65)).astype(np.float32)
+    log_b = rng.uniform(-40, 0, 65).astype(np.float32)
+    lin = torch.exp(torch.tensor(log_cn) - torch.tensor(log_cn).amax(
+        dim=1, keepdim=True))
+    T = torch.tensor(np.triu(rng.uniform(0, 1, (65, 65))), dtype=torch.float32)
+    got = cardinality_product(lin.to(dev), T.to(dev))
+    for want in (cardinality_product_reference(lin.to(dev), T.to(dev)),
+                 cardinality_product_reference(lin, T)):
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.cpu().view(torch.int32))
+    blocks = torch.cat([cardinality_product(x, T.to(dev))
+                        for x in lin.to(dev).split(P // 4)])
+    assert torch.equal(got.view(torch.int32), blocks.view(torch.int32))
+    for i in (0, P // 3, P - 1):
+        one = cardinality_product(lin[i:i + 1].to(dev), T.to(dev))
+        assert torch.equal(one.view(torch.int32), got[i:i + 1].view(
+            torch.int32))
+    build.reset_launch_counts()
+    out = tcphd.cardinality_predict_batch(torch.tensor(log_cn, device=dev),
+                                          torch.tensor(log_b, device=dev))
+    assert dict(build.launch_counts) == {"cardinality_product": 1}
+    assert torch.isfinite(out).all()
