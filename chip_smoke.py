@@ -72,8 +72,8 @@ drives both paths:
   configuration at P=1024 against their twins, one step with tiles on of
   the dense (64 of P=1024), Ackerman, CPHD and mixed paths against the
   CPU (the same tiled-or-untiled choices at the same widths on both),
-  data/ackerman P=512 and data/dense P=1024 untiled, tiled, tiled,
-  untiled (steps/s, ATE, OSPA, tiled launches, untiled fallbacks), and
+  data/ackerman P=512 and data/dense P=1024 untiled then tiled
+  (steps/s, ATE, OSPA, tiled launches, untiled fallbacks), and
   Ackerman P=128 seeds 0-4 tiled beside the JAX package's tiled CPU runs;
   the mixed accuracy runs through ``evaluate_mixed_mc`` (detection by
   speed too), and disparity clouds of one point (NaN, reported) run on
@@ -192,7 +192,7 @@ from phdslam_tpu_torch.filters.phd import (StepNoise,
                                            resample_particles, update)
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.cardinality import (
-    cardinality_product, cardinality_product_reference)
+    cardinality_predict_batch, cardinality_predict_reference)
 from phdslam_tpu_torch.kernels.detect import (NARROW_FEATURES, detect,
                                               detect_reference,
                                               detect_variant,
@@ -337,10 +337,11 @@ KERNELS = {
                           "phdslam_tpu/ops/gm_merge.py:35"),
     "merge3d_hellinger": ("phdslam_tpu_torch/csrc/merge3d.cu",
                           "phdslam_tpu/ops/gm_merge.py:35"),
-    # the CPHD cardinality prediction's product in one fixed order (the
-    # JAX package's XLA dot there, no Pallas kernel)
-    "cardinality_product": ("phdslam_tpu_torch/csrc/cardinality.cu",
-                            "phdslam_tpu/filters/cphd.py:105"),
+    # the CPHD cardinality prediction in one launch, its product in one
+    # fixed order (the JAX package's XLA max, exp, dot and log there, no
+    # Pallas kernel)
+    "cardinality_predict": ("phdslam_tpu_torch/csrc/cardinality.cu",
+                            "phdslam_tpu/filters/cphd.py:87"),
 }
 # the staged wide-lane variants: each merge and detect variant's, counted
 # under its name with "_wide" appended (the merges' round core in
@@ -359,7 +360,7 @@ DENSE_KERNELS = {"plain": ACKERMAN_KERNELS, "fused + adaptive": KNOB_KERNELS,
 HELL_FUSED_KERNELS = ("detect", "gather_cols", "merge2d_tables_hellinger")
 MIXED_KERNELS = ACKERMAN_KERNELS + ("merge4d",)
 DISP_KERNELS = ("merge3d",)
-CPHD_KERNELS = ACKERMAN_KERNELS + ("cardinality_product",)
+CPHD_KERNELS = ACKERMAN_KERNELS + ("cardinality_predict",)
 FULL_GRID_KERNELS = ("merge2d_argmax",)
 HELL_KERNELS = ("detect", "gather_cols", "merge2d_hellinger")
 HELL_FULL_KERNELS = ("merge2d_argmax_hellinger",)
@@ -733,50 +734,90 @@ def check_kernels(dev):
 
 
 def cardinality_inputs(dev, P=P_MAIN, C1=CPHD_C1, seed=0):
-    """(lin [P, C1], T [C1, C1]) as filters/cphd.py's
-    cardinality_predict_batch forms them, from random log cardinality
-    distributions and a random log birth distribution."""
+    """(log_cn [P, C1], log_cn_birth [C1]) for
+    cardinality_predict_batch: random log cardinality distributions over
+    many magnitudes and a random log birth distribution."""
     rng = np.random.default_rng(seed)
     log_cn = torch.from_numpy(
         rng.uniform(-60, 0, (P, C1)).astype(np.float32)).to(dev)
     log_b = torch.from_numpy(rng.uniform(-40, 0, C1).astype(np.float32)).to(
         dev)
+    return log_cn, log_b
+
+
+def toeplitz_operands(log_cn, log_b):
+    """(lin [P, C1], T [C1, C1]) as the twin forms them from these inputs:
+    the operands of the library call ``lin @ T``."""
+    C1 = log_cn.shape[1]
     lin = torch.exp(log_cn - log_cn.amax(dim=-1, keepdim=True))
-    ar = torch.arange(C1, device=dev)
+    ar = torch.arange(C1, device=log_cn.device)
     diff = ar[None, :] - ar[:, None]
     T = torch.where(diff >= 0,
                     torch.exp(log_b[diff.clamp_min(0)] - log_b.max()), 0.0)
     return lin, T
 
 
+def cardinality_bound(log_cn, log_b):
+    """cardinality_predict_batch's bound on these inputs: log_cn and
+    log_cn_birth read once, the prediction written once; a multiply and an
+    add for each term the rows need (a row with a finite max: the
+    triangle n >= j, C1 (C1 + 1) / 2 terms; else C1 ** 2), and six more
+    operations a row element (max, subtract, exp, log, two adds)."""
+    P, C1 = log_cn.shape
+    finite = int(torch.isfinite(log_cn.amax(dim=-1)).sum())
+    terms = finite * C1 * (C1 + 1) // 2 + (P - finite) * C1 * C1
+    return bound(4 * (2 * P * C1 + C1), 2 * terms + 6 * P * C1)
+
+
 def check_cardinality(dev, errs):
-    """cardinality_product against its twin at the CPHD path's shapes (P =
-    512 and 10240 rows, C1 = 65): the same bits required, and the same
-    bits for the rows taken as four blocks and one at a time (what makes a
-    sharded CPHD step bit-equal); its distance to the float64 product is
-    reported."""
-    errs["cardinality_product"] = 0.0
+    """cardinality_predict_batch's kernel against its twin at the CPHD
+    path's shapes (P = 512 and 10240 rows, C1 = 65), both on the card: one
+    launch, the same bits required, and the same bits for the rows taken
+    as four blocks and one at a time (what makes a sharded CPHD step
+    bit-equal); beside the CPU twin (PyTorch's CPU exp and log) and the
+    float64 function within 60 nats of each row's peak, the largest
+    distances reported."""
+    errs["cardinality_predict"] = 0.0
     for P in (P_MAIN, P_SCALE):
-        lin, T = cardinality_inputs(dev, P=P, seed=P)
-        got = cardinality_product(lin, T)
-        want = cardinality_product_reference(lin, T)
+        log_cn, log_b = cardinality_inputs(dev, P=P, seed=P)
+        build.reset_launch_counts()
+        got = cardinality_predict_batch(log_cn, log_b)
+        torch.cuda.synchronize()
+        require(dict(build.launch_counts) == {"cardinality_predict": 1},
+                f"cardinality_predict P={P}: launched "
+                f"{dict(build.launch_counts)}")
+        want = cardinality_predict_reference(log_cn, log_b)
         require(same_bits([got], [want]),
-                f"cardinality_product P={P}: bits differ from the twin")
-        blocks = torch.cat([cardinality_product(x, T)
-                            for x in lin.split(P // 4)])
-        rows = torch.cat([cardinality_product(lin[i:i + 1], T)
+                f"cardinality_predict P={P}: bits differ from the twin on "
+                f"the card (max |diff| {max_err([(got, want)]):.3g})")
+        blocks = torch.cat([cardinality_predict_batch(x, log_b)
+                            for x in log_cn.split(P // 4)])
+        rows = torch.cat([cardinality_predict_batch(log_cn[i:i + 1], log_b)
                           for i in range(0, P, P // 64)])
         require(same_bits([got], [blocks])
                 and same_bits([got[::P // 64]], [rows]),
-                f"cardinality_product P={P}: a block's bits differ from "
+                f"cardinality_predict P={P}: a block's bits differ from "
                 "the whole batch's")
-        exact = lin.double() @ T.double()
-        rel = float(((got.double() - exact).abs() / exact.abs()
-                     .clamp_min(1e-30)).amax())
-        phase("kernels", f"cardinality_product P={P} C1={T.shape[0]}: bits "
-              f"equal to the twin, 4 blocks and {P // (P // 64)} single "
-              f"rows equal to the batch, max relative distance to the "
-              f"float64 product {rel:.3g}")
+        cpu = cardinality_predict_reference(log_cn.cpu(), log_b.cpu())
+        x = log_cn.double()
+        mx = x.amax(dim=-1, keepdim=True)
+        b = log_b.double()
+        ar = torch.arange(log_cn.shape[1], device=dev)
+        diff = ar[None, :] - ar[:, None]
+        T = torch.where(diff >= 0, torch.exp(b[diff.clamp_min(0)] - b.max()),
+                        0.0)
+        exact = torch.log(torch.exp(x - mx) @ T) + mx + b.max()
+        near = exact > exact.amax(dim=-1, keepdim=True) - 60.0
+        d_cpu = float((got.cpu().double() - cpu.double())[near.cpu()].abs()
+                      .max())
+        d_exact = float(((got.double() - exact)[near].abs()
+                         / exact[near].abs().clamp_min(1.0)).max())
+        phase("kernels", f"cardinality_predict P={P} C1={log_cn.shape[1]}: "
+              f"one launch, bits equal to the twin on the card, 4 blocks "
+              f"and {P // (P // 64)} single rows equal to the batch; within "
+              f"60 nats of a row's peak max |diff| to the CPU twin "
+              f"{d_cpu:.3g}, max relative distance to the float64 function "
+              f"{d_exact:.3g}")
 
 
 def far_persistent_scene(dev):
@@ -2285,12 +2326,12 @@ def eap_level1_calls(dev):
 
 def time_kernels(dev, errs, extra=None):
     """Kernel against twin at the main path's shapes, in turns
-    (twin, kernel, library, kernel, library, twin); CUDA events, ms per
-    eager call, host included (gather_bench.time_call: 50 calls after 5;
-    the twin its iterations with no warm-up call);
+    (twin, kernel, library, kernel, library); CUDA events, ms per eager
+    call, host included (gather_bench.time_call: 50 calls after 5; the
+    twin its iterations once, with no warm-up call);
     the library call is one PyTorch call that computes the same function
-    (gather_cols, gather_rows: torch.gather; cardinality_product: the
-    matmul), where there is one. Beside each, the device time of the
+    (gather_cols, gather_rows: torch.gather; cardinality_predict: the
+    matmul its kernel folds in, ``lin @ T``), where there is one. Beside each, the device time of the
     kernel and of the library call (gather_bench.graph_ms: 50 calls
     replayed from a CUDA graph), printed and returned. The gathers run at
     every shape the paths launch (gather_calls), each call on the next of
@@ -2317,7 +2358,10 @@ def time_kernels(dev, errs, extra=None):
     grid = full_grid_inputs(dev)
     packed4 = merge4d_inputs(dev, N=128, seed=128)
     packed3 = merge3d_inputs(dev, seed=24)
-    lin, toep = cardinality_inputs(dev)
+    log_cn, log_b = cardinality_inputs(dev)
+    lin, toep = toeplitz_operands(log_cn, log_b)
+    log_cn_s, log_b_s = cardinality_inputs(dev, P=P_SCALE, seed=P_SCALE)
+    lin_s, toep_s = toeplitz_operands(log_cn_s, log_b_s)
     T = 16
     # name: (kernel, twin, twin iterations, library call, bound)
     calls = {
@@ -2345,14 +2389,16 @@ def time_kernels(dev, errs, extra=None):
         "merge3d": (lambda: merge3d(packed3, 20.0, 24),
                     lambda: merge3d_reference(packed3, 20.0, 24), 5, None,
                     merge_bound(packed3, 24, 12, 70)),
-        # lin and T read once, the product written once; a multiply and an
-        # add per (p, j, n)
-        "cardinality_product": (
-            lambda: cardinality_product(lin, toep),
-            lambda: cardinality_product_reference(lin, toep), 5,
-            lambda: lin @ toep,
-            bound(4 * (2 * lin.numel() + toep.numel()),
-                  2 * lin.numel() * toep.shape[1])),
+        # the library call: the product alone, lin @ T, on the twin's
+        # operands; at P=10240 too (printed only)
+        "cardinality_predict": (
+            lambda: cardinality_predict_batch(log_cn, log_b),
+            lambda: cardinality_predict_reference(log_cn, log_b), 5,
+            lambda: lin @ toep, cardinality_bound(log_cn, log_b)),
+        f"cardinality_predict P={P_SCALE}": (
+            lambda: cardinality_predict_batch(log_cn_s, log_b_s),
+            lambda: cardinality_predict_reference(log_cn_s, log_b_s), 2,
+            lambda: lin_s @ toep_s, cardinality_bound(log_cn_s, log_b_s)),
     }
     calls.update(gather_calls(dev))
     calls.update(knob_calls(dev, cfg))
@@ -2361,24 +2407,21 @@ def time_kernels(dev, errs, extra=None):
     times = {}
     for name, (kern, plain, iters, lib, (b_ms, b_by)) in calls.items():
         # kernel and library call in turns: the host's share of an eager
-        # call drifts with the shared host's load. The plain version gets
-        # no warm-up call of its own (up to 2.9 s a call): the check
-        # phases ran it at these shapes, and its first timing warms the
-        # second, of which the smaller is kept
+        # call drifts with the shared host's load. The plain version is
+        # timed once, with no warm-up call of its own (up to 2.9 s a call):
+        # the check phases ran it at these shapes
         p1 = time_call(plain, iters, 0)
         k1 = time_call(kern)
         l1 = None if lib is None else time_call(lib)
         k2 = time_call(kern)
         l2 = None if lib is None else time_call(lib)
-        p2 = time_call(plain, iters, 0)
         k_dev = graph_ms(kern)
         lib_ms = lib_dev = None
         if lib is not None:
             lib_ms, lib_dev = min(l1, l2), graph_ms(lib)
-        times[name] = (min(k1, k2), min(p1, p2), lib_ms, b_ms, b_by, k_dev,
-                       lib_dev)
+        times[name] = (min(k1, k2), p1, lib_ms, b_ms, b_by, k_dev, lib_dev)
         phase("timing", f"{name}: kernel {k1:.4f}/{k2:.4f} ms per call "
-              f"({k_dev:.4f} on the device), plain {p1:.4f}/{p2:.4f} ms per "
+              f"({k_dev:.4f} on the device), plain {p1:.4f} ms per "
               f"call, bound {b_ms:.5f} ms ({b_by}, {100 * b_ms / k_dev:.0f}% "
               f"of the kernel's device time)"
               + ("" if lib_ms is None else
@@ -2590,7 +2633,7 @@ def knob_calls(dev, cfg):
     return rows
 
 
-def profile_step(r, label, host=(40, 60), prof=(60, 80), prefix="phd."):
+def profile_step(r, label, host=(50, 60), prof=(60, 70), prefix="phd."):
     """Where the time goes for runner r (P=512 unless it holds another
     count): the steps of ``host`` on
     the host clock without the profiler and those of ``prof`` (as long)
@@ -3319,8 +3362,8 @@ def tile_steps(dev):
 
 
 def tiles_in_turns(dev, label, cfg_path, P):
-    """evaluate_dataset untiled, tiled, tiled, untiled at P particles (the
-    whole dataset), launch counts and choices set to 0 just before each
+    """evaluate_dataset untiled, then tiled at P particles (the whole
+    dataset), launch counts and choices set to 0 just before each
     run and read just after: steps/s, ATE, OSPA, merge2d and gather_cols
     launches, the tiled merges (one merge2d launch on [4 P, 7, ct] rows
     and one gather_cols launch each) and the untiled fallbacks. Fails on
@@ -3328,7 +3371,7 @@ def tiles_in_turns(dev, label, cfg_path, P):
     tiled runs' launches of the tiled merge."""
     rates = collections.defaultdict(list)
     tiled_launches = 0
-    for tag in ("untiled", "tiled", "tiled", "untiled"):
+    for tag in ("untiled", "tiled"):
         over = dict(TILED if tag == "tiled" else {}, n_particles=P)
         build.reset_launch_counts()
         with tile_choices() as got:
@@ -3357,9 +3400,9 @@ def tiles_in_turns(dev, label, cfg_path, P):
               f"{counts.get('gather_cols', 0)}; untiled fallback (a tile "
               f"above its widest row) on {fallback} steps, candidate width "
               f"below 256 on {len(got) - n_tiled - fallback}")
-    t, u = np.mean(rates["tiled"]), np.mean(rates["untiled"])
+    t, u = rates["tiled"][0], rates["untiled"][0]
     phase("tiles", f"{label} P={P}: tiled {t:.2f} steps/s, untiled {u:.2f} "
-          f"(means of two runs in turns), ratio {t / u:.3f}")
+          f"(one run each), ratio {t / u:.3f}")
     return tiled_launches
 
 
@@ -3435,7 +3478,7 @@ def run_tiles(dev, errs):
     """The spatially tiled merge (merge_spatial_tiles = 4): its kernels on
     captured dense inputs against their twins, one step of each path with
     tiles on against the CPU, data/ackerman at P=512 and data/dense at
-    P=1024 tiled and untiled in turns, and the Ackerman P=128 seeds 0-4
+    P=1024 untiled then tiled, and the Ackerman P=128 seeds 0-4
     beside the JAX package's CPU runs with tiles (and its untiled ones).
     Returns time_kernels rows (:func:`tiled_kernels`)."""
     t = [time.perf_counter()]
@@ -3449,7 +3492,7 @@ def run_tiles(dev, errs):
     parts["steps against the CPU"] = lap()
     tiles_in_turns(dev, "ackerman", CFG, P_MAIN)
     tiles_in_turns(dev, "dense", DENSE_CFG, P_DENSE)
-    parts["runs in turns"] = lap()
+    parts["runs"] = lap()
     band = seed_band(dev, "tiled", CFG, TILED, TILED_CPU_BAND)
     band_line(f"tiled P={P_BAND} seeds {list(BAND_SEEDS)} beside the JAX "
               "package's untiled CPU runs", band, PLAIN_CPU_BAND)
@@ -3465,7 +3508,9 @@ def run_tiles(dev, errs):
 
 P_WIDE = 64                     # particles of the random wide merge cases
 WIDE_STEPS = 30                 # steps of the dynamic-only and dense runs
-WIDE_CAPTURE = 20               # the dense full grid's merge call captured
+WIDE_CAPTURE = 20               # the dense full grid's merge call and the
+                                # consolidating K=2048 run's detect call
+                                # captured
 P_DENSE_CAPTURED = 8            # its particles held against the twin
 MIXED_CAPTURE = 40              # the mixed full grid's step against the CPU
 # the dense wide runs' mean ATE (m) and OSPA(1, 5) over WIDE_STEPS steps
@@ -3483,6 +3528,11 @@ DENSE_FULL_KERNELS = ("merge2d_argmax_wide",)
 # t_k at K = 2048 (128 KB a particle) exceeds the gathers' shared budget
 DENSE_K2048_KERNELS = ("detect_wide", "gather_cols", "gather_cols_ldg",
                        "merge2d")
+# dense K = 2048 with the dense K = 1024 consolidating + adaptive run's knobs
+DENSE_K2048_CONS = dict(DENSE_K2048, **DENSE_VARIANTS[
+    "consolidating + adaptive"])
+DENSE_K2048_CONS_KERNELS = ("detect_cons_adaptive_wide", "gather_cols",
+                            "gather_cols_ldg", "merge2d")
 
 
 def wide_merge_case(errs, label, name, fn, twin, packed, sep, metric):
@@ -3679,9 +3729,8 @@ def wide_detects(dev, errs):
                 f"dense K={2 * NARROW_FEATURES}", a)
             errs[name] = max(errs.get(name, 0.0), err)
             stats = live_counts(got[3], a[1], 32)
-            plan = "" if cons else (
-                "; plan " + json.dumps(detect_wide_plan(2 * NARROW_FEATURES,
-                                                        dev)))
+            plan = "; plan " + json.dumps(detect_wide_plan(
+                2 * NARROW_FEATURES, dev, M=72 if cons else None))
             phase("wide", f"{name} P={P_DENSE} K={2 * NARROW_FEATURES} M=72 "
                   f"T=32: live lanes per valid row {json.dumps(stats)}; "
                   f"against the twin max |err| {err:.3g}, {flips} member "
@@ -3806,13 +3855,18 @@ def run_dynamic_full(dev):
     return counts
 
 
-def run_dense_wide(dev):
+def run_dense_wide(dev, errs):
     """The dense configuration's wide paths over WIDE_STEPS steps at
     P=1024: the full grid (cap 0: 1024 + 72 * 1024 + 72 = 74 824 lanes a
     particle, merge2d_argmax_wide; its merge input captured at call
     WIDE_CAPTURE) beside the capped run's ATE and OSPA over the same
-    steps, and K = 2048 (detect_wide) beside K = 1024. Returns (full-grid
-    counts, K = 2048 counts, captured (planes, sep, K))."""
+    steps, K = 2048 (detect_wide) beside K = 1024, and K = 2048
+    consolidating + adaptive (detect_cons_adaptive_wide on every step the
+    plain K = 2048 run detects; its detect call WIDE_CAPTURE captured, the
+    whole launch held against the twin under compare_detect's gates)
+    beside the plain K = 2048 run. Returns (full-grid counts, K = 2048
+    counts, consolidating K = 2048 counts, captured merge (planes, sep,
+    K), time_kernels' row of the captured detect call)."""
     got = []
 
     def keep(i, args, kw):
@@ -3828,6 +3882,18 @@ def run_dense_wide(dev):
     k_counts, k2048 = run_path(dev, "wide", DENSE_CFG, DENSE_K2048,
                                DENSE_K2048_KERNELS, n_steps=WIDE_STEPS,
                                P=P_DENSE)
+    det = []
+
+    def keep_detect(i, args, kw):
+        if i == WIDE_CAPTURE:
+            det.append(captured_args((
+                tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                kw)))
+    with spy_on(phd_filter, "detect", keep_detect):
+        cons_counts, cons = run_path(dev, "wide", DENSE_CFG, DENSE_K2048_CONS,
+                                     DENSE_K2048_CONS_KERNELS,
+                                     n_steps=WIDE_STEPS, P=P_DENSE)
+    require(bool(det), "dense K=2048 consolidating: no detect call captured")
     for label, res in (("full grid", full), ("K=2048", k2048)):
         clean(res["run"], f"dense {label}")
         ate0, ospa0 = FIRST_DENSE_WIDE[label]
@@ -3841,7 +3907,39 @@ def run_dense_wide(dev):
         require(res["mean_pose_err"] <= ATE_LIMIT,
                 f"dense {label}: mean ATE {res['mean_pose_err']:.4f} m > "
                 f"{ATE_LIMIT} m")
-    return full_counts, k_counts, got[0]
+    clean(cons["run"], "dense K=2048 consolidating + adaptive")
+    name = DENSE_K2048_CONS_KERNELS[0]
+    phase("wide", f"dense K=2048 consolidating + adaptive P={P_DENSE}, "
+          f"{WIDE_STEPS} steps: {name} {cons_counts.get(name, 0)} launches "
+          f"(the plain K=2048 run's detect_wide: "
+          f"{k_counts.get('detect_wide', 0)}), mean ATE "
+          f"{cons['mean_pose_err']:.4f} m, OSPA {cons['mean_ospa']:.4f}, "
+          f"{cons['steps_per_s']:.2f} steps/s, beside the plain K=2048 run "
+          f"over the same steps: {k2048['mean_pose_err']:.4f} m, "
+          f"{k2048['mean_ospa']:.4f}, {k2048['steps_per_s']:.2f} steps/s")
+    require(cons_counts.get(name, 0) == k_counts.get("detect_wide", 0),
+            f"dense K=2048 consolidating: {name} launched "
+            f"{cons_counts.get(name, 0)} times, not on each of the "
+            f"{k_counts.get('detect_wide', 0)} steps the plain run detects")
+    require(cons["mean_pose_err"] <= ATE_LIMIT,
+            f"dense K=2048 consolidating: mean ATE "
+            f"{cons['mean_pose_err']:.4f} m > {ATE_LIMIT} m")
+    a = det[0]
+    planes, z4, T = a[:3]
+    got_det, launched, err, flips = check_case(
+        f"dense K=2048 consolidating + adaptive call {WIDE_CAPTURE}", a)
+    require(launched == name, f"captured detect launched {launched}")
+    errs[name] = max(errs.get(name, 0.0), err)
+    phase("wide", f"dense K=2048 consolidating + adaptive, detect call "
+          f"{WIDE_CAPTURE} captured: {name} P={planes.shape[0]} "
+          f"K={planes.shape[2]} M={z4.shape[0]} T={T}, the whole launch "
+          f"against the twin: max |err| {err:.3g}, {flips} member flips at "
+          f"an f32 boundary; live lanes per valid row "
+          f"{json.dumps(live_counts(got_det[3], z4, T))}")
+    row = {f"{name} captured": (lambda a=a: detect(*a),
+                                lambda a=a: detect_reference(*a), 1, None,
+                                detect_bound(*a[:6]))}
+    return full_counts, k_counts, cons_counts, got[0], row
 
 
 def run_wide(dev, errs, capped_mixed):
@@ -3855,13 +3953,16 @@ def run_wide(dev, errs, capped_mixed):
     t0 = time.perf_counter()
     mixed_counts, mixed_planes = run_mixed_full(dev, capped_mixed)
     dyn_counts = run_dynamic_full(dev)
-    dense_counts, k_counts, dense_planes = run_dense_wide(dev)
+    dense_counts, k_counts, cons_counts, dense_planes, cons_row = \
+        run_dense_wide(dev, errs)
     rows = wide_merges(dev, errs, mixed_planes, dense_planes)
     rows.update(wide_detects(dev, errs))
+    rows.update(cons_row)
     phase("wide", f"{time.perf_counter() - t0:.1f} s")
     return [(MIXED_FULL_KERNELS, mixed_counts), (DYN_FULL_KERNELS, dyn_counts),
             (DENSE_FULL_KERNELS, dense_counts),
-            (DENSE_K2048_KERNELS, k_counts)], rows
+            (DENSE_K2048_KERNELS, k_counts),
+            (DENSE_K2048_CONS_KERNELS, cons_counts)], rows
 
 
 # ----------------------------------------------------------------------------
@@ -4247,8 +4348,8 @@ def main():
     profile_step(SynthSLAMRunner(load_config(CFG, {"n_particles": P_MAIN}),
                                  DATA, device=dev), "ackerman")
     profile_step(mixed_runner(dev), "mixed")
-    profile_step(disparity_runner(dev), "disparity", host=(40, 60),
-                 prof=(20, 40), prefix="disp.")
+    profile_step(disparity_runner(dev), "disparity", host=(30, 40),
+                 prof=(20, 30), prefix="disp.")
     profile_step(SynthSLAMRunner(load_config(CPHD_CFG,
                                              {"n_particles": P_MAIN}),
                                  DATA, device=dev), "cphd",

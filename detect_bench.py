@@ -13,14 +13,15 @@ The cases (``DETECT_TIMED``) are each detect variant at the shapes the
 paths launch it, on ``eval/scenes.py``'s scenes, and on the exact inputs of
 step 60 of a real run (``CAPTURED``: the dense configuration at P=1024 plain,
 fused + adaptive and consolidating + adaptive, and the Ackerman one at
-P=512). For each it checks the kernel against its twin
+P=512), and of step 20 of the dense runs at max_features 2048, plain and
+consolidating + adaptive. For each it checks the kernel against its twin
 (:func:`compare_detect`, the gates of PERF.md §2) and prints one JSON line:
 the time per eager call, host included (``call_ms``: what a caller of the
 wrapper waits), the device time of calls replayed from a CUDA graph
 (``graph_ms``), the bound, the distribution of live counts over the rows
 with a valid measurement, and a digest of every output (``out_sha``) and of
-the inputs. The edge cases (``DETECT_EDGES``) follow, checked and digested
-the same way, untimed. ``--out FILE`` keeps the lines; ``--expect FILE``
+the inputs. The edge cases (``DETECT_EDGES``) follow, each in the narrow
+and the wide variant, checked and digested the same way, untimed. ``--out FILE`` keeps the lines; ``--expect FILE``
 requires every case's output digest to equal the one in FILE (another
 checkout's run on the same inputs): the two kernels then agree bit for bit.
 
@@ -166,6 +167,11 @@ CAPTURED = {
                         ("merge2d",), 20),
     "dense K2048": ("synth", *DENSE, {"max_features": 2048}, ("detect",),
                     20),
+    # detect_cons_adaptive_wide: dense at K = 2048 with the consolidating +
+    # adaptive run's knobs
+    "dense K2048 consolidating + adaptive": (
+        "synth", *DENSE, dict(CONS_ADAPTIVE, max_features=2048),
+        ("detect",), 20),
     "disparity": ("disparity", "cfg/disparity.cfg", "data/disparity", 512,
                   {}, ("merge3d",), 20),
 }
@@ -428,6 +434,11 @@ DETECT_TIMED = {
     # detect_wide, the path at max_features 2048
     "dense K2048": (_K2048_SCENE, (False, False, True)),
     "dense K2048 captured": (("captured", "dense K2048"), None),
+    # detect_cons_wide and detect_cons_adaptive_wide at the same widths
+    "dense K2048 cons": (_K2048_SCENE, (True, False, True)),
+    "dense K2048 cons adaptive": (_K2048_SCENE, (True, True, True)),
+    "dense K2048 cons adaptive captured": (
+        ("captured", "dense K2048 consolidating + adaptive"), None),
 }
 
 
@@ -534,14 +545,15 @@ def main():
                                          for x in detect_edge_case(name,
                                                                    cons))
             for adaptive in (False, True):
-                a = (planes, z4, T, min_fw, cb,
-                     MIN_SEP_EDGES if cons else 0.0, adaptive)
-                got, launched, err, flips = check_case(name, a)
-                emit({"label": args.label, "case": f"edge {name} "
-                      f"{launched}", "launched": launched,
-                      "live": live_counts(got[3], z4, T),
-                      "max_abs_err": err, "member_flips": flips,
-                      "out_sha": digest(got), "card": card})
+                for wide in (None, True):
+                    a = (planes, z4, T, min_fw, cb,
+                         MIN_SEP_EDGES if cons else 0.0, adaptive)
+                    got, launched, err, flips = check_case(name, a, wide)
+                    emit({"label": args.label, "case": f"edge {name} "
+                          f"{launched}", "launched": launched,
+                          "live": live_counts(got[3], z4, T),
+                          "max_abs_err": err, "member_flips": flips,
+                          "out_sha": digest(got), "card": card})
     if args.out:
         with open(args.out, "w") as f:
             f.write("".join(f"{line}\n" for line in lines))

@@ -100,13 +100,20 @@ constexpr int kConsOut = 10;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// pdw of feature k against (zr, zb), with its innovation (ir, ib); planes
-// r, bearing, si00, si01, si11, pref at sp + i * K
+// the innovation (ir, ib) of feature k against (zr, zb); planes r,
+// bearing, si00, si01, si11, pref at sp + i * K
+__device__ __forceinline__ void lane_innov(const float* sp, int K, int k,
+                                           float zr, float zb, float& ir,
+                                           float& ib) {
+  ir = zr - sp[k];
+  ib = phd::wrap_angle_floor(zb - sp[K + k]);
+}
+
+// pdw of feature k against (zr, zb), with its innovation (ir, ib)
 __device__ __forceinline__ float lane_pdw(const float* sp, int K, int k,
                                           float zr, float zb, float& ir,
                                           float& ib) {
-  ir = zr - sp[k];
-  ib = phd::wrap_angle_floor(zb - sp[K + k]);
+  lane_innov(sp, K, k, zr, zb, ir, ib);
   const float dist = sp[2 * K + k] * ir * ir + 2.f * sp[3 * K + k] * ir * ib
                      + sp[4 * K + k] * ib * ib;
   return sp[5 * K + k] * expf(-0.5f * dist);
@@ -367,12 +374,110 @@ detect_kernel(const float* __restrict__ planes, const float* __restrict__ z4,
   }
 }
 
-// The consolidating kernels' column pass: a thread per column k, a warp
-// per 32 consecutive columns (one bit word a row, which only this warp
-// reads and writes). sp: the 6 pdw planes, gx: the 7 consolidation planes
-// (wp, q.., p..), z: z4 [M, 4], nrm: the rows' normalizers, words: the
-// live lanes [M, W] (members cleared here), cp: this particle's cons
-// [10, K]
+// One feature column's consolidation (a thread's), in the order of its
+// steps: column_head for each live row m ascending, column_open, then
+// for each live row m ascending once ``flag`` is set column_near and, for
+// a member, column_add, and column_close. Both column passes below run
+// these same functions in the same order, so they give the same bits.
+struct Column {
+  float best, uh_r, uh_b;               // the head copy so far
+  float c_r, c_b, a00, a01, a11;        // the head and its quadratic
+  bool flag, pers_in;
+  float s_w, s_r, s_b, s_rr, s_rb, s_bb;
+  int n_mem;
+};
+
+__device__ __forceinline__ void column_start(Column& c) {
+  c.best = -INFINITY;
+  c.uh_r = 0.f;
+  c.uh_b = 0.f;
+}
+
+// the head copy: the heaviest live w_det = pdw / norm, the lowest m among
+// ties (rows visited m ascending)
+__device__ __forceinline__ void column_head(Column& c, float wd, float ir,
+                                            float ib) {
+  if (wd > c.best) {
+    c.best = wd;
+    c.uh_r = ir;
+    c.uh_b = ib;
+  }
+}
+
+// gx: the 7 consolidation planes (wp, q.., p..) of the particle
+__device__ __forceinline__ void column_open(Column& c, const float* gx,
+                                            int K, int k, bool real,
+                                            float min_sep) {
+  const float colmax = fmaxf(c.best, 0.f);
+  const float wp = real ? gx[k] : 0.f;
+  const float q00 = real ? gx[K + k] : 0.f;
+  const float q01 = real ? gx[2 * K + k] : 0.f;
+  const float q11 = real ? gx[3 * K + k] : 0.f;
+  const float p00 = real ? gx[4 * K + k] : 0.f;
+  const float p01 = real ? gx[5 * K + k] : 0.f;
+  const float p11 = real ? gx[6 * K + k] : 0.f;
+  const bool has_copy = colmax > 0.f;
+  // the persistent lane heads the column when at least as heavy
+  const bool head_p = wp >= colmax && wp > 0.f;
+  c.c_r = head_p ? 0.f : c.uh_r;
+  c.c_b = head_p ? 0.f : c.uh_b;
+  const float pers_near = p00 * c.uh_r * c.uh_r + 2.f * p01 * c.uh_r * c.uh_b
+                          + p11 * c.uh_b * c.uh_b;
+  c.pers_in = wp > 0.f && (head_p || pers_near < min_sep) && has_copy;
+  c.flag = has_copy && (wp <= 0.f || c.pers_in);
+  c.a00 = head_p ? p00 : q00;
+  c.a01 = head_p ? p01 : q01;
+  c.a11 = head_p ? p11 : q11;
+  c.s_w = c.s_r = c.s_b = c.s_rr = c.s_rb = c.s_bb = 0.f;
+  c.n_mem = 0;
+}
+
+// a live row of a flagged column: whether it is a member, with its
+// innovation about the head (du_r, du_b)
+__device__ __forceinline__ bool column_near(const Column& c, float ir,
+                                            float ib, float min_sep,
+                                            float& du_r, float& du_b) {
+  du_r = ir - c.c_r;
+  du_b = ib - c.c_b;
+  const float quad = c.a00 * du_r * du_r + 2.f * c.a01 * du_r * du_b
+                     + c.a11 * du_b * du_b;
+  return quad < min_sep;
+}
+
+// a member's w_det moments about the head, summed
+__device__ __forceinline__ void column_add(Column& c, float wm, float du_r,
+                                           float du_b) {
+  c.s_w += wm;
+  c.s_r += wm * du_r;
+  c.s_b += wm * du_b;
+  c.s_rr += wm * du_r * du_r;
+  c.s_rb += wm * du_r * du_b;
+  c.s_bb += wm * du_b * du_b;
+  ++c.n_mem;
+}
+
+// cp: the particle's cons [10, K]
+__device__ __forceinline__ void column_close(const Column& c, float* cp,
+                                             int K, int k, bool real) {
+  if (!real) return;
+  cp[k] = c.s_w;
+  cp[K + k] = c.s_r;
+  cp[2 * K + k] = c.s_b;
+  cp[3 * K + k] = c.s_rr;
+  cp[4 * K + k] = c.s_rb;
+  cp[5 * K + k] = c.s_bb;
+  cp[6 * K + k] = c.c_r;
+  cp[7 * K + k] = c.c_b;
+  cp[8 * K + k] = static_cast<float>(c.n_mem);
+  cp[9 * K + k] = c.pers_in ? 1.f : 0.f;
+}
+
+// The narrow consolidating kernel's column pass: a thread per column k, a
+// warp per 32 consecutive columns (one bit word a row, which only this
+// warp reads and writes), each lane evaluating its live rows' pdw in turn.
+// sp: the 6 pdw planes, gx: the 7 consolidation planes, z: z4 [M, 4], nrm:
+// the rows' normalizers, words: the live lanes [M, W] (members cleared
+// here), cp: this particle's cons [10, K]
 __device__ __forceinline__ void column_pass(const float* sp, const float* gx,
                                             const float* z, const float* nrm,
                                             unsigned* words, int K, int M,
@@ -384,85 +489,33 @@ __device__ __forceinline__ void column_pass(const float* sp, const float* gx,
     const int k = kb + lane;
     const bool real = k < K;
     unsigned* col_words = words + (kb >> 5);
-    // the head copy: the heaviest live w_det, the lowest m among ties
-    float best = -INFINITY;
-    float uh_r = 0.f, uh_b = 0.f;
+    Column c;
+    column_start(c);
     for (int m = 0; m < M; ++m) {
       if ((col_words[m * W] >> lane) & 1u) {
         float ir, ib;
         const float v = lane_pdw(sp, K, k, z[4 * m], z[4 * m + 1], ir, ib);
-        const float wd = v / nrm[m];
-        if (wd > best) {
-          best = wd;
-          uh_r = ir;
-          uh_b = ib;
-        }
+        column_head(c, v / nrm[m], ir, ib);
       }
     }
-    const float colmax = fmaxf(best, 0.f);
-    const float wp = real ? gx[k] : 0.f;
-    const float q00 = real ? gx[K + k] : 0.f;
-    const float q01 = real ? gx[2 * K + k] : 0.f;
-    const float q11 = real ? gx[3 * K + k] : 0.f;
-    const float p00 = real ? gx[4 * K + k] : 0.f;
-    const float p01 = real ? gx[5 * K + k] : 0.f;
-    const float p11 = real ? gx[6 * K + k] : 0.f;
-    const bool has_copy = colmax > 0.f;
-    // the persistent lane heads the column when at least as heavy
-    const bool head_p = wp >= colmax && wp > 0.f;
-    const float c_r = head_p ? 0.f : uh_r;
-    const float c_b = head_p ? 0.f : uh_b;
-    const float pers_near = p00 * uh_r * uh_r + 2.f * p01 * uh_r * uh_b
-                            + p11 * uh_b * uh_b;
-    const bool pers_in = wp > 0.f && (head_p || pers_near < min_sep)
-                         && has_copy;
-    const bool flag = has_copy && (wp <= 0.f || pers_in);
-    const float a00 = head_p ? p00 : q00;
-    const float a01 = head_p ? p01 : q01;
-    const float a11 = head_p ? p11 : q11;
-    float s_w = 0.f, s_r = 0.f, s_b = 0.f, s_rr = 0.f, s_rb = 0.f,
-          s_bb = 0.f;
-    int n_mem = 0;
-    if (__any_sync(kFull, flag)) {       // else no member in these columns
+    column_open(c, gx, K, k, real, min_sep);
+    if (__any_sync(kFull, c.flag)) {     // else no member in these columns
       for (int m = 0; m < M; ++m) {
         const unsigned word = col_words[m * W];
         bool member = false;
-        if (flag && ((word >> lane) & 1u)) {
+        if (c.flag && ((word >> lane) & 1u)) {
           float ir, ib;
           const float v = lane_pdw(sp, K, k, z[4 * m], z[4 * m + 1], ir,
                                    ib);
-          const float du_r = ir - c_r;
-          const float du_b = ib - c_b;
-          const float quad = a00 * du_r * du_r + 2.f * a01 * du_r * du_b
-                             + a11 * du_b * du_b;
-          if (quad < min_sep) {
-            member = true;
-            const float wm = v / nrm[m];
-            s_w += wm;
-            s_r += wm * du_r;
-            s_b += wm * du_b;
-            s_rr += wm * du_r * du_r;
-            s_rb += wm * du_r * du_b;
-            s_bb += wm * du_b * du_b;
-            ++n_mem;
-          }
+          float du_r, du_b;
+          member = column_near(c, ir, ib, min_sep, du_r, du_b);
+          if (member) column_add(c, v / nrm[m], du_r, du_b);
         }
         const unsigned bits = __ballot_sync(kFull, member);
         if (lane == 0 && bits != 0u) col_words[m * W] = word & ~bits;
       }
     }
-    if (real) {
-      cp[k] = s_w;
-      cp[K + k] = s_r;
-      cp[2 * K + k] = s_b;
-      cp[3 * K + k] = s_rr;
-      cp[4 * K + k] = s_rb;
-      cp[5 * K + k] = s_bb;
-      cp[6 * K + k] = c_r;
-      cp[7 * K + k] = c_b;
-      cp[8 * K + k] = static_cast<float>(n_mem);
-      cp[9 * K + k] = pers_in ? 1.f : 0.f;
-    }
+    column_close(c, cp, K, k, real);
   }
 }
 
@@ -591,7 +644,14 @@ detect_cons_kernel(const float* __restrict__ planes,
 // tile with a live lane, where a dense row has a few. detect_wide_kernel
 // stages the planes once by TMA where they fit (K <= 4096), evaluates pdw
 // once while keeping the row's few candidate lanes, and selects among
-// them (see the kernel); detect_cons_wide_kernel keeps the first design.
+// them (see the kernel). The first consolidating wide kernel (2.746 ms on
+// an H100 80GB HBM3 at 700 W at the dense K = 2048 scene, 2.3% of its
+// 0.063 ms bound) lost more: pdw
+// evaluated twice over every lane of pass 1 and again at every live lane
+// of the tile walk, the planes and the live-lane words in device memory,
+// every tile of every row walked in pass 3. detect_cons_wide_kernel now
+// takes detect_wide_kernel's pass 1 and keeps the words in shared memory
+// (see the kernel).
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 32;          // features a lane a tile
@@ -673,25 +733,6 @@ __device__ int wide_select(const Key& key, int K, int T, int lane, Slots& s,
     pi = bi;
   }
   return cnt;
-}
-
-// The warp-wide sum of a row's pdw in the narrow kernels' order, plus cb
-__device__ __forceinline__ float wide_norm(const float* sp, int K, int lane,
-                                           float zr, float zb, bool zvalid,
-                                           float cb) {
-  float sum = 0.f;
-  for (int k = lane; k < K; k += 32) {
-    float v = 0.f;
-    if (zvalid) {
-      float ir, ib;
-      v = lane_pdw(sp, K, k, zr, zb, ir, ib);
-    }
-    sum += v;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(kFull, sum, off);
-  return sum + cb;
 }
 
 // detect_wide_kernel's per-warp buffer: a row's candidate lanes (value,
@@ -835,36 +876,254 @@ detect_wide_kernel(const float* __restrict__ planes,
   }
 }
 
-// The consolidating kernel's three passes (see detect_cons_kernel) with
-// the live-lane words in ``words`` [P, M, W] (device memory) and the
-// normalizers read back from ``norm``
-__global__ void __launch_bounds__(kThreads)
+// The consolidating wide kernel's layout: where the particle's planes fit
+// (K <= 4096, as detect_wide_kernel's) and shared memory holds them with
+// the live-lane words, the barrier and the staged [6, K] planes | each
+// warp's ConsCand | the words [M, W]; otherwise each warp's ConsCand
+// after 16 bytes, with the planes read from device memory and the words
+// in the caller's scratch [P, M, W]. 3 blocks an SM at the dense
+// K = 2048, M = 72 (75,808 bytes: the 7 consolidation planes, read once a
+// column in the column pass, are not staged; z4 and the normalizers stay
+// in device memory, a few hundred bytes the L1 keeps)
+constexpr int kConsWideMinBlocks = 3;
+
+// its per-warp buffer: pass 1's candidates (value, feature), then the
+// column pass's entries (w_det, row and column), then pass 3's surviving
+// features and, in place of the values, the warp's Slots
+struct ConsCand {
+  union {
+    float v[kCand];
+    Slots s;
+  };
+  int i[kCand];
+};
+
+// detect_cons_wide_kernel's column pass: column_pass's steps (Column) in
+// its order, with the live rows' w_det of the warp's 32 columns evaluated
+// by the whole warp together. A dense 32-column word has ~34 rows with a
+// live lane and ~80 live lanes (the dense K = 2048 scene), ~3 a column:
+// column_pass's warp evaluates pdw once a row with a live lane, a lane or
+// two at a time, and steps through every row; here each block of 32 rows
+// is read a row a lane, its bit matrix transposed across the warp (5
+// shuffles) so that each lane holds its column's live rows as bits, the
+// live lanes listed column by column (a scan of the counts) in the warp's
+// buffer, their w_det = pdw / norm evaluated a lane an entry, and each
+// lane visits its own entries, rows ascending. The head's innovation and
+// the members' are recomputed from the planes (lane_innov, the same
+// bits); a member clears its bit with an atomic and. A block of rows
+// with more than kCand live lanes is visited a lane at a time, each
+// lane evaluating its own (column_pass's way).
+
+// the 32 x 32 bit matrix held a row a lane (bit j: column j), transposed
+__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
+  constexpr unsigned kLow[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
+                                0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int d = 16 >> i;
+    const unsigned y = __shfl_xor_sync(kFull, x, d);
+    x = (lane & d) ? (x & ~kLow[i]) | ((y >> d) & kLow[i])
+                   : (x & kLow[i]) | ((y & kLow[i]) << d);
+  }
+  return x;
+}
+
+// visit(m, w_det) for each live row m of the lane's column (ascending)
+// where ``take``
+template <class Visit>
+__device__ __forceinline__ void column_rows(const float* sp, const float* z,
+                                            const float* nrm,
+                                            const unsigned* col_words,
+                                            int W, int K, int M, int kb,
+                                            bool take, ConsCand& cd,
+                                            int lane, Visit&& visit) {
+  const int k = kb + lane;
+  for (int m0 = 0; m0 < M; m0 += 32) {
+    const unsigned wl = m0 + lane < M ? col_words[(m0 + lane) * W] : 0u;
+    const unsigned t32 = transpose32(wl, lane);  // every lane shuffles
+    const unsigned mine = take ? t32 : 0u;
+    const int cnt = __popc(mine);
+    int end = cnt;                      // inclusive scan of the counts
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(kFull, end, d);
+      if (lane >= d) end += o;
+    }
+    const int total = __shfl_sync(kFull, end, 31);
+    if (total == 0) continue;           // warp-uniform
+    if (total > kCand) {
+      for (unsigned t = mine; t != 0u; t &= t - 1u) {
+        const int m = m0 + __ffs(t) - 1;
+        float ir, ib;
+        visit(m, lane_pdw(sp, K, k, z[4 * m], z[4 * m + 1], ir, ib) / nrm[m]);
+      }
+      continue;
+    }
+    int pos = end - cnt;
+    for (unsigned t = mine; t != 0u; t &= t - 1u)
+      cd.i[pos++] = ((m0 + __ffs(t) - 1) << 5) | lane;
+    __syncwarp();
+    for (int q = lane; q < total; q += 32) {
+      const int e = cd.i[q];
+      const int m = e >> 5;
+      float ir, ib;
+      cd.v[q] = lane_pdw(sp, K, kb + (e & 31), z[4 * m], z[4 * m + 1], ir,
+                         ib) / nrm[m];
+    }
+    __syncwarp();
+    for (int q = end - cnt; q < end; ++q) visit(cd.i[q] >> 5, cd.v[q]);
+    __syncwarp();                       // the buffer is free again
+  }
+}
+
+// sp, gx, z, nrm, words, cp as column_pass's; cd: the warp's buffer
+__device__ __forceinline__ void column_pass_wide(const float* sp,
+                                                 const float* gx,
+                                                 const float* z,
+                                                 const float* nrm,
+                                                 unsigned* words, int K,
+                                                 int M, float min_sep,
+                                                 float* cp, ConsCand& cd) {
+  const int W = (K + 31) / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int kb = 32 * warp; kb < K; kb += 32 * kWarps) {
+    const int k = kb + lane;
+    const bool real = k < K;
+    unsigned* col_words = words + (kb >> 5);
+    Column c;
+    column_start(c);
+    int head = -1;                      // column_head's rule, its row kept
+    column_rows(sp, z, nrm, col_words, W, K, M, kb, true, cd, lane,
+                [&](int m, float wd) {
+                  if (wd > c.best) {
+                    c.best = wd;
+                    head = m;
+                  }
+                });
+    if (head >= 0)
+      lane_innov(sp, K, k, z[4 * head], z[4 * head + 1], c.uh_r, c.uh_b);
+    column_open(c, gx, K, k, real, min_sep);
+    if (__any_sync(kFull, c.flag)) {    // else no member in these columns
+      column_rows(sp, z, nrm, col_words, W, K, M, kb, c.flag, cd, lane,
+                  [&](int m, float wd) {
+                    float ir, ib, du_r, du_b;
+                    lane_innov(sp, K, k, z[4 * m], z[4 * m + 1], ir, ib);
+                    if (column_near(c, ir, ib, min_sep, du_r, du_b)) {
+                      column_add(c, wd, du_r, du_b);
+                      atomicAnd(col_words + m * W, ~(1u << lane));
+                    }
+                  });
+    }
+    column_close(c, cp, K, k, real);
+  }
+}
+
+size_t cons_wide_smem(int K, int M, bool staged) {
+  const size_t cand = kWarps * sizeof(ConsCand);
+  if (!staged) return 16 + cand;
+  return slots_offset(K) + cand
+         + sizeof(unsigned) * static_cast<size_t>(M) * ((K + 31) / 32);
+}
+
+bool cons_wide_staged(int K, int M) {
+  return kPdwPlanes * K <= kWideStaged
+         && cons_wide_smem(K, M, true) <= kMaxSmem;
+}
+
+// The consolidating variant at any K, in detect_cons_kernel's three passes
+// and its sums' order, so the same bits as the first design:
+//   pass 1, a warp per row: detect_wide_kernel's pass (pdw once, the
+//     normalizer in the narrow kernels' order, the row's candidates
+//     pdw >= min_fw * cb in the warp's Cand); with the normalizer the live
+//     lanes among the candidates set their bits in the row's words
+//     (a row with more than kCand candidates evaluates pdw again over the
+//     whole row, one ballot a word);
+//   pass 2: column_pass_wide, the narrow kernels' column steps (Column)
+//     in their order (the head and the member sums visiting only the live
+//     rows of each column, the member bits cleared), the live lanes'
+//     pdw evaluated by the whole warp together in its buffer;
+//   pass 3, a warp per row: the count from the words' bits; at most kCand
+//     surviving lanes (and at most 32, or T <= 32) are compacted in
+//     feature order into the warp's Cand, their pdw evaluated again (the
+//     same device function, the same bits), and selected as
+//     detect_wide_kernel selects its candidates; more walk the row in
+//     tiles (wide_select, the first design's pass 3).
+__global__ void __launch_bounds__(kThreads, kConsWideMinBlocks)
 detect_cons_wide_kernel(const float* __restrict__ planes,
                         const float* __restrict__ z4,
                         float* __restrict__ vals, int* __restrict__ idx,
                         float* __restrict__ norm, int* __restrict__ count,
                         float* __restrict__ cons, unsigned* __restrict__ words,
                         int K, int M, int T, float min_fw, float cb,
-                        float min_sep) {
-  __shared__ Slots slots[kWarps];
+                        float min_sep, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int W = (K + 31) / 32;
   const int p = blockIdx.x;
-  const float* sp = planes + static_cast<size_t>(p) * kConsPlanes * K;
-  unsigned* pw = words + static_cast<size_t>(p) * M * W;
+  const float* gp = planes + static_cast<size_t>(p) * kConsPlanes * K;
+  uint64_t* bar = nullptr;
+  const float* sp =
+      staged ? phd::stage_slab(gp, kPdwPlanes * K, smem, &bar) : gp;
+  ConsCand* cands =
+      reinterpret_cast<ConsCand*>(smem + (staged ? slots_offset(K) : 16));
+  unsigned* bits = staged ? reinterpret_cast<unsigned*>(cands + kWarps)
+                          : words + static_cast<size_t>(p) * M * W;
   float* pn = norm + static_cast<size_t>(p) * M;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  ConsCand& cd = cands[warp];
+  Slots& sl = cd.s;
+  const float lb = min_fw >= 0.f ? min_fw * cb : 0.f;
+  if (staged) {
+    __syncthreads();                    // the slab's head and tail
+    phd::mbar_wait(bar, 0);             // its bulk-copied middle
+  }
 
-  // pass 1: a warp per row: the normalizer and the live lanes as words
+  // pass 1: pdw once, the normalizer, the live lanes as words
   for (int m = warp; m < M; m += kWarps) {
     const float zr = z4[4 * m], zb = z4[4 * m + 1];
     const bool zvalid = z4[4 * m + 2] > 0.5f;
-    const float nrm = wide_norm(sp, K, lane, zr, zb, zvalid, cb);
+    float sum = 0.f;
+    int n_cand = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + lane;
+      float v = 0.f;
+      if (k < K && zvalid) {
+        float ir, ib;
+        v = lane_pdw(sp, K, k, zr, zb, ir, ib);
+      }
+      sum += v;
+      const bool cand = v >= lb && v > 0.f;
+      const unsigned bc = __ballot_sync(kFull, cand);
+      const int q = n_cand + __popc(bc & below);
+      if (cand && q < kCand) {
+        cd.v[q] = v;
+        cd.i[q] = k;
+      }
+      n_cand += __popc(bc);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    const float nrm = sum + cb;
     const float thr = min_fw * nrm;
-    for (int w0 = 0; w0 < W; w0 += 32) {
-      unsigned word = 0u;
-      for (int j = 0; j < 32 && w0 + j < W; ++j) {
-        const int k = 32 * (w0 + j) + lane;
+    unsigned* rw = bits + m * W;
+    if (n_cand <= kCand) {
+      for (int w = lane; w < W; w += 32) rw[w] = 0u;
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < kCandPerLane; ++u) {
+        const int q = lane + 32 * u;
+        if (q < n_cand) {
+          const float v = cd.v[q];
+          const int k = cd.i[q];
+          if (v >= thr && v > 0.f) atomicOr(rw + (k >> 5), 1u << (k & 31));
+        }
+      }
+    } else {
+      for (int k0 = 0; k0 < K; k0 += 32) {
+        const int k = k0 + lane;
         bool live = false;
         if (k < K && zvalid) {
           float ir, ib;
@@ -872,40 +1131,94 @@ detect_cons_wide_kernel(const float* __restrict__ planes,
           live = v >= thr && v > 0.f;
         }
         const unsigned b = __ballot_sync(kFull, live);
-        if (lane == j) word = b;
+        if (lane == 0) rw[k0 >> 5] = b;
       }
-      if (w0 + lane < W) pw[m * W + w0 + lane] = word;
     }
     if (lane == 0) pn[m] = nrm;
+    __syncwarp();                        // the warp's Cand is free again
   }
   __syncthreads();
 
-  // pass 2: the column pass
-  column_pass(sp, sp + kPdwPlanes * K, z4, pn, pw, K, M, min_sep,
-              cons + static_cast<size_t>(p) * kConsOut * K);
+  // pass 2: the column pass, the warp evaluating its live lanes together
+  column_pass_wide(sp, gp + kPdwPlanes * K, z4, pn, bits, K, M, min_sep,
+                   cons + static_cast<size_t>(p) * kConsOut * K, cd);
   __syncthreads();
 
   // pass 3: the count and the top-T over the live non-member lanes
   for (int m = warp; m < M; m += kWarps) {
     const float zr = z4[4 * m], zb = z4[4 * m + 1];
-    const unsigned* rw = pw + m * W;
-    const auto key = [&](int k) -> unsigned {
-      if (k >= K || !((rw[k >> 5] >> (k & 31)) & 1u)) return 0u;
-      float ir, ib;
-      return __float_as_uint(lane_pdw(sp, K, k, zr, zb, ir, ib));
-    };
+    const unsigned* rw = bits + m * W;
+    int cnt = 0;
+    for (int w0 = 0; w0 < W; w0 += 32) {
+      const unsigned word = w0 + lane < W ? rw[w0 + lane] : 0u;
+      cnt += __reduce_add_sync(kFull, __popc(word));
+    }
     const size_t row = static_cast<size_t>(p) * M + m;
-    const int cnt =
-        wide_select(key, K, T, lane, slots[warp], vals + row * T,
-                    idx + row * T);
+    float* vrow = vals + row * T;
+    int* irow = idx + row * T;
+    if (cnt == 0) {
+      write_row(0.f, 0, 0, T, lane, vrow, irow);
+    } else if (cnt <= kCand && (cnt <= 32 || T <= 32)) {
+      // the surviving features in feature order: an exclusive scan of the
+      // words' bit counts, word block by word block
+      int base = 0;
+      for (int w0 = 0; w0 < W; w0 += 32) {
+        const unsigned word = w0 + lane < W ? rw[w0 + lane] : 0u;
+        const int own = __popc(word);
+        int off = own;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int o = __shfl_up_sync(kFull, off, d);
+          if (lane >= d) off += o;
+        }
+        int pos = base + off - own;
+        for (unsigned w = word; w != 0u; w &= w - 1u)
+          cd.i[pos++] = 32 * (w0 + lane) + __ffs(w) - 1;
+        base += __shfl_sync(kFull, off, 31);
+      }
+      __syncwarp();
+      unsigned key[kCandPerLane];
+#pragma unroll
+      for (int u = 0; u < kCandPerLane; ++u) {
+        const int q = lane + 32 * u;
+        key[u] = 0u;
+        if (q < cnt) {
+          float ir, ib;
+          key[u] = __float_as_uint(lane_pdw(sp, K, cd.i[q], zr, zb, ir, ib));
+        }
+      }
+      int r;
+      const unsigned thr_k = top_threshold<kCandPerLane>(key, cnt, T, r);
+      float v;
+      int i;
+      const int n_sel =
+          select_sorted<kCandPerLane>(key, thr_k, r, lane, sl, 0, v, i);
+      if (lane < n_sel) i = cd.i[i];
+      write_row(v, i, n_sel, T, lane, vrow, irow);
+    } else {
+      const auto key = [&](int k) -> unsigned {
+        if (k >= K || !((rw[k >> 5] >> (k & 31)) & 1u)) return 0u;
+        float ir, ib;
+        return __float_as_uint(lane_pdw(sp, K, k, zr, zb, ir, ib));
+      };
+      wide_select(key, K, T, lane, sl, vrow, irow);
+    }
     if (lane == 0) count[row] = cnt;
+    __syncwarp();                        // the warp's Cand is free again
   }
 }
 
-// Allows detect_wide_kernel the dynamic shared memory of a launch
+// Allow detect_wide_kernel / detect_cons_wide_kernel the dynamic shared
+// memory of a launch
 cudaError_t allow_wide(size_t smem) {
   static int allowed[phd::kMaxDevices] = {};
   return phd::allow_smem(detect_wide_kernel, static_cast<int>(smem),
+                         allowed);
+}
+
+cudaError_t allow_cons_wide(size_t smem) {
+  static int allowed[phd::kMaxDevices] = {};
+  return phd::allow_smem(detect_cons_wide_kernel, static_cast<int>(smem),
                          allowed);
 }
 
@@ -995,18 +1308,41 @@ extern "C" int phd_detect_wide_plan(int K, int* out) {
   return 0;
 }
 
+// detect_cons_wide_kernel's launch at K features and M rows on the
+// current device, into out[5] as phd_detect_wide_plan's (staged 0: the
+// planes read from device memory and the live-lane words in the caller's
+// scratch)
+extern "C" int phd_detect_cons_wide_plan(int K, int M, int* out) {
+  if (K <= 0 || M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool staged = cons_wide_staged(K, M);
+  const size_t smem = cons_wide_smem(K, M, staged);
+  cudaError_t err = allow_cons_wide(smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, detect_cons_wide_kernel);
+  int occ = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, detect_cons_wide_kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[5] = {kThreads, static_cast<int>(smem), staged ? 1 : 0,
+                       attr.numRegs, occ};
+  for (int i = 0; i < 5; ++i) out[i] = vals[i];
+  return 0;
+}
+
 // The wide variants at any K (the wrapper takes them above 1024): cons ==
 // nullptr runs the plain one on planes [P, 6, K], otherwise the
 // consolidating one on planes [P, 13, K], writing cons [P, 10, K], with
-// ``words`` uint32 [P, M, (K + 31) / 32] as scratch
+// ``words`` uint32 [P, M, (K + 31) / 32] as scratch where its plan is not
+// staged (else unused, may be NULL)
 extern "C" int phd_detect_wide(const float* planes, const float* z4,
                                float* vals, int* idx, float* norm, int* count,
                                float* cons, unsigned* words, int P, int K,
                                int M, int T, float min_fw, float cb,
                                float min_sep, void* stream) {
   if (P <= 0 || M <= 0) return 0;
-  if (T <= 0 || T > K || (cons != nullptr && words == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 0 || T > K) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cons == nullptr) {
     const size_t smem = wide_smem(K);
@@ -1014,9 +1350,16 @@ extern "C" int phd_detect_wide(const float* planes, const float* z4,
     if (err != cudaSuccess) return static_cast<int>(err);
     detect_wide_kernel<<<P, kThreads, smem, s>>>(planes, z4, vals, idx, norm,
                                                  count, K, M, T, min_fw, cb);
-  } else
-    detect_cons_wide_kernel<<<P, kThreads, 0, s>>>(
+  } else {
+    const bool staged = cons_wide_staged(K, M);
+    if (!staged && words == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = cons_wide_smem(K, M, staged);
+    const cudaError_t err = allow_cons_wide(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    detect_cons_wide_kernel<<<P, kThreads, smem, s>>>(
         planes, z4, vals, idx, norm, count, cons, words, K, M, T, min_fw, cb,
-        min_sep);
+        min_sep, staged ? 1 : 0);
+  }
   return static_cast<int>(cudaGetLastError());
 }

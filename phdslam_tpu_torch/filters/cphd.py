@@ -36,7 +36,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import SlamConfig
-from ..kernels.cardinality import cardinality_product
+from ..kernels.cardinality import cardinality_predict_batch
 from ..kernels.detect import detect
 from ..models import measurement
 from ..ops import ekf
@@ -79,9 +79,13 @@ def cphd_constants(cfg: SlamConfig, dtype=torch.float32,
 # Cardinality prediction
 # ----------------------------------------------------------------------------
 
+# The shared birth cardinality's form, cardinality_predict_batch (one
+# kernel launch a step), is kernels/cardinality.py's.
+
 def cardinality_predict(log_cn, log_cn_birth):
     """Log-domain convolution cn_pred[n] = logsum_j cn_birth[n - j] + cn[j]
-    over the last axis (log_cn, log_cn_birth [..., C+1])."""
+    over the last axis (log_cn, log_cn_birth [..., C+1]): the gated births'
+    per-particle birth cardinality, in eager PyTorch."""
     C1 = log_cn.shape[-1]
     ar = torch.arange(C1, device=log_cn.device)
     diff = ar[:, None] - ar[None, :]                       # [n, j]
@@ -89,23 +93,6 @@ def cardinality_predict(log_cn, log_cn_birth):
     birth_term = torch.where(valid, log_cn_birth[..., diff.clamp_min(0)],
                              LOG0)
     return masked_logsumexp(birth_term + log_cn[..., None, :], valid, dim=-1)
-
-
-def cardinality_predict_batch(log_cn, log_cn_birth):
-    """The same convolution for log_cn [P, C+1] against one shared
-    log_cn_birth [C+1] as a linear-domain Toeplitz product: subtract each
-    row's max, exp, the [P, C+1] x [C+1, C+1] f32 product with each sum in
-    one fixed order (kernels/cardinality.py: a row's bits do not depend on
-    the batch's other rows), log back."""
-    C1 = log_cn.shape[-1]
-    mx = torch.amax(log_cn, dim=-1, keepdim=True)
-    lin = torch.exp(log_cn - mx)
-    bmax = torch.amax(log_cn_birth)
-    ar = torch.arange(C1, device=log_cn.device)
-    diff = ar[None, :] - ar[:, None]                       # T[j, n]
-    T = torch.where(diff >= 0,
-                    torch.exp(log_cn_birth[diff.clamp_min(0)] - bmax), 0.0)
-    return safe_log(cardinality_product(lin, T)) + mx + bmax
 
 
 def binomial_birth_cardinality(n_births, birth_weight, max_cardinality,

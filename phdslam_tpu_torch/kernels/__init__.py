@@ -10,10 +10,12 @@
 | merge.py        | csrc/merge3d.cu      | ops/pallas_merge.py::_merge_kernel_3d  |
 | merge.py        | csrc/merge4d.cu      | ops/pallas_merge.py::_merge_kernel_4d  |
 | cardinality.py  | csrc/cardinality.cu  | filters/cphd.py::cardinality_predict_  |
-|                 |                      | batch's f32 dot (XLA, no Pallas)       |
+|                 |                      | batch (XLA max, exp, dot and log; no   |
+|                 |                      | Pallas)                                |
 
 Shared headers: ``csrc/bulk_copy.cuh`` (the TMA bulk copy of a slab into
-shared memory on an mbarrier, used by both gathers) and ``csrc/wrap.cuh``
+shared memory on an mbarrier, used by both gathers, detect's staged
+variants and the cardinality prediction) and ``csrc/wrap.cuh``
 (the bearing wrap of detect.cu and merge2d.cu).
 
 A wrapper runs its twin for a CPU tensor and launches its kernel for a CUDA

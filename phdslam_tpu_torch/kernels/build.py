@@ -82,15 +82,17 @@ _SIGNATURES = {
     "phd_merge3d_wide_plan": [_I, _I, _I, _I, _P],
     "phd_merge4d_wide_plan": [_I, _I, _I, _I, _P],
     # planes, z4, vals, idx, norm, count, cons (NULL: plain), words
-    # uint32[P, M, ceil(K / 32)] (cons only), P, K, M, T, min_fw, cb,
-    # min_sep, stream
+    # uint32[P, M, ceil(K / 32)] (cons where its plan is not staged, else
+    # NULL), P, K, M, T, min_fw, cb, min_sep, stream
     "phd_detect_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                         _F, _F, _P],
     # K, out int[5] (detect_wide's launch: threads, shared bytes, staged,
     # registers, blocks an SM)
     "phd_detect_wide_plan": [_I, _P],
-    # lin, T, out, P, J, N, stream (cardinality.cu)
-    "phd_cardinality_product": [_P, _P, _P, _I, _I, _I, _P],
+    # K, M, out int[5] (detect_cons_wide's launch, the same keys)
+    "phd_detect_cons_wide_plan": [_I, _I, _P],
+    # log_cn, log_cn_birth, out, P, C1, stream (cardinality.cu)
+    "phd_cardinality_predict": [_P, _P, _P, _I, _I, _P],
     # pairs, seed, mode, counts int64[3], stream (merge_core_check.cu)
     "phd_merge_recip_check": [ctypes.c_ulonglong, ctypes.c_ulonglong, _I,
                               _P, _P],

@@ -23,15 +23,17 @@ tensors and runs the plain twin :func:`detect_reference` for CPU tensors;
 each variant counts its launches under its own name
 (:func:`detect_variant`). Above :data:`NARROW_FEATURES` features (or with
 ``wide=True``) a CUDA launch takes the wide variant of the same mode
-(the plain one: the particle's planes staged once, each pdw evaluated
-once, the live lanes selected among the row's candidates; the
-consolidating one: rows walked in tiles of 1024 features), counted with
-"_wide" appended.
+(both: the particle's planes staged once where they fit, each pdw
+evaluated once over the grid, the live lanes selected among the row's
+candidates; the consolidating one keeps its live-lane bits in shared
+memory beside the planes, or in a scratch tensor where they do not fit),
+counted with "_wide" appended.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -165,19 +167,31 @@ WIDE_PLAN_KEYS = ("threads", "smem", "staged", "registers",
                   "blocks_per_sm")
 
 
-def detect_wide_plan(K: int, device=None) -> dict:
-    """The plain wide variant's launch at K features on a CUDA device
-    (csrc/detect.cu::detect_wide_kernel): threads a block, dynamic shared
-    memory a block (bytes), whether the particle's planes are staged in
-    shared memory (1) or read from device memory (0), registers a thread,
-    resident blocks an SM."""
+def detect_wide_plan(K: int, device=None, M=None) -> dict:
+    """A wide variant's launch at K features on a CUDA device: threads a
+    block, dynamic shared memory a block (bytes), whether the particle's
+    planes are staged in shared memory (1) or read from device memory (0),
+    registers a thread, resident blocks an SM. The plain variant
+    (csrc/detect.cu::detect_wide_kernel) by default; with M rows the
+    consolidating one (detect_cons_wide_kernel, whose live-lane bits stay
+    beside staged planes)."""
     dev = torch.device("cuda") if device is None else torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     out = (ctypes.c_int * len(WIDE_PLAN_KEYS))()
+    lib = build.library()
     with torch.cuda.device(index):
-        err = build.library().phd_detect_wide_plan(K, out)
+        err = (lib.phd_detect_wide_plan(K, out) if M is None
+               else lib.phd_detect_cons_wide_plan(K, M, out))
     build.check_launch(err, "detect_wide plan")
     return dict(zip(WIDE_PLAN_KEYS, out))
+
+
+@functools.lru_cache(maxsize=None)
+def _cons_wide_scratch(K: int, M: int) -> bool:
+    """Whether the consolidating wide variant at (K, M) keeps its live-lane
+    bits in a scratch tensor (its planes too large to stage with them; the
+    rule does not depend on the device)."""
+    return not detect_wide_plan(K, M=M)["staged"]
 
 
 def detect(planes, z4, top_t: int, min_fw: float, cb: float,
@@ -226,9 +240,10 @@ def detect(planes, z4, top_t: int, min_fw: float, cb: float,
     tail = (P, K, M, top_t, float(min_fw), float(cb), float(min_sep),
             build.stream_handle(planes.device))
     if wide:
-        # the consolidating passes' live-lane words, a row's K bits
-        words = planes.new_empty((P, M, (K + 31) // 32),
-                                 dtype=torch.int32) if cons_on else None
+        # the consolidating passes' live-lane words, a row's K bits, where
+        # they are not kept in shared memory
+        words = planes.new_empty((P, M, (K + 31) // 32), dtype=torch.int32) \
+            if cons_on and _cons_wide_scratch(K, M) else None
         err = build.library().phd_detect_wide(
             *ptrs, None if words is None else words.data_ptr(), *tail)
     else:

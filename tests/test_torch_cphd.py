@@ -44,7 +44,8 @@ from phdslam_tpu_torch.filters import cphd as tcphd
 from phdslam_tpu_torch.filters.phd import (check_supported, update,
                                            update_route)
 from phdslam_tpu_torch.kernels import build
-from phdslam_tpu_torch.kernels.cardinality import cardinality_product
+from phdslam_tpu_torch.kernels.cardinality import (
+    cardinality_predict_reference, cardinality_product_reference)
 from phdslam_tpu_torch.kernels.merge import (merge2d, merge2d_reference,
                                              merge2d_variant)
 from phdslam_tpu_torch.ops import math as tmath
@@ -133,17 +134,47 @@ def test_cardinality_predict_batch_rows_independent():
     assert ((got - peak)[~near] < -50.0).all()
 
 
+@pytest.mark.parametrize("P,C1", [(512, 65), (9, 257)])
+def test_cardinality_predict_twin_matches_jax(P, C1):
+    """The prediction kernel's plain twin (the CPU path of
+    cardinality_predict_batch) against JAX's cardinality_predict_batch at
+    the CPHD path's C1 = 65 and at the default max_cardinality's 257, with
+    a row of certain cardinality and a row at LOG0 among random ones:
+    test_cardinality_predict_matches_jax's 60-nat rule."""
+    rng = np.random.default_rng(P + C1)
+    log_cn = rng.uniform(-60, 0, (P, C1)).astype(np.float32)
+    log_cn[1] = tmath.LOG0
+    log_cn[1, 3] = 0.0
+    log_cn[2] = tmath.LOG0
+    log_b = rng.uniform(-40, 0, C1).astype(np.float32)
+    got = cardinality_predict_reference(t(log_cn), t(log_b)).numpy() \
+        .astype(np.float64)
+    assert np.array_equal(got, tcphd.cardinality_predict_batch(
+        t(log_cn), t(log_b)).numpy())
+    want = np.asarray(jcphd.cardinality_predict_batch(
+        jnp.asarray(log_cn), jnp.asarray(log_b)), np.float64)
+    # the row at LOG0 sits where f64 cannot resolve 60 nats: held whole
+    at_log0 = want.max(axis=1) < 0.5 * tmath.LOG0
+    close_log(got[at_log0], want[at_log0])
+    got, want = got[~at_log0], want[~at_log0]
+    peak = want.max(axis=1, keepdims=True)
+    near = want > peak - 60.0
+    close_log(got[near], want[near])
+    assert ((got - peak)[~near] < -50.0).all()
+
+
 def test_cardinality_product_order():
-    """The product's twin (the CPU path) sums each output j ascending from
-    0 in f32, a multiply and an add each rounded: numpy's f32 loop in that
-    order gives the same bits; the float64 product is within 1e-6."""
+    """The prediction twin's product sums each output j ascending from 0
+    in f32, a multiply and an add each rounded (the kernel's order):
+    numpy's f32 loop in that order gives the same bits; the float64
+    product is within 1e-6."""
     rng = np.random.default_rng(7)
     lin = rng.uniform(0, 1, (33, 65)).astype(np.float32)
     T = np.triu(rng.uniform(0, 1, (65, 65))).astype(np.float32)
     want = np.zeros((33, 65), np.float32)
     for j in range(65):
         want = want + lin[:, j, None] * T[j]
-    got = cardinality_product(t(lin), t(T)).numpy()
+    got = cardinality_product_reference(t(lin), t(T)).numpy()
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
     exact = lin.astype(np.float64) @ T.astype(np.float64)
     np.testing.assert_allclose(got, exact, rtol=1e-6, atol=0)

@@ -32,13 +32,16 @@ K=2048 in all four modes and at K=1500 with trips) run against their
 twins, detect also against the same call on the CPU, and each beside its
 narrow kernel at the narrow limit (N=8192, 2048, K=1024); the staged
 merges also where entries lie past a block's shared ones and over many
-compacting rounds (P=264 / 528), and detect_wide through both of its
-candidate routes at K=2048. The spatially
+compacting rounds (P=264 / 528), detect_wide through both of its
+candidate routes at K=2048, and the consolidating wide variant with its
+planes staged (K=2048) and read from device memory (K=8192), each also
+at min_fw 0, where a row's candidates overflow the warp's buffer and
+the fall-back walks run. The spatially
 tiled merge's gather_cols and merge2d launches run at its tile rows
 ([4 P, 7, ct], ct 128, 256 and 384) against their twins. The
 resampling's fixed-order cumsum repeats its bits at P=10240, and the
-CPHD cardinality product its twin's bits at P=512 and 10240 (whole, in
-blocks and row by row).
+CPHD cardinality prediction its twin's bits at P=512 and 10240 (whole, in
+blocks and row by row) and at C1 33 and 257.
 """
 
 import numpy as np
@@ -55,9 +58,10 @@ from phdslam_tpu_torch.filters.phd import _finish_candidates_packed
 from phdslam_tpu_torch.filters import cphd as tcphd
 from phdslam_tpu_torch.kernels import build
 from phdslam_tpu_torch.kernels.cardinality import (
-    cardinality_product, cardinality_product_reference)
+    cardinality_predict_batch, cardinality_predict_reference)
 from phdslam_tpu_torch.kernels.detect import (detect, detect_reference,
-                                              detect_variant)
+                                              detect_variant,
+                                              detect_wide_plan)
 from phdslam_tpu_torch.kernels.gather_cols import (gather_cols,
                                                    gather_cols_reference)
 from phdslam_tpu_torch.kernels.gather_rows import (gather_rows,
@@ -883,6 +887,37 @@ def test_detect_wide_candidate_routes(dev, thresholded):
             assert bool(((live > 0) & (live <= 32)).any())
 
 
+@pytest.mark.parametrize("thresholded", [True, False])
+@pytest.mark.parametrize("K", [2048, 8192])
+def test_detect_cons_wide_routes(dev, K, thresholded):
+    """The consolidating wide variant at K = 2048 (planes and live-lane
+    bits in shared memory) and K = 8192 (both in device memory: the planes
+    too large to stage), on the dense scene's thresholds and at min_fw 0
+    (every pdw > 0 lane a candidate: pass 1's candidates overflow the
+    warp's buffer and pass 3's survivors walk the row in tiles), static and
+    adaptive, against the twin (assert_detect_matches' gates) and the same
+    call on CPU tensors; its launch plan says which layout ran."""
+    args = wide_detect_args(dev, True, K=K)
+    if not thresholded:
+        args = (*args[:3], 0.0, 0.0, args[5])
+    plan = detect_wide_plan(K, dev, M=args[1].shape[0])
+    assert plan["staged"] == (K == 2048)
+    assert plan["blocks_per_sm"] >= 1
+    for adaptive in (False, True):
+        build.reset_launch_counts()
+        got = detect(*args, adaptive=adaptive)
+        torch.cuda.synchronize()
+        assert dict(build.launch_counts) == {
+            detect_variant(True, adaptive, wide=True): 1}
+        assert_detect_matches(got, detect_reference(*args))
+    cpu = detect(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    assert_detect_matches([x.cpu() for x in got], cpu)
+    live = got[3][:, args[1][:, 2] > 0.5]
+    assert bool((live > 0).any()) and bool((got[4][:, 8] > 0).any())
+    if not thresholded:
+        assert bool((live > 128).any())
+
+
 @pytest.mark.parametrize("T", [40, 8])
 def test_detect_wide_trips_and_small_t(dev, T):
     """The wide variant's trips (T > 32 with more than 32 live lanes, at
@@ -998,32 +1033,44 @@ def test_resampling_cumsum_repeats_on_the_card(dev):
                                rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("P", [512, 10240])
-def test_cardinality_product_fixed_order(dev, P):
-    """The CPHD cardinality product on the card: the same bits as its twin
-    on the card and on the CPU (each sum j ascending, no fused
-    multiply-add), for the whole batch, four blocks and single rows alike;
-    and cardinality_predict_batch launches it once."""
-    rng = np.random.default_rng(P)
-    log_cn = rng.uniform(-60, 0, (P, 65)).astype(np.float32)
-    log_b = rng.uniform(-40, 0, 65).astype(np.float32)
-    lin = torch.exp(torch.tensor(log_cn) - torch.tensor(log_cn).amax(
-        dim=1, keepdim=True))
-    T = torch.tensor(np.triu(rng.uniform(0, 1, (65, 65))), dtype=torch.float32)
-    got = cardinality_product(lin.to(dev), T.to(dev))
-    for want in (cardinality_product_reference(lin.to(dev), T.to(dev)),
-                 cardinality_product_reference(lin, T)):
-        assert torch.equal(got.cpu().view(torch.int32),
-                           want.cpu().view(torch.int32))
-    blocks = torch.cat([cardinality_product(x, T.to(dev))
-                        for x in lin.to(dev).split(P // 4)])
+@pytest.mark.parametrize("P,C1", [(512, 65), (10240, 65), (300, 33),
+                                  (70, 257)])
+def test_cardinality_predict_fixed_order(dev, P, C1):
+    """The CPHD cardinality prediction on the card, one launch: the same
+    bits as its twin on the card, for the whole batch, four blocks and
+    single rows alike (each sum j ascending, no fused multiply-add, the
+    element-wise ops PyTorch's kernels run); within 1e-6 of max(1, |x|)
+    of the twin on the CPU (PyTorch's CPU exp and log round otherwise)
+    where a row is within 60 nats of its peak. Rows with a certain cardinality, every
+    entry at LOG0 and a NaN are among them; filters/cphd.py's
+    cardinality_predict_batch is the wrapper."""
+    rng = np.random.default_rng(P + C1)
+    log_cn = rng.uniform(-60, 0, (P, C1)).astype(np.float32)
+    log_cn[1] = -1.0e30
+    log_cn[1, 3] = 0.0
+    log_cn[2] = -1.0e30
+    log_cn[3, 5] = np.nan
+    log_b = rng.uniform(-40, 0, C1).astype(np.float32)
+    log_cn_d = torch.tensor(log_cn, device=dev)
+    log_b_d = torch.tensor(log_b, device=dev)
+    build.reset_launch_counts()
+    got = tcphd.cardinality_predict_batch(log_cn_d, log_b_d)
+    torch.cuda.synchronize()
+    assert dict(build.launch_counts) == {"cardinality_predict": 1}
+    want = cardinality_predict_reference(log_cn_d, log_b_d)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    blocks = torch.cat([cardinality_predict_batch(x, log_b_d)
+                        for x in log_cn_d.split(max(1, P // 4))])
     assert torch.equal(got.view(torch.int32), blocks.view(torch.int32))
-    for i in (0, P // 3, P - 1):
-        one = cardinality_product(lin[i:i + 1].to(dev), T.to(dev))
+    for i in (0, 1, 2, 3, P // 3, P - 1):
+        one = cardinality_predict_batch(log_cn_d[i:i + 1], log_b_d)
         assert torch.equal(one.view(torch.int32), got[i:i + 1].view(
             torch.int32))
-    build.reset_launch_counts()
-    out = tcphd.cardinality_predict_batch(torch.tensor(log_cn, device=dev),
-                                          torch.tensor(log_b, device=dev))
-    assert dict(build.launch_counts) == {"cardinality_product": 1}
-    assert torch.isfinite(out).all()
+    assert torch.isnan(got[3]).all() and torch.isfinite(got[4:]).all()
+    cpu = cardinality_predict_reference(torch.tensor(log_cn),
+                                        torch.tensor(log_b)).double()
+    g = got.cpu().double()
+    peak = cpu.amax(dim=1, keepdim=True)
+    near = (cpu > peak - 60.0) & torch.isfinite(cpu)
+    assert bool(((g - cpu).abs()[near]
+                 <= 1e-6 * cpu.abs().clamp_min(1.0)[near]).all())

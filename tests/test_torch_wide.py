@@ -6,8 +6,9 @@ the port's twin (a CPU tensor runs the twin): merge2d just above its
 narrow kernel's 8192 lanes (N = 8448) in sorted and argmax mode with both
 metrics, against the Pallas 2D kernel in interpret mode; merge4d at
 N = 2304 in sorted and argmax mode, and merge3d at N = 2304, against the
-Pallas 3D / 4D kernels in interpret mode; the detect twin at K = 2048
-against the Pallas detect kernel in interpret mode; and one mixed
+Pallas 3D / 4D kernels in interpret mode; the detect twin at K = 2048,
+plain and consolidating, against the Pallas detect kernel in interpret
+mode; and one mixed
 full-grid step at the mixed bench's widths (K = 128, M = 32: 4256 lanes a
 map, the per-particle route) on JAX's replayed draws against the JAX
 package's step. Counts exactly, values rtol 1e-4 / atol 1e-5 (the 3D / 4D
@@ -149,6 +150,52 @@ def test_detect_twin_above_the_narrow_width_matches_pallas(T, min_fw):
     assert (got[3] > 0).any()
     if min_fw == 0.0:
         assert (got[3] > 32).any()
+
+
+def cons_detect_planes(K, P=2, M=8, seed=0):
+    """detect_planes' [P, 6, K] with the 7 consolidation planes after them
+    (wp on half the features, then the copy-copy and copy-persistent
+    quadratics q00 q01 q11, p00 p01 p11), as detect_bench's consolidating
+    edge cases draw them: planes [P, 13, K] and z4 (numpy)."""
+    planes, z4 = detect_planes(K, P, M, seed)
+    rng = np.random.default_rng(seed + 1)
+    wp = np.where(rng.uniform(size=(P, K)) < 0.5,
+                  rng.uniform(0.01, 1.0, (P, K)), 0.0)
+    quads = [f(size=(P, K)) for _ in range(2) for f in (
+        lambda size: rng.uniform(0.02, 0.5, size),
+        lambda size: rng.uniform(-0.01, 0.01, size),
+        lambda size: rng.uniform(0.02, 0.5, size))]
+    extra = np.stack([wp, *quads], axis=1).astype(np.float32)
+    return np.concatenate([planes, extra], axis=1), z4
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_detect_cons_twin_above_the_narrow_width_matches_pallas(adaptive):
+    """K = 2048 > 1024 features, P = 2, M = 8, consolidating (min_sep 2),
+    static and adaptive: the twin against the Pallas detect kernel's
+    cons_ref branch in interpret mode. Normalizers, values and the cons
+    sums rtol 1e-6 (the sums also atol 1e-8: the signed moments cancel
+    to ~1e-4 of their terms, which XLA and PyTorch add in other orders),
+    indices where selected, counts, member counts, head coordinates and
+    pers_in exactly."""
+    K, T, min_fw, cb, min_sep = 2 * NARROW_FEATURES, 16, 1e-4, 0.05, 2.0
+    planes, z4 = cons_detect_planes(K)
+    want = [np.asarray(x) for x in detection_topT_batch(
+        jnp.asarray(planes), jnp.asarray(z4), T, min_fw, cb,
+        interpret=True, min_sep=min_sep, adaptive=adaptive)]
+    got = [x.numpy() for x in detect(torch.from_numpy(planes),
+                                     torch.from_numpy(z4), T, min_fw, cb,
+                                     min_sep=min_sep, adaptive=adaptive)]
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-9)
+    np.testing.assert_array_equal(got[3], want[3])
+    sel = want[0] > 0
+    np.testing.assert_array_equal(got[1][sel], want[1][sel])
+    assert (got[1][~sel] == 0).all()
+    np.testing.assert_array_equal(got[4][:, 6:], want[4][:, 6:])
+    np.testing.assert_allclose(got[4][:, :6], want[4][:, :6], rtol=1e-6,
+                               atol=1e-8)
+    assert (got[3] > 0).any() and (got[4][:, 8] > 1).any()
 
 
 # the mixed bench's widths (tools/bench_mixed.py: K = 128, M = 32) with the
