@@ -1,0 +1,7 @@
+"""device.idle_pct.host_paced: ``device.idle_pct``'s reading in the cells
+whose rate the host's issue of the steps sets (they spread more from run
+to run, so their end-to-end metrics have bounds of their own)."""
+
+from phdbench.harness import load_reader
+
+read = load_reader("device.idle_pct")

@@ -1,0 +1,16 @@
+"""The benchmark's own tests (``python -m pytest phdbench/tests``): the
+checkout's root on the import path, and the marker of tests that need a
+CUDA card (they skip without one, deciding inside the test)."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
