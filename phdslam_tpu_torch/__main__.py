@@ -79,7 +79,8 @@ def main(argv=None, device="cuda"):
                          "FloatingPointError at the first")
     ap.add_argument("--trace", metavar="DIR", default=None,
                     help="write a torch.profiler trace of the run "
-                         "(DIR/trace.json)")
+                         "(DIR/trace.json) and its spans and counters "
+                         "(DIR/spans.json)")
     ap.add_argument("--distributed", action="store_true",
                     help="run on every process of a torch.distributed "
                          "group (torchrun; the same command on every "

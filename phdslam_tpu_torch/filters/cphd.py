@@ -33,7 +33,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..config import SlamConfig
 from ..kernels.cardinality import cardinality_predict_batch
@@ -43,6 +42,7 @@ from ..ops import ekf
 from ..ops.gm_merge import topcap_sort, topk_compact_indices
 from ..ops.math import LOG0, logsumexp, masked_logsumexp, safe_log, wrap_angle
 from ..ops.resample import max_over_particles, normalize_log_weights
+from ..runtime import profiling
 from ..types import FilterState, GMState
 from .phd import (_detection_planes, _post_compact_batched, check_supported,
                   deferred_gather, full_grid_planes, gather_merge,
@@ -273,12 +273,12 @@ def _cphd_update_pre(pose, mean, cov, weight, z, z_mask, consts,
     dlog_w [P], out_m [P, K], n_compact [P] and compat [P, M]."""
     route = update_route(cfg, mean.shape[1], z.shape[0])
     # three spans in a row (the profile gives each device op to one span)
-    with record_function("cphd.pre"):
+    with profiling.span("cphd.pre"):
         pre = _pre_lambdas(pose, mean, cov, weight, z, z_mask, cfg,
                            route == "det")
-    with record_function("cphd.card"):
+    with profiling.span("cphd.card"):
         card = _card_terms(pre, z_mask, consts)
-    with record_function("cphd.pre"):
+    with profiling.span("cphd.pre"):
         return _candidates(pre, card, mean, cov, weight, z, cfg, route)
 
 
@@ -479,12 +479,12 @@ def cphd_update(state: FilterState, z, z_mask, consts: CphdConstants,
                           mesh=mesh)
     else:
         mg = merge_full_grid(pre["packed"], cfg, K)
-    with record_function("phd.post"):
+    with profiling.span("phd.post"):
         new_mean, new_cov, new_w, dlog_w, overflow = _post_compact_batched(
             mg, pre, gm.mean, gm.cov, gm.weight, cfg)
         log_w = normalize_log_weights(state.log_weight + dlog_w, mesh)
 
-    with record_function("cphd.births"):
+    with profiling.span("cphd.births"):
         # births from this scan feed the next update; gated births only
         # from measurements no in-range feature is compatible with
         allowed = (z_mask[None, :] & ~pre["compat"] if cfg.gate_births

@@ -48,7 +48,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import SlamConfig
 from ..kernels.merge import merge3d
@@ -58,6 +57,7 @@ from ..ops.math import LOG0, chol3, logsumexp, safe_log, sym, wrap_angle
 from ..ops.resample import (effective_sample_ratio, every_particle,
                             max_over_particles, particle_row,
                             particle_scalars, systematic_ancestors)
+from ..runtime import profiling
 from ..types import DisparityState
 
 
@@ -382,17 +382,17 @@ def disparity_update(state: DisparityState, z, z_mask, cfg: SlamConfig,
     new clouds, feature weights and normalized log weights, overflow)."""
     K, M = state.cloud.shape[1], z.shape[0]
     check_supported(cfg, K, M)
-    with record_function("disp.pre"):
+    with profiling.span("disp.pre"):
         pre = _disparity_update_pre(state.cam_pose, state.cloud,
                                     state.feat_weight, z, z_mask, cfg)
-    with record_function("disp.compact"):
+    with profiling.span("disp.compact"):
         *cand, n_compact = order_candidates(pre["cand"],
                                             cfg.merge_candidate_cap)
         planes = pack_planes(*cand)
-    with record_function("disp.merge"):
+    with profiling.span("disp.merge"):
         mg = merge_out(merge3d(planes, float(cfg.min_separation), K,
                                metric=cfg.distance_metric), 3)
-    with record_function("disp.post"):
+    with profiling.span("disp.post"):
         new_cloud, new_w, dlog_w, overflow = _disparity_update_post(
             mg, dict(pre, n_compact=n_compact), state.cam_pose, state.cloud,
             state.feat_weight, eps_sample, cfg)
@@ -427,9 +427,12 @@ def _resample(state: DisparityState, cfg: SlamConfig, u, mesh=None,
         state = state.replace(
             cam_pose=state.cam_pose[idx], cloud=state.cloud[idx],
             feat_weight=state.feat_weight[idx])
-    elif bool(do_resample):
-        from ..parallel.migrate import gather_particles_sharded
-        state = gather_particles_sharded(state, idx, mesh, cfg)
+    else:
+        with profiling.host_sync("resample"):
+            resample = bool(do_resample)
+        if resample:
+            from ..parallel.migrate import gather_particles_sharded
+            state = gather_particles_sharded(state, idx, mesh, cfg)
     rows = slice(None) if mesh is None else mesh.rows(P)
     state = state.replace(log_weight=log_w,
                           resample_idx=idx[rows].to(torch.int32))
@@ -448,16 +451,17 @@ def disparity_step(state: DisparityState, z, z_mask, dt, do_predict: bool,
     come out the same on every rank. ``return_updated`` adds a third
     output: every particle's normalized log weights before resampling."""
     if has_z is None:
-        has_z = bool(z_mask.any())
+        with profiling.host_sync("has_z"):
+            has_z = bool(z_mask.any())
     if do_predict:
-        with record_function("disp.predict"):
+        with profiling.span("disp.predict"):
             state = disparity_predict(state, dt, cfg, noise.eps_pred)
     overflow = torch.zeros((), dtype=torch.int64,
                            device=state.cam_pose.device)
     if has_z:
         state, overflow = disparity_update(state, z, z_mask, cfg,
                                            noise.eps_sample, mesh)
-    with record_function("disp.resample_extract"):
+    with profiling.span("disp.resample_extract"):
         every = every_particle(state.log_weight, mesh)
         lse = logsumexp(every, dim=0)
         state = state.replace(log_weight=state.log_weight - lse)

@@ -40,7 +40,6 @@ and every update records the scan's world positions for the next one.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..config import SlamConfig
 from ..kernels.detect import detect
@@ -50,6 +49,7 @@ from ..ops.gm_merge import (compact_candidates, pack_planes, topcap_sort,
                             topk_compact_indices)
 from ..ops.math import LOG0, safe_log
 from ..ops.resample import max_over_particles, normalize_log_weights
+from ..runtime import profiling
 from ..types import FilterState, GMState
 from .phd import (_detection_planes, _post_compact_batched, check_supported,
                   deferred_gather, full_grid_width, gather_merge,
@@ -239,13 +239,13 @@ def _batched_mixed_update(pose, gs: GMState, gd: GMState, z, z_label,
     sw), (dm, dc, dw), dlog_w [P], overflow [P]). ``mesh``: the particle
     mesh, whose batch-wide counts the tiled-or-untiled choice reads."""
     K = gs.mean.shape[-2]
-    with record_function("phd.pre"):
+    with profiling.span("phd.pre"):
         pre = _update_mixed_pre(pose, gs, gd, z, z_label, z_mask, cfg,
                                 prev_z)
     mg_s = gather_merge(pre["g_s"], 2, cfg, K,
                         tiles=tile_route(cfg, 2, K, z.shape[0]), mesh=mesh)
     mg_d = gather_merge(pre["g_d"], 4, cfg, K)
-    with record_function("phd.post"):
+    with profiling.span("phd.post"):
         bits_s = dict(out_m=pre["out_s"], dlog_w=pre["dlog_w"],
                       n_compact=pre["nc_s"])
         sm, sc, sw, dlog_w, ovf_s = _post_compact_batched(
@@ -303,7 +303,7 @@ def _update_mixed_full(pose, gs: GMState, gd: GMState, z, z_label, z_mask,
     M = z.shape[0]
     dtype, dev = gs.mean.dtype, gs.mean.device
     pose_b = pose[:, None, :]
-    with record_function("phd.pre"):
+    with profiling.span("phd.pre"):
         in_s, near_s, out_s, pre_s = _classify_pre(pose_b, gs, cfg)
         in_d, near_d, _, pre_d = _classify_pre(pose_b, gd, cfg)
         mdet_s, lw_s, _ = ekf.ekf_detection_terms(pre_s, gs.mean, gs.weight,
@@ -366,7 +366,7 @@ def _update_mixed_full(pose, gs: GMState, gd: GMState, z, z_label, z_mask,
                                  cfg.merge_candidate_cap_dynamic or cap)
     mg_s = merge_full_grid(pack_planes(*cand_s[:4]), cfg, K)
     mg_d = merge_full_grid(pack_planes(*cand_d[:4]), cfg, K)
-    with record_function("phd.post"):
+    with profiling.span("phd.post"):
         bits_s = dict(out_m=out_s, dlog_w=dlog_w, n_compact=cand_s[4])
         sm, sc, sw, _, ovf_s = _post_compact_batched(
             mg_s, bits_s, gs.mean, gs.cov, gs.weight, cfg)

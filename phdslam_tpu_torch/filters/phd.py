@@ -56,9 +56,12 @@ estimator: one merge2d_tables kernel reads the deferred-gather tables;
 the CPHD and mixed updates keep the two-kernel route).
 
 Random draws are inputs (:class:`StepNoise`), so a test can replay the JAX
-version's keys. Profiler ranges (``phd.predict``, ``phd.pre``, ``phd.gather``,
-``phd.merge``, ``phd.variance``, ``phd.post``, ``phd.extract_resample``)
-mark the layers for ``torch.profiler``. Which branches run (predict,
+version's keys. Layer spans (``phd.predict``, ``phd.pre``, ``phd.gather``,
+``phd.merge``, ``phd.variance``, ``phd.post``, ``phd.extract_resample``;
+``runtime/profiling.py``) mark the layers for ``torch.profiler`` and for
+the port's own tracing, which also counts each update's live map
+components, the lanes entering each merge, the clusters out and the
+candidates the top-cap drops. Which branches run (predict,
 update, EAP or MAP extraction) is decided on the host; the resampling
 decision stays on the device, so a step never waits for the GPU.
 
@@ -77,7 +80,6 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import SlamConfig
 from ..kernels.detect import detect
@@ -95,6 +97,7 @@ from ..ops.resample import (effective_sample_ratio, every_particle,
                             max_over_particles, normalize_log_weights,
                             particle_row, particle_scalars,
                             systematic_ancestors)
+from ..runtime import profiling
 from ..types import FilterState, GMState
 from .extras import (eap_expected_map, mc_variance_candidates,
                      mc_variance_packed, single_feature_argmax,
@@ -523,13 +526,16 @@ def gather_merge(gather, D, cfg: SlamConfig, out_cap, has_birth=True,
     :func:`merge_packed`. Returns the merge tuple (mean, cov, w, n_merged,
     n_dropped)."""
     if fused:
-        with record_function("phd.gather"):
+        with profiling.span("phd.gather"):
             ints, flts = tables_operands(gather)
-        with record_function("phd.merge"):
+        with profiling.span("phd.merge"):
+            profiling.add("merge.entering_lanes",
+                          lambda: gather["sel_act"] & (gather["cand_w"] > 0),
+                          gather["sel_act"].shape[0])
             return merge_out(merge2d_tables(
                 ints, flts, gather["t_k"], gather["t_m"],
                 float(cfg.min_separation), out_cap, cfg.distance_metric), 2)
-    with record_function("phd.gather"):
+    with profiling.span("phd.gather"):
         packed = _finish_candidates_packed(gather, D, has_birth)
     return merge_packed(packed, D, cfg, out_cap, tiles, mesh)
 
@@ -581,7 +587,8 @@ class TileRoute(NamedTuple):
         vals = torch.stack([n_feat.amax(), live.amax(), counts.amax()])
         if mesh is not None:
             vals = mesh.all_max(vals)
-        n_feat, n_live, n_tile = vals.tolist()
+        with profiling.host_sync("tile_width"):
+            n_feat, n_live, n_tile = vals.tolist()
         N = self.width(n_feat, n_live)
         return tile_width(N, n_tile)
 
@@ -609,6 +616,15 @@ def tile_route(cfg: SlamConfig, D: int, K: int, M: int, weight=None,
                      n_feat=(weight > 0).sum(dim=1) if phd else None)
 
 
+def _count_entering(packed) -> None:
+    """While tracing, the lanes entering a merge of candidate planes
+    [P, C, N] (active, weight > 0) into the work count
+    ``merge.entering_lanes``, over P particle-merges."""
+    profiling.add("merge.entering_lanes",
+                  lambda: (packed[:, 1] > 0.5) & (packed[:, 0] > 0),
+                  packed.shape[0])
+
+
 def merge_packed(packed, D, cfg: SlamConfig, out_cap, tiles=None,
                  mesh=None):
     """Greedy merge of selected candidate planes [P, C, cap] (the JAX
@@ -618,7 +634,8 @@ def merge_packed(packed, D, cfg: SlamConfig, out_cap, tiles=None,
     multiple of 4, the spatially tiled merge runs where the JAX version's
     does (``ops/gm_merge.py::tiled_merge_packed``). Returns the merge
     tuple."""
-    with record_function("phd.merge"):
+    with profiling.span("phd.merge"):
+        _count_entering(packed)
         if tiles is not None and out_cap % TILES == 0:
             layout = tile_layout(packed)
             ct = tiles.tile_width(packed, layout[1], mesh)
@@ -645,7 +662,8 @@ def merge_full_grid(packed, cfg: SlamConfig, out_cap):
     the merge tuple."""
     D = MERGE_DIMS[packed.shape[1]]
     sep, metric = float(cfg.min_separation), cfg.distance_metric
-    with record_function("phd.merge"):
+    with profiling.span("phd.merge"):
+        _count_entering(packed)
         if D == 2:
             return merge_out(merge2d(packed, sep, out_cap, sorted_w=False,
                                      metric=metric), 2)
@@ -722,7 +740,7 @@ def _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
         s2 = dict(max_like=max_like, x_star=x_star, m_valid=m_valid)
     variance = None
     if cfg.compute_variance:
-        with record_function("phd.variance"):
+        with profiling.span("phd.variance"):
             c_mean, c_cov, c_w, _ = unpack_planes(packed, D)
             variance = mc_variance_candidates(c_mean, c_cov, c_w, K,
                                               cfg.n_samples, var_draw)
@@ -760,7 +778,7 @@ def _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
     n_compact, s2) and, with compute_variance, the MC estimate over the
     selected lanes (else None). ``mesh``: the particle mesh, whose
     batch-wide counts the tiled-or-untiled choice reads."""
-    with record_function("phd.pre"):
+    with profiling.span("phd.pre"):
         pre = _update_pre(pose, mean, cov, weight, z, z_mask, cfg)
     g = pre["gather"]
     bits = dict(out_m=pre["out_m"], dlog_w=pre["dlog_w"],
@@ -776,10 +794,10 @@ def _pre_merge_phase(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
                             mesh=mesh), bits, None
     # the estimator reads the selected planes, so the two-kernel route
     # runs whatever fused_gather_merge says (as in the JAX version)
-    with record_function("phd.gather"):
+    with profiling.span("phd.gather"):
         packed = _finish_candidates_packed(g, D)
     mg = merge_packed(packed, D, cfg, out_cap, tiles, mesh)
-    with record_function("phd.variance"):
+    with profiling.span("phd.variance"):
         variance = mc_variance_packed(packed, g["is_p"], cfg.n_samples,
                                       var_draw)
     return mg, bits, variance
@@ -792,8 +810,10 @@ def _post_compact_batched(mg, pre, mean, cov, weight, cfg: SlamConfig):
     ``pre["dlog_w"]``. Returns (new_mean, new_cov, new_w, dlog_w,
     overflow)."""
     P, K, D = mean.shape
-    mg_mean, mg_cov, mg_w, _, n_dropped = mg
+    mg_mean, mg_cov, mg_w, n_merged, n_dropped = mg
     out_m = pre["out_m"]
+    profiling.add("merge.clusters", n_merged, P)
+    profiling.add("select.dropped", pre["n_compact"], P)
 
     aw = torch.cat([mg_w, torch.where(out_m, weight, 0.0)], dim=1)
     neg_s, order = torch.sort(-aw, dim=-1, stable=True)
@@ -842,6 +862,7 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
     as the JAX version does. ``mesh``: see :func:`_pre_merge_phase`."""
     K, M, D = mean.shape[-2], z.shape[0], mean.shape[-1]
     check_supported(cfg, K, M)
+    profiling.add("map.live_components", lambda: weight > 0, mean.shape[0])
     if cfg.compute_variance and var_draw is None:
         raise ValueError("compute_variance: the step's noise carries no "
                          "variance draws (StepNoise.var_draw)")
@@ -850,7 +871,7 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
         # the full grid; or, for the 4D map's variance, the JAX version's
         # per-particle route: the estimator over the full grid, then the
         # top-cap compaction and the sorted-mode merge
-        with record_function("phd.pre"):
+        with profiling.span("phd.pre"):
             bits = _update_pre_full(pose, mean, cov, weight, z, z_mask, cfg,
                                     var_draw)
         if full:
@@ -864,7 +885,7 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
         mg, bits, variance = _pre_merge_phase(
             pose, mean, cov, weight, z, z_mask, cfg, out_cap=K,
             var_draw=var_draw, mesh=mesh)
-    with record_function("phd.post"):
+    with profiling.span("phd.post"):
         out = _post_compact_batched(mg, bits, mean, cov, weight, cfg)
     return out if variance is None else out + (variance,)
 
@@ -952,8 +973,10 @@ def take_particles(state: FilterState, idx) -> FilterState:
 
 
 def _log_count(n, like):
-    return torch.log(torch.tensor(float(n), dtype=like.dtype,
-                                  device=like.device))
+    # a host scalar copied to the card: the copy synchronizes the stream
+    with profiling.host_sync("log_count"):
+        return torch.log(torch.tensor(float(n), dtype=like.dtype,
+                                      device=like.device))
 
 
 def maybe_resample(state: FilterState, has_measurements: bool,
@@ -982,9 +1005,12 @@ def maybe_resample(state: FilterState, has_measurements: bool,
                         state.log_weight)
     if mesh is None:
         state = take_particles(state, idx)
-    elif bool(do_resample):
-        from ..parallel.migrate import gather_particles_sharded
-        state = gather_particles_sharded(state, idx, mesh, cfg)
+    else:
+        with profiling.host_sync("resample"):
+            resample = bool(do_resample)
+        if resample:
+            from ..parallel.migrate import gather_particles_sharded
+            state = gather_particles_sharded(state, idx, mesh, cfg)
     state = state.replace(log_weight=log_w,
                           resample_idx=idx[rows].to(torch.int32))
     return state, n_eff, do_resample
@@ -1069,19 +1095,20 @@ def phd_step(state: FilterState, z, z_mask, control, dt, do_predict: bool,
     as the resampling read them (a check of its ancestry needs them).
     """
     if has_z is None:
-        has_z = bool(z_mask.any())
+        with profiling.host_sync("has_z"):
+            has_z = bool(z_mask.any())
     P = state.pose.shape[0]
     k_shot = max(1, cfg.n_predict_particles)
     if k_shot > 1:
         state = expand_particles(state, k_shot)
     if do_predict:
-        with record_function("phd.predict"):
+        with profiling.span("phd.predict"):
             state = predict(state, control, dt, cfg, noise.eps_pred)
     overflow = torch.zeros((), dtype=torch.int64, device=state.pose.device)
     if has_z:
         state, overflow = update(state, z, z_mask, cfg, consts,
                                  noise.var_draw, mesh)
-    with record_function("phd.extract_resample"):
+    with profiling.span("phd.extract_resample"):
         log_weight, pose = particle_scalars(state.log_weight, state.pose,
                                             mesh)
         expected_pose, (mm, mc, mw) = extract(state, cfg, mesh, log_weight,

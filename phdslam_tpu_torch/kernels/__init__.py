@@ -23,5 +23,6 @@ tensor (or raises); there is no fallback from one to the other. Launches
 are counted in ``build.launch_counts``, each variant under its own name
 (the gathers: ``gather_cols`` / ``gather_rows`` with the slab staged in
 shared memory, ``gather_cols_ldg`` / ``gather_rows_ldg`` above
-``build.GATHER_SMEM_BUDGET``).
+``build.GATHER_SMEM_BUDGET``), each inside its span ``kernel.<name>``
+(``runtime/profiling.py``).
 """

@@ -13,7 +13,6 @@ plain twins on CPU tensors.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -24,6 +23,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..runtime import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
@@ -36,8 +37,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 # launches per kernel since the last reset: each wrapper adds one where it
-# launches its kernel (never for a CPU tensor that runs the twin)
-launch_counts: collections.Counter = collections.Counter()
+# launches its kernel (never for a CPU tensor that runs the twin), inside
+# the launch's span ``kernel.<name>`` (``profiling.kernel``); the counter
+# is ``profiling.launch_counts``
+launch_counts = profiling.launch_counts
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.math import safe_log
+from ..runtime import profiling
 from . import build
 
 
@@ -69,9 +70,10 @@ def cardinality_predict_batch(log_cn, log_cn_birth):
             f"on {log_cn_birth.device}")
     log_cn, log_cn_birth = log_cn.contiguous(), log_cn_birth.contiguous()
     out = log_cn.new_empty((P, C1))
-    err = build.library().phd_cardinality_predict(
-        log_cn.data_ptr(), log_cn_birth.data_ptr(), out.data_ptr(), P, C1,
-        build.stream_handle(log_cn.device))
+    with profiling.kernel("cardinality_predict"):
+        err = build.library().phd_cardinality_predict(
+            log_cn.data_ptr(), log_cn_birth.data_ptr(), out.data_ptr(), P,
+            C1, build.stream_handle(log_cn.device))
     build.check_launch(err, "cardinality_predict")
     build.launch_counts["cardinality_predict"] += 1
     return out

@@ -38,6 +38,7 @@ import math
 
 import torch
 
+from ..runtime import profiling
 from . import build
 
 TWO_PI = 2.0 * math.pi
@@ -239,16 +240,18 @@ def detect(planes, z4, top_t: int, min_fw: float, cb: float,
             cons.data_ptr() if cons_on else None)
     tail = (P, K, M, top_t, float(min_fw), float(cb), float(min_sep),
             build.stream_handle(planes.device))
+    name = detect_variant(cons_on, adaptive, wide)
     if wide:
         # the consolidating passes' live-lane words, a row's K bits, where
         # they are not kept in shared memory
         words = planes.new_empty((P, M, (K + 31) // 32), dtype=torch.int32) \
             if cons_on and _cons_wide_scratch(K, M) else None
-        err = build.library().phd_detect_wide(
-            *ptrs, None if words is None else words.data_ptr(), *tail)
+        with profiling.kernel(name):
+            err = build.library().phd_detect_wide(
+                *ptrs, None if words is None else words.data_ptr(), *tail)
     else:
-        err = build.library().phd_detect(*ptrs, *tail)
-    name = detect_variant(cons_on, adaptive, wide)
+        with profiling.kernel(name):
+            err = build.library().phd_detect(*ptrs, *tail)
     build.check_launch(err, name)
     build.launch_counts[name] += 1
     return outs

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime import profiling
 from . import build
 
 
@@ -47,9 +48,11 @@ def gather_cols(idx, tab):
     staged = build.gather_staged(C * R)
     i_ptr, o_ptr = idx.data_ptr(), out.data_ptr()
     vec = cap % 4 == 0 and (i_ptr | o_ptr) % 16 == 0
-    err = build.library().phd_gather_cols(
-        i_ptr, tab.data_ptr(), o_ptr, P, C, R, cap, staged, vec,
-        build.stream_handle(tab.device))
+    name = "gather_cols" if staged else "gather_cols_ldg"
+    with profiling.kernel(name):
+        err = build.library().phd_gather_cols(
+            i_ptr, tab.data_ptr(), o_ptr, P, C, R, cap, staged, vec,
+            build.stream_handle(tab.device))
     build.check_launch(err, "gather_cols")
-    build.launch_counts["gather_cols" if staged else "gather_cols_ldg"] += 1
+    build.launch_counts[name] += 1
     return out

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime import profiling
 from . import build
 
 
@@ -50,9 +51,11 @@ def gather_rows(idx, tab):
     staged = build.gather_staged(R * C)
     t_ptr, o_ptr = tab.data_ptr(), out.data_ptr()
     vec = C % 4 == 0 and (t_ptr | o_ptr) % 16 == 0
-    err = build.library().phd_gather_rows(
-        idx.data_ptr(), t_ptr, o_ptr, P, R, C, cap, staged, vec,
-        build.stream_handle(tab.device))
+    name = "gather_rows" if staged else "gather_rows_ldg"
+    with profiling.kernel(name):
+        err = build.library().phd_gather_rows(
+            idx.data_ptr(), t_ptr, o_ptr, P, R, C, cap, staged, vec,
+            build.stream_handle(tab.device))
     build.check_launch(err, "gather_rows")
-    build.launch_counts["gather_rows" if staged else "gather_rows_ldg"] += 1
+    build.launch_counts[name] += 1
     return out

@@ -53,6 +53,7 @@ import torch
 
 from ..ops.ekf import combine_selected_planes
 from ..ops.gm_merge import gm_merge_batch, pack_merge_out, unpack_planes
+from ..runtime import profiling
 from . import build
 from .detect import _wrap_angle_floor
 from .gather_cols import gather_cols_reference
@@ -232,6 +233,7 @@ def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0,
         return out
     args = (P, N, out_cap, float(min_separation), int(not sorted_w),
             int(metric), build.stream_handle(packed.device))
+    variant = merge2d_variant(sorted_w, metric, D=D, wide=wide)
     if wide:
         # the values and states of the entries past the block's shared
         # ones (the plan's overflow X a particle)
@@ -239,13 +241,14 @@ def _launch(packed, min_separation, out_cap, D, sorted_w=True, metric=0,
                              wide=True) if D == 2 else
                 merge_plan(D, P, N, packed.device, sorted_w, metric, True))
         spill, states = _spill(P, c_in - 1, plan["overflow"], packed.device)
-        err = getattr(build.library(), f"phd_{name}_wide")(
-            packed.data_ptr(), out.data_ptr(), _ptr(spill), _ptr(states),
-            *args)
+        with profiling.kernel(variant):
+            err = getattr(build.library(), f"phd_{name}_wide")(
+                packed.data_ptr(), out.data_ptr(), _ptr(spill),
+                _ptr(states), *args)
     else:
-        err = getattr(build.library(), f"phd_{name}")(
-            packed.data_ptr(), out.data_ptr(), *args)
-    variant = merge2d_variant(sorted_w, metric, D=D, wide=wide)
+        with profiling.kernel(variant):
+            err = getattr(build.library(), f"phd_{name}")(
+                packed.data_ptr(), out.data_ptr(), *args)
     build.check_launch(err, variant)
     build.launch_counts[variant] += 1
     return out
@@ -372,11 +375,13 @@ def merge2d_tables(ints, flts, t_k, t_m, min_separation: float,
     ptrs = (ints.data_ptr(), flts.data_ptr(), t_k.data_ptr(), t_m.data_ptr())
     tail = (out.data_ptr(), P, N, t_k.shape[2], t_m.shape[2], out_cap,
             float(min_separation), int(metric), build.stream_handle(dev))
-    if wide:
-        err = build.library().phd_merge2d_tables_wide(
-            *ptrs, _ptr(spill), _ptr(states), *tail)
-    else:
-        err = build.library().phd_merge2d_tables(*ptrs, _ptr(spill), *tail)
+    with profiling.kernel(name):
+        if wide:
+            err = build.library().phd_merge2d_tables_wide(
+                *ptrs, _ptr(spill), _ptr(states), *tail)
+        else:
+            err = build.library().phd_merge2d_tables(*ptrs, _ptr(spill),
+                                                     *tail)
     build.check_launch(err, name)
     build.launch_counts[name] += 1
     return out

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime import profiling
 from .math import logsumexp
 
 SCAN_BLOCK = 1024
@@ -84,10 +85,12 @@ def particle_scalars(log_weight, pose, mesh=None):
 
 def particle_row(i, leaves, mesh=None):
     """Row ``i`` (a global particle index, a 0-dim tensor on the device)
-    of every leaf: indexed in place without a mesh, else taken from the
-    rank that holds it (``Mesh.take_row``)."""
+    of every leaf: indexed in place without a mesh (each index reads ``i``
+    to the host: the span ``sync.particle_row``), else taken from the rank
+    that holds it (``Mesh.take_row``)."""
     if mesh is None:
-        return [x[i] for x in leaves]
+        with profiling.host_sync("particle_row"):
+            return [x[i] for x in leaves]
     return mesh.take_row(i, leaves)
 
 

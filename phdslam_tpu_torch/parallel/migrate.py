@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime import profiling
 from .sharding import Mesh, particle_leaves, replace_leaves
 
 
@@ -151,7 +152,9 @@ def gather_particles_sharded(state, ancestors, mesh: Mesh, cfg):
         return gather_particles_full(state, idx_local, mesh)
     budget = min(getattr(cfg, "migration_row_budget", 0)
                  or default_row_budget(block), block)
-    if not bool(neighbor_feasible(ancestors, n_dev, block, budget)):
+    with profiling.host_sync("migrate_feasible"):
+        feasible = bool(neighbor_feasible(ancestors, n_dev, block, budget))
+    if not feasible:
         return gather_particles_full(state, idx_local, mesh)
     paths, leaves = zip(*_migrated(state))
     new = gather_rows_neighbor(mesh, ancestors, list(leaves), budget)

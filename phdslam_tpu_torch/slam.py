@@ -177,13 +177,14 @@ class _Runner:
         if self.var_generator is not None:
             def var_draw(s, shape, g=self.var_generator):
                 return torch.randn(shape, generator=g, device=self.device)
-        return StepNoise(
-            eps_pred=torch.randn((sub, P * k, width),
-                                 generator=self.generator,
-                                 device=self.device),
-            u_resample=torch.rand((P,), generator=self.generator,
-                                  device=self.device),
-            var_draw=var_draw)
+        with profiling.span("runner.noise"):
+            return StepNoise(
+                eps_pred=torch.randn((sub, P * k, width),
+                                     generator=self.generator,
+                                     device=self.device),
+                u_resample=torch.rand((P,), generator=self.generator,
+                                      device=self.device),
+                var_draw=var_draw)
 
     def step(self, n: int, noise=None):
         """Run step n on the runner's state (on ``noise``, this rank's rows
@@ -199,10 +200,11 @@ class _Runner:
         """Step n of the schedule from ``state`` (this rank's block on a
         ``mesh``) on ``noise``, leaving the runner's state untouched: the
         filter step's (state, outputs[, log weights before resampling])."""
-        z, zm, control, dt, do_predict, has_z = self.step_args(n)
-        return phd_step(state, z, zm, control, dt, do_predict, self.cfg,
-                        noise, has_z=has_z, consts=self.consts, mesh=mesh,
-                        return_updated=return_updated)
+        with profiling.span("runner.step"):
+            z, zm, control, dt, do_predict, has_z = self.step_args(n)
+            return phd_step(state, z, zm, control, dt, do_predict, self.cfg,
+                            noise, has_z=has_z, consts=self.consts,
+                            mesh=mesh, return_updated=return_updated)
 
     def predict_only(self, n: int, noise):
         """Step n's prediction alone, on the step's own draws and the
@@ -224,6 +226,11 @@ class _Runner:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _wait(self) -> None:
+        """The loop's wait for the card (span ``runner.wait``)."""
+        with profiling.span("runner.wait"):
+            self._sync()
 
     def save(self, path: str, steps_done: int) -> None:
         """Checkpoint the state after ``steps_done`` steps, with the
@@ -280,9 +287,10 @@ class _Runner:
 
         The loop reads nothing from the card. It waits for the card at the
         end of each chunk, to record the chunk's wall time (chunk_ms), and,
-        with ``timing``, after every step (step_ms, each step's own time,
-        and predict_ms, the prediction alone run beforehand on the step's
-        own draws; 0 on steps that do not predict). With
+        with ``timing``, after every step (step_ms, each step's own time
+        from its issue to its outputs on the card, and predict_ms, the
+        prediction alone run beforehand on the step's own draws and timed
+        apart; 0 on steps that do not predict). With
         ``checkpoint_every`` and ``checkpoint_dir``, a chunk boundary
         that reaches the next multiple of ``checkpoint_every`` steps saves
         ``checkpoint_dir/stepNNNNN`` (:meth:`save`); ``start_step`` resumes
@@ -338,14 +346,14 @@ class _Runner:
         self._sync()
         t0 = t_chunk = time.perf_counter()
         for n in range(start_step, T):
-            t_step = time.perf_counter()
             noise = self.local_noise(self.noise())
             if timing:
                 pred, p_ms = profiling.timed_call(self.predict_only, n, noise)
                 predict_ms.append(p_ms if pred is not None else 0.0)
+                t_step = time.perf_counter()
             out = self.step(n, noise)
             if timing:
-                self._sync()
+                self._wait()
                 step_ms.append((time.perf_counter() - t_step) * 1000.0)
             if debug and bool(torch.isnan(out.n_eff)
                               | torch.isnan(out.expected_pose).any()):
@@ -358,7 +366,7 @@ class _Runner:
                 ys[k].append(v.clone() if k in _VIEWS and v is not None
                              else v)
             if (n + 1) % chunk == 0 or n + 1 == T:
-                self._sync()
+                self._wait()
                 now = time.perf_counter()
                 chunk_ms.append((now - t_chunk) * 1000.0)
                 t_chunk = now

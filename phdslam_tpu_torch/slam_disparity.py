@@ -35,7 +35,7 @@ import torch
 from .config import SlamConfig
 from .filters.disparity import (DisparityNoise, check_supported,
                                 disparity_step, init_disparity_state)
-from .runtime import io
+from .runtime import io, profiling
 from .slam import _Runner, chunk_step_ms, write_times
 
 
@@ -106,20 +106,22 @@ class DisparityRunner(_Runner):
         def randn(*shape):
             return torch.randn(shape, generator=self.generator,
                                device=self.device)
-        return DisparityNoise(
-            eps_pred=randn(P, 6), eps_sample=randn(P, K, N, 3),
-            u_resample=torch.rand((P,), generator=self.generator,
-                                  device=self.device))
+        with profiling.span("runner.noise"):
+            return DisparityNoise(
+                eps_pred=randn(P, 6), eps_sample=randn(P, K, N, 3),
+                u_resample=torch.rand((P,), generator=self.generator,
+                                      device=self.device))
 
     def step_state(self, state, n: int, noise, mesh=None,
                    return_updated: bool = False):
-        if self.traj_dev is not None:
-            state = state.replace(cam_pose=self.traj_dev[n:n + 1])
-        return disparity_step(
-            state, self.z_dev[n], self.mask_dev[n], self.cfg.dt,
-            n > 0 and self.traj_dev is None, self.cfg, noise,
-            has_z=bool(self.has_z[n]), mesh=mesh,
-            return_updated=return_updated)
+        with profiling.span("runner.step"):
+            if self.traj_dev is not None:
+                state = state.replace(cam_pose=self.traj_dev[n:n + 1])
+            return disparity_step(
+                state, self.z_dev[n], self.mask_dev[n], self.cfg.dt,
+                n > 0 and self.traj_dev is None, self.cfg, noise,
+                has_z=bool(self.has_z[n]), mesh=mesh,
+                return_updated=return_updated)
 
     def predict_only(self, n: int, noise):
         """The disparity loop times no prediction of its own."""

@@ -11,6 +11,7 @@ fold_in(PRNGKey(seed), n), whatever ran before), and every state log of
 the port parses equal to JAX's within the step gate.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -531,12 +532,6 @@ def test_nan_policy_matches_jax(batch_root, capsys):
 # ----------------------------------------------------------------------------
 
 def test_step_timer_and_trace(tmp_path, batch_root):
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        timer.start()
-        timer.stop(sync_on=torch.zeros(1))
-    timer.write(str(tmp_path / "loopTime.log"))
-    assert len(np.loadtxt(str(tmp_path / "loopTime.log"))) == 3
     out, ms = profiling.timed_call(torch.ones, 3)
     assert ms > 0 and torch.equal(out, torch.ones(3))
     r = small_runner(batch_root + "/run000", n_steps=2)
@@ -544,7 +539,13 @@ def test_step_timer_and_trace(tmp_path, batch_root):
         r.run()
     with open(tmp_path / "tr" / "trace.json") as fh:
         text = fh.read()
-    assert '"phd.extract_resample"' in text
+    assert '"phd.extract_resample"' in text and '"runner.step"' in text
+    with open(tmp_path / "tr" / "spans.json") as fh:
+        spans = json.load(fh)
+    assert spans["spans"]["runner.step"]["count"] == 2
+    assert spans["spans"]["phd.extract_resample"]["parents"] == {
+        "runner.step": 2}
+    assert set(spans["counters"]) == {"launches", "syncs", "gc"}
 
 
 # ----------------------------------------------------------------------------
