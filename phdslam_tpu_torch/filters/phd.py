@@ -75,6 +75,7 @@ different collectives (``parallel/migrate.py``).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -972,11 +973,18 @@ def take_particles(state: FilterState, idx) -> FilterState:
         prev_z=take(state.prev_z))
 
 
+@functools.lru_cache(maxsize=64)
+def _log_count_on(n: int, dtype, device):
+    return torch.full((), float(n), dtype=dtype, device=device).log()
+
+
 def _log_count(n, like):
-    # a host scalar copied to the card: the copy synchronizes the stream
-    with profiling.host_sync("log_count"):
-        return torch.log(torch.tensor(float(n), dtype=like.dtype,
-                                      device=like.device))
+    """log n, a 0-dim tensor in ``like``'s dtype on its device: filled and
+    logged on the device (no host-to-device copy, so no wait for the card;
+    the same bits as ``torch.log`` of ``float(n)`` there), made once per
+    (n, dtype, device) and kept, so a step launches nothing for it. Shared
+    by every caller: never written in place."""
+    return _log_count_on(int(n), like.dtype, like.device)
 
 
 def maybe_resample(state: FilterState, has_measurements: bool,

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import torch
 
-from ..runtime import profiling
 from .math import logsumexp
 
 SCAN_BLOCK = 1024
@@ -85,12 +84,13 @@ def particle_scalars(log_weight, pose, mesh=None):
 
 def particle_row(i, leaves, mesh=None):
     """Row ``i`` (a global particle index, a 0-dim tensor on the device)
-    of every leaf: indexed in place without a mesh (each index reads ``i``
-    to the host: the span ``sync.particle_row``), else taken from the rank
-    that holds it (``Mesh.take_row``)."""
+    of every leaf: without a mesh a gather on the device
+    (``index_select``), the same bits as ``x[i]`` but with no read of
+    ``i`` to the host, so the step does not wait for the card here; on a
+    mesh taken from the rank that holds it (``Mesh.take_row``)."""
     if mesh is None:
-        with profiling.host_sync("particle_row"):
-            return [x[i] for x in leaves]
+        at = i.reshape(1)
+        return [torch.index_select(x, 0, at)[0] for x in leaves]
     return mesh.take_row(i, leaves)
 
 

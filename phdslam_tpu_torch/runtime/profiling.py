@@ -143,7 +143,12 @@ def kernel(name: str):
 def host_sync(site: str):
     """The span ``sync.<site>`` around a transfer inside a step that waits
     for the card (a device-to-host read, or a copy that synchronizes the
-    stream), counted in :data:`sync_counts`."""
+    stream), counted in :data:`sync_counts`. The sites: ``tile_width``
+    (a tiled capped route's widths, ``filters/phd.py::TileRoute``),
+    ``has_z`` (a step not given it), ``resample`` (a mesh's resampling
+    decision) and ``migrate_feasible`` (``parallel/migrate.py``). A
+    single-device step that tiles nothing and is given ``has_z`` has
+    none: its MAP row and log P stay on the device."""
     sync_counts[site] += 1
     if _trace is None and not _autograd_profiler._is_profiler_enabled:
         return _OFF

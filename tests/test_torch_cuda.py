@@ -41,7 +41,8 @@ tiled merge's gather_cols and merge2d launches run at its tile rows
 ([4 P, 7, ct], ct 128, 256 and 384) against their twins. The
 resampling's fixed-order cumsum repeats its bits at P=10240, and the
 CPHD cardinality prediction its twin's bits at P=512 and 10240 (whole, in
-blocks and row by row) and at C1 33 and 257.
+blocks and row by row) and at C1 33 and 257. A single-device dense step
+makes no synchronizing call (the sync debug mode at "error").
 """
 
 import numpy as np
@@ -1074,3 +1075,35 @@ def test_cardinality_predict_fixed_order(dev, P, C1):
     near = (cpu > peak - 60.0) & torch.isfinite(cpu)
     assert bool(((g - cpu).abs()[near]
                  <= 1e-6 * cpu.abs().clamp_min(1.0)[near]).all())
+
+
+def test_dense_step_never_waits_for_the_card(dev):
+    """A single-device dense step (cfg/dense.cfg at P=256, has_z from the
+    schedule, tracing off) makes no call that synchronizes the stream:
+    with the sync debug mode at "error", any such call inside
+    ``phd_step`` (a device-to-host read, a pageable copy) raises. Its log
+    P has the bits of ``torch.log`` of ``float(P)`` copied to the card."""
+    from phdslam_tpu_torch.filters.phd import _log_count, phd_step
+    from phdslam_tpu_torch.slam import SynthSLAMRunner
+    build.library()
+    cfg = load_config("cfg/dense.cfg", dict(n_particles=256, n_steps=8))
+    r = SynthSLAMRunner(cfg, device=dev)
+    state, n_updates = r.state, 0
+    for n in range(r.n_steps):
+        noise = r.noise()
+        z, zm, control, dt, do_predict, has_z = r.step_args(n)
+        n_updates += has_z
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, out = phd_step(state, z, zm, control, dt, do_predict,
+                                  cfg, noise, has_z=has_z, consts=r.consts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert n_updates >= 4
+    assert torch.isfinite(out.expected_pose).all()
+    assert out.map_mean.shape == (cfg.max_components, 2)
+    for n in (256, 10240):
+        want = torch.log(torch.tensor(float(n), device=dev))
+        assert torch.equal(_log_count(n, out.n_eff).view(torch.int32),
+                           want.view(torch.int32))

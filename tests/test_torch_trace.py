@@ -15,6 +15,8 @@ import torch
 
 from phdslam_tpu_torch import load_config
 from phdslam_tpu_torch.eval import batch
+from phdslam_tpu_torch.filters.phd import _log_count
+from phdslam_tpu_torch.ops.resample import particle_row
 from phdslam_tpu_torch.runtime import profiling
 from phdslam_tpu_torch.slam import SynthSLAMRunner
 
@@ -221,13 +223,53 @@ def test_runner_spans_and_work_counts(data_dir):
         assert work[name]["count"] == P * n_up, name
     assert 0 < work["merge.clusters"]["sum"] <= \
         work["merge.entering_lanes"]["sum"] <= 64 * P * n_up
-    # the MAP row's index read each step, the resampling's scalar copy on
-    # each update step (on a card each waits for the stream)
-    assert snap["counters"]["syncs"] == {"particle_row": 3,
-                                         "log_count": n_up}
-    assert spans["sync.particle_row"]["parents"] == {
-        "phd.extract_resample": 3}
+    # the MAP row and log P stay on the device: a single-device run given
+    # has_z by its schedule (and tiling nothing) waits for the card nowhere
+    # inside a step, least of all in the step's tail
+    assert snap["counters"]["syncs"] == {}
+    for name, s in spans.items():
+        if name.startswith("sync."):
+            assert "phd.extract_resample" not in s["parents"], name
     assert snap["counters"]["launches"] == {}    # CPU: the twins run
+
+
+@pytest.mark.parametrize("shape", [(), (6,), (6, 2)],
+                         ids=["1d", "2d", "3d"])
+def test_particle_row_is_the_same_bits_as_indexing(shape):
+    """The device gather of the MAP row gives ``x[int(i)]``'s bits for a
+    1-D, 2-D and 3-D leaf, with ``i`` a 0-dim argmax; on a tie the
+    argmax, and so the row, is the lowest index's."""
+    g = torch.Generator().manual_seed(5)
+    P = 9
+    x = torch.randn((P,) + shape, generator=g, dtype=torch.float64)
+    n = torch.randint(0, 100, (P,) + shape, generator=g)
+    for log_w in (torch.randn(P, generator=g),
+                  torch.tensor([0.1, -2.0, 0.7, 0.3, 0.7, -1.0, 0.7, 0.0,
+                                0.2])):
+        i = torch.argmax(log_w)
+        assert i.dim() == 0
+        got_x, got_n = particle_row(i, [x, n])
+        assert got_x.shape == x.shape[1:] and got_n.dtype == n.dtype
+        bits = torch.int64
+        assert torch.equal(got_x.view(bits), x[int(i)].view(bits))
+        assert torch.equal(got_n, n[int(i)])
+    assert int(i) == 2                  # the tie at 2, 4 and 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [1, 3, 512, 10240, 30720])
+def test_log_count_is_the_same_bits_and_kept(n, dtype):
+    """log n as the step makes it (a fill and a log on the device) has
+    ``torch.log``'s bits of ``float(n)`` copied there, and is made once
+    per (n, dtype, device): a later call returns the same tensor."""
+    like = torch.zeros(4, dtype=dtype)
+    got = _log_count(n, like)
+    want = torch.log(torch.tensor(float(n), dtype=dtype))
+    assert got.dtype == dtype and got.dim() == 0
+    assert got.device == like.device
+    assert torch.equal(got, want)
+    assert _log_count(n, like[:1]) is got
 
 
 def test_tracing_changes_no_output_bit(data_dir):
