@@ -26,17 +26,25 @@ readback.
 The check: a sample of steps drawn from the seed (and the first step of
 the first episode) copies its input state, draws and outputs to the host
 as it runs; after the window the reference recomputes each from the same
-inputs and :mod:`reference.compare` gives the gaps, each held to its limit
-in the configuration's file.
+inputs and gives the gaps, each held to its limit in the configuration's
+file. The configuration's file names its reference, ``"reference":
+"<module>"`` for ``reference/<module>.py`` (``step``, the static PHD
+path, where it names none), which provides ``Settings.from_config``,
+``initial_state``, ``step``, the precisions ``REFERENCE`` and
+``CONTROL_TF32``, and the comparison: ``NAMES``, ``gaps``, ``init_gap``
+and ``as_outputs``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+import importlib
 import importlib.util
 import json
 import math
 import os
+import re
 import sys
 import time
 from pathlib import Path
@@ -53,6 +61,10 @@ WARMUP_STEPS = 3        # steps the set-up runs through the mix's loop
 CHECKS_PER_EPISODE = 1  # sampled steps an episode keeps for the check
 MAX_CHECKS = 4          # sampled steps a run keeps (and the first step)
 TRACE_SECONDS = 15.0    # the traced run profiles its first episodes so long
+DEFAULT_REFERENCE = "step"
+# filter-state fields that a step writes and never reads (the last step's
+# ancestors, the map-variance estimate): the captures leave them out
+WRITE_ONLY = ("resample_idx", "variance")
 
 
 class NoDevice(RuntimeError):
@@ -81,6 +93,13 @@ def load_cell(workload: str, root: Path = ROOT) -> dict:
     cell["config_file"] = read_json(root / configs[cell["config"]]["file"])
     cell["traffic_file"] = read_json(root / BENCH.name / "traffic"
                                      / f"{cell['traffic']}.json")
+    ref = cell["config_file"].get("reference", DEFAULT_REFERENCE)
+    if not (isinstance(ref, str) and re.fullmatch(r"[A-Za-z_]\w*", ref)
+            and (BENCH / "reference" / f"{ref}.py").is_file()):
+        raise ValueError(f"configuration {cell['config']!r} names the "
+                         f"reference module {ref!r}, which "
+                         f"{BENCH.name}/reference/ does not hold")
+    cell["reference"] = ref
     cell["run_seconds"] = man["run_seconds"]
     return cell
 
@@ -112,6 +131,25 @@ def forbidden_modules() -> list:
 
 def episode_seed(seed: int, e: int) -> int:
     return (seed * 1000 + e) % (1 << 63)
+
+
+def state_tensors(state, skip=()) -> dict:
+    """Every tensor field of a filter state that is not None, copied to the
+    host, but for :data:`WRITE_ONLY` and ``skip``: ``map_static`` as
+    ``mean``, ``cov`` and ``weight``, another map as ``<field>.mean`` and
+    so on, any other tensor under its field's name."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if v is None or f.name in WRITE_ONLY or f.name in skip:
+            continue
+        if dataclasses.is_dataclass(v):
+            pre = "" if f.name == "map_static" else f.name + "."
+            out.update({pre + g.name: getattr(v, g.name).cpu()
+                        for g in dataclasses.fields(v)})
+        elif hasattr(v, "cpu"):
+            out[f.name] = v.cpu()
+    return out
 
 
 def check_steps(seed: int, e: int, T: int, k: int) -> set:
@@ -171,14 +209,10 @@ class Probe:
         return out
 
     def capture_in(self, n, noise):
-        st = self.runner.state
-        gm = st.map_static
         z, zm, control, dt, do_predict, has_z = self.runner.step_args(n)
         return dict(
             episode=self.episode, step=n,
-            inp=dict(pose=st.pose.cpu(), log_weight=st.log_weight.cpu(),
-                     mean=gm.mean.cpu(), cov=gm.cov.cpu(),
-                     weight=gm.weight.cpu()),
+            inp=state_tensors(self.runner.state),
             args=dict(z=z.cpu(), z_mask=zm.cpu(),
                       control=tuple(float(c) for c in control),
                       dt=float(dt), do_predict=bool(do_predict),
@@ -187,9 +221,12 @@ class Probe:
                        u=noise.u_resample.cpu()))
 
     def capture_out(self, cap, out, lw_pre):
+        """The step's outputs, the moments of every map (not the maps) and
+        the state's further tensors (:func:`state_tensors`)."""
         import torch
         from .reference.step import map_moments
-        gm = self.runner.state.map_static
+        st = self.runner.state
+        gm = st.map_static
         # each map's moments in float64, in blocks of B maps so that their
         # temporaries stay small beside the program's own memory
         B = 1024
@@ -204,6 +241,8 @@ class Probe:
                 for i in range(0, gm.weight.shape[0], B)]),
             map_moments=map_moments(out.map_mean, out.map_cov,
                                     out.map_weight).cpu())
+        cap["out"].update(state_tensors(
+            st, skip=("pose", "log_weight", "map_static")))
         self.captures.append(cap)
 
 
@@ -234,7 +273,6 @@ class Cell:
         import torch
         from phdslam_tpu_torch.config import load_config
         from phdslam_tpu_torch.slam import SynthSLAMRunner
-        from .reference.step import Settings
         self.device = torch.device(device)
         if self.device.type == "cuda":
             torch.cuda.init()
@@ -243,7 +281,10 @@ class Cell:
         self.torch = torch
         cf = cell["config_file"]
         self.values = dict(cf["config"], **(overrides or {}))
-        self.settings = Settings.from_config(self.values)
+        # the module load_cell found under reference/
+        self.ref = importlib.import_module(
+            f"{__package__}.reference.{cell['reference']}")
+        self.settings = self.ref.Settings.from_config(self.values)
         self.cfg = load_config(os.devnull, dict(self.values))
         self.traffic = cell["traffic_file"]
         self.cold = None
@@ -371,17 +412,17 @@ class Cell:
         """The reference over every capture: the largest gap of each
         number (None where no step had one), and (with ``controls``) the
         control's gaps on the same inputs, computed in TF32 in the
-        program's place."""
-        from .reference import compare, step as ref
-        s = self.settings
-        worst = dict.fromkeys(compare.NAMES)
-        ctrl = dict.fromkeys(compare.NAMES) if controls else None
+        program's place: the cell's reference module's (:func:`load_cell`).
+        """
+        ref, s = self.ref, self.settings
+        worst = dict.fromkeys(ref.NAMES)
+        ctrl = dict.fromkeys(ref.NAMES) if controls else None
         for cap in self.probe.captures:
             if cap["episode"] == 0 and cap["step"] == 0:
-                _worse(worst, {"init": compare.init_gap(s, cap["inp"])})
+                _worse(worst, {"init": ref.init_gap(s, cap["inp"])})
                 if controls:
                     prior = ref.initial_state(s)
-                    _worse(ctrl, {"init": compare.init_gap(s, {
+                    _worse(ctrl, {"init": ref.init_gap(s, {
                         k: ref.CONTROL_TF32(v) for k, v in prior.items()})})
             a = cap["args"]
             call = (a["z"], a["z_mask"], a["control"], a["dt"],
@@ -389,12 +430,12 @@ class Cell:
                     cap["noise"]["u"])
             want = ref.step(s, cap["inp"], *call, q=ref.REFERENCE,
                             device=self.device)
-            _worse(worst, compare.gaps(s, cap["out"], want))
+            _worse(worst, ref.gaps(s, cap["out"], want))
             if controls:
                 got = ref.step(s, cap["inp"], *call, q=ref.CONTROL_TF32,
                                device=self.device)
-                _worse(ctrl, compare.gaps(
-                    s, compare.as_outputs(got, ref.CONTROL_TF32), want))
+                _worse(ctrl, ref.gaps(
+                    s, ref.as_outputs(got, ref.CONTROL_TF32), want))
             del want
         return dict(gaps=worst, control=ctrl,
                     checked=len(self.probe.captures))
@@ -515,7 +556,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         f"episodes, {win['steps']} steps, peak memory {peak} bytes")
 
     ctx = dict(window=win, setup_s=setup_s, shapes=bench.shapes,
-               timeline=None, traced=None)
+               config=bench.values, timeline=None, traced=None)
     dev_info = device_info(torch, dev)
     dev_info["memory_peak_bytes"] = int(peak)
     breakdown = None

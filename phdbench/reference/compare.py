@@ -87,11 +87,11 @@ def first_copy(anc):
     return out
 
 
-def init_gap(s: Settings, inp) -> float:
+def init_gap(s: Settings, inp, prior=None) -> float:
     """Largest difference between a run's initial state ``inp`` and the
-    filter's prior (every particle at the initial pose, weight 1 / P,
-    empty maps: :func:`step.initial_state`) rounded to float32."""
-    prior = initial_state(s)
+    filter's prior (by default every particle at the initial pose, weight
+    1 / P, empty maps: :func:`step.initial_state`) rounded to float32."""
+    prior = initial_state(s) if prior is None else prior
     return max(float((inp[k].cpu().double() - prior[k].float().double())
                      .abs().max()) for k in prior)
 

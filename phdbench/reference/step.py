@@ -83,27 +83,31 @@ class Settings:
         """Clutter per unit of range x bearing over the field of view."""
         return self.clutter_rate / (2.0 * self.max_bearing * self.max_range)
 
-    @staticmethod
-    def from_config(values: dict) -> "Settings":
+    # the values of the path this reference implements (a value a file
+    # leaves out takes the program's default, which is the one here)
+    PATH = "the static PHD path"
+    EXPECT = dict(filter_type=0, feature_model=0, particle_weighting=0,
+                  distance_metric=0, motion_type=1, map_estimate=1,
+                  n_predict_particles=1, premerge_consolidate=0,
+                  merge_spatial_tiles=0, compute_variance=0,
+                  subdivide_predict=1)
+
+    @classmethod
+    def from_config(cls, values: dict) -> "Settings":
         """The settings of a configuration file's ``config`` object (which
         states every value the step reads)."""
         v = values
-        expect = dict(filter_type=0, feature_model=0, particle_weighting=0,
-                      distance_metric=0, motion_type=1, map_estimate=1,
-                      n_predict_particles=1, premerge_consolidate=0,
-                      merge_spatial_tiles=0, compute_variance=0,
-                      subdivide_predict=1)
-        bad = {k: v.get(k, want) for k, want in expect.items()
+        bad = {k: v.get(k, want) for k, want in cls.EXPECT.items()
                if v.get(k, want) != want}
         if bad:
-            raise NotImplementedError(f"the reference implements the static "
-                                      f"PHD path only; got {bad}")
+            raise NotImplementedError(f"the reference implements {cls.PATH} "
+                                      f"only; got {bad}")
         K, T = int(v["max_features"]), int(v["detection_topk"])
         if not 0 < T < K:
             raise NotImplementedError("the reference selects 0 < T < K "
                                       "detection lanes per measurement")
-        names = Settings.__dataclass_fields__
-        return Settings(**{k: type_of(names[k].type)(v[k]) for k in names})
+        names = cls.__dataclass_fields__
+        return cls(**{k: type_of(names[k].type)(v[k]) for k in names})
 
 
 def type_of(name):
@@ -305,7 +309,7 @@ def candidates(s: Settings, pose, mean, cov, weight, z, z_mask,
 
 
 def greedy_merge(w, mean, cov, min_sep, out_cap, q: Precision,
-                 origin=None):
+                 origin=None, exact_ties_agree: bool = False):
     """Greedy moment-matched merge of weight-sorted candidates [P, N]: the
     heaviest unmerged lane leads and absorbs every unmerged lane within
     squared Mahalanobis distance ``min_sep`` under the mean of the two
@@ -317,7 +321,10 @@ def greedy_merge(w, mean, cov, min_sep, out_cap, q: Precision,
     particle's merge margin [P] (the least |d2 - min_sep| / min_sep of a
     lane it tested against a leader; :data:`MERGE_GATE`) and whether a
     leader had a tie [P] that could lead first and change the clusters
-    (:data:`TIE_GATE`)."""
+    (:data:`TIE_GATE`). With ``exact_ties_agree`` a lane whose weight
+    equals the leader's exactly is no tie: the caller's lanes of equal
+    weight come from equal inputs by the same operations, so they are
+    equal in float32 too and lead in lane order on both sides."""
     P, N = w.shape
     dev, dt = w.device, w.dtype
     if origin is None:
@@ -365,6 +372,8 @@ def greedy_merge(w, mean, cov, min_sep, out_cap, q: Precision,
         wl = mom[rows, lead, 0]
         near_tie = others & ((mom[..., 0] - wl[:, None]).abs()
                              <= TIE_GATE * wl[:, None])
+        if exact_ties_agree:
+            near_tie &= mom[..., 0] != wl[:, None]
         if bool(near_tie.any()):
             j = torch.argmin(torch.where(near_tie, d2, math.inf), 1)
             d2j = pair_d2(lane, lane[rows, j])
@@ -522,6 +531,19 @@ def step(s: Settings, state: dict, z, z_mask, control, dt, do_predict,
             moments[sl] = map_moments(state["mean"][sl].to(dev),
                                       state["cov"][sl].to(dev),
                                       state["weight"][sl].to(dev))
+    return dict(pose=pose, log_weight=lw, moments=moments,
+                ambiguous=ambiguous, merge_margin=margin, merge_tie=tie,
+                has_z=bool(has_z),
+                scale=torch.maximum(scale, lw.abs()).clamp_min(1.0),
+                **resampling(s, pose, lw, u, has_z))
+
+
+def resampling(s: Settings, pose, lw, u, has_z) -> dict:
+    """The step's tail from the normalized log weights lw [P]: the
+    expected pose, the MAP particle's index, nEff / P, and the systematic
+    resampling on the uniforms u [P] (whether it runs, the strata, the
+    cumulative weights in float64 and the ancestors)."""
+    P, dev = lw.shape[0], lw.device
     wts = torch.exp(lw)
     expected = (wts[:, None] * pose).sum(0)
     best = int(torch.argmax(lw))
@@ -531,10 +553,16 @@ def step(s: Settings, state: dict, z, z_mask, control, dt, do_predict,
               + u.to(dev, torch.float64)) / P
     anc = torch.searchsorted(cum, strata, side="left")
     anc = torch.where(anc >= P, best, anc)
-    return dict(pose=pose, log_weight=lw, moments=moments,
-                ambiguous=ambiguous, merge_margin=margin, merge_tie=tie,
-                has_z=bool(has_z),
-                scale=torch.maximum(scale, lw.abs()).clamp_min(1.0),
-                expected_pose=expected, best=best, n_eff=float(n_eff),
+    return dict(expected_pose=expected, best=best, n_eff=float(n_eff),
                 resample=bool(has_z) and float(n_eff) <= s.resample_threshold,
                 cumulative=cum, strata=strata, ancestors=anc)
+
+
+def __getattr__(name):
+    """The comparison of this reference's results (``compare.py``: its
+    ``NAMES``, ``gaps``, ``init_gap`` and ``as_outputs``), so that the
+    harness finds a reference's whole interface in one module."""
+    if name in ("NAMES", "gaps", "init_gap", "as_outputs"):
+        from . import compare
+        return getattr(compare, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -33,3 +33,12 @@ def merge_bound_s(P: int, N: int, K: int) -> float:
     other planes and their distances, which the run cannot count without
     reading the card, are left out, so this is a lower bound)."""
     return bound_s(4 * (P * N + 8 * P * K), 0)
+
+
+def cardinality_bound_s(P: int, C1: int) -> float:
+    """One CPHD cardinality prediction of P log cardinalities over C1 = C+1
+    values under a shared birth cardinality: log_cn [P, C1] and the birth
+    cardinality [C1] read once, the prediction [P, C1] written once; the
+    convolution's C1 (C1 + 1) / 2 (n, j) lanes a particle, a multiply and
+    an add each, and an exp and a log a value."""
+    return bound_s(4 * (2 * P * C1 + C1), P * C1 * (C1 + 1) + 2 * P * C1)

@@ -157,7 +157,8 @@ def main(argv=None) -> int:
               f" {traced_steps} profiled steps, {la.n_ops} device "
               f"operations", flush=True)
         ctx = dict(window=win, setup_s=0.0, shapes=bench.shapes,
-                   timeline=tl, traced=dict(tracer.traced, z_counts=(
+                   config=bench.values, timeline=tl,
+                   traced=dict(tracer.traced, z_counts=(
                        bench.z_counts * tracer.traced["episodes"])))
         result["accepted"] = {}
         for name in harness.cell_metrics(args.workload, "per_layer"):

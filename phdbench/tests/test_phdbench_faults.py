@@ -5,6 +5,7 @@ and the same run unbroken is correct."""
 import pytest
 import torch
 
+import phdslam_tpu_torch.filters.cphd as cphd
 import phdslam_tpu_torch.filters.phd as phd
 import phdslam_tpu_torch.slam as slam
 from phdbench import harness
@@ -75,6 +76,13 @@ def over_merge(monkeypatch):
     monkeypatch.setattr(phd, "merge2d", merge2d)
 
 
+def cardinality_unpredicted(monkeypatch):
+    """The CPHD step hands on its updated cardinality without the births'
+    convolution."""
+    monkeypatch.setattr(cphd, "cardinality_predict_batch",
+                        lambda log_cn, log_cn_birth: log_cn)
+
+
 def test_sound_run_is_correct():
     res = _run()
     assert res["correct"], res["check"]
@@ -94,3 +102,29 @@ def test_fault_is_caught(monkeypatch, fault):
     if fault is over_merge:
         # the moments survive a merge whatever its clusters
         assert failed == ["map_w2_rel_q999"], res["check"]
+
+
+def test_sound_cphd_run_is_correct():
+    res = _run("ackerman-cphd.replay")
+    assert res["correct"], res["check"]
+    assert res["attempted"] == 8 and res["failed"] == 0
+    assert res["check"]["card_rel"]["value"] is not None
+
+
+@pytest.mark.parametrize("fault", [unchanged_state, half_the_particles,
+                                   altered_pose, merge_skipped, over_merge,
+                                   cardinality_unpredicted],
+                         ids=lambda f: f.__name__)
+def test_cphd_fault_is_caught(monkeypatch, fault):
+    """The same faults in the CPHD cell, and a cardinality left
+    unpredicted, which only the cardinality's number sees."""
+    fault(monkeypatch)
+    res = _run("ackerman-cphd.replay")
+    assert not res["correct"]
+    failed = [k for k, v in res["check"].items()
+              if v["value"] is not None and not v["value"] <= v["limit"]]
+    assert failed, res["check"]
+    if fault is over_merge:
+        assert failed == ["map_w2_rel_q999"], res["check"]
+    if fault is cardinality_unpredicted:
+        assert failed == ["card_rel"], res["check"]

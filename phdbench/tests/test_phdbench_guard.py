@@ -58,6 +58,7 @@ def test_no_card_no_result():
 def test_harness_imports_no_jax():
     code = ("import sys; sys.path.insert(0, %r); "
             "import phdbench.harness, phdbench.reference.compare, "
+            "phdbench.reference.cphd, "
             "phdslam_tpu_torch.slam; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'phdslam_tpu')]; "

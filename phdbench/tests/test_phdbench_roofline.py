@@ -68,3 +68,32 @@ def test_merge_share_matches_its_kernels():
     assert got == pytest.approx(100 * roofline.merge_bound_s(
         10240, 1536, 1024) / 2e-3)
     assert math.isfinite(got)
+
+
+def test_cardinality_bound_is_byte_bound():
+    """PERF.md's row c: ~0.0016 ms at P=10240, C+1=65, bound by its bytes
+    ([P, C1] read and written once, [C1] read once)."""
+    t = roofline.cardinality_bound_s(10240, 65)
+    assert t == pytest.approx(4 * (2 * 10240 * 65 + 65) / 3.35e12)
+    assert t * 1e3 == pytest.approx(0.0016, abs=5e-5)
+    assert (10240 * 65 * 66 + 2 * 10240 * 65) / 67e12 < t
+
+
+def test_cardinality_share_from_a_trace():
+    ops = [("void (anonymous namespace)::cardinality_predict_kernel(float "
+            "const*, float const*, float*, int, int)", 0, 4_000),
+           ("void (anonymous namespace)::cardinality_predict_kernel(float "
+            "const*, float const*, float*, int, int)", 10_000, 16_000),
+           ("void detect_kernel<4>(float const*)", 20_000, 30_000)]
+    ctx = {"timeline": _window(ops), "shapes": dict(P=10240),
+           "config": {"max_cardinality": 64},
+           "traced": {"steps": 2, "z_counts": [30, 41]}}
+    got = harness.load_reader("card.roofline_pct")(ctx)
+    want = 100 * 2 * roofline.cardinality_bound_s(10240, 65) / 10e-6
+    assert got == pytest.approx(want)
+    assert 0 < got <= 100
+    # a PHD cell: no such launch, and no max_cardinality
+    ctx["timeline"] = _window(ops[2:])
+    assert harness.load_reader("card.roofline_pct")(ctx) is None
+    ctx["timeline"], ctx["config"] = _window(ops), {}
+    assert harness.load_reader("card.roofline_pct")(ctx) is None

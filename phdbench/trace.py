@@ -1,8 +1,9 @@
 """Reduction of a ``torch.profiler`` trace of the measured window to what
 the per-layer readers need: the device operations (kernels, copies and
 memsets) inside the window, their union (busy time), their layer by the
-program's ``phd.*`` ranges, and the idle gaps named by the host range
-that was open when each began.
+program's layer ranges (``phd.*``, and each filter's own: ``cphd.*``,
+``disp.*``), and the idle gaps named by the host range that was open when
+each began.
 
 A kernel launched through ctypes carries no correlation to a host range,
 so it can sit in the gap before its range's first PyTorch kernel: every
@@ -18,8 +19,8 @@ import collections
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
-LAYER_PREFIX = "phd."
-HOST_PREFIXES = ("bench.", "phd.")
+LAYER_PREFIXES = ("phd.", "cphd.", "disp.")
+HOST_PREFIXES = ("bench.",) + LAYER_PREFIXES
 NAME_CHARS = 160        # a kernel's name in the breakdown, cut to this
 
 
@@ -111,7 +112,7 @@ def from_events(events, window_name: str = "bench.window") -> Timeline:
                    key=lambda s: s[1])
     ops = [(n, max(lo, w_lo), min(hi, w_hi)) for n, lo, hi in dev
            if n not in range_names and hi > w_lo and lo < w_hi]
-    layers = [s for s in spans if s[0].startswith(LAYER_PREFIX)]
+    layers = [s for s in spans if s[0].startswith(LAYER_PREFIXES)]
     ends = [s[2] for s in layers]
     per_layer = collections.defaultdict(int)
     for name, lo, hi in ops:
